@@ -1,0 +1,46 @@
+"""``repro_torch.api`` — the declarative front door.
+
+    from repro_torch.api import (
+        DataSpec, ExperimentSpec, InferenceSpec, RunSpec, TopologySpec,
+        build_session,
+    )
+
+    session = build_session(spec)   # on the CUDA card; device="cpu" to opt out
+    session.run()
+    print(session.evaluate(), session.health())
+"""
+from repro_torch.api.data import DataBundle, build_data
+from repro_torch.api.engines import Engine, SimulatedEngine
+from repro_torch.api.models import MODELS, ModelFns, build_model, mlp_init, mlp_logits, mlp_nll
+from repro_torch.api.session import Session, build_session
+from repro_torch.api.spec import (
+    DataSpec,
+    ExperimentSpec,
+    InferenceSpec,
+    ObsSpec,
+    RunSpec,
+    ServeSpec,
+    TopologySpec,
+)
+
+__all__ = [
+    "DataBundle",
+    "DataSpec",
+    "Engine",
+    "ExperimentSpec",
+    "InferenceSpec",
+    "MODELS",
+    "ModelFns",
+    "ObsSpec",
+    "RunSpec",
+    "ServeSpec",
+    "Session",
+    "SimulatedEngine",
+    "TopologySpec",
+    "build_data",
+    "build_model",
+    "build_session",
+    "mlp_init",
+    "mlp_logits",
+    "mlp_nll",
+]

@@ -1,0 +1,189 @@
+"""``build_session(spec)`` — the supported front door (port of
+``repro.api.session`` for the synchronous BbB round).
+
+    spec = ExperimentSpec(
+        topology=TopologySpec.grid(3, 3),
+        data=DataSpec(dataset="mnist_like", ...),
+        inference=InferenceSpec(hidden=200, depth=2),
+        run=RunSpec(n_rounds=20, seed=0),
+    )
+    session = build_session(spec)          # on the card; device="cpu" to opt out
+    session.run()                          # or session.round(), one at a time
+    session.evaluate()                     # per-agent MC-predictive accuracy
+    session.health()                       # exchange-payload validity probe
+
+Randomness: the session owns one ``torch.Generator`` on its device, seeded
+from ``spec.run.seed``, and every draw consumes it in a fixed order.  Each
+draw can instead be injected (``round(batch_idx=, eps=)``,
+``evaluate(eps=)``, ``predictive(eps=)``, ``build_session(init_params=)``):
+the port cannot replay JAX's threefry streams, so the parity tests feed the
+JAX package's own draws through these seams.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.api.data import DataBundle, build_data
+from repro_torch.api.engines import Engine, SimulatedEngine
+from repro_torch.api.models import ModelFns, build_model
+from repro_torch.api.spec import ExperimentSpec
+from repro_torch.core.flat import FlatPosterior, payload_validity
+from repro_torch.core.simulated import as_w_schedule
+from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.vi.bayes_by_backprop import mc_predict
+
+EVAL_SEED = 99  # evaluate()'s default MC noise, the same on every call
+PREDICT_SEED = 97  # predictive()'s default MC noise
+
+
+def build_session(spec: ExperimentSpec, device=None, init_params=None) -> "Session":
+    """Validate ``spec`` eagerly and return a ready-to-run ``Session`` on
+    ``device`` (default: the CUDA card; raises if there is none).
+    ``init_params`` injects the initial parameter draw (see
+    ``core.simulated.init_network``)."""
+    spec.validate()
+    device = resolve_device(device)
+    if spec.inference.method == "conjugate_linreg":
+        raise NotImplementedError("the conjugate linreg engine arrives with its slice")
+    if spec.run.engine != "simulated":
+        raise NotImplementedError(f"the {spec.run.engine} engine arrives with its slice")
+    n_agents = spec.topology.n_agents()
+    data = build_data(spec.data, n_agents, device=device)
+    model = build_model(
+        spec.inference.model, data.dim, data.n_classes,
+        hidden=spec.inference.hidden, depth=spec.inference.depth,
+    )
+    engine = SimulatedEngine(spec, model, n_agents, device)
+    generator = torch.Generator(device=device).manual_seed(spec.run.seed)
+    state = engine.init(generator, params=init_params)
+    return Session(spec=spec, engine=engine, model=model, data=data, state=state,
+                   generator=generator, device=device)
+
+
+@dataclasses.dataclass
+class Session:
+    """A running experiment: engine-backed state + the round loop."""
+
+    spec: ExperimentSpec
+    engine: Engine
+    model: ModelFns
+    data: DataBundle
+    state: Any
+    generator: torch.Generator
+    device: torch.device
+    round_idx: int = 0
+    history: list = dataclasses.field(default_factory=list)
+    _w_schedule: Any = dataclasses.field(default=None, repr=False)
+
+    def _spec_w_schedule(self):
+        if self._w_schedule is None:
+            self._w_schedule = self.spec.topology.w_schedule()
+        return self._w_schedule
+
+    # -- the loop ------------------------------------------------------------
+
+    def round(self, W=None, *, batch_idx=None, eps=None) -> dict:
+        """One communication round (u local steps + consensus).  Returns
+        ``{"round", "loss", "n_trained"}``.  ``W`` overrides the spec
+        topology for this round; ``batch_idx`` ([N, u*B]) and ``eps``
+        ([N, u, S, P]) inject the round's draws."""
+        r = self.round_idx
+        if W is None:
+            W = self._spec_w_schedule()(r)
+        W = torch.as_tensor(np.asarray(W), dtype=torch.float32, device=self.device)
+        batches = self.data.sampler(self.generator, r, idx=batch_idx)
+        if eps is not None:
+            eps = torch.as_tensor(eps, dtype=torch.float32, device=self.device)
+        self.state, losses = self.engine.run_round(
+            self.state, batches, W, eps=eps, generator=self.generator
+        )
+        self.round_idx = r + 1
+        losses = losses.cpu().numpy()
+        return {
+            "round": self.round_idx,
+            "loss": float(losses.mean()),
+            "n_trained": int(np.isfinite(losses).sum()),
+            "losses": losses,
+        }
+
+    def run(self, n_rounds: int | None = None, w_schedule=None,
+            eval_fn: Callable[["Session"], dict] | None = None,
+            eval_every: int | None = None) -> list[dict]:
+        """Run ``n_rounds`` rounds (default ``spec.run.n_rounds``).
+        ``w_schedule`` overrides the spec topology (a static W, a list cycled
+        over rounds, or a round-indexed callable); ``eval_fn(session)`` is
+        merged into the history every ``eval_every`` rounds."""
+        n = self.spec.run.n_rounds if n_rounds is None else n_rounds
+        w_for_round = (as_w_schedule(w_schedule) if w_schedule is not None
+                       else self._spec_w_schedule())
+        eval_every = self.spec.run.eval_every if eval_every is None else eval_every
+        history: list[dict] = []
+        for i in range(n):
+            rec = self.round(W=w_for_round(self.round_idx))
+            if eval_every and ((i + 1) % eval_every == 0 or i == n - 1):
+                if eval_fn is not None:
+                    rec.update(eval_fn(self))
+                history.append(rec)
+        self.history.extend(history)
+        return history
+
+    # -- results -------------------------------------------------------------
+
+    def posterior(self) -> FlatPosterior:
+        """The network posterior, a ``FlatPosterior`` over [N, P]."""
+        return self.engine.posterior(self.state)
+
+    def agent_posterior(self, agent: int) -> FlatPosterior:
+        """One agent's posterior as a one-agent ``FlatPosterior`` [1, P]."""
+        post = self.posterior()
+        return FlatPosterior(post.mean[agent:agent + 1], post.rho[agent:agent + 1],
+                             post.layout)
+
+    def predictive(self, agent: int, x, n_mc: int = 8, eps=None) -> torch.Tensor:
+        """MC predictive class probabilities [T, n_classes] for one agent
+        (paper Sec 4.2).  ``n_mc=0`` is the deterministic point estimate at
+        the posterior mean; ``eps`` ([n_mc, P]) injects the MC noise."""
+        post = self.agent_posterior(agent)
+        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        if n_mc == 0:
+            with torch.no_grad():
+                theta = post.layout.unflatten(post.mean)
+                return torch.softmax(self.model.logits_fn(theta, x.unsqueeze(0)), -1)[0]
+        if eps is None:
+            eps = self._default_noise(PREDICT_SEED, n_mc)
+        eps = torch.as_tensor(eps, dtype=torch.float32, device=self.device)
+        return mc_predict(post, self.model.logits_fn, x, eps=eps)[0]
+
+    def _default_noise(self, seed: int, n_mc: int) -> torch.Tensor:
+        g = torch.Generator(device=self.device).manual_seed(seed)
+        return torch.randn((n_mc, self.posterior().n_params()), generator=g,
+                           device=self.device)
+
+    def health(self) -> dict:
+        """Per-agent posterior health probe: the exchange-payload validity
+        check (``core.flat.payload_validity``, the CUDA kernel on the card),
+        so ``ok[i]`` is exactly "agent i's posterior would be accepted by a
+        quarantined peer".  Pure read."""
+        post = self.posterior()
+        ok = payload_validity(post.mean, post.rho).cpu().numpy()
+        return {
+            "ok": [bool(v) for v in ok],
+            "n_healthy": int(ok.sum()),
+            "all_ok": bool(ok.all()),
+        }
+
+    def evaluate(self, n_mc: int = 4, eps=None) -> dict:
+        """Held-out MC-predictive accuracy per agent.  Every agent sees the
+        same MC noise ``eps`` ([n_mc, P]; default: a fixed draw, so repeated
+        calls agree), as in the JAX package."""
+        if eps is None:
+            eps = self._default_noise(EVAL_SEED, n_mc)
+        eps = torch.as_tensor(eps, dtype=torch.float32, device=self.device)
+        probs = mc_predict(self.posterior(), self.model.logits_fn, self.data.x_test, eps=eps)
+        pred = torch.argmax(probs, dim=-1).cpu().numpy()
+        accs = [float(v) for v in (pred == np.asarray(self.data.y_test)[None]).mean(axis=1)]
+        return {"acc": accs, "avg_acc": float(np.mean(accs))}

@@ -1,0 +1,210 @@
+"""Flat-buffer posterior representation — the canonical runtime format (port
+of the synchronous-round subset of ``repro.core.flat``).
+
+A ``FlatPosterior`` stores the whole network's mean-field Gaussian posterior
+as two contiguous fp32 buffers, ``mean`` and ``rho``, both ``[N_agents, P]``,
+plus a ``FlatLayout`` that records, per model-parameter leaf, its key path,
+shape, dtype and (offset, size) column span.  Parameter dicts appear only at
+the model-apply boundary (``make_flat_nll``).
+
+Leaf order: the JAX package orders leaves as ``jax.tree_util`` flattens a
+pytree, which for a dict is SORTED key order (``b1, b2, b3, w1, w2, w3`` for
+the MLP), not insertion order.  ``FlatLayout.for_pytree`` here walks dicts in
+sorted key order too, so both packages give every leaf the same column span
+and weights carried across land in the right columns.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.core.numerics import COMPUTE_DTYPE, softplus, softplus_inv_py
+from repro_torch.kernels.consensus import (
+    consensus_fused_network,
+    consensus_network_plain,
+    payload_validity_fused,
+)
+
+PyTree = Any  # a (possibly nested) dict of tensors
+
+# An exchanged |prec| or |prec*mu| lane above this is garbage regardless of
+# finiteness: a prec of 1e20 is a sigma of 1e-10.
+QUARANTINE_BOUND = 1e20
+
+
+def _leaves_with_keys(tree: PyTree, keys: tuple[str, ...] = ()):
+    """(dict-key path, tensor) pairs in sorted-key order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves_with_keys(tree[k], keys + (k,))
+    elif isinstance(tree, torch.Tensor):
+        yield keys, tree
+    else:
+        raise TypeError(f"unsupported parameter tree node {type(tree)}")
+
+
+def _set_path(tree: dict, keys: tuple[str, ...], value) -> None:
+    for k in keys[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[keys[-1]] = value
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafSpec:
+    """One model-parameter leaf's slot in the flat buffer."""
+
+    path: str  # key-path string, as jax.tree_util.keystr writes it
+    shape: tuple[int, ...]  # per-agent shape (leading agent axes stripped)
+    dtype: str  # dtype name of the original leaf
+    offset: int  # start column in the flat buffer
+    size: int  # number of scalars = prod(shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatLayout:
+    """Leaf layout: offsets/shapes/dtypes plus each leaf's dict keys."""
+
+    specs: tuple[LeafSpec, ...]
+    keys: tuple[tuple[str, ...], ...]  # dict-key path of each leaf
+    n_params: int  # P: total scalars per agent
+
+    @classmethod
+    def for_pytree(cls, tree: PyTree, leading_axes: int = 0) -> "FlatLayout":
+        """Build the layout from an example parameter dict; ``leading_axes``
+        axes are stripped off every leaf shape (1 for a network-stacked
+        tree whose leaves are [N, ...])."""
+        specs, keys, off = [], [], 0
+        for leaf_keys, leaf in _leaves_with_keys(tree):
+            shape = tuple(int(s) for s in leaf.shape[leading_axes:])
+            size = math.prod(shape)
+            specs.append(LeafSpec(
+                path="".join(f"[{k!r}]" for k in leaf_keys), shape=shape,
+                dtype=str(leaf.dtype).removeprefix("torch."), offset=off, size=size,
+            ))
+            keys.append(leaf_keys)
+            off += size
+        return cls(specs=tuple(specs), keys=tuple(keys), n_params=off)
+
+    def flatten(self, tree: PyTree) -> torch.Tensor:
+        """Dict with leaves [*B, *spec.shape] -> fp32 buffer [*B, P]."""
+        leaves = [leaf for _, leaf in _leaves_with_keys(tree)]
+        if len(leaves) != len(self.specs):
+            raise ValueError(f"tree has {len(leaves)} leaves, layout {len(self.specs)}")
+        flat, batch = [], None
+        for spec, leaf in zip(self.specs, leaves):
+            nb = leaf.ndim - len(spec.shape)
+            b = tuple(leaf.shape[:nb])
+            if tuple(leaf.shape[nb:]) != spec.shape or batch not in (None, b):
+                raise ValueError(
+                    f"leaf {spec.path}: shape {tuple(leaf.shape)} does not match "
+                    f"layout {spec.shape} (batch {batch})"
+                )
+            batch = b
+            flat.append(leaf.reshape(b + (spec.size,)).to(COMPUTE_DTYPE))
+        return torch.cat(flat, dim=-1)
+
+    def unflatten(self, flat: torch.Tensor) -> PyTree:
+        """fp32 buffer [*B, P] -> dict with leaves [*B, *shape]: views of
+        ``flat`` for fp32 leaves (so autograd flows through them)."""
+        if flat.shape[-1] != self.n_params:
+            raise ValueError(
+                f"buffer has {flat.shape[-1]} params, layout expects {self.n_params}"
+            )
+        b = tuple(flat.shape[:-1])
+        tree: dict = {}
+        for spec, keys in zip(self.specs, self.keys):
+            leaf = flat[..., spec.offset:spec.offset + spec.size].reshape(b + spec.shape)
+            _set_path(tree, keys, leaf.to(getattr(torch, spec.dtype)))
+        return tree
+
+
+@dataclasses.dataclass
+class FlatPosterior:
+    """Mean-field Gaussian posterior over flat buffers [*B, P]."""
+
+    mean: torch.Tensor
+    rho: torch.Tensor
+    layout: FlatLayout
+
+    def sigma(self) -> torch.Tensor:
+        return softplus(self.rho)
+
+    def precision(self) -> torch.Tensor:
+        return 1.0 / torch.square(softplus(self.rho))
+
+    def sample(self, eps: torch.Tensor | None = None,
+               generator: torch.Generator | None = None) -> torch.Tensor:
+        """Reparameterized sample theta = mu + sigma * eps, a FLAT [*B, P]
+        tensor.  ``eps`` is the injected standard-normal noise; without it
+        the noise is drawn from ``generator``."""
+        if eps is None:
+            eps = torch.randn(self.mean.shape, generator=generator,
+                              dtype=self.mean.dtype, device=self.mean.device)
+        return self.mean + softplus(self.rho) * eps
+
+    def n_params(self) -> int:
+        return self.layout.n_params
+
+
+def flat_posterior_from_pytree(post, layout: FlatLayout | None = None,
+                               leading_axes: int = 1) -> FlatPosterior:
+    """``GaussianPosterior`` (dict leaves [*B, ...]) -> ``FlatPosterior``."""
+    if layout is None:
+        layout = FlatLayout.for_pytree(post.mean, leading_axes=leading_axes)
+    return FlatPosterior(
+        mean=layout.flatten(post.mean), rho=layout.flatten(post.rho), layout=layout
+    )
+
+
+def init_flat_posterior(params: PyTree, init_sigma: float = 0.05,
+                        layout: FlatLayout | None = None,
+                        leading_axes: int = 0) -> FlatPosterior:
+    """mean = flatten(params), constant rho = softplus^-1(init_sigma)."""
+    if layout is None:
+        layout = FlatLayout.for_pytree(params, leading_axes=leading_axes)
+    mean = layout.flatten(params)
+    rho = torch.full_like(mean, softplus_inv_py(init_sigma))
+    return FlatPosterior(mean=mean, rho=rho, layout=layout)
+
+
+def make_flat_nll(nll_fn: Callable[[PyTree, Any], torch.Tensor], layout: FlatLayout):
+    """Wrap a dict-parameter nll into one taking a flat theta [*B, P] — the
+    single model-apply-boundary conversion of the flat runtime."""
+
+    def flat_nll(theta_flat: torch.Tensor, batch: Any) -> torch.Tensor:
+        return nll_fn(layout.unflatten(theta_flat), batch)
+
+    return flat_nll
+
+
+# ---------------------------------------------------------------------------
+# Network-wide consensus over the flat buffers
+# ---------------------------------------------------------------------------
+
+
+def consensus_flat_reference(mean, rho, W, wire_dtype=None):
+    """Eq. (6) on the flat [N, P] buffers in plain PyTorch, on any device —
+    the reference semantics of the consensus kernel."""
+    return consensus_network_plain(W, mean, rho, wire_dtype)
+
+
+def consensus_flat(posts: FlatPosterior, W: torch.Tensor, *, wire_dtype=None) -> FlatPosterior:
+    """Eq. (6) over the whole network: the CUDA kernel for posteriors on the
+    card, its plain version for posteriors on the CPU.  ``W`` is cast to
+    float32 on the posterior's device.  ``wire_dtype`` rounds the exchanged
+    (prec, prec*mu) at the exchange boundary; f32/None is uncompressed."""
+    W = W.to(device=posts.mean.device, dtype=torch.float32)
+    mean, rho = consensus_fused_network(W, posts.mean, posts.rho, wire_dtype=wire_dtype)
+    return FlatPosterior(mean=mean, rho=rho, layout=posts.layout)
+
+
+def payload_validity(mean, rho, *, wire_dtype=None, bound: float = QUARANTINE_BOUND):
+    """[N] bool: is each agent's exchanged (prec, prec*mu) payload sane?
+
+    The check runs on the wire representation a receiver sees: every lane
+    finite, ``prec`` strictly positive and both magnitudes within ``bound``.
+    The CUDA kernel for tensors on the card, its plain version on the CPU."""
+    return payload_validity_fused(mean, rho, bound=bound, wire_dtype=wire_dtype)

@@ -21,6 +21,12 @@ def pytest_configure(config):
         "(deselected from the default tier-1 run via pytest.ini addopts; "
         "CI runs `-m multidevice` as its own step)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: runs a repro_torch CUDA kernel on an NVIDIA GPU (skips without "
+        "one; on a GPU machine without JAX: `PYTHONPATH=src python -m pytest "
+        "--noconftest -m cuda tests/test_torch_kernels_cuda.py`)",
+    )
 
 
 def run_multidevice_subprocess(code: str, timeout: int = 420) -> None:
