@@ -8,6 +8,10 @@
     session = build_session(spec)   # on the CUDA card; device="cpu" to opt out
     session.run()
     print(session.evaluate(), session.health())
+
+``TopologySpec.gossip(base, params, clock=...)`` selects the event-driven
+asynchronous ``GossipEngine`` (``repro_torch.gossip``): one event window per
+round, telemetry under ``evaluate()["engine"]``.
 """
 from repro_torch.api.data import DataBundle, build_data
 from repro_torch.api.engines import Engine, SimulatedEngine
@@ -22,12 +26,14 @@ from repro_torch.api.spec import (
     ServeSpec,
     TopologySpec,
 )
+from repro_torch.gossip.engine import GossipEngine
 
 __all__ = [
     "DataBundle",
     "DataSpec",
     "Engine",
     "ExperimentSpec",
+    "GossipEngine",
     "InferenceSpec",
     "MODELS",
     "ModelFns",

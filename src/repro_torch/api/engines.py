@@ -1,5 +1,7 @@
 """Engine implementations behind ``api.Session`` (port of
-``repro.api.engines``; this slice carries the synchronous ``SimulatedEngine``).
+``repro.api.engines``; this slice carries the synchronous ``SimulatedEngine``;
+the event-driven ``gossip.engine.GossipEngine`` implements the same
+protocol).
 
 An Engine owns the state layout and the per-round transition; the Session
 owns the loop, the data and the random generator.

@@ -1,5 +1,5 @@
 """``build_session(spec)`` — the supported front door (port of
-``repro.api.session`` for the synchronous BbB round).
+``repro.api.session`` for the synchronous BbB round and the gossip runtime).
 
     spec = ExperimentSpec(
         topology=TopologySpec.grid(3, 3),
@@ -11,6 +11,10 @@
     session.run()                          # or session.round(), one at a time
     session.evaluate()                     # per-agent MC-predictive accuracy
     session.health()                       # exchange-payload validity probe
+
+A gossip topology (``TopologySpec.gossip(base, params, clock=...)``) runs on
+the ``GossipEngine``: one event window per round, its telemetry under
+``evaluate()["engine"]``.
 
 Randomness: the session owns one ``torch.Generator`` on its device, seeded
 from ``spec.run.seed``, and every draw consumes it in a fixed order.  Each
@@ -33,6 +37,7 @@ from repro_torch.api.models import ModelFns, build_model
 from repro_torch.api.spec import ExperimentSpec
 from repro_torch.core.flat import FlatPosterior, payload_validity
 from repro_torch.core.simulated import as_w_schedule
+from repro_torch.gossip.engine import GossipEngine
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.vi.bayes_by_backprop import mc_predict
 
@@ -49,15 +54,23 @@ def build_session(spec: ExperimentSpec, device=None, init_params=None) -> "Sessi
     device = resolve_device(device)
     if spec.inference.method == "conjugate_linreg":
         raise NotImplementedError("the conjugate linreg engine arrives with its slice")
-    if spec.run.engine != "simulated":
-        raise NotImplementedError(f"the {spec.run.engine} engine arrives with its slice")
+    gossiping = spec.topology.kind == "gossip" or (
+        spec.topology.kind == "sparse" and spec.topology.clock is not None
+    )
+    if spec.run.engine == "launch":
+        raise NotImplementedError("the launch engine arrives with its slice")
     n_agents = spec.topology.n_agents()
     data = build_data(spec.data, n_agents, device=device)
     model = build_model(
         spec.inference.model, data.dim, data.n_classes,
         hidden=spec.inference.hidden, depth=spec.inference.depth,
     )
-    engine = SimulatedEngine(spec, model, n_agents, device)
+    if gossiping:
+        # a gossip topology IS an execution model: one event window per
+        # round on the GossipEngine
+        engine: Engine = GossipEngine(spec, model, n_agents, device)
+    else:
+        engine = SimulatedEngine(spec, model, n_agents, device)
     generator = torch.Generator(device=device).manual_seed(spec.run.seed)
     state = engine.init(generator, params=init_params)
     return Session(spec=spec, engine=engine, model=model, data=data, state=state,
@@ -88,13 +101,20 @@ class Session:
 
     def round(self, W=None, *, batch_idx=None, eps=None) -> dict:
         """One communication round (u local steps + consensus).  Returns
-        ``{"round", "loss", "n_trained"}``.  ``W`` overrides the spec
-        topology for this round; ``batch_idx`` ([N, u*B]) and ``eps``
-        ([N, u, S, P]) inject the round's draws."""
+        ``{"round", "loss", "n_trained", "losses"}``, plus ``n_crashed``
+        (agents down this window) on a gossip run with faults.  ``W``
+        overrides the spec topology for this round; ``batch_idx`` ([N, u*B])
+        and ``eps`` ([N, u, S, P]) inject the round's draws.
+
+        An engine that declares ``wants_host_w`` (the gossip engine) gets the
+        schedule value verbatim: the host float64 w_eff, whose exact activity
+        mask a float32 cast would lose.  NaN-sentinel losses (agents that did
+        not train) are skipped; ``loss`` is ``None`` when none trained."""
         r = self.round_idx
         if W is None:
             W = self._spec_w_schedule()(r)
-        W = torch.as_tensor(np.asarray(W), dtype=torch.float32, device=self.device)
+        if not getattr(self.engine, "wants_host_w", False):
+            W = torch.as_tensor(np.asarray(W), dtype=torch.float32, device=self.device)
         batches = self.data.sampler(self.generator, r, idx=batch_idx)
         if eps is not None:
             eps = torch.as_tensor(eps, dtype=torch.float32, device=self.device)
@@ -103,12 +123,17 @@ class Session:
         )
         self.round_idx = r + 1
         losses = losses.cpu().numpy()
-        return {
-            "round": self.round_idx,
-            "loss": float(losses.mean()),
-            "n_trained": int(np.isfinite(losses).sum()),
-            "losses": losses,
-        }
+        n_trained = int(np.isfinite(losses).sum())
+        if getattr(self.engine, "loss_nan_is_sentinel", False):
+            loss = float(np.nanmean(losses)) if n_trained else None
+        else:
+            loss = float(losses.mean())
+        rec = {"round": self.round_idx, "loss": loss, "n_trained": n_trained,
+               "losses": losses}
+        crashed = getattr(self.engine, "last_crashed", None)
+        if crashed is not None:
+            rec["n_crashed"] = int(np.asarray(crashed).sum())
+        return rec
 
     def run(self, n_rounds: int | None = None, w_schedule=None,
             eval_fn: Callable[["Session"], dict] | None = None,
@@ -179,11 +204,17 @@ class Session:
     def evaluate(self, n_mc: int = 4, eps=None) -> dict:
         """Held-out MC-predictive accuracy per agent.  Every agent sees the
         same MC noise ``eps`` ([n_mc, P]; default: a fixed draw, so repeated
-        calls agree), as in the JAX package."""
+        calls agree), as in the JAX package.  An engine with a
+        ``telemetry(state)`` hook (the gossip runtime: staleness, merges,
+        faults and quarantine) adds it under ``"engine"``."""
         if eps is None:
             eps = self._default_noise(EVAL_SEED, n_mc)
         eps = torch.as_tensor(eps, dtype=torch.float32, device=self.device)
         probs = mc_predict(self.posterior(), self.model.logits_fn, self.data.x_test, eps=eps)
         pred = torch.argmax(probs, dim=-1).cpu().numpy()
         accs = [float(v) for v in (pred == np.asarray(self.data.y_test)[None]).mean(axis=1)]
-        return {"acc": accs, "avg_acc": float(np.mean(accs))}
+        out = {"acc": accs, "avg_acc": float(np.mean(accs))}
+        telemetry = getattr(self.engine, "telemetry", None)
+        if telemetry is not None:
+            out["engine"] = telemetry(self.state)
+        return out

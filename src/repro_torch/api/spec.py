@@ -1,9 +1,8 @@
 """Declarative experiment specification — the paper's whole pipeline as data.
 
 A copy of the JAX package's ``api/spec.py`` (numpy only), so that a spec doc
-built by either package builds in both.  The activation clocks of the gossip
-runtime are not part of this package yet: the branches that would build one
-raise ``NotImplementedError``.
+built by either package builds in both.  Gossip topologies build their
+activation clocks from this package's own copy of ``gossip.clocks``.
 
 An ``ExperimentSpec`` is a pure-data description of one decentralized-
 Bayesian-learning experiment (Sec 2.1): WHO talks to whom (``TopologySpec``,
@@ -49,8 +48,6 @@ _NAMED_TOPOLOGIES = {
 #: dense W: a [4096, 4096] f64 matrix is 128 MiB and anything past it is the
 #: O(N^2) regime the edge-native runtime exists to avoid.
 SPARSE_DENSE_GUARD = 4096
-
-_GOSSIP_LATER = "gossip topologies arrive with the gossip slice"
 
 
 def _freeze(d: dict | None) -> dict:
@@ -195,7 +192,20 @@ class TopologySpec:
         gossip trace: the schedule's per-slot active edges become per-window
         activation events over the shared weight table.  The resulting spec
         runs on the ``GossipEngine`` and reproduces the scheduled runs."""
-        raise NotImplementedError(_GOSSIP_LATER)
+        from repro_torch.gossip.clocks import trace_from_schedule
+
+        table, trace = trace_from_schedule([np.asarray(m) for m in mats])
+        clock = {
+            "kind": "trace",
+            "trace": [[[int(i), int(j)] for i, j in slot] for slot in trace],
+            "rule": "table",
+        }
+        clock.update(clock_extra or {})
+        return cls(
+            kind="gossip",
+            params={"base": "explicit", "w": table.tolist()},
+            clock=clock,
+        )
 
     # -- materialization -----------------------------------------------------
 
@@ -223,14 +233,37 @@ class TopologySpec:
             raise ValueError(f"gossip base={base!r} params mismatch: {e}") from e
 
     def gossip_clock(self):
-        """kind="gossip" | kind="sparse"+clock: the activation clock, which
-        this package does not have yet."""
-        if self.kind == "sparse" and self.clock is None:
-            raise ValueError(
-                "this sparse topology has no clock dict; gossip_clock() "
-                "needs one (e.g. {'kind': 'poisson', 'rate': 1.0})"
-            )
-        raise NotImplementedError(_GOSSIP_LATER)
+        """kind="gossip" | kind="sparse"+clock: build the activation clock.
+
+        kind="gossip" builds a dense EventWindow clock over ``base_w()``
+        (``build_clock``); kind="sparse" with a ``clock`` dict builds an
+        edge-native ``SparseClock`` over the CSR graph
+        (``build_sparse_clock`` — windows are ``SparseWindow`` objects).
+
+        Memoized on the (frozen) spec: construction eagerly validates every
+        distinct trace window, so ``validate()`` and ``w_schedule()`` must
+        not each pay it again."""
+        cached = getattr(self, "_clock_cache", None)
+        if cached is not None:
+            return cached
+        if self.kind == "sparse":
+            if self.clock is None:
+                raise ValueError(
+                    "this sparse topology has no clock dict; gossip_clock() "
+                    "needs one (e.g. {'kind': 'poisson', 'rate': 1.0})"
+                )
+            from repro_torch.gossip.clocks import build_sparse_clock
+
+            clock = build_sparse_clock(self.clock, self.sparse_graph())
+            object.__setattr__(self, "_clock_cache", clock)
+            return clock
+        from repro_torch.gossip.clocks import build_clock
+
+        if self.clock is None:
+            raise ValueError("TopologySpec(kind='gossip') requires a clock dict")
+        clock = build_clock(self.clock, self.base_w())
+        object.__setattr__(self, "_clock_cache", clock)
+        return clock
 
     def sparse_graph(self):
         """kind="sparse": the memoized, eagerly validated ``SparseGraph``.

@@ -1,5 +1,5 @@
 """Flat-buffer posterior representation — the canonical runtime format (port
-of the synchronous-round subset of ``repro.core.flat``).
+of the synchronous-round and gossip-window subset of ``repro.core.flat``).
 
 A ``FlatPosterior`` stores the whole network's mean-field Gaussian posterior
 as two contiguous fp32 buffers, ``mean`` and ``rho``, both ``[N_agents, P]``,
@@ -21,10 +21,18 @@ from typing import Any, Callable
 
 import torch
 
+import numpy as np
+
+from repro_torch.core import graphs
 from repro_torch.core.numerics import COMPUTE_DTYPE, softplus, softplus_inv_py
 from repro_torch.kernels.consensus import (
+    consensus_fused_masked,
+    consensus_fused_masked_sparse,
     consensus_fused_network,
+    consensus_fused_sparse,
+    consensus_masked_plain,
     consensus_network_plain,
+    csr_tables,
     payload_validity_fused,
 )
 
@@ -208,3 +216,152 @@ def payload_validity(mean, rho, *, wire_dtype=None, bound: float = QUARANTINE_BO
     finite, ``prec`` strictly positive and both magnitudes within ``bound``.
     The CUDA kernel for tensors on the card, its plain version on the CPU."""
     return payload_validity_fused(mean, rho, bound=bound, wire_dtype=wire_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Gossip event windows: masked and CSR-table consensus
+# ---------------------------------------------------------------------------
+
+
+def consensus_flat_masked_reference(mean, rho, W, active, wire_dtype=None):
+    """Masked (event-window) eq. (6) in plain PyTorch, on any device: active
+    agents get the computed row, inactive ones their original (mean, rho)
+    row.  With ``active`` all-true it is bitwise the unmasked reference."""
+    return consensus_masked_plain(W, active, mean, rho, wire_dtype)
+
+
+def consensus_flat_masked(posts: FlatPosterior, W, active, *, wire_dtype=None) -> FlatPosterior:
+    """Masked network-wide consensus for one gossip event window: ``W`` is
+    the window's W-tilde (cast to float32 on the posterior's device) and
+    ``active`` its [N] mask.  Active agents merge per eq. (6); inactive ones
+    pass through bit-identically.  The CUDA kernel on the card, its plain
+    version on the CPU."""
+    dev = posts.mean.device
+    W = torch.as_tensor(W).to(device=dev, dtype=torch.float32)
+    mean, rho = consensus_fused_masked(W, torch.as_tensor(active, device=dev),
+                                       posts.mean, posts.rho, wire_dtype=wire_dtype)
+    return FlatPosterior(mean=mean, rho=rho, layout=posts.layout)
+
+
+def neighbor_tables(W) -> tuple[np.ndarray, np.ndarray]:
+    """CSR-style padded neighbour tables of a dense W for the sparse
+    kernels: (neighbors [N, D] int32, weights [N, D] float32), D = max
+    in-degree, ragged rows padded with the agent's own id at weight 0.0.
+    Host-side; the one CSR construction of ``graphs.SparseGraph``."""
+    return graphs.SparseGraph.from_dense(np.asarray(W)).neighbor_tables()
+
+
+def consensus_flat_sparse(posts: FlatPosterior, neighbors, weights, *,
+                          wire_dtype=None) -> FlatPosterior:
+    """Sparse-neighbourhood eq. (6): each agent gathers only its deg(i)
+    neighbour rows on the card (the CUDA kernel); the plain version on the
+    CPU rebuilds the dense W."""
+    mean, rho = consensus_fused_sparse(neighbors, weights, posts.mean, posts.rho,
+                                       wire_dtype=wire_dtype)
+    return FlatPosterior(mean=mean, rho=rho, layout=posts.layout)
+
+
+def consensus_flat_masked_sparse(posts: FlatPosterior, neighbors, weights, active, *,
+                                 wire_dtype=None) -> FlatPosterior:
+    """Active-edge window consensus on CSR tables of the window's W-tilde
+    (``neighbor_tables(window.w_eff)``): active agents gather only their
+    fired-neighbour rows, inactive agents copy their own row."""
+    mean, rho = consensus_fused_masked_sparse(
+        neighbors, weights, torch.as_tensor(active, device=posts.mean.device),
+        posts.mean, posts.rho, wire_dtype=wire_dtype,
+    )
+    return FlatPosterior(mean=mean, rho=rho, layout=posts.layout)
+
+
+# ---------------------------------------------------------------------------
+# Quarantine guard: fault-tolerant consensus
+# ---------------------------------------------------------------------------
+
+
+def quarantine_w(W: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Zero every column of an invalid source and move the dropped row mass
+    onto self, so rows stay row-stochastic.  The self column survives even
+    for an invalid agent.  With ``valid`` all-true the result is
+    value-identical to ``W``."""
+    n = W.shape[0]
+    keep = valid[None, :] | torch.eye(n, dtype=torch.bool, device=W.device)
+    Wk = torch.where(keep, W, 0.0)
+    dropped = torch.sum(W - Wk, dim=1)
+    Wk.diagonal().add_(dropped)  # Wk is a fresh tensor
+    return Wk
+
+
+def _sanitized_sources(posts, mean_src, rho_src, valid_src, valid_self):
+    """Exchange-side (mean, rho) with every invalid payload replaced by a
+    finite placeholder.  Zeroing an invalid source's W column is not enough:
+    ``0 * NaN = NaN`` still poisons the sum, so the rows behind zeroed
+    weights must be finite too.  A corrupted-but-healthy sender falls back
+    to its true resident statistics; an agent whose resident state is itself
+    garbage gets a neutral (0, rho=1) row that only multiplies zero weight."""
+    v_src = valid_src[:, None]
+    v_self = valid_self[:, None]
+    safe_mean = torch.where(v_self, posts.mean, 0.0)
+    safe_rho = torch.where(v_self, posts.rho, 1.0)
+    return torch.where(v_src, mean_src, safe_mean), torch.where(v_src, rho_src, safe_rho)
+
+
+def _guard(posts, mean_src, rho_src, wire_dtype, bound):
+    """(valid_src, valid_self, sanitized exchange posterior) of a window."""
+    mean_src = posts.mean if mean_src is None else mean_src
+    rho_src = posts.rho if rho_src is None else rho_src
+    valid_src = payload_validity(mean_src, rho_src, wire_dtype=wire_dtype, bound=bound)
+    valid_self = payload_validity(posts.mean, posts.rho, wire_dtype=wire_dtype, bound=bound)
+    mean_x, rho_x = _sanitized_sources(posts, mean_src, rho_src, valid_src, valid_self)
+    return valid_src, valid_self, FlatPosterior(mean=mean_x, rho=rho_x, layout=posts.layout)
+
+
+def _keep_resident(posts, out, valid_self) -> FlatPosterior:
+    v_self = valid_self[:, None]
+    return FlatPosterior(mean=torch.where(v_self, out.mean, posts.mean),
+                         rho=torch.where(v_self, out.rho, posts.rho), layout=posts.layout)
+
+
+def consensus_flat_masked_quarantined(posts: FlatPosterior, W, active, *, mean_src=None,
+                                      rho_src=None, wire_dtype=None,
+                                      bound: float = QUARANTINE_BOUND):
+    """Quarantine-guarded ``consensus_flat_masked``: validate every incoming
+    contribution at the exchange boundary, drop invalid ones, move their row
+    mass to self.  Returns ``(posterior, valid_src [N] bool)``.
+
+    ``mean_src``/``rho_src`` are the statistics agents actually transmit
+    (default: the resident ``posts``), the fault-injection hook.  A
+    corrupted sender still merges; an agent whose resident state is invalid
+    passes through unchanged.  With zero faults every step is a
+    value-identity, so the output is bitwise the unguarded path's."""
+    valid_src, valid_self, posts_x = _guard(posts, mean_src, rho_src, wire_dtype, bound)
+    dev = posts.mean.device
+    W_g = quarantine_w(torch.as_tensor(W).to(device=dev, dtype=COMPUTE_DTYPE), valid_src)
+    act_g = (torch.as_tensor(active, device=dev) > 0) & valid_self
+    out = consensus_flat_masked(posts_x, W_g, act_g, wire_dtype=wire_dtype)
+    return _keep_resident(posts, out, valid_self), valid_src
+
+
+def consensus_flat_masked_sparse_quarantined(posts: FlatPosterior, neighbors, weights,
+                                             active, *, mean_src=None, rho_src=None,
+                                             wire_dtype=None,
+                                             bound: float = QUARANTINE_BOUND):
+    """Quarantine-guarded ``consensus_flat_masked_sparse``, the CSR form of
+    the dense guard.  The table structure stays (gathering a sanitized
+    zero-weight row is harmless); invalid non-self slots drop to 0.0 and each
+    row's dropped mass lands on its real self slot (nonzero weight; pad slots
+    are self at 0.0 and receive nothing).  Zero faults is a value-identity."""
+    valid_src, valid_self, posts_x = _guard(posts, mean_src, rho_src, wire_dtype, bound)
+    dev = posts.mean.device
+    n = posts.mean.shape[0]
+    nbr, wts = csr_tables("consensus_flat_masked_sparse_quarantined", neighbors, weights, n,
+                          dev)
+    nbr = nbr.long()
+    rows = torch.arange(n, device=dev)
+    self_mask = nbr == rows[:, None]
+    wts_g = torch.where(valid_src[nbr] | self_mask, wts, 0.0)
+    dropped = torch.sum(wts - wts_g, dim=1)
+    self_slot = torch.argmax((self_mask & (wts > 0.0)).to(torch.int32), dim=1)
+    wts_g[rows, self_slot] = wts_g[rows, self_slot] + dropped
+    act_g = (torch.as_tensor(active, device=dev) > 0) & valid_self
+    out = consensus_flat_masked_sparse(posts_x, nbr, wts_g, act_g, wire_dtype=wire_dtype)
+    return _keep_resident(posts, out, valid_self), valid_src

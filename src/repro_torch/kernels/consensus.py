@@ -1,6 +1,6 @@
 """Eq. (6) kernels over the flat [N, P] network posterior, each beside its
-plain PyTorch version (port of the two ``repro.kernels.consensus`` kernels on
-the synchronous round's path).
+plain PyTorch version (port of the ``repro.kernels.consensus`` kernels on the
+synchronous round's and the gossip windows' paths).
 
 * ``consensus_fused_network``: eq. (6) for all N agents in one pass,
 
@@ -10,6 +10,16 @@ the synchronous round's path).
       mean' = new_pm / new_prec,  rho' = softplus^-1(new_prec^-1/2)
 
   CUDA source: ``csrc/consensus_network.cu``.
+* ``consensus_fused_masked``: the same pass on one gossip window's W-tilde
+  with an ``[N]`` activity mask.  Active rows are bitwise the network
+  kernel's rows (one template, one accumulation loop); inactive rows pass
+  (mean, rho) through untouched.  CUDA source: ``csrc/consensus_network.cu``.
+* ``consensus_fused_sparse`` / ``consensus_fused_masked_sparse``: eq. (6)
+  over CSR neighbour tables (``neighbors [N, D]`` self-padded ids,
+  ``weights [N, D]`` zero-padded): each agent gathers only its deg(i) rows;
+  the masked form copies an inactive agent's own row.  The plain versions
+  rebuild the small dense W from the tables, as the JAX package's reference
+  path does.  CUDA source: ``csrc/consensus_sparse.cu``.
 * ``payload_validity_fused``: per agent, every wire-rounded ``prec`` and
   ``prec * mean`` lane finite, ``prec > 0`` and both within ``bound``.
   CUDA source: ``csrc/payload_validity.cu``.
@@ -94,6 +104,145 @@ def consensus_fused_network(W, mean, rho, *, wire_dtype=None):
     dispatch.check_cuda(err, "consensus_fused_network")
     dispatch.count_launch("consensus_fused_network")
     return mean_out, rho_out
+
+
+def _as_mask(active, n: int, device: torch.device) -> torch.Tensor:
+    """``[N]`` bool from a bool/int/float mask (nonzero = active)."""
+    act = torch.as_tensor(active, device=device)
+    if act.shape != (n,):
+        raise ValueError(f"active mask of shape {tuple(act.shape)}, expected ({n},)")
+    return act > 0
+
+
+def consensus_masked_plain(W, active, mean, rho, wire_dtype=None):
+    """The plain PyTorch version of ``consensus_fused_masked``."""
+    new_mean, new_rho = consensus_network_plain(W, mean, rho, wire_dtype)
+    act = _as_mask(active, mean.shape[0], mean.device)[:, None]
+    return torch.where(act, new_mean, mean), torch.where(act, new_rho, rho)
+
+
+def consensus_fused_masked(W, active, mean, rho, *, wire_dtype=None):
+    """Eq. (6) on one gossip window: ``W [N, N]`` the window's W-tilde,
+    ``active [N]`` its activity mask.  Active rows are bitwise
+    ``consensus_fused_network``'s; inactive rows are (mean, rho) untouched."""
+    if mean.device.type == "cpu":
+        return consensus_masked_plain(W, active, mean, rho, wire_dtype)
+    if mean.device.type != "cuda":
+        raise ValueError(f"consensus_fused_masked: no kernel for {mean.device}")
+    _check_flat("consensus_fused_masked", mean, rho)
+    n, p = mean.shape
+    if W.shape != (n, n) or W.device != mean.device or W.dtype != torch.float32:
+        raise ValueError(
+            f"consensus_fused_masked: W must be float32 [{n}, {n}] on "
+            f"{mean.device}, got {W.dtype} {tuple(W.shape)} on {W.device}"
+        )
+    W = W.contiguous()
+    act = _as_mask(active, n, mean.device).to(torch.int32)
+    mean_out = torch.empty_like(mean)
+    rho_out = torch.empty_like(rho)
+    err = dispatch.library().consensus_masked_launch(
+        W.data_ptr(), act.data_ptr(), mean.data_ptr(), rho.data_ptr(),
+        mean_out.data_ptr(), rho_out.data_ptr(), n, p,
+        _WIRE_CODE[canonical_wire_dtype(wire_dtype)], _stream(mean.device),
+    )
+    dispatch.check_cuda(err, "consensus_fused_masked")
+    dispatch.count_launch("consensus_fused_masked")
+    return mean_out, rho_out
+
+
+# -- eq. (6) over CSR neighbour tables ---------------------------------------
+
+
+def csr_tables(what: str, neighbors, weights, n: int, device: torch.device):
+    """int32 ids and float32 weights ``[N, D]`` on ``device``.  Ids of tables
+    that come from the host are checked to lie in [0, N); tables already on
+    the card are not (that would stall the host), and the kernel sets an
+    agent's row to NaN where an id is out of range."""
+    nbr = torch.as_tensor(neighbors)
+    if nbr.device.type == "cpu" and bool(((nbr < 0) | (nbr >= n)).any()):
+        raise ValueError(f"{what}: neighbour ids outside [0, {n})")
+    nbr = nbr.to(device=device, dtype=torch.int32).contiguous()
+    wts = torch.as_tensor(weights, device=device).to(torch.float32).contiguous()
+    if nbr.ndim != 2 or nbr.shape[0] != n or nbr.shape[1] == 0 or wts.shape != nbr.shape:
+        raise ValueError(f"{what}: tables {tuple(nbr.shape)} / {tuple(wts.shape)} "
+                         f"are not both [{n}, D]")
+    return nbr, wts
+
+
+def tables_to_dense(neighbors, weights, n: int) -> torch.Tensor:
+    """The ``[N, N]`` W of CSR tables: ``W[i, nbr[i, d]] += wts[i, d]``, one
+    slot column at a time (each column touches every row once, so no sum
+    depends on a scatter order)."""
+    W = torch.zeros((n, n), dtype=torch.float32, device=weights.device)
+    rows = torch.arange(n, device=weights.device)
+    for d in range(neighbors.shape[1]):
+        cols = neighbors[:, d].long()
+        W[rows, cols] = W[rows, cols] + weights[:, d]
+    return W
+
+
+def consensus_sparse_plain(neighbors, weights, mean, rho, wire_dtype=None):
+    """The plain PyTorch version of ``consensus_fused_sparse``."""
+    nbr, wts = csr_tables("consensus_sparse_plain", neighbors, weights,
+                       mean.shape[0], mean.device)
+    return consensus_network_plain(tables_to_dense(nbr, wts, mean.shape[0]),
+                                   mean, rho, wire_dtype)
+
+
+def consensus_masked_sparse_plain(neighbors, weights, active, mean, rho, wire_dtype=None):
+    """The plain PyTorch version of ``consensus_fused_masked_sparse``."""
+    nbr, wts = csr_tables("consensus_masked_sparse_plain", neighbors, weights,
+                       mean.shape[0], mean.device)
+    return consensus_masked_plain(tables_to_dense(nbr, wts, mean.shape[0]), active,
+                                  mean, rho, wire_dtype)
+
+
+def _sparse_launch(name, neighbors, weights, active, mean, rho, wire_dtype):
+    if mean.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {mean.device}")
+    _check_flat(name, mean, rho)
+    n, p = mean.shape
+    if n > 65535:
+        raise ValueError(f"{name}: N={n} exceeds 65535 agents")
+    nbr, wts = csr_tables(name, neighbors, weights, n, mean.device)
+    mean_out = torch.empty_like(mean)
+    rho_out = torch.empty_like(rho)
+    args = [nbr.data_ptr(), wts.data_ptr()]
+    if active is not None:
+        act = _as_mask(active, n, mean.device).to(torch.int32)
+        args.append(act.data_ptr())
+    launch = getattr(dispatch.library(),
+                     "consensus_masked_sparse_launch" if active is not None
+                     else "consensus_sparse_launch")
+    err = launch(
+        *args, mean.data_ptr(), rho.data_ptr(), mean_out.data_ptr(), rho_out.data_ptr(),
+        n, nbr.shape[1], p, _WIRE_CODE[canonical_wire_dtype(wire_dtype)],
+        _stream(mean.device),
+    )
+    dispatch.check_cuda(err, name)
+    dispatch.count_launch(name)
+    return mean_out, rho_out
+
+
+def consensus_fused_sparse(neighbors, weights, mean, rho, *, wire_dtype=None):
+    """Eq. (6) where each agent gathers only its ``deg(i) <= D`` neighbour
+    rows: ``neighbors [N, D]`` ids padded with the agent's own id,
+    ``weights [N, D]`` padded with 0.0.  Returns the new (mean, rho)."""
+    if mean.device.type == "cpu":
+        return consensus_sparse_plain(neighbors, weights, mean, rho, wire_dtype)
+    return _sparse_launch("consensus_fused_sparse", neighbors, weights, None,
+                          mean, rho, wire_dtype)
+
+
+def consensus_fused_masked_sparse(neighbors, weights, active, mean, rho, *,
+                                  wire_dtype=None):
+    """``consensus_fused_sparse`` on one gossip window's tables with an
+    ``[N]`` activity mask: an inactive agent copies its own row."""
+    if mean.device.type == "cpu":
+        return consensus_masked_sparse_plain(neighbors, weights, active, mean, rho,
+                                             wire_dtype)
+    return _sparse_launch("consensus_fused_masked_sparse", neighbors, weights, active,
+                          mean, rho, wire_dtype)
 
 
 # -- exchange-payload validity ----------------------------------------------

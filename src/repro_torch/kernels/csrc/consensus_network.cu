@@ -1,14 +1,24 @@
-// Eq. (6) for the whole network in one pass over the flat [N, P] posterior.
+// Eq. (6) for the whole network in one pass over the flat [N, P] posterior,
+// unmasked (the synchronous round) or masked (one gossip event window).
 //
-// Replaces the TPU kernel repro/kernels/consensus.py:consensus_fused_network
-// (pallas_call at consensus.py:217).  For every agent i and lane c:
+// Replaces two TPU kernels of repro/kernels/consensus.py:
+// * consensus_fused_network (pallas_call at consensus.py:217), MASKED = false;
+// * consensus_fused_masked (pallas_call at consensus.py:288), MASKED = true:
+//   an [N] int activity mask; active rows get the eq. (6) row below, inactive
+//   rows get their (mean, rho) copied through untouched (no softplus round
+//   trip, so an idle agent is bit-stable across windows).
+// Both instantiations run the same accumulation loop, so an active row of the
+// masked kernel is bitwise the network kernel's row at every wire dtype.
+//
+// For every agent i and lane c:
 //   prec_j  = softplus(rho[j, c])^-2               (fp32)
 //   prec_x  = wire(prec_j), pm_x = wire(prec_j * mean[j, c])
 //   P_i     = sum_j W[i, j] prec_x,  M_i = sum_j W[i, j] pm_x   (fp32)
 //   mean'   = M_i / P_i,  rho' = softplus^-1(1 / sqrt(P_i))
 //
 // What bounds it on the H100: memory.  Each lane of mean and rho is read
-// once and each lane of the two outputs written once (16 N P bytes), against
+// once and each lane of the two outputs written once (16 N P bytes, plus
+// N^2 + N words of W and mask), against
 // 2 N^2 P multiply-adds; at the main path's N = 9 that is under one operation
 // per byte, far below the card's ridge point.
 //
@@ -25,6 +35,9 @@
 //   chunk live in registers.  For N <= IC (the main path) the inputs are read
 //   exactly once; for larger N each output chunk reads them again, mostly
 //   from the 50 MB L2.
+// * MASKED: only the final write differs.  An inactive row's lane is copied
+//   from the inputs (a second read of that row, mostly from L2); the mask
+//   entry is one address for the whole block, served by the cache.
 // * No fast math: IEEE division and sqrt, rsqrt written as 1 / sqrtf.
 #include "eq6_common.cuh"
 
@@ -35,9 +48,10 @@ constexpr int TILE = 256;  // lanes per block = threads per block
 constexpr int JC = 16;     // input rows staged per chunk
 constexpr int IC = 16;     // output rows accumulated in registers per chunk
 
-template <int WIRE>
+template <int WIRE, bool MASKED>
 __global__ void __launch_bounds__(TILE)
 consensus_network_kernel(const float* __restrict__ W,
+                         const int* __restrict__ active,
                          const float* __restrict__ mean,
                          const float* __restrict__ rho,
                          float* __restrict__ mean_out,
@@ -94,43 +108,65 @@ consensus_network_kernel(const float* __restrict__ W,
         const int i = i0 + ii;
         if (i < n) {
           const long long o = static_cast<long long>(i) * p + col;
-          mean_out[o] = acc_pm[ii] / acc_prec[ii];
-          rho_out[o] = softplus_inv(1.0f / sqrtf(acc_prec[ii]));
+          if (MASKED && active[i] == 0) {
+            mean_out[o] = mean[o];
+            rho_out[o] = rho[o];
+          } else {
+            mean_out[o] = acc_pm[ii] / acc_prec[ii];
+            rho_out[o] = softplus_inv(1.0f / sqrtf(acc_prec[ii]));
+          }
         }
       }
     }
   }
 }
 
-}  // namespace
-}  // namespace repro_torch
-
-// Launch on `stream`; returns the cudaError_t of the launch (0 = success).
-extern "C" int consensus_network_launch(const void* W, const void* mean,
-                                        const void* rho, void* mean_out,
-                                        void* rho_out, int n, long long p,
-                                        int wire, void* stream) {
-  using namespace repro_torch;
+template <bool MASKED>
+int launch(const void* W, const void* active, const void* mean,
+           const void* rho, void* mean_out, void* rho_out, int n, long long p,
+           int wire, void* stream) {
   if (n <= 0 || p <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>((p + TILE - 1) / TILE));
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* w = static_cast<const float*>(W);
+  const auto* a = static_cast<const int*>(active);
   const auto* m = static_cast<const float*>(mean);
   const auto* r = static_cast<const float*>(rho);
   auto* mo = static_cast<float*>(mean_out);
   auto* ro = static_cast<float*>(rho_out);
   switch (wire) {
     case WIRE_F32:
-      consensus_network_kernel<WIRE_F32><<<grid, TILE, 0, s>>>(w, m, r, mo, ro, n, p);
+      consensus_network_kernel<WIRE_F32, MASKED><<<grid, TILE, 0, s>>>(w, a, m, r, mo, ro, n, p);
       break;
     case WIRE_BF16:
-      consensus_network_kernel<WIRE_BF16><<<grid, TILE, 0, s>>>(w, m, r, mo, ro, n, p);
+      consensus_network_kernel<WIRE_BF16, MASKED><<<grid, TILE, 0, s>>>(w, a, m, r, mo, ro, n, p);
       break;
     case WIRE_F16:
-      consensus_network_kernel<WIRE_F16><<<grid, TILE, 0, s>>>(w, m, r, mo, ro, n, p);
+      consensus_network_kernel<WIRE_F16, MASKED><<<grid, TILE, 0, s>>>(w, a, m, r, mo, ro, n, p);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+}  // namespace repro_torch
+
+// Launch on `stream`; each returns the cudaError_t of the launch (0 = success).
+extern "C" int consensus_network_launch(const void* W, const void* mean,
+                                        const void* rho, void* mean_out,
+                                        void* rho_out, int n, long long p,
+                                        int wire, void* stream) {
+  return repro_torch::launch<false>(W, nullptr, mean, rho, mean_out, rho_out,
+                                    n, p, wire, stream);
+}
+
+// `active` holds n int32 flags (0 = the row passes through).
+extern "C" int consensus_masked_launch(const void* W, const void* active,
+                                       const void* mean, const void* rho,
+                                       void* mean_out, void* rho_out, int n,
+                                       long long p, int wire, void* stream) {
+  return repro_torch::launch<true>(W, active, mean, rho, mean_out, rho_out, n,
+                                   p, wire, stream);
 }

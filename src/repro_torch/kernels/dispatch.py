@@ -34,7 +34,10 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-KERNELS = ("consensus_fused_network", "payload_validity_fused")
+KERNELS = (
+    "consensus_fused_network", "payload_validity_fused", "consensus_fused_masked",
+    "consensus_fused_sparse", "consensus_fused_masked_sparse",
+)
 _launches = dict.fromkeys(KERNELS, 0)
 _lib: ctypes.CDLL | None = None
 build_info: dict = {}  # seconds / path / ptxas report of the last build or load
@@ -143,6 +146,18 @@ def library() -> ctypes.CDLL:
             ptr, ptr, ptr, i32, i64, ctypes.c_float, i32, ptr,
         ]
         lib.payload_validity_launch.restype = i32
+        lib.consensus_masked_launch.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, ptr, i32, i64, i32, ptr,
+        ]
+        lib.consensus_masked_launch.restype = i32
+        lib.consensus_sparse_launch.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i64, i32, ptr,
+        ]
+        lib.consensus_sparse_launch.restype = i32
+        lib.consensus_masked_sparse_launch.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i64, i32, ptr,
+        ]
+        lib.consensus_masked_sparse_launch.restype = i32
         _lib = lib
     return _lib
 

@@ -107,8 +107,23 @@ def test_spec_validation_and_w_schedule_match():
 
 
 def test_gossip_topologies_wait_for_their_slice():
+    """Gossip topologies build their clocks in the port now; the gossip
+    executions of later slices (delayed delivery) still raise."""
+    from repro_torch.api import build_session
+
     topo = tspec.TopologySpec.gossip("ring", {"n": 4})
-    with pytest.raises(NotImplementedError, match="gossip slice"):
-        topo.validate()
-    with pytest.raises(NotImplementedError, match="gossip slice"):
-        tspec.TopologySpec.gossip_from_schedule([jg.ring_w(4)])
+    topo.validate()
+    assert topo.gossip_clock().window(0).w_eff.shape == (4, 4)
+    sched = tspec.TopologySpec.gossip_from_schedule(
+        jg.time_varying_star_schedule(n_agents=4, n_active=2, a=0.5))
+    sched.validate()
+    delayed = tspec.TopologySpec.gossip(
+        "ring", {"n": 4}, clock={"kind": "delayed", "inner": {"kind": "poisson"},
+                                 "latency": {"kind": "constant", "delay": 1}})
+    spec = tspec.ExperimentSpec(
+        topology=delayed,
+        data=tspec.DataSpec(dataset_params=dict(n_classes=4, dim=8, n_train_per_class=20),
+                            partition="iid", partition_params=dict(n_agents=4)),
+        inference=tspec.InferenceSpec(hidden=4, depth=1))
+    with pytest.raises(NotImplementedError, match="delayed"):
+        build_session(spec, device="cpu")

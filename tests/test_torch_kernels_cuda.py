@@ -8,13 +8,17 @@ JAX package, so it also runs where only the port is installed:
 Tolerances: at f32 rtol 1e-5 / atol 1e-5 (the kernel and cuBLAS sum the
 N terms in another order); at bf16/f16 one wire ulp relative to the output
 scale (a one-ulp fp32 difference in prec can flip a rounding tie).
-Validity is bit-equal.
+Validity is bit-equal; the masked kernel's active rows are bitwise the
+network kernel's and its inactive rows bitwise its inputs.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import graphs  # noqa: E402
+from repro_torch.core.flat import neighbor_tables  # noqa: E402
+from repro_torch.gossip.clocks import PoissonClock  # noqa: E402
 from repro_torch.kernels import consensus as k  # noqa: E402
 from repro_torch.kernels import dispatch  # noqa: E402
 
@@ -57,6 +61,70 @@ def test_consensus_kernel_matches_plain(dev, n, p, wire):
             np.testing.assert_allclose(g, w, rtol=u, atol=u * np.abs(w).max())
 
 
+def _assert_close(got, want, wire):
+    for g, w in zip(got, want):
+        g, w = g.cpu().numpy(), w.cpu().numpy()
+        if wire == "f32":
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5)
+        else:
+            u = WIRE_EPS[wire]
+            np.testing.assert_allclose(g, w, rtol=u, atol=u * np.abs(w).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("mask", ["all", "none", "mixed"])
+@pytest.mark.parametrize("n,p", [(1, 5), (9, 4099), (300, 4099)])
+def test_masked_kernel_matches_plain_and_network(dev, n, p, mask, wire):
+    W, mean, rho = _inputs(n, p, n + p + 1, dev)
+    active = {"all": torch.ones(n, dtype=torch.bool), "none": torch.zeros(n, dtype=torch.bool),
+              "mixed": torch.arange(n) % 3 != 1}[mask].to(dev)
+    before = dispatch.launch_counts()["consensus_fused_masked"]
+    got = k.consensus_fused_masked(W, active, mean, rho, wire_dtype=wire)
+    want = k.consensus_masked_plain(W, active, mean, rho, wire)
+    net = k.consensus_fused_network(W, mean, rho, wire_dtype=wire)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["consensus_fused_masked"] == before + 1
+    _assert_close(got, want, wire)
+    act = active.cpu()
+    for g, x, nt in zip(got, (mean, rho), net):
+        g, x, nt = g.cpu(), x.cpu(), nt.cpu()
+        assert torch.equal(g[act], nt[act])  # one accumulation loop
+        assert torch.equal(g[~act], x[~act])  # passed through untouched
+
+
+def _tables(name):
+    if name == "grid":
+        return neighbor_tables(graphs.grid_w(3, 3))
+    if name == "window":
+        win = PoissonClock(graphs.grid_w(3, 3), rate=0.6, seed=1).window(2)
+        return neighbor_tables(win.w_eff)
+    if name == "ring300":
+        return neighbor_tables(graphs.bidirectional_ring_w(300))
+    return graphs.watts_strogatz_sparse(300, 6, 0.2, seed=0).neighbor_tables()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("tables", ["grid", "window", "ring300", "ws300"])
+def test_sparse_kernels_match_plain(dev, tables, wire):
+    nbr, wts = (torch.from_numpy(a).to(dev) for a in _tables(tables))
+    n, p = nbr.shape[0], 4099
+    _, mean, rho = _inputs(n, p, n + 7, dev)
+    got = k.consensus_fused_sparse(nbr, wts, mean, rho, wire_dtype=wire)
+    want = k.consensus_sparse_plain(nbr, wts, mean, rho, wire)
+    _assert_close(got, want, wire)
+    active = (torch.arange(n, device=dev) % 4 != 2)
+    before = dispatch.launch_counts()["consensus_fused_masked_sparse"]
+    got = k.consensus_fused_masked_sparse(nbr, wts, active, mean, rho, wire_dtype=wire)
+    want = k.consensus_masked_sparse_plain(nbr, wts, active, mean, rho, wire)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["consensus_fused_masked_sparse"] == before + 1
+    _assert_close(got, want, wire)
+    idle = ~active
+    assert torch.equal(got[0][idle], mean[idle]) and torch.equal(got[1][idle], rho[idle])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("wire", ["f32", "bf16", "f16"])
 @pytest.mark.parametrize("p", [1, 700, 5000])
@@ -87,3 +155,12 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
         k.consensus_fused_network(W[:3, :3], mean, rho)
     with pytest.raises(ValueError):
         k.payload_validity_fused(mean, rho.cpu(), bound=1e20)
+    with pytest.raises(ValueError):
+        k.consensus_fused_masked(W, torch.ones(3, device=dev), mean, rho)
+    nbr = torch.zeros((4, 2), dtype=torch.int32)
+    with pytest.raises(ValueError):  # host tables are checked
+        k.consensus_fused_sparse(nbr + 4, torch.ones((4, 2)), mean, rho)
+    nbr[1, 1] = 4  # device tables are not: the kernel sets that agent's row to NaN
+    m, r = k.consensus_fused_sparse(nbr.to(dev), torch.full((4, 2), 0.5, device=dev), mean, rho)
+    bad = torch.isnan(m).all(dim=1).cpu()
+    assert bad.tolist() == [False, True, False, False] and torch.isnan(r[1]).all()
