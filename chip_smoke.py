@@ -15,7 +15,12 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    ``consensus_fused_masked_sparse`` on the CSR tables of the 3x3 grid
    (D = 5) and of three gossip windows at P = 199210, and of N = 300
    ring and Watts-Strogatz graphs; ``payload_validity_fused`` bit-equal on
-   buffers with NaN, +-inf, huge and f16-overflowing lanes planted;
+   buffers with NaN, +-inf, huge and f16-overflowing lanes planted; the
+   kernels of ``kernels.ops``: ``consensus_fused`` at (N, P) = (9, 199210),
+   (300, 4099), (1, 5) with zero weights in the row, ``sample_and_kl_fused``
+   at P = 199210, 2049, 5 (its KL bitwise the same twice), and
+   ``flash_attention`` on tests/test_kernels.py's sweep at f32 and bf16 and
+   on a case with Sk < S whose window leaves rows with no key (zeros);
 3. the paths at full width, each with the launch counters set to 0 just
    before and read just after.  The synchronous slice: the paper's Fig. 4
    setting (3x3 grid, 9 agents, ``mnist_like`` 784-dim 10-class data, grid
@@ -27,7 +32,15 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    "quarantine"``, ``run(4) -> evaluate() -> health()``, then the same spec
    strict and fault-free.  The CSR path: ``consensus_flat_masked_sparse_
    quarantined`` on three of the slice's windows against the dense
-   quarantined consensus, and ``consensus_flat_sparse`` on the base W;
+   quarantined consensus, and ``consensus_flat_sparse`` on the base W.  The
+   ops path (``kernels.ops``): ``consensus_posterior`` for each of the
+   synchronous slice's 9 agents on its posterior pytree after ``run(3)``
+   against row i of ``consensus_flat``; ``sample_and_kl`` on each agent's
+   posterior pytree against its pre-round posterior, against the pytree
+   ``kl_gaussian``; ``attention`` at B = 1, S = 4096 (``train_4k``), bf16,
+   at the head shapes of Qwen3-8B (H = 32, hd = 128, causal, K/V repeated
+   from 8 heads) and of RecurrentGemma-9B's local attention (H = 16,
+   hd = 256, window 2048, K/V repeated from 1 head);
 4. card vs CPU: one more synchronous round and one more gossip window from
    the same state with the same injected batches and noise, the card through
    the kernels, the CPU through the plain versions; and the equivalence
@@ -35,7 +48,9 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    quarantine == strict;
 5. timings: each kernel's median time over warm launches (CUDA events), with
    its inputs in L2 and with L2 flushed, its plain version's, and its bound
-   at the slice's shapes;
+   at the slice's shapes (``consensus_fused`` and ``sample_and_kl_fused`` at
+   one agent's P = 199,210, ``flash_attention`` at both head shapes above,
+   beside ``scaled_dot_product_attention``'s time and backend);
 6. profile: the wall time of a warm synchronous round and of a warm gossip
    window of the slice, and their device time by kernel (torch.profiler).
 
@@ -44,6 +59,8 @@ line describing the kernels, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -56,6 +73,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM published peaks: 3.35 TB/s HBM, 67 TFLOP/s fp32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12  # dense bf16 on the tensor cores
 
 # stated tolerances
 F32_TOL = 1e-5            # kernel vs cuBLAS/plain, fp32 reduction order
@@ -89,6 +107,21 @@ GOSSIP_CLOCK = {"kind": "failure_injected", "inner": {"kind": "poisson", "rate":
 CHAOS = {"crash_rate": 0.15, "recover_rate": 0.5, "corrupt_rate": 0.2, "corrupt_kind": "mix",
          "seed": 7}
 CSR_ATOL = 1e-5  # CSR vs dense quarantined consensus: another fp32 sum order
+KL_RTOL = 1e-5    # sample_and_kl vs the pytree kl_gaussian: another fp32 sum order
+THETA_ATOL = 1e-6  # sample_and_kl's theta vs its plain version
+ATT_TOL = {"f32": 2e-5, "bf16": 2e-2}  # flash attention vs plain (tests/test_kernels.py:75)
+S_TRAIN = 4_096  # configs/base.py INPUT_SHAPES["train_4k"]
+ATTN_SHAPES = {  # (heads, kv heads, head dim, window), causal, B = 1, bf16
+    "qwen3_8b": (32, 8, 128, 0),  # configs/qwen3_8b.py
+    "recurrentgemma_9b_local": (16, 1, 256, 2048),  # configs/recurrentgemma_9b.py
+}
+ATT_SWEEP = [  # tests/test_kernels.py:56-66: (s, block_q, block_k, causal, window)
+    (128, 64, 64, True, 0),
+    (128, 128, 64, False, 0),
+    (256, 64, 64, True, 100),
+    (256, 128, 128, True, 0),
+    (64, 64, 64, True, 16),
+]
 WIRES = ("f32", "bf16", "f16")
 SRC = "src/repro_torch/kernels/csrc/"
 REF = "src/repro/kernels/consensus.py:"
@@ -268,6 +301,112 @@ def check_kernels(dev):
     return worst
 
 
+def attention_inputs(name, dev, dtype=None):
+    """q [1, H, S, hd] and k, v repeated from the config's KV heads to H
+    (``ops.attention`` has no grouped heads), from a seed, on the card."""
+    import torch
+
+    h, kv, hd, window = ATTN_SHAPES[name]
+    g = torch.Generator(device=dev).manual_seed(hd + h)
+    dtype = dtype or torch.bfloat16
+    q = torch.randn((1, h, S_TRAIN, hd), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((1, kv, S_TRAIN, hd), generator=g, device=dev).to(dtype)
+            .repeat_interleave(h // kv, dim=1) for _ in range(2))
+    return q, k, v, window
+
+
+def attention_pairs(s, sk, causal, window):
+    """The number of (query, key) pairs the mask leaves, counted exactly."""
+    import torch
+
+    q = torch.arange(s, dtype=torch.int64)
+    hi = torch.clamp(q, max=sk - 1) if causal else torch.full_like(q, sk - 1)
+    lo = torch.clamp(q - window + 1, min=0) if window else torch.zeros_like(q)
+    return int(torch.clamp(hi - lo + 1, min=0).sum())
+
+
+def attention_errors(what, got, want, tol):
+    """Max abs error of an attention output against its plain version;
+    raises beyond atol = rtol = ``tol``."""
+    import torch
+
+    torch.cuda.synchronize()
+    g, w = got.float(), want.float()
+    if got.shape != want.shape or got.dtype != want.dtype or not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} vs {want.dtype} "
+                             f"{tuple(want.shape)}, or not finite")
+    err = (g - w).abs()
+    if not bool(torch.all(err <= tol + tol * w.abs())):
+        raise AssertionError(f"{what}: max err {float(err.max())} beyond {tol}")
+    return float(err.max())
+
+
+def check_ops_kernels(dev):
+    """Phase 2, the kernels of ``kernels.ops`` against their plain versions
+    on the card."""
+    import torch
+
+    from repro_torch.kernels import consensus as k
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gauss_vi
+
+    worst = {}
+    for (n, p) in [(9, P_SLICE), (300, 4_099), (1, 5)]:
+        for wire in WIRES:
+            W, mean, rho = eq6_inputs(n, p, seed=n + p + 1, device=dev)
+            w = W[n // 2].clone()
+            if n > 2:  # zero weights in the row are computed, not skipped
+                w[0] = w[-1] = 0.0
+                w = w / w.sum()
+            errs = eq6_errors(f"consensus_fused N={n} P={p}",
+                              k.consensus_fused(w, mean, rho, wire_dtype=wire),
+                              k.consensus_row_plain(w, mean, rho, wire), wire)
+            phase("2.consensus_row", n=n, p=p, wire=wire, zero_weights=int((w == 0).sum()),
+                  max_abs_err_mean=errs[0], max_abs_err_rho=errs[1])
+            if (n, p, wire) == (9, P_SLICE, "f32"):
+                worst["consensus_fused"] = max(errs)
+    for p in (P_SLICE, 2_049, 5):
+        g = torch.Generator(device=dev).manual_seed(p)
+        mu, rho, eps, mu_p, rho_p = (torch.randn(p, generator=g, device=dev) * sc + off
+                                     for sc, off in ((1.0, 0.0), (0.3, -1.0), (1.0, 0.0),
+                                                     (0.1, 0.0), (0.1, 0.0)))
+        theta, kl = gauss_vi.sample_and_kl_fused(mu, rho, eps, mu_p, rho_p)
+        theta2, kl2 = gauss_vi.sample_and_kl_fused(mu, rho, eps, mu_p, rho_p)
+        want_theta, want_kl = gauss_vi.sample_and_kl_plain(mu, rho, eps, mu_p, rho_p)
+        torch.cuda.synchronize()
+        err = float((theta - want_theta).abs().max())
+        kl_rel = abs(float(kl) - float(want_kl)) / abs(float(want_kl))
+        if (err > THETA_ATOL + 1e-5 * float(want_theta.abs().max()) or kl_rel > KL_RTOL
+                or not (torch.equal(kl, kl2) and torch.equal(theta, theta2))):
+            raise AssertionError(f"sample_and_kl_fused P={p}: theta err {err}, KL rel err "
+                                 f"{kl_rel}, or not the same twice")
+        phase("2.sample_and_kl", p=p, max_abs_err_theta=err, kl=float(kl), kl_rel_err=kl_rel,
+              same_twice=True)
+        if p == P_SLICE:
+            worst["sample_and_kl_fused"] = err
+    cases = [(dt, (2, 2, s_, 64), s_, causal, window, dict(block_q=bq, block_k=bk))
+             for dt in ("f32", "bf16") for s_, bq, bk, causal, window in ATT_SWEEP]
+    cases.append(("f32", (1, 2, 128, 64), 64, True, 16, dict(block_q=64, block_k=64)))
+    worst["flash_attention"] = 0.0
+    for dt, shape, sk, causal, window, blocks in cases:
+        dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[dt]
+        g = torch.Generator(device=dev).manual_seed(shape[2] + blocks["block_q"])
+        q = torch.randn(shape, generator=g, device=dev).to(dtype)
+        kk, vv = (torch.randn(shape[:2] + (sk, shape[3]), generator=g, device=dev).to(dtype)
+                  for _ in range(2))
+        got = fa.flash_attention(q, kk, vv, causal=causal, window=window, **blocks)
+        want = fa.flash_attention_plain(q, kk, vv, causal=causal, window=window)
+        err = attention_errors(f"flash_attention {dt} {shape} Sk={sk}", got, want, ATT_TOL[dt])
+        dead = torch.arange(shape[2], device=dev) >= sk + window - 1 if sk < shape[2] else None
+        if dead is not None and not bool((got[:, :, dead] == 0).all()):
+            raise AssertionError("flash_attention: rows with no key left are not 0")
+        phase("2.flash_attention", dtype=dt, shape=shape, sk=sk, causal=causal, window=window,
+              max_abs_err=err, rows_without_keys=0 if dead is None else int(dead.sum()))
+        if dt == "bf16":
+            worst["flash_attention"] = max(worst["flash_attention"], err)
+    return worst
+
+
 def run_slice(dev):
     """Phase 3: the main path at full width, counters around it."""
     import numpy as np
@@ -280,6 +419,8 @@ def run_slice(dev):
     session = build_session(fig4_spec(), device=dev)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    prior = session.posterior()
+    prior = dataclasses.replace(prior, mean=prior.mean.clone(), rho=prior.rho.clone())
     dispatch.reset_launch_counts()
     t0 = time.perf_counter()
     hist = session.run(n_rounds=3, eval_every=1)
@@ -301,7 +442,7 @@ def run_slice(dev):
     phase("3.slice", agents=session.data.n_agents, n_params=p, losses=losses,
           avg_acc=ev["avg_acc"], acc=ev["acc"], health=health["n_healthy"],
           launches=counts, setup_s=setup_s, run3_s=run_s)
-    return session, counts
+    return session, counts, prior
 
 
 def card_vs_cpu(tag, session, spec):
@@ -440,6 +581,84 @@ def run_csr(dev, session):
     return counts
 
 
+def run_ops(dev, session, prior):
+    """Phase 3.ops: the public kernel API (``kernels.ops``) at full width,
+    counters around it: ``consensus_posterior`` for each of the synchronous
+    slice's agents on its posterior pytree, ``sample_and_kl`` on each agent's
+    pytree against its pre-round posterior, ``attention`` at the two head
+    shapes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import flat
+    from repro_torch.core.posterior import GaussianPosterior, kl_gaussian
+    from repro_torch.kernels import dispatch, ops
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gauss_vi
+
+    post = session.posterior()
+    layout = post.layout
+    n = post.mean.shape[0]
+    W = torch.as_tensor(np.asarray(fig4_spec().topology.w_schedule()(session.round_idx)),
+                        dtype=torch.float32, device=dev)
+    want = flat.consensus_flat(post, W)  # the network kernel, before the counters
+    stacked = GaussianPosterior(layout.unflatten(post.mean), layout.unflatten(post.rho))
+    agents = [GaussianPosterior(layout.unflatten(post.mean[i]), layout.unflatten(post.rho[i]))
+              for i in range(n)]
+    priors = [GaussianPosterior(layout.unflatten(prior.mean[i]), layout.unflatten(prior.rho[i]))
+              for i in range(n)]
+    att = {name: attention_inputs(name, dev) for name in ATTN_SHAPES}
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = [ops.consensus_posterior(stacked, W[i]) for i in range(n)]
+    draws = [ops.sample_and_kl(agents[i], priors[i], torch.Generator(device=dev).manual_seed(i))
+             for i in range(n)]
+    outs = {name: ops.attention(q, k, v, causal=True, window=window)
+            for name, (q, k, v, window) in att.items()}
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = dispatch.launch_counts()
+    row_err = 0.0
+    for i, out in enumerate(rows):
+        for got, ref in ((layout.flatten(out.mean), want.mean[i]),
+                         (layout.flatten(out.rho), want.rho[i])):
+            err = (got - ref).abs()
+            if not bool(torch.all(err <= F32_TOL + F32_TOL * ref.abs())):
+                raise AssertionError(f"3.ops consensus_posterior agent {i}: max err "
+                                     f"{float(err.max())} vs consensus_flat")
+            row_err = max(row_err, float(err.max()))
+    kl_errs, theta_err, kls = [], 0.0, []
+    for i, (theta, kl) in enumerate(draws):
+        kl_ref = float(kl_gaussian(agents[i], priors[i]))
+        kl_errs.append(abs(float(kl) - kl_ref) / abs(kl_ref))
+        kls.append(float(kl))
+        eps = torch.randn(layout.n_params, generator=torch.Generator(device=dev).manual_seed(i),
+                          device=dev)
+        theta_plain, _ = gauss_vi.sample_and_kl_plain(post.mean[i], post.rho[i], eps,
+                                                      prior.mean[i], prior.rho[i])
+        theta_err = max(theta_err, float((layout.flatten(theta) - theta_plain).abs().max()))
+        if not kl_ref > 0.0 or kl_errs[-1] > KL_RTOL:
+            raise AssertionError(f"3.ops sample_and_kl agent {i}: KL {float(kl)} vs {kl_ref}")
+    if theta_err > THETA_ATOL:
+        raise AssertionError(f"3.ops sample_and_kl: theta max err {theta_err}")
+    att_errs = {}
+    for name, (q, k, v, window) in att.items():
+        want_att = fa.flash_attention_plain(q, k, v, causal=True, window=window)
+        att_errs[name] = attention_errors(f"3.ops attention {name}", outs[name], want_att,
+                                          ATT_TOL["bf16"])
+    expect = {"consensus_fused": n, "sample_and_kl_fused": n, "flash_attention": len(att)}
+    if any(counts[name] < times for name, times in expect.items()):
+        raise AssertionError(f"3.ops: a kernel of the path was launched too rarely: {counts}")
+    phase("3.ops", agents=n, n_params=layout.n_params,
+          consensus_posterior_max_abs_err=row_err, atol=F32_TOL, kl=kls,
+          kl_max_rel_err=max(kl_errs), theta_max_abs_err=theta_err,
+          attention={name: dict(shape=list(att[name][0].shape), window=att[name][3],
+                                max_abs_err=att_errs[name]) for name in att},
+          launches=counts, run_s=run_s)
+    return counts
+
+
 def ladders(dev):
     """Phase 4.ladder: bitwise rungs on the card — all-edges gossip ==
     synchronous, zero-fault quarantine == strict — after 2 rounds from the
@@ -516,10 +735,13 @@ def cuda_ms(fn, flush=None, reps=20):
 def timings(dev, counts, errs):
     """Phase 5: kernel, plain version and bound at the slice's shapes."""
     import torch
+    import torch.nn.functional as F
 
     from repro_torch.core import graphs
     from repro_torch.core.flat import neighbor_tables
     from repro_torch.kernels import consensus as k
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gauss_vi
 
     n, p = 9, P_SLICE
     flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device=dev)  # 128 MiB > L2
@@ -539,53 +761,98 @@ def timings(dev, counts, errs):
     out_ops = 8  # divide, rsqrt, softplus^-1 per output lane
     eq6_bytes = 16 * n * p + 4 * n * n  # mean, rho in; mean, rho out; W
     eq6_ops = 4 * n * n * p + 20 * n * p  # two N x N contractions + per-lane math
-    kernels = [
-        ("consensus_fused_network", "consensus_network.cu", "195",
+    vi_args = (mean[0], rho[0], torch.randn(p, device=dev), mean[1], rho[1])
+    fp32 = FP32_FLOP_PER_S
+    kernels = [  # name, source, replaces, kernel, plain, bytes, ops, peak, library, fields
+        ("consensus_fused_network", "consensus_network.cu", REF + "195",
          lambda: k.consensus_fused_network(W, mean, rho),
-         lambda: k.consensus_network_plain(W, mean, rho), eq6_bytes, eq6_ops),
-        ("payload_validity_fused", "payload_validity.cu", "436",
+         lambda: k.consensus_network_plain(W, mean, rho), eq6_bytes, eq6_ops, fp32, None, {}),
+        ("payload_validity_fused", "payload_validity.cu", REF + "436",
          lambda: k.payload_validity_fused(mean, rho, bound=1e20),
          lambda: k.payload_validity_plain(mean, rho, bound=1e20),
-         8 * n * p + n, 20 * n * p),  # mean, rho in; [N] bool out
-        ("consensus_fused_masked", "consensus_network.cu", "261",
+         8 * n * p + n, 20 * n * p, fp32, None, {}),  # mean, rho in; [N] bool out
+        ("consensus_fused_masked", "consensus_network.cu", REF + "261",
          lambda: k.consensus_fused_masked(W_win, act, mean, rho),
          lambda: k.consensus_masked_plain(W_win, act, mean, rho),
-         eq6_bytes + 4 * n, eq6_ops),  # + the [N] mask
-        ("consensus_fused_sparse", "consensus_sparse.cu", "355",
+         eq6_bytes + 4 * n, eq6_ops, fp32, None, {}),  # + the [N] mask
+        ("consensus_fused_sparse", "consensus_sparse.cu", REF + "355",
          lambda: k.consensus_fused_sparse(nbr_b, wts_b, mean, rho),
          lambda: k.consensus_sparse_plain(nbr_b, wts_b, mean, rho),
          16 * n * p + 8 * n * d_b,  # every row read once; tables
-         gathered_ops * n * d_b * p + out_ops * n * p),
-        ("consensus_fused_masked_sparse", "consensus_sparse.cu", "529",
+         gathered_ops * n * d_b * p + out_ops * n * p, fp32, None, {"d": d_b}),
+        ("consensus_fused_masked_sparse", "consensus_sparse.cu", REF + "529",
          lambda: k.consensus_fused_masked_sparse(nbr_w, wts_w, act, mean, rho),
          lambda: k.consensus_masked_sparse_plain(nbr_w, wts_w, act, mean, rho),
          8 * p * rows_read + 8 * n * p + 8 * n * d_w + 4 * n,  # rows read; out; tables; mask
-         gathered_ops * n_act * d_w * p + out_ops * n_act * p),
+         gathered_ops * n_act * d_w * p + out_ops * n_act * p, fp32, None,
+         {"window": win.index, "n_active": n_act, "d": d_w, "rows_read": rows_read}),
+        ("consensus_fused", "consensus_row.cu", REF + "131",  # one agent's row of W
+         lambda: k.consensus_fused(W[0], mean, rho),
+         lambda: k.consensus_row_plain(W[0], mean, rho),
+         8 * n * p + 8 * p + 4 * n,  # mean, rho in; the agent's mean, rho out; w_row
+         gathered_ops * n * p + out_ops * p, fp32, None, {}),
+        ("sample_and_kl_fused", "gauss_vi.cu", "src/repro/kernels/gauss_vi.py:46",
+         lambda: gauss_vi.sample_and_kl_fused(*vi_args),
+         lambda: gauss_vi.sample_and_kl_plain(*vi_args),
+         24 * p + 4,  # five [P] in, theta [P] and the KL out
+         30 * p, fp32, None, {}),  # two softplus, a log, two divisions, sample, sum per lane
     ]
+    for shape in ATTN_SHAPES:  # the row is Qwen3-8B's; both shapes get a phase line
+        q, kk, vv, window = attention_inputs(shape, dev)
+        b, h, s, hd = q.shape
+        mask = fa.attention_mask(s, s, True, window, dev)
+        pairs = attention_pairs(s, s, True, window)
+        sdpa = (functools.partial(F.scaled_dot_product_attention, q, kk, vv, attn_mask=mask)
+                if window else
+                functools.partial(F.scaled_dot_product_attention, q, kk, vv, is_causal=True))
+        plain = functools.partial(fa.flash_attention_plain, q, kk, vv, causal=True, window=window)
+        kernels.append((
+            "flash_attention", "flash_attention.cu", "src/repro/kernels/flash_attention.py:94",
+            functools.partial(fa.flash_attention, q, kk, vv, causal=True, window=window), plain,
+            q.element_size() * 4 * b * h * s * hd,  # q, k, v in; out
+            4 * hd * pairs * b * h, BF16_FLOP_PER_S, sdpa,
+            {"shape": shape, "q": list(q.shape), "window": window, "pairs": pairs,
+             "library_kernels": device_kernels(sdpa),
+             "library_max_abs_err": attention_errors(f"sdpa {shape}", sdpa(), plain(),
+                                                     ATT_TOL["bf16"])}))
     rows = []
-    for name, src, line, fn, plain, nbytes, ops in kernels:
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOP_PER_S * 1e3
+    for name, src, replaces, fn, plain, nbytes, ops, peak, library, fields in kernels:
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
         row = {
             "name": name,
             "route": "cuda",
             "source": SRC + src,
-            "replaces": REF + line,
+            "replaces": replaces,
             "launches": counts[name],
             "max_abs_err": errs[name],
             "ms": cuda_ms(fn),
             "plain_ms": cuda_ms(plain),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None,
+            "library_ms": None if library is None else cuda_ms(library),
         }
-        phase("5.timing", name=name, n=n, p=p, ms=row["ms"], plain_ms=row["plain_ms"],
-              cold_l2_ms=cuda_ms(fn, flush), cold_l2_plain_ms=cuda_ms(plain, flush),
-              bound_ms=row["bound_ms"], bytes=nbytes, ops=ops,
-              **({"d": d_b} if name == "consensus_fused_sparse" else {}),
-              **({"window": win.index, "n_active": n_act, "d": d_w, "rows_read": rows_read}
-                 if name == "consensus_fused_masked_sparse" else {}))
-        rows.append(row)
+        attention = "shape" in fields
+        phase("5.timing", name=name, ms=row["ms"], plain_ms=row["plain_ms"],
+              library_ms=row["library_ms"], cold_l2_ms=cuda_ms(fn, flush),
+              cold_l2_plain_ms=cuda_ms(plain, flush), bound_ms=row["bound_ms"], bytes=nbytes,
+              ops=ops, **fields, **({} if attention else {"n": n, "p": p}))
+        if not attention or fields["shape"] == "qwen3_8b":
+            rows.append(row)
     return rows
+
+
+def device_kernels(fn, top=2):
+    """The names of the device kernels that take most of one call's time
+    (which backend ran), from torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ks = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return [e.key[:90] for e in sorted(ks, key=lambda e: -e.self_device_time_total)[:top]]
 
 
 def profile_round(tag, session, rounds=5):
@@ -647,10 +914,12 @@ def main() -> int:
             print("ptxas", line.strip())
 
     errs = check_kernels(dev)
-    session, counts = run_slice(dev)
+    errs.update(check_ops_kernels(dev))
+    session, counts, prior = run_slice(dev)
     gossip = run_gossip(dev)
     g_session, g_counts = gossip["3.gossip"]
     csr_counts = run_csr(dev, g_session)
+    ops_counts = run_ops(dev, session, prior)
     card_vs_cpu("4.parity", session, fig4_spec())
     card_vs_cpu("4.gossip_parity", g_session, gossip_spec())
     ladders(dev)
@@ -660,6 +929,9 @@ def main() -> int:
         "consensus_fused_masked": g_counts["consensus_fused_masked"],
         "consensus_fused_sparse": csr_counts["consensus_fused_sparse"],
         "consensus_fused_masked_sparse": csr_counts["consensus_fused_masked_sparse"],
+        "consensus_fused": ops_counts["consensus_fused"],
+        "sample_and_kl_fused": ops_counts["sample_and_kl_fused"],
+        "flash_attention": ops_counts["flash_attention"],
     }
     rows = timings(dev, launches, errs)
     profile_round("6.profile", session)

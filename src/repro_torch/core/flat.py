@@ -25,6 +25,7 @@ import numpy as np
 
 from repro_torch.core import graphs
 from repro_torch.core.numerics import COMPUTE_DTYPE, softplus, softplus_inv_py
+from repro_torch.core.posterior import leaves_with_keys, set_path
 from repro_torch.kernels.consensus import (
     consensus_fused_masked,
     consensus_fused_masked_sparse,
@@ -41,23 +42,6 @@ PyTree = Any  # a (possibly nested) dict of tensors
 # An exchanged |prec| or |prec*mu| lane above this is garbage regardless of
 # finiteness: a prec of 1e20 is a sigma of 1e-10.
 QUARANTINE_BOUND = 1e20
-
-
-def _leaves_with_keys(tree: PyTree, keys: tuple[str, ...] = ()):
-    """(dict-key path, tensor) pairs in sorted-key order."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _leaves_with_keys(tree[k], keys + (k,))
-    elif isinstance(tree, torch.Tensor):
-        yield keys, tree
-    else:
-        raise TypeError(f"unsupported parameter tree node {type(tree)}")
-
-
-def _set_path(tree: dict, keys: tuple[str, ...], value) -> None:
-    for k in keys[:-1]:
-        tree = tree.setdefault(k, {})
-    tree[keys[-1]] = value
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,7 +69,7 @@ class FlatLayout:
         axes are stripped off every leaf shape (1 for a network-stacked
         tree whose leaves are [N, ...])."""
         specs, keys, off = [], [], 0
-        for leaf_keys, leaf in _leaves_with_keys(tree):
+        for leaf_keys, leaf in leaves_with_keys(tree):
             shape = tuple(int(s) for s in leaf.shape[leading_axes:])
             size = math.prod(shape)
             specs.append(LeafSpec(
@@ -98,7 +82,7 @@ class FlatLayout:
 
     def flatten(self, tree: PyTree) -> torch.Tensor:
         """Dict with leaves [*B, *spec.shape] -> fp32 buffer [*B, P]."""
-        leaves = [leaf for _, leaf in _leaves_with_keys(tree)]
+        leaves = [leaf for _, leaf in leaves_with_keys(tree)]
         if len(leaves) != len(self.specs):
             raise ValueError(f"tree has {len(leaves)} leaves, layout {len(self.specs)}")
         flat, batch = [], None
@@ -125,7 +109,7 @@ class FlatLayout:
         tree: dict = {}
         for spec, keys in zip(self.specs, self.keys):
             leaf = flat[..., spec.offset:spec.offset + spec.size].reshape(b + spec.shape)
-            _set_path(tree, keys, leaf.to(getattr(torch, spec.dtype)))
+            set_path(tree, keys, leaf.to(getattr(torch, spec.dtype)))
         return tree
 
 

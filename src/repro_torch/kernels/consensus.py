@@ -10,6 +10,12 @@ synchronous round's and the gossip windows' paths).
       mean' = new_pm / new_prec,  rho' = softplus^-1(new_prec^-1/2)
 
   CUDA source: ``csrc/consensus_network.cu``.
+* ``consensus_fused``: eq. (6) for ONE agent, ``w_row [N]`` over the
+  stacked neighbour rows ``[N, P]`` -> ``[P]``, in that kernel's own op
+  order (``wp = w * prec`` then ``sum(wp * mean)`` at f32; ``sum(w *
+  wire(prec))`` and ``sum(w * wire(prec * mean))`` at other wires), the
+  kernel behind ``ops.consensus_posterior``.  CUDA source:
+  ``csrc/consensus_row.cu``.
 * ``consensus_fused_masked``: the same pass on one gossip window's W-tilde
   with an ``[N]`` activity mask.  Active rows are bitwise the network
   kernel's rows (one template, one accumulation loop); inactive rows pass
@@ -103,6 +109,53 @@ def consensus_fused_network(W, mean, rho, *, wire_dtype=None):
     )
     dispatch.check_cuda(err, "consensus_fused_network")
     dispatch.count_launch("consensus_fused_network")
+    return mean_out, rho_out
+
+
+# -- eq. (6) for one agent ---------------------------------------------------
+
+
+def consensus_row_plain(w_row, mean, rho, wire_dtype=None):
+    """The plain PyTorch version of ``consensus_fused``."""
+    wd = canonical_wire_dtype(wire_dtype)
+    sigma = softplus(rho)
+    prec = 1.0 / (sigma * sigma)
+    w = w_row.to(torch.float32)[:, None]
+    if wd == torch.float32:
+        wp = w * prec
+        prec_out = torch.sum(wp, dim=0)
+        mean_out = torch.sum(wp * mean, dim=0) / prec_out
+    else:
+        prec_out = torch.sum(w * wire_roundtrip(prec, wd), dim=0)
+        mean_out = torch.sum(w * wire_roundtrip(prec * mean, wd), dim=0) / prec_out
+    return mean_out, softplus_inv(torch.rsqrt(prec_out))
+
+
+def consensus_fused(w_row, mean, rho, *, wire_dtype=None):
+    """Eq. (6) for one agent: ``w_row [N]`` its row of W, ``mean``/``rho``
+    ``[N, P]`` float32 the stacked neighbour posteriors.  Returns the
+    agent's new (mean, rho), both ``[P]``."""
+    if mean.device.type == "cpu":
+        return consensus_row_plain(w_row, mean, rho, wire_dtype)
+    if mean.device.type != "cuda":
+        raise ValueError(f"consensus_fused: no kernel for {mean.device}")
+    _check_flat("consensus_fused", mean, rho)
+    n, p = mean.shape
+    if w_row.shape != (n,) or w_row.device != mean.device or w_row.dtype != torch.float32:
+        raise ValueError(
+            f"consensus_fused: w_row must be float32 [{n}] on {mean.device}, got "
+            f"{w_row.dtype} {tuple(w_row.shape)} on {w_row.device}"
+        )
+    w_row = w_row.contiguous()
+    mean_out = torch.empty(p, dtype=torch.float32, device=mean.device)
+    rho_out = torch.empty_like(mean_out)
+    err = dispatch.library().consensus_row_launch(
+        w_row.data_ptr(), mean.data_ptr(), rho.data_ptr(), mean_out.data_ptr(),
+        rho_out.data_ptr(), n, p, _WIRE_CODE[canonical_wire_dtype(wire_dtype)],
+        _stream(mean.device),
+    )
+    dispatch.check_cuda(err, "consensus_fused")
+    dispatch.count_launch("consensus_fused")
     return mean_out, rho_out
 
 

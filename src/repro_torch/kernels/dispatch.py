@@ -36,7 +36,8 @@ NVCC_FLAGS = (
 
 KERNELS = (
     "consensus_fused_network", "payload_validity_fused", "consensus_fused_masked",
-    "consensus_fused_sparse", "consensus_fused_masked_sparse",
+    "consensus_fused_sparse", "consensus_fused_masked_sparse", "consensus_fused",
+    "sample_and_kl_fused", "flash_attention",
 )
 _launches = dict.fromkeys(KERNELS, 0)
 _lib: ctypes.CDLL | None = None
@@ -158,6 +159,16 @@ def library() -> ctypes.CDLL:
             ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i64, i32, ptr,
         ]
         lib.consensus_masked_sparse_launch.restype = i32
+        lib.consensus_row_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i64, i32, ptr]
+        lib.consensus_row_launch.restype = i32
+        lib.sample_and_kl_grid.argtypes = [i64]
+        lib.sample_and_kl_grid.restype = i64
+        lib.sample_and_kl_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, ptr]
+        lib.sample_and_kl_launch.restype = i32
+        lib.flash_attention_launch.argtypes = [
+            ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, ptr,
+        ]
+        lib.flash_attention_launch.restype = i32
         _lib = lib
     return _lib
 

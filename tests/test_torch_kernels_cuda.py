@@ -9,7 +9,11 @@ Tolerances: at f32 rtol 1e-5 / atol 1e-5 (the kernel and cuBLAS sum the
 N terms in another order); at bf16/f16 one wire ulp relative to the output
 scale (a one-ulp fp32 difference in prec can flip a rounding tie).
 Validity is bit-equal; the masked kernel's active rows are bitwise the
-network kernel's and its inactive rows bitwise its inputs.
+network kernel's and its inactive rows bitwise its inputs.  Sample + KL:
+theta rtol 1e-5 / atol 1e-6, KL rtol 1e-5, and the KL bitwise the same
+from run to run.  Flash attention: 2e-5 at f32, 2e-2 at bf16/f16 (the
+output is rounded to the input type), as tests/test_kernels.py holds the
+Pallas kernel.
 """
 import numpy as np
 import pytest
@@ -21,6 +25,8 @@ from repro_torch.core.flat import neighbor_tables  # noqa: E402
 from repro_torch.gossip.clocks import PoissonClock  # noqa: E402
 from repro_torch.kernels import consensus as k  # noqa: E402
 from repro_torch.kernels import dispatch  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import gauss_vi  # noqa: E402
 
 WIRE_EPS = {"bf16": 2.0 ** -7, "f16": 2.0 ** -10}
 
@@ -164,3 +170,111 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
     m, r = k.consensus_fused_sparse(nbr.to(dev), torch.full((4, 2), 0.5, device=dev), mean, rho)
     bad = torch.isnan(m).all(dim=1).cpu()
     assert bad.tolist() == [False, True, False, False] and torch.isnan(r[1]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("n,p", [(1, 5), (9, 199_210), (300, 4099)])
+def test_consensus_row_kernel_matches_plain(dev, n, p, wire):
+    W, mean, rho = _inputs(n, p, n + p + 2, dev)
+    w = W[n // 2].clone()
+    if n > 2:  # zero weights in the row are computed, not skipped
+        w[0] = 0.0
+        w[-1] = 0.0
+        w = w / w.sum()
+    before = dispatch.launch_counts()["consensus_fused"]
+    got = k.consensus_fused(w, mean, rho, wire_dtype=wire)
+    want = k.consensus_row_plain(w, mean, rho, wire)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["consensus_fused"] == before + 1
+    assert got[0].shape == (p,)
+    _assert_close(got, want, wire)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [5, 2049, 199_210])
+def test_sample_and_kl_kernel_matches_plain(dev, p):
+    rng = np.random.default_rng(p)
+    args = [rng.normal(size=p).astype(np.float32) * s + o
+            for s, o in ((1.0, 0.0), (0.3, -1.0), (1.0, 0.0), (0.1, 0.0), (0.1, 0.0))]
+    args = [torch.from_numpy(a).to(dev) for a in args]
+    before = dispatch.launch_counts()["sample_and_kl_fused"]
+    theta, kl = gauss_vi.sample_and_kl_fused(*args)
+    theta2, kl2 = gauss_vi.sample_and_kl_fused(*args)
+    want_theta, want_kl = gauss_vi.sample_and_kl_plain(*args)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["sample_and_kl_fused"] == before + 2
+    np.testing.assert_allclose(theta.cpu().numpy(), want_theta.cpu().numpy(), rtol=1e-5,
+                               atol=1e-6)
+    assert np.isclose(float(kl), float(want_kl), rtol=1e-5)
+    assert torch.equal(kl, kl2) and torch.equal(theta, theta2)  # no atomics: same each run
+
+
+ATT_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2, torch.float16: 2e-2}
+SWEEP = [  # tests/test_kernels.py's sweep: (s, block_q, block_k, causal, window)
+    (128, 64, 64, True, 0),
+    (128, 128, 64, False, 0),
+    (256, 64, 64, True, 100),
+    (256, 128, 128, True, 0),
+    (64, 64, 64, True, 16),
+]
+
+
+def _attention_case(dev, dtype, shape_q, sk, causal, window, seed, **blocks):
+    g = torch.Generator().manual_seed(seed)
+    b, h, s, hd = shape_q
+    q = torch.randn(shape_q, generator=g).to(dev, dtype)
+    kk = torch.randn((b, h, sk, hd), generator=g).to(dev, dtype)
+    vv = torch.randn((b, h, sk, hd), generator=g).to(dev, dtype)
+    before = dispatch.launch_counts()["flash_attention"]
+    got = fa.flash_attention(q, kk, vv, causal=causal, window=window, **blocks)
+    want = fa.flash_attention_plain(q, kk, vv, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = ATT_TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               atol=tol, rtol=tol)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,bq,bk,causal,window", SWEEP)
+def test_flash_attention_kernel_matches_plain_on_the_sweep(dev, dtype, s, bq, bk, causal,
+                                                           window):
+    _attention_case(dev, dtype, (2, 2, s, 64), s, causal, window, seed=s + bq,
+                    block_q=bq, block_k=bk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("s,sk,causal,window", [(100, 100, True, 0), (192, 160, False, 50),
+                                                (200, 300, True, 64)])
+def test_flash_attention_kernel_head_dims_and_ragged_tiles(dev, hd, dtype, s, sk, causal,
+                                                           window):
+    _attention_case(dev, dtype, (1, 3, s, hd), sk, causal, window, seed=hd + s,
+                    block_q=s, block_k=sk)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_fully_masked_rows_give_zero(dev):
+    out = _attention_case(dev, torch.float32, (1, 2, 128, 64), 64, True, 16, seed=3,
+                          block_q=64, block_k=64)
+    dead = torch.arange(128, device=dev) >= 64 + 16 - 1
+    assert bool((out[:, :, dead] == 0).all()) and bool((out[:, :, ~dead] != 0).any())
+
+
+@pytest.mark.cuda
+def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    q = torch.randn((1, 2, 64, 48), device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q, q, q)
+    q = torch.randn((1, 2, 64, 64), device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q, q.transpose(2, 3), q)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q, q.half(), q)
+    with pytest.raises(ValueError, match="divide"):
+        fa.flash_attention(q, q, q, block_q=48)
