@@ -19,8 +19,10 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    kernels of ``kernels.ops``: ``consensus_fused`` at (N, P) = (9, 199210),
    (300, 4099), (1, 5) with zero weights in the row, ``sample_and_kl_fused``
    at P = 199210, 2049, 5 (its KL bitwise the same twice), and
-   ``flash_attention`` on tests/test_kernels.py's sweep at f32 and bf16 and
-   on a case with Sk < S whose window leaves rows with no key (zeros);
+   ``flash_attention`` on tests/test_kernels.py's sweep at f32, bf16 and
+   f16 (bf16/f16 on the tensor-core kernel, f32 on the SIMT kernel), at
+   every head dim 32-256 on ragged tiles at bf16 and f16, and on a case
+   with Sk < S whose window leaves rows with no key (zeros) at each dtype;
 3. the paths at full width, each with the launch counters set to 0 just
    before and read just after.  The synchronous slice: the paper's Fig. 4
    setting (3x3 grid, 9 agents, ``mnist_like`` 784-dim 10-class data, grid
@@ -50,7 +52,9 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    its inputs in L2 and with L2 flushed, its plain version's, and its bound
    at the slice's shapes (``consensus_fused`` and ``sample_and_kl_fused`` at
    one agent's P = 199,210, ``flash_attention`` at both head shapes above,
-   beside ``scaled_dot_product_attention``'s time and backend);
+   beside ``scaled_dot_product_attention``'s time and backend, with its
+   TFLOP/s, share of the bound, ratio to SDPA and largest error in output
+   ulps, and the f32 SIMT kernel's time at the Qwen3-8B heads);
 6. profile: the wall time of a warm synchronous round and of a warm gossip
    window of the slice, and their device time by kernel (torch.profiler).
 
@@ -109,7 +113,7 @@ CHAOS = {"crash_rate": 0.15, "recover_rate": 0.5, "corrupt_rate": 0.2, "corrupt_
 CSR_ATOL = 1e-5  # CSR vs dense quarantined consensus: another fp32 sum order
 KL_RTOL = 1e-5    # sample_and_kl vs the pytree kl_gaussian: another fp32 sum order
 THETA_ATOL = 1e-6  # sample_and_kl's theta vs its plain version
-ATT_TOL = {"f32": 2e-5, "bf16": 2e-2}  # flash attention vs plain (tests/test_kernels.py:75)
+ATT_TOL = {"f32": 2e-5, "bf16": 2e-2, "f16": 2e-2}  # attention vs plain (tests/test_kernels.py:75)
 S_TRAIN = 4_096  # configs/base.py INPUT_SHAPES["train_4k"]
 ATTN_SHAPES = {  # (heads, kv heads, head dim, window), causal, B = 1, bf16
     "qwen3_8b": (32, 8, 128, 0),  # configs/qwen3_8b.py
@@ -121,6 +125,9 @@ ATT_SWEEP = [  # tests/test_kernels.py:56-66: (s, block_q, block_k, causal, wind
     (256, 64, 64, True, 100),
     (256, 128, 128, True, 0),
     (64, 64, 64, True, 16),
+]
+ATT_HD_CASES = [  # ragged tiles at every head dim: (s, sk, causal, window)
+    (100, 100, True, 0), (192, 160, False, 50), (200, 300, True, 64),
 ]
 WIRES = ("f32", "bf16", "f16")
 SRC = "src/repro_torch/kernels/csrc/"
@@ -341,6 +348,18 @@ def attention_errors(what, got, want, tol):
     return float(err.max())
 
 
+def attention_ulps(got, want):
+    """The largest difference of a bf16 attention output from its plain
+    version in units of the last place of max(|plain|, 2^-10), and how many
+    elements differ at all.  Below 2^-10 an output is a near-cancelling sum
+    whose own last place is far finer than the fp32 rounding of its terms."""
+    import torch
+
+    w, g = want.float(), got.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -10))) - 7)
+    return float(((g - w).abs() / ulp).max()), int((g != w).sum())
+
+
 def check_ops_kernels(dev):
     """Phase 2, the kernels of ``kernels.ops`` against their plain versions
     on the card."""
@@ -385,11 +404,14 @@ def check_ops_kernels(dev):
         if p == P_SLICE:
             worst["sample_and_kl_fused"] = err
     cases = [(dt, (2, 2, s_, 64), s_, causal, window, dict(block_q=bq, block_k=bk))
-             for dt in ("f32", "bf16") for s_, bq, bk, causal, window in ATT_SWEEP]
-    cases.append(("f32", (1, 2, 128, 64), 64, True, 16, dict(block_q=64, block_k=64)))
+             for dt in WIRES for s_, bq, bk, causal, window in ATT_SWEEP]
+    cases += [(dt, (1, 3, s_, hd), sk, causal, window, dict(block_q=s_, block_k=sk))
+              for dt in ("bf16", "f16") for hd in fa.HEAD_DIMS
+              for s_, sk, causal, window in ATT_HD_CASES]
+    cases += [(dt, (1, 2, 128, 64), 64, True, 16, dict(block_q=64, block_k=64)) for dt in WIRES]
     worst["flash_attention"] = 0.0
     for dt, shape, sk, causal, window, blocks in cases:
-        dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[dt]
+        dtype = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}[dt]
         g = torch.Generator(device=dev).manual_seed(shape[2] + blocks["block_q"])
         q = torch.randn(shape, generator=g, device=dev).to(dtype)
         kk, vv = (torch.randn(shape[:2] + (sk, shape[3]), generator=g, device=dev).to(dtype)
@@ -402,7 +424,7 @@ def check_ops_kernels(dev):
             raise AssertionError("flash_attention: rows with no key left are not 0")
         phase("2.flash_attention", dtype=dt, shape=shape, sk=sk, causal=causal, window=window,
               max_abs_err=err, rows_without_keys=0 if dead is None else int(dead.sum()))
-        if dt == "bf16":
+        if dt != "f32":  # the row reports the tensor-core kernel
             worst["flash_attention"] = max(worst["flash_attention"], err)
     return worst
 
@@ -806,15 +828,26 @@ def timings(dev, counts, errs):
                 if window else
                 functools.partial(F.scaled_dot_product_attention, q, kk, vv, is_causal=True))
         plain = functools.partial(fa.flash_attention_plain, q, kk, vv, causal=True, window=window)
+        kern = functools.partial(fa.flash_attention, q, kk, vv, causal=True, window=window)
+        max_ulps, n_differ = attention_ulps(kern(), plain())
+        fields = {"shape": shape, "q": list(q.shape), "window": window, "pairs": pairs,
+                  "kernel_device_names": device_kernels(kern, top=1),
+                  "max_ulps": max_ulps, "n_differ": n_differ,
+                  "library_kernels": device_kernels(sdpa),
+                  "library_max_abs_err": attention_errors(f"sdpa {shape}", sdpa(), plain(),
+                                                          ATT_TOL["bf16"])}
+        if shape == "qwen3_8b":  # the f32 SIMT kernel, for the record
+            q32, k32, v32 = q.float(), kk.float(), vv.float()
+            simt = functools.partial(fa.flash_attention, q32, k32, v32, causal=True)
+            fields["simt_f32_max_abs_err"] = attention_errors(
+                "flash_attention f32 qwen3_8b", simt(),
+                fa.flash_attention_plain(q32, k32, v32, causal=True), ATT_TOL["f32"])
+            fields["simt_f32_ms"] = cuda_ms(simt)
         kernels.append((
-            "flash_attention", "flash_attention.cu", "src/repro/kernels/flash_attention.py:94",
-            functools.partial(fa.flash_attention, q, kk, vv, causal=True, window=window), plain,
+            "flash_attention", "flash_attention_tc.cu", "src/repro/kernels/flash_attention.py:94",
+            kern, plain,
             q.element_size() * 4 * b * h * s * hd,  # q, k, v in; out
-            4 * hd * pairs * b * h, BF16_FLOP_PER_S, sdpa,
-            {"shape": shape, "q": list(q.shape), "window": window, "pairs": pairs,
-             "library_kernels": device_kernels(sdpa),
-             "library_max_abs_err": attention_errors(f"sdpa {shape}", sdpa(), plain(),
-                                                     ATT_TOL["bf16"])}))
+            4 * hd * pairs * b * h, BF16_FLOP_PER_S, sdpa, fields))
     rows = []
     for name, src, replaces, fn, plain, nbytes, ops, peak, library, fields in kernels:
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
@@ -832,6 +865,10 @@ def timings(dev, counts, errs):
             "library_ms": None if library is None else cuda_ms(library),
         }
         attention = "shape" in fields
+        if attention:
+            fields = dict(fields, tflops=ops / row["ms"] / 1e9,
+                          bound_share=row["bound_ms"] / row["ms"],
+                          sdpa_over_kernel=row["library_ms"] / row["ms"])
         phase("5.timing", name=name, ms=row["ms"], plain_ms=row["plain_ms"],
               library_ms=row["library_ms"], cold_l2_ms=cuda_ms(fn, flush),
               cold_l2_plain_ms=cuda_ms(plain, flush), bound_ms=row["bound_ms"], bytes=nbytes,
@@ -910,7 +947,7 @@ def main() -> int:
           kind=torch.cuda.get_device_name(0), library_build_s=time.perf_counter() - t0,
           nvcc_s=dispatch.build_info.get("seconds"), library=dispatch.build_info.get("path"))
     for line in dispatch.build_info.get("ptxas", "").splitlines():
-        if "registers" in line or "Compiling" in line or "spill" in line:
+        if any(w in line for w in ("registers", "Compiling", "spill", "Performance Loss")):
             print("ptxas", line.strip())
 
     errs = check_kernels(dev)

@@ -1,7 +1,6 @@
-// Blocked flash attention, causal and/or sliding-window, over
-// q [B, H, S, HD] and k, v [B, H, Sk, HD] (contiguous; Sk may differ from
-// S) in float32, bfloat16 or float16, computed in float32, written in q's
-// type:
+// Blocked flash attention, causal and/or sliding-window, over float32
+// q [B, H, S, HD] and k, v [B, H, Sk, HD] (contiguous; Sk may differ from S),
+// computed and written in float32:
 //   s[q, k] = (q . k) * scale  where  mask(q, k),  else -1e30
 //   mask    = (!causal || k <= q) && (!window || k > q - window)
 //   out[q]  = sum_k p[q, k] v[k] / max(sum_k p[q, k], 1e-30)
@@ -11,24 +10,25 @@
 // full-materialisation oracle gives).
 //
 // Replaces the TPU kernel flash_attention of repro/kernels/flash_attention.py
-// (pallas_call at flash_attention.py:117), the kernel behind kernels/ops.py
-// attention.
+// (pallas_call at flash_attention.py:117) for float32 inputs; bfloat16 and
+// float16 inputs go to the tensor-core kernel of flash_attention_tc.cu.  This
+// is the port's first attention kernel, kept for float32 because its
+// contract (2e-5 against the plain version) needs fp32 products and sums,
+// which the tensor cores do not give (their fp32 path is TF32).
 //
-// What bounds it on the H100: operations.  4 HD flops per unmasked (q, k)
-// pair against 2 bytes per element of q, k, v and out read or written once:
-// thousands of operations per byte at S = 4096.  This first kernel computes
-// on the CUDA cores in fp32 (67 TFLOP/s), not on the tensor cores (989
-// TFLOP/s in bf16), so it runs far from that bound; wgmma is a later step.
+// What bounds it on the H100: operations, on the CUDA cores: 4 HD fp32
+// flops per unmasked (q, k) pair at the 67 TFLOP/s fp32 SIMT peak, against
+// 4 bytes per element of q, k, v and out read or written once.
 //
 // Design (a simple kernel that is right):
 // * One block per (b, h, tile of BQ = 64 query rows); the heaviest causal
 //   tiles (the last ones) are launched first.  256 threads as 16 x 16:
 //   thread (ty, tx) owns query rows ty + 16 i (i < 4), key columns
 //   tx + 16 j of a K tile and output dims tx + 16 e.
-// * The Q tile and one K and V tile at a time are staged in shared memory as
-//   fp32, rows padded to HD + 1 words so the 16 threads of a row group read
-//   16 different banks.  K tiles hold BK = 64 keys (32 at HD = 256, where
-//   the staging takes 137 KB of the 227 KB a block may use).
+// * The Q tile and one K and V tile at a time are staged in shared memory,
+//   rows padded to HD + 1 words so the 16 threads of a row group read 16
+//   different banks.  K tiles hold BK = 64 keys (32 at HD = 256, where the
+//   staging takes 137 KB of the 227 KB a block may use).
 // * The TPU grid walks K blocks in order with (m, l, acc) in VMEM scratch;
 //   here a loop inside the block walks the K tiles, with m and l in
 //   registers (replicated over the 16 threads of a row group, reduced with
@@ -37,8 +37,6 @@
 //   are skipped; keys past Sk and query rows past S are masked (never
 //   padded in memory).
 // * exp and division are IEEE (no fast math).
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace repro_torch {
@@ -50,17 +48,9 @@ constexpr int ROWS = BQ / 16;   // query rows per thread
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
-  return __float2half_rn(x);
-}
 
 template <int HD>
 struct Tiles {
@@ -233,15 +223,13 @@ int launch(const void* q, const void* k, const void* v, void* out, int b, int h,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_hd(const void* q, const void* k, const void* v, void* out, int b, int h,
-              int s, int sk, int hd, int causal, int window, float scale,
-              cudaStream_t stream) {
+int launch_hd(const void* q, const void* k, const void* v, void* out, int b, int h, int s,
+              int sk, int hd, int causal, int window, float scale, cudaStream_t stream) {
   switch (hd) {
-    case 32: return launch<T, 32>(q, k, v, out, b, h, s, sk, causal, window, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, out, b, h, s, sk, causal, window, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, out, b, h, s, sk, causal, window, scale, stream);
-    case 256: return launch<T, 256>(q, k, v, out, b, h, s, sk, causal, window, scale, stream);
+    case 32: return launch<float, 32>(q, k, v, out, b, h, s, sk, causal, window, scale, stream);
+    case 64: return launch<float, 64>(q, k, v, out, b, h, s, sk, causal, window, scale, stream);
+    case 128: return launch<float, 128>(q, k, v, out, b, h, s, sk, causal, window, scale, stream);
+    case 256: return launch<float, 256>(q, k, v, out, b, h, s, sk, causal, window, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -249,22 +237,15 @@ int launch_hd(const void* q, const void* k, const void* v, void* out, int b, int
 }  // namespace
 }  // namespace repro_torch
 
-// dtype: 0 float32, 1 bfloat16, 2 float16.  Launch on `stream`; returns the
-// cudaError_t of the launch (0 = success).
+// float32 q, k, v, out.  Launch on `stream`; returns the cudaError_t of the
+// launch (0 = success).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       void* out, int b, int h, int s, int sk, int hd,
-                                      int dtype, int causal, int window, float scale,
-                                      void* stream) {
+                                      int causal, int window, float scale, void* stream) {
   using namespace repro_torch;
   if (b <= 0 || h <= 0 || s <= 0 || sk <= 0 || b > 65535 || h > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return launch_hd<float>(q, k, v, out, b, h, s, sk, hd, causal, window, scale, st);
-    case 1:
-      return launch_hd<__nv_bfloat16>(q, k, v, out, b, h, s, sk, hd, causal, window, scale, st);
-    case 2: return launch_hd<__half>(q, k, v, out, b, h, s, sk, hd, causal, window, scale, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return launch_hd(q, k, v, out, b, h, s, sk, hd, causal, window, scale,
+                   static_cast<cudaStream_t>(stream));
 }

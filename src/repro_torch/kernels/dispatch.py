@@ -166,9 +166,13 @@ def library() -> ctypes.CDLL:
         lib.sample_and_kl_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, ptr]
         lib.sample_and_kl_launch.restype = i32
         lib.flash_attention_launch.argtypes = [
-            ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, ptr,
+            ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, ptr,
         ]
         lib.flash_attention_launch.restype = i32
+        lib.flash_attention_tc_launch.argtypes = [
+            ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, ptr,
+        ]
+        lib.flash_attention_tc_launch.restype = i32
         _lib = lib
     return _lib
 

@@ -1,24 +1,41 @@
 """Blocked flash attention (causal / sliding-window) over ``[B, H, S, hd]``,
 beside its plain PyTorch version (port of ``repro.kernels.flash_attention``).
 
-The ``[S, Sk]`` score matrix never exists in the kernel: K/V tiles stream
+The ``[S, Sk]`` score matrix never exists in a kernel: K/V tiles stream
 through shared memory while a running (max, denominator, accumulator) lives
 in registers, and K tiles that the causal frontier or the window mask out
-entirely are skipped.  Inputs are float32, bfloat16 or float16; the kernel
-computes in float32 and writes ``q.dtype``; the scale is ``1/sqrt(hd)``.
-CUDA source: ``csrc/flash_attention.cu`` (head dims 32, 64, 128, 256).
+entirely are never loaded.  The scale is ``1/sqrt(hd)``; the output is in
+``q.dtype``.  Two CUDA kernels serve it, chosen by dtype (head dims 32, 64,
+128, 256 for both):
+
+* bfloat16 / float16: ``csrc/flash_attention_tc.cu``, on Hopper's tensor
+  cores.  Bound by operations (4 hd flops per unmasked pair at 989 TFLOP/s).
+  A producer warp feeds a 2-stage ring of K/V tiles by TMA; two consumer
+  warpgroups of 64 query rows each run ``wgmma`` for Q K^T (fp32
+  accumulation), the online softmax in registers, and P V with P split into
+  two halves in the input type (hi + lo), so P keeps ~16 bits where one
+  rounding would keep 8.  The two take turns to issue their products, so
+  one's softmax runs under the other's.  Tiles ``TC_TILES[hd]`` (BQ, BK).
+* float32: ``csrc/flash_attention.cu``, the port's first kernel, on the CUDA
+  cores in fp32 (bound there by the 67 TFLOP/s SIMT peak).  It is kept for
+  float32 because the 2e-5 contract against the plain version needs fp32
+  products and sums, which the tensor cores do not give.
+
+A 16-bit CUDA tensor goes to the tensor-core kernel or raises; it never
+falls back to the fp32 kernel.  Both kernels count under ``flash_attention``
+in ``dispatch``.
 
 A query row with no key left (possible when Sk < S under a window) gives 0,
 as the TPU kernel does; ``ref.attention_ref`` instead gives the uniform
 average over its ``-1e30`` scores.  The plain version follows the kernel.
 
 ``block_q``/``block_k`` are the TPU kernel's tile sizes: they no longer pick
-the tiles (the CUDA kernel picks its own), but the same divisibility check
+the tiles (the CUDA kernels pick their own), but the same divisibility check
 rejects the same inputs.
 
 The wrapper takes the plain version only for tensors on the CPU.  A CUDA
-tensor launches the kernel on the current stream or raises: there is no
-fallback.  A launch adds one to ``flash_attention``'s counter in ``dispatch``.
+tensor launches a kernel on the current stream or raises: there is no
+fallback.
 """
 from __future__ import annotations
 
@@ -30,7 +47,10 @@ from repro_torch.kernels import dispatch
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128, 256)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_TC_DTYPE_CODE = {torch.bfloat16: 1, torch.float16: 2}
+# (BQ, BK) of the tensor-core kernel by head dim, as ``TcCfg`` in
+# csrc/flash_attention_tc.cu sets them
+TC_TILES = {32: (128, 128), 64: (128, 128), 128: (128, 128), 256: (128, 64)}
 
 
 def attention_mask(s: int, sk: int, causal: bool, window: int, device=None) -> torch.Tensor:
@@ -91,17 +111,31 @@ def flash_attention(q, k, v, *, causal=True, window=0, block_q=512, block_k=512)
         if t.device != q.device or t.dtype != q.dtype or not t.is_contiguous():
             raise ValueError("flash_attention: q, k, v must be contiguous, of one dtype, on "
                              f"{q.device}; got {t.dtype} on {t.device}")
-    if q.dtype not in _DTYPE_CODE:
+    if q.dtype != torch.float32 and q.dtype not in _TC_DTYPE_CODE:
         raise TypeError(f"flash_attention: expects float32/bfloat16/float16, got {q.dtype}")
     if max(b, h) > 65535 or max(s, sk) >= 2 ** 31 or not 0 <= window < 2 ** 31:
         raise ValueError(f"flash_attention: shape {tuple(q.shape)} / Sk {sk} / window "
                          f"{window} out of the kernel's range")
     out = torch.empty_like(q)
-    err = dispatch.library().flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, s, sk, hd,
-        _DTYPE_CODE[q.dtype], int(bool(causal)), int(window), 1.0 / math.sqrt(hd),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    lib = dispatch.library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    scale = 1.0 / math.sqrt(hd)
+    if q.dtype == torch.float32:
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, s, sk, hd,
+            int(bool(causal)), int(window), scale, stream,
+        )
+    else:
+        bq = TC_TILES[hd][0]
+        if any(t.data_ptr() % 16 for t in (q, k, v, out)):
+            raise ValueError("flash_attention: the tensor-core kernel needs 16-byte aligned "
+                             "q, k, v (TMA)")
+        if b * h >= 2 ** 31 or -(-s // bq) > 65535:
+            raise ValueError(f"flash_attention: shape {tuple(q.shape)} out of the kernel's range")
+        err = lib.flash_attention_tc_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, s, sk, hd,
+            _TC_DTYPE_CODE[q.dtype], int(bool(causal)), int(window), scale, stream,
+        )
     dispatch.check_cuda(err, "flash_attention")
     dispatch.count_launch("flash_attention")
     return out

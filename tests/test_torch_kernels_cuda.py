@@ -239,7 +239,7 @@ def _attention_case(dev, dtype, shape_q, sk, causal, window, seed, **blocks):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("s,bq,bk,causal,window", SWEEP)
 def test_flash_attention_kernel_matches_plain_on_the_sweep(dev, dtype, s, bq, bk, causal,
                                                            window):
@@ -249,7 +249,7 @@ def test_flash_attention_kernel_matches_plain_on_the_sweep(dev, dtype, s, bq, bk
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("hd", [32, 64, 128, 256])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("s,sk,causal,window", [(100, 100, True, 0), (192, 160, False, 50),
                                                 (200, 300, True, 64)])
 def test_flash_attention_kernel_head_dims_and_ragged_tiles(dev, hd, dtype, s, sk, causal,
@@ -259,8 +259,9 @@ def test_flash_attention_kernel_head_dims_and_ragged_tiles(dev, hd, dtype, s, sk
 
 
 @pytest.mark.cuda
-def test_flash_attention_kernel_fully_masked_rows_give_zero(dev):
-    out = _attention_case(dev, torch.float32, (1, 2, 128, 64), 64, True, 16, seed=3,
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_flash_attention_kernel_fully_masked_rows_give_zero(dev, dtype):
+    out = _attention_case(dev, dtype, (1, 2, 128, 64), 64, True, 16, seed=3,
                           block_q=64, block_k=64)
     dead = torch.arange(128, device=dev) >= 64 + 16 - 1
     assert bool((out[:, :, dead] == 0).all()) and bool((out[:, :, ~dead] != 0).any())
@@ -278,3 +279,26 @@ def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(dev):
         fa.flash_attention(q, q.half(), q)
     with pytest.raises(ValueError, match="divide"):
         fa.flash_attention(q, q, q, block_q=48)
+
+
+@pytest.mark.cuda
+def test_flash_attention_routes_by_dtype(dev):
+    """bf16/f16 run the tensor-core kernel and f32 the SIMT kernel, both
+    under the one counter; a 16-bit head dim outside HEAD_DIMS or a
+    misaligned tensor raises instead of falling back."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q = torch.randn((1, 2, 64, 48), device=dev).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q, q, q)
+    flat = torch.randn(2 * 64 * 64 + 1, device=dev).to(torch.bfloat16)
+    q = flat[1:].view(1, 2, 64, 64)  # contiguous, 2 bytes off 16-byte alignment
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention(q, q, q)
+    for dtype, kernel in ((torch.float32, "flash_attention_kernel"),
+                          (torch.bfloat16, "flash_attention_tc_kernel"),
+                          (torch.float16, "flash_attention_tc_kernel")):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _attention_case(dev, dtype, (1, 2, 128, 64), 128, True, 0, seed=5)
+        names = [e.key for e in prof.key_averages() if "flash_attention" in e.key]
+        assert names and all(kernel in n for n in names), names
