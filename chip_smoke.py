@@ -15,10 +15,15 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    ``consensus_fused_masked_sparse`` on the CSR tables of the 3x3 grid
    (D = 5) and of three gossip windows at P = 199210, and of N = 300
    ring and Watts-Strogatz graphs; ``payload_validity_fused`` bit-equal on
-   buffers with NaN, +-inf, huge and f16-overflowing lanes planted; the
-   kernels of ``kernels.ops``: ``consensus_fused`` at (N, P) = (9, 199210),
-   (300, 4099), (1, 5) with zero weights in the row, ``sample_and_kl_fused``
-   at P = 199210, 2049, 5 (its KL bitwise the same twice), and
+   buffers with NaN, +-inf, huge and f16-overflowing lanes planted, aligned
+   and as views 4 and 8 bytes off 16-byte alignment, and at N = 70,000,
+   P = 3 (each line names the kernel instance that ran, read from a CUDA
+   graph of one call); the kernels of
+   ``kernels.ops``: ``consensus_fused`` at (N, P) = (9, 199210), (300,
+   4099), (1, 5) with zero weights in the row, ``sample_and_kl_fused`` at
+   P = 199210, 2049, 5 and on views 16, 8 and 4 bytes aligned (theta
+   bitwise the plain version's, the KL bitwise the same twice and on an
+   aligned copy), and
    ``flash_attention`` on tests/test_kernels.py's sweep at f32, bf16 and
    f16 (bf16/f16 on the tensor-core kernel, f32 on the SIMT kernel), at
    every head dim 32-256 on ragged tiles at bf16 and f16, and on a case
@@ -54,7 +59,11 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    one agent's P = 199,210, ``flash_attention`` at both head shapes above,
    beside ``scaled_dot_product_attention``'s time and backend, with its
    TFLOP/s, share of the bound, ratio to SDPA and largest error in output
-   ulps, and the f32 SIMT kernel's time at the Qwen3-8B heads);
+   ulps, and the f32 SIMT kernel's time at the Qwen3-8B heads); for
+   ``payload_validity_fused`` and ``sample_and_kl_fused`` also the device
+   operations one call runs and its kernel instance (both read from a CUDA
+   graph of one call, not from a profiler), and the launch floor (a
+   one-cycle ``torch.cuda._sleep`` under the same timer);
 6. profile: the wall time of a warm synchronous round and of a warm gossip
    window of the slice, and their device time by kernel (torch.profiler).
 
@@ -297,15 +306,46 @@ def check_kernels(dev):
               "f16": [True, False, False, False, False, False, False, True, True]}
     for wire in ("f32", "bf16", "f16"):
         mean, rho = poisoned(9, P_SLICE, seed=3, device=dev)
-        got = k.payload_validity_fused(mean, rho, bound=1e20, wire_dtype=wire)
-        want = k.payload_validity_plain(mean, rho, bound=1e20, wire_dtype=wire)
+        for case, start in (("aligned", 0), ("4B_off", 1), ("8B_off", 2)):
+            if start:  # the same rows, a view `start` floats into a larger buffer
+                mean, rho = (torch.cat([torch.zeros(start, device=dev), x.view(-1)])[start:]
+                             .view(x.shape) for x in (mean, rho))
+            fn = functools.partial(k.payload_validity_fused, mean, rho, bound=1e20,
+                                   wire_dtype=wire)
+            got, want = fn(), k.payload_validity_plain(mean, rho, bound=1e20, wire_dtype=wire)
+            torch.cuda.synchronize()
+            if not torch.equal(got.cpu(), want.cpu()) or got.cpu().tolist() != expect[wire]:
+                raise AssertionError(f"payload_validity_fused wire={wire} {case}: "
+                                     f"{got.tolist()} vs plain {want.tolist()}, expected "
+                                     f"{expect[wire]}")
+            phase("2.validity", wire=wire, case=case, ok=got.cpu().tolist(), bit_equal=True,
+                  variant=kernel_variant(fn))
+        n, p = 70_000, 3  # more agents than a grid dimension holds; chunks span many rows
+        g = torch.Generator().manual_seed(70)
+        mean, rho = torch.randn((n, p), generator=g), torch.rand((n, p), generator=g) * 3.5 - 3.0
+        bad = torch.randperm(n, generator=g)[:700]
+        mean.view(-1)[bad * p + bad % p] = float("nan")
+        mean, rho = mean.to(dev), rho.to(dev)
+        fn = functools.partial(k.payload_validity_fused, mean, rho, bound=1e20, wire_dtype=wire)
+        got, want = fn(), k.payload_validity_plain(mean, rho, bound=1e20, wire_dtype=wire)
         torch.cuda.synchronize()
-        if not torch.equal(got.cpu(), want.cpu()) or got.cpu().tolist() != expect[wire]:
-            raise AssertionError(f"payload_validity_fused wire={wire}: {got.tolist()} vs "
-                                 f"plain {want.tolist()}, expected {expect[wire]}")
-        phase("2.validity", wire=wire, ok=got.cpu().tolist(), bit_equal=True)
+        if not torch.equal(got.cpu(), want.cpu()) or int((~got).sum()) != len(bad):
+            raise AssertionError(f"payload_validity_fused wire={wire} N={n}: "
+                                 f"{int((~got).sum())} invalid, plain {int((~want).sum())}")
+        phase("2.validity", wire=wire, case=f"n{n}_p{p}", n_invalid=int((~got).sum()),
+              bit_equal=True, variant=kernel_variant(fn))
     worst["payload_validity_fused"] = 0.0
     return worst
+
+
+def kernel_variant(fn):
+    """The template instance of the one device kernel ``fn`` launches (e.g.
+    ``payload_validity_kernel<0, 4>``: wire code, lanes per load), read from
+    the captured graph of one call (``captured_work``)."""
+    work = captured_work(fn)
+    if len(work) != 1 or work[0]["type"] != "kernel" or "<" not in work[0]["name"]:
+        raise AssertionError(f"expected one templated device kernel, got {work}")
+    return work[0]["name"]
 
 
 def attention_inputs(name, dev, dtype=None):
@@ -384,24 +424,30 @@ def check_ops_kernels(dev):
                   max_abs_err_mean=errs[0], max_abs_err_rho=errs[1])
             if (n, p, wire) == (9, P_SLICE, "f32"):
                 worst["consensus_fused"] = max(errs)
-    for p in (P_SLICE, 2_049, 5):
+    vi_cases = [(P_SLICE, None), (2_049, None), (5, None), (P_SLICE, (P_SLICE, 1, 2, 3, 0))]
+    for p, starts in vi_cases:
         g = torch.Generator(device=dev).manual_seed(p)
-        mu, rho, eps, mu_p, rho_p = (torch.randn(p, generator=g, device=dev) * sc + off
-                                     for sc, off in ((1.0, 0.0), (0.3, -1.0), (1.0, 0.0),
-                                                     (0.1, 0.0), (0.1, 0.0)))
-        theta, kl = gauss_vi.sample_and_kl_fused(mu, rho, eps, mu_p, rho_p)
-        theta2, kl2 = gauss_vi.sample_and_kl_fused(mu, rho, eps, mu_p, rho_p)
-        want_theta, want_kl = gauss_vi.sample_and_kl_plain(mu, rho, eps, mu_p, rho_p)
+        args = [torch.randn(p, generator=g, device=dev) * sc + off
+                for sc, off in ((1.0, 0.0), (0.3, -1.0), (1.0, 0.0), (0.1, 0.0), (0.1, 0.0))]
+        if starts:  # each a view `start` floats into a buffer: 16, 8 and 4 bytes aligned
+            args = [torch.cat([torch.zeros(st, device=dev), a])[st:]
+                    for st, a in zip(starts, args)]
+        fn = functools.partial(gauss_vi.sample_and_kl_fused, *args)
+        (theta, kl), (theta2, kl2) = fn(), fn()
+        want_theta, want_kl = gauss_vi.sample_and_kl_plain(*args)
+        kl_aligned = gauss_vi.sample_and_kl_fused(*(a.clone() for a in args))[1]
         torch.cuda.synchronize()
         err = float((theta - want_theta).abs().max())
         kl_rel = abs(float(kl) - float(want_kl)) / abs(float(want_kl))
-        if (err > THETA_ATOL + 1e-5 * float(want_theta.abs().max()) or kl_rel > KL_RTOL
-                or not (torch.equal(kl, kl2) and torch.equal(theta, theta2))):
-            raise AssertionError(f"sample_and_kl_fused P={p}: theta err {err}, KL rel err "
-                                 f"{kl_rel}, or not the same twice")
-        phase("2.sample_and_kl", p=p, max_abs_err_theta=err, kl=float(kl), kl_rel_err=kl_rel,
-              same_twice=True)
-        if p == P_SLICE:
+        if (not torch.equal(theta, want_theta) or kl_rel > KL_RTOL
+                or not (torch.equal(kl, kl2) and torch.equal(theta, theta2)
+                        and torch.equal(kl, kl_aligned))):
+            raise AssertionError(f"sample_and_kl_fused P={p} starts={starts}: theta err {err}, "
+                                 f"KL rel err {kl_rel}, or not the same twice or aligned")
+        phase("2.sample_and_kl", p=p, starts=starts, max_abs_err_theta=err, theta_bitwise=True,
+              kl=float(kl), kl_rel_err=kl_rel, same_twice=True, same_as_aligned_copy=True,
+              variant=kernel_variant(fn))
+        if p == P_SLICE and starts is None:
             worst["sample_and_kl_fused"] = err
     cases = [(dt, (2, 2, s_, 64), s_, causal, window, dict(block_q=bq, block_k=bk))
              for dt in WIRES for s_, bq, bk, causal, window in ATT_SWEEP]
@@ -783,16 +829,22 @@ def timings(dev, counts, errs):
     out_ops = 8  # divide, rsqrt, softplus^-1 per output lane
     eq6_bytes = 16 * n * p + 4 * n * n  # mean, rho in; mean, rho out; W
     eq6_ops = 4 * n * n * p + 20 * n * p  # two N x N contractions + per-lane math
-    vi_args = (mean[0], rho[0], torch.randn(p, device=dev), mean[1], rho[1])
+    vi_args = (mean[0], rho[0], torch.randn(p, device=dev), mean[1], rho[1])  # mean[1]: 8B off
+    validity = functools.partial(k.payload_validity_fused, mean, rho, bound=1e20)
+    sample_kl = functools.partial(gauss_vi.sample_and_kl_fused, *vi_args)
+    sample_kl_aligned = functools.partial(gauss_vi.sample_and_kl_fused,
+                                          *(a.clone() for a in vi_args))
+    launch_floor_ms = cuda_ms(lambda: torch.cuda._sleep(1))  # one launch, no work
     fp32 = FP32_FLOP_PER_S
     kernels = [  # name, source, replaces, kernel, plain, bytes, ops, peak, library, fields
         ("consensus_fused_network", "consensus_network.cu", REF + "195",
          lambda: k.consensus_fused_network(W, mean, rho),
          lambda: k.consensus_network_plain(W, mean, rho), eq6_bytes, eq6_ops, fp32, None, {}),
-        ("payload_validity_fused", "payload_validity.cu", REF + "436",
-         lambda: k.payload_validity_fused(mean, rho, bound=1e20),
+        ("payload_validity_fused", "payload_validity.cu", REF + "436", validity,
          lambda: k.payload_validity_plain(mean, rho, bound=1e20),
-         8 * n * p + n, 20 * n * p, fp32, None, {}),  # mean, rho in; [N] bool out
+         8 * n * p + n, 20 * n * p, fp32, None,  # mean, rho in; [N] bool out
+         {"device_kernels_per_call": len(captured_work(validity)),
+          "variant": kernel_variant(validity), "launch_floor_ms": launch_floor_ms}),
         ("consensus_fused_masked", "consensus_network.cu", REF + "261",
          lambda: k.consensus_fused_masked(W_win, act, mean, rho),
          lambda: k.consensus_masked_plain(W_win, act, mean, rho),
@@ -813,11 +865,15 @@ def timings(dev, counts, errs):
          lambda: k.consensus_row_plain(W[0], mean, rho),
          8 * n * p + 8 * p + 4 * n,  # mean, rho in; the agent's mean, rho out; w_row
          gathered_ops * n * p + out_ops * p, fp32, None, {}),
-        ("sample_and_kl_fused", "gauss_vi.cu", "src/repro/kernels/gauss_vi.py:46",
-         lambda: gauss_vi.sample_and_kl_fused(*vi_args),
+        ("sample_and_kl_fused", "gauss_vi.cu", "src/repro/kernels/gauss_vi.py:46", sample_kl,
          lambda: gauss_vi.sample_and_kl_plain(*vi_args),
          24 * p + 4,  # five [P] in, theta [P] and the KL out
-         30 * p, fp32, None, {}),  # two softplus, a log, two divisions, sample, sum per lane
+         30 * p, fp32, None,  # two softplus, a log, two divisions, sample, sum per lane
+         {"device_kernels_per_call": len(captured_work(sample_kl)),
+          "variant": kernel_variant(sample_kl), "launch_floor_ms": launch_floor_ms,
+          "aligned_variant": kernel_variant(sample_kl_aligned),
+          "aligned_ms": cuda_ms(sample_kl_aligned),
+          "aligned_cold_l2_ms": cuda_ms(sample_kl_aligned, flush)}),
     ]
     for shape in ATTN_SHAPES:  # the row is Qwen3-8B's; both shapes get a phase line
         q, kk, vv, window = attention_inputs(shape, dev)
@@ -876,6 +932,77 @@ def timings(dev, counts, errs):
         if not attention or fields["shape"] == "qwen3_8b":
             rows.append(row)
     return rows
+
+
+GRAPH_NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty", "wait_event",
+                    "event_record", "semaphore_signal", "semaphore_wait", "mem_alloc",
+                    "mem_free", "batch_mem_op", "conditional")
+
+
+def captured_work(fn):
+    """The device work of one call of ``fn``, read without a profiler: the
+    call is captured into a CUDA graph on a side stream (after one call on
+    that stream, which makes the stream's arrival counter) and the graph's
+    nodes are listed with the driver API.  One dict per node: its type and,
+    for a kernel, its name with its template arguments and its grid."""
+    import ctypes
+    import re
+
+    import torch
+
+    class KernelNodeParams(ctypes.Structure):  # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                    ("block", ctypes.c_uint * 3), ("shared_mem", ctypes.c_uint),
+                    ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                    ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(err, what):
+        if err != 0:
+            raise RuntimeError(f"{what}: CUresult {err}")
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    stream.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(handle, None, ctypes.byref(count)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * count.value)()
+    check(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(count)), "cuGraphGetNodes")
+    work = []
+    for node in nodes:
+        node, kind = ctypes.c_void_p(node), ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(node, ctypes.byref(kind)), "cuGraphNodeGetType")
+        entry = {"type": (GRAPH_NODE_TYPES[kind.value] if kind.value < len(GRAPH_NODE_TYPES)
+                          else str(kind.value))}
+        if kind.value == 0:
+            params, name = KernelNodeParams(), ctypes.c_char_p()
+            check(cu.cuGraphKernelNodeGetParams_v2(node, ctypes.byref(params)),
+                  "cuGraphKernelNodeGetParams")
+            if params.func:
+                check(cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(params.func)),
+                      "cuFuncGetName")
+            else:
+                check(cu.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(params.kern)),
+                      "cuKernelGetName")
+            mangled = name.value.decode()
+            # e.g. ..._payload_validity_cu_...23payload_validity_kernelILi0ELi4EEEvPKf...
+            found = re.search(r"([A-Za-z_]+_kernel)I((?:L[a-z]+n?\d+E)+)E", mangled)
+            if found:  # integer template arguments, mangled as L<type><value>E
+                args = re.findall(r"L[a-z]+(n?\d+)E", found.group(2))
+                mangled = f"{found.group(1)}<{', '.join(a.replace('n', '-') for a in args)}>"
+            entry.update(
+                name=mangled, grid=params.grid[0] * params.grid[1] * params.grid[2],
+                block=params.block[0] * params.block[1] * params.block[2])
+        work.append(entry)
+    del graph
+    return work
 
 
 def device_kernels(fn, top=2):

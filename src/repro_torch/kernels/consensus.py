@@ -28,7 +28,8 @@ synchronous round's and the gossip windows' paths).
   path does.  CUDA source: ``csrc/consensus_sparse.cu``.
 * ``payload_validity_fused``: per agent, every wire-rounded ``prec`` and
   ``prec * mean`` lane finite, ``prec > 0`` and both within ``bound``.
-  CUDA source: ``csrc/payload_validity.cu``.
+  CUDA source: ``csrc/payload_validity.cu``, one launch planned by
+  ``stream_plan``.
 
 Each wrapper takes its plain version only for tensors on the CPU.  A CUDA
 tensor launches the kernel on the current stream or raises: there is no
@@ -44,7 +45,7 @@ from repro_torch.core.numerics import (
     softplus_inv,
     wire_roundtrip,
 )
-from repro_torch.kernels import dispatch
+from repro_torch.kernels import dispatch, stream_plan
 
 _WIRE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -319,20 +320,26 @@ def payload_validity_plain(mean, rho, *, bound, wire_dtype=None):
 
 def payload_validity_fused(mean, rho, *, bound, wire_dtype=None):
     """``[N]`` bool: is each agent's wire-rounded (prec, prec*mean) payload
-    finite, positive and within ``bound``?  Bit-equal to the plain version."""
+    finite, positive and within ``bound``?  Bit-equal to the plain version.
+    One device kernel per call, for any N with N * P < 2^63."""
     if mean.device.type == "cpu":
         return payload_validity_plain(mean, rho, bound=bound, wire_dtype=wire_dtype)
     if mean.device.type != "cuda":
         raise ValueError(f"payload_validity_fused: no kernel for {mean.device}")
     _check_flat("payload_validity_fused", mean, rho)
     n, p = mean.shape
-    if n > 65535:
-        raise ValueError(f"payload_validity_fused: N={n} exceeds 65535 agents")
-    ok = torch.ones(n, dtype=torch.int32, device=mean.device)
-    err = dispatch.library().payload_validity_launch(
-        mean.data_ptr(), rho.data_ptr(), ok.data_ptr(), n, p, float(bound),
-        _WIRE_CODE[canonical_wire_dtype(wire_dtype)], _stream(mean.device),
+    wire = _WIRE_CODE[canonical_wire_dtype(wire_dtype)]
+    lib = dispatch.library()
+    vec = stream_plan.vector_width(mean.data_ptr(), rho.data_ptr())
+    wave = dispatch.wave(mean.device, "payload_validity", lib.payload_validity_blocks_per_sm,
+                         wire, vec)
+    plan = stream_plan.plan(n * p, stream_plan.VALIDITY, vec, wave)
+    out = torch.empty(n + 2 * plan.chunks, dtype=torch.uint8, device=mean.device)
+    err = lib.payload_validity_launch(
+        mean.data_ptr(), rho.data_ptr(), out.data_ptr(), out.data_ptr() + n,
+        dispatch.arrival_counter(mean.device).data_ptr(), n, p, float(bound), wire, plan.vec,
+        plan.chunk, plan.grid, _stream(mean.device),
     )
     dispatch.check_cuda(err, "payload_validity_fused")
     dispatch.count_launch("payload_validity_fused")
-    return ok.bool()
+    return out[:n].view(torch.bool)

@@ -41,6 +41,8 @@ KERNELS = (
 )
 _launches = dict.fromkeys(KERNELS, 0)
 _lib: ctypes.CDLL | None = None
+_waves: dict[tuple, int] = {}  # (device index, kernel, instance) -> blocks in one wave
+_counters: dict[tuple[int, int], torch.Tensor] = {}  # (device index, stream) -> counter
 build_info: dict = {}  # seconds / path / ptxas report of the last build or load
 
 
@@ -143,8 +145,10 @@ def library() -> ctypes.CDLL:
             ptr, ptr, ptr, ptr, ptr, i32, i64, i32, ptr,
         ]
         lib.consensus_network_launch.restype = i32
+        lib.payload_validity_blocks_per_sm.argtypes = [i32, i32]
+        lib.payload_validity_blocks_per_sm.restype = i32
         lib.payload_validity_launch.argtypes = [
-            ptr, ptr, ptr, i32, i64, ctypes.c_float, i32, ptr,
+            ptr, ptr, ptr, ptr, ptr, i64, i64, ctypes.c_float, i32, i32, i64, i32, ptr,
         ]
         lib.payload_validity_launch.restype = i32
         lib.consensus_masked_launch.argtypes = [
@@ -161,9 +165,11 @@ def library() -> ctypes.CDLL:
         lib.consensus_masked_sparse_launch.restype = i32
         lib.consensus_row_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i64, i32, ptr]
         lib.consensus_row_launch.restype = i32
-        lib.sample_and_kl_grid.argtypes = [i64]
-        lib.sample_and_kl_grid.restype = i64
-        lib.sample_and_kl_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, ptr]
+        lib.sample_and_kl_blocks_per_sm.argtypes = [i32]
+        lib.sample_and_kl_blocks_per_sm.restype = i32
+        lib.sample_and_kl_launch.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, i32, i64, i32, ptr,
+        ]
         lib.sample_and_kl_launch.restype = i32
         lib.flash_attention_launch.argtypes = [
             ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, ptr,
@@ -175,6 +181,32 @@ def library() -> ctypes.CDLL:
         lib.flash_attention_tc_launch.restype = i32
         _lib = lib
     return _lib
+
+
+def wave(device: torch.device, what: str, blocks_per_sm, *key) -> int:
+    """Blocks in one wave of a kernel instance on ``device``: its SM count
+    times ``blocks_per_sm(*key)`` (the library's occupancy query for that
+    instance), asked once per device and instance."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    k = (index, what, *key)
+    if k not in _waves:
+        per_sm = blocks_per_sm(*key)
+        if per_sm <= 0:
+            raise RuntimeError(f"{what}: occupancy query failed ({per_sm})")
+        _waves[k] = torch.cuda.get_device_properties(index).multi_processor_count * per_sm
+    return _waves[k]
+
+
+def arrival_counter(device: torch.device) -> torch.Tensor:
+    """The arrival counter of the single-launch kernels (one uint32, 0
+    between launches: the last block of each launch resets it) for the
+    current stream of ``device``.  Launches on one stream run one after
+    another, so they share it; each stream has its own."""
+    stream = torch.cuda.current_stream(device)
+    k = (stream.device_index, stream.cuda_stream)
+    if k not in _counters:
+        _counters[k] = torch.zeros(1, dtype=torch.int32, device=stream.device)
+    return _counters[k]
 
 
 def check_cuda(err: int, what: str) -> None:

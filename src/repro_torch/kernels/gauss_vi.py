@@ -8,9 +8,10 @@ standard-normal noise eps gives both
     kl    = sum [ log(sp/sq) + (sq^2+(mq-mp)^2)/(2 sp^2) - 1/2 ]
 
 ``softplus`` is the ``logaddexp(x, 0)`` form of ``core.numerics``.  The CUDA
-kernel (``csrc/gauss_vi.cu``) writes one KL partial per block, summed here
-outside the kernel, as the JAX wrapper sums the Pallas kernel's partials.
-Forward only, as the TPU kernel is.
+kernel (``csrc/gauss_vi.cu``) is one launch, planned by ``stream_plan``: it
+writes theta and one KL partial per chunk, and its last block sums the
+partials in a fixed order (the JAX wrapper sums the Pallas kernel's
+partials outside the kernel).  Forward only, as the TPU kernel is.
 
 The wrapper takes the plain version only for tensors on the CPU.  A CUDA
 tensor launches the kernel on the current stream or raises: there is no
@@ -22,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.numerics import softplus
-from repro_torch.kernels import dispatch
+from repro_torch.kernels import dispatch, stream_plan
 
 
 def sample_and_kl_plain(mu, rho, eps, mu_p, rho_p):
@@ -51,12 +52,15 @@ def sample_and_kl_fused(mu, rho, eps, mu_p, rho_p):
     lib = dispatch.library()
     p = mu.shape[0]
     theta = torch.empty_like(mu)
-    parts = torch.empty(lib.sample_and_kl_grid(p), dtype=torch.float32, device=mu.device)
+    ptrs = [t.data_ptr() for t in (mu, rho, eps, mu_p, rho_p, theta)]
+    vec = stream_plan.vector_width(*ptrs)
+    wave = dispatch.wave(mu.device, "sample_and_kl", lib.sample_and_kl_blocks_per_sm, vec)
+    plan = stream_plan.plan(p, stream_plan.SAMPLE_KL, vec, wave)
+    out = torch.empty(1 + plan.chunks, dtype=torch.float32, device=mu.device)  # KL, partials
     err = lib.sample_and_kl_launch(
-        mu.data_ptr(), rho.data_ptr(), eps.data_ptr(), mu_p.data_ptr(), rho_p.data_ptr(),
-        theta.data_ptr(), parts.data_ptr(), p,
-        torch.cuda.current_stream(mu.device).cuda_stream,
+        *ptrs, out.data_ptr(), out.data_ptr() + 4, dispatch.arrival_counter(mu.device).data_ptr(),
+        p, plan.vec, plan.chunk, plan.grid, torch.cuda.current_stream(mu.device).cuda_stream,
     )
     dispatch.check_cuda(err, "sample_and_kl_fused")
     dispatch.count_launch("sample_and_kl_fused")
-    return theta, torch.sum(parts)
+    return theta, out[0]

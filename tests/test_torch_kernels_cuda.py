@@ -10,10 +10,12 @@ N terms in another order); at bf16/f16 one wire ulp relative to the output
 scale (a one-ulp fp32 difference in prec can flip a rounding tie).
 Validity is bit-equal; the masked kernel's active rows are bitwise the
 network kernel's and its inactive rows bitwise its inputs.  Sample + KL:
-theta rtol 1e-5 / atol 1e-6, KL rtol 1e-5, and the KL bitwise the same
-from run to run.  Flash attention: 2e-5 at f32, 2e-2 at bf16/f16 (the
-output is rounded to the input type), as tests/test_kernels.py holds the
-Pallas kernel.
+theta bitwise the plain version's (rtol 1e-5 / atol 1e-6 in the older
+test), KL rtol 1e-5, and the KL bitwise the same from run to run, on two
+streams and at any pointer alignment (its summation order is fixed).  The
+validity check and sample + KL run one device kernel per call.  Flash
+attention: 2e-5 at f32, 2e-2 at bf16/f16 (the output is rounded to the
+input type), as tests/test_kernels.py holds the Pallas kernel.
 """
 import numpy as np
 import pytest
@@ -208,6 +210,137 @@ def test_sample_and_kl_kernel_matches_plain(dev, p):
                                atol=1e-6)
     assert np.isclose(float(kl), float(want_kl), rtol=1e-5)
     assert torch.equal(kl, kl2) and torch.equal(theta, theta2)  # no atomics: same each run
+
+
+def _device_kernels(fn):
+    """The names of the device activities (kernels, copies, fills) of one
+    call of ``fn``, after a warm-up call under a profiler session of its own
+    (the call may build the library and a stream's counter)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = []
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    return names
+
+
+@pytest.mark.cuda
+def test_streaming_kernels_run_one_device_kernel_per_call(dev):
+    _, mean, rho = _inputs(9, 4099, 11, dev)
+    names = _device_kernels(lambda: k.payload_validity_fused(mean, rho, bound=1e20))
+    assert len(names) == 1 and "payload_validity_kernel" in names[0], names
+    args = [mean[i] for i in range(5)]
+    names = _device_kernels(lambda: gauss_vi.sample_and_kl_fused(*args))
+    assert len(names) == 1 and "sample_and_kl_kernel" in names[0], names
+
+
+def _poison_edges(mean, rho, chunk):
+    """NaN / inf / huge in the first and last lane of every row and on both
+    sides of every chunk boundary of the flat buffer, rotating over rows."""
+    n, p = mean.shape
+    m, r = mean.view(-1), rho.view(-1)
+    kinds = [lambda i: m.__setitem__(i, float("nan")), lambda i: r.__setitem__(i, float("inf")),
+             lambda i: r.__setitem__(i, float("-inf")), lambda i: m.__setitem__(i, 1e30)]
+    lanes = [row * p for row in range(0, n, 3)] + [row * p + p - 1 for row in range(1, n, 3)]
+    lanes += [b + d for b in range(chunk, n * p, chunk * 5) for d in (-1, 0)
+              if (b + d) // p % 3 != 2]  # rows 2, 5, ... stay valid
+    for x, i in enumerate(lanes):
+        kinds[x % len(kinds)](i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("n,p", [(9, 199_210), (50, 199_210), (70, 4_096), (300, 4_099),
+                                 (70_000, 3)])
+def test_payload_validity_poison_on_row_and_chunk_edges(dev, wire, n, p):
+    from repro_torch.kernels import stream_plan
+
+    rng = np.random.default_rng(n + p)
+    mean = torch.from_numpy(rng.normal(size=(n, p)).astype(np.float32))
+    rho = torch.from_numpy(rng.uniform(-3.0, 0.5, size=(n, p)).astype(np.float32))
+    _poison_edges(mean, rho, stream_plan.VALIDITY.chunk)
+    mean, rho = mean.to(dev), rho.to(dev)
+    before = dispatch.launch_counts()["payload_validity_fused"]
+    got = k.payload_validity_fused(mean, rho, bound=1e20, wire_dtype=wire)
+    want = k.payload_validity_plain(mean, rho, bound=1e20, wire_dtype=wire)
+    assert dispatch.launch_counts()["payload_validity_fused"] == before + 1
+    assert got.dtype == torch.bool and got.shape == (n,)
+    assert torch.equal(got.cpu(), want.cpu())
+    assert 0 < int(want.sum()) < n  # both verdicts occur
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("offset", [1, 2, 3])  # rows of 4 bytes, 8 bytes, 12 bytes off 16
+def test_payload_validity_on_misaligned_row_views(dev, wire, offset):
+    n, p = 9, 199_210
+    rng = np.random.default_rng(offset)
+    mean = rng.normal(size=(n + 1) * p).astype(np.float32)
+    rho = rng.uniform(-3.0, 0.5, size=(n + 1) * p).astype(np.float32)
+    mean[offset + 2 * p + p // 2] = np.nan
+    rho[offset + 5 * p] = -np.inf
+    mean_t, rho_t = torch.from_numpy(mean).to(dev), torch.from_numpy(rho).to(dev)
+    mv = mean_t[offset:offset + n * p].view(n, p)
+    rv = rho_t[offset:offset + n * p].view(n, p)
+    got = k.payload_validity_fused(mv, rv, bound=1e20, wire_dtype=wire)
+    want = k.payload_validity_plain(mv, rv, bound=1e20, wire_dtype=wire)
+    assert torch.equal(got.cpu(), want.cpu())
+    assert got.cpu().tolist()[2] is False and got.cpu().tolist()[5] is False
+
+
+def _vi_args(p, seed, dev, starts=(0, 0, 0, 0, 0)):
+    """Five [P] buffers, each a view starting ``starts[i]`` floats into a
+    buffer of its own (a start of 1, 2, 3 puts it 4, 8, 12 bytes off 16)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for start, (s_, o) in zip(starts, ((1.0, 0.0), (0.3, -1.0), (1.0, 0.0), (0.1, 0.0),
+                                       (0.1, 0.0))):
+        a = (rng.normal(size=start + p) * s_ + o).astype(np.float32)
+        out.append(torch.from_numpy(a).to(dev)[start:])
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [5, 2049, 199_210])
+@pytest.mark.parametrize("starts", ["aligned", "4B", "8B", "mixed", "odd_row"])
+def test_sample_and_kl_theta_bitwise_on_views(dev, p, starts):
+    starts = {"aligned": (0,) * 5, "4B": (1,) * 5, "8B": (2,) * 5, "mixed": (0, 1, 2, 3, 2),
+              "odd_row": (p,) * 5}[starts]  # odd_row: row 1 of [2, P], as mean[1]
+    args = _vi_args(p, p + sum(starts), dev, starts)
+    theta, kl = gauss_vi.sample_and_kl_fused(*args)
+    theta2, kl2 = gauss_vi.sample_and_kl_fused(*args)
+    want_theta, want_kl = gauss_vi.sample_and_kl_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(theta, want_theta)
+    assert abs(float(kl) - float(want_kl)) <= 1e-5 * abs(float(want_kl))
+    assert torch.equal(kl, kl2) and torch.equal(theta, theta2)
+    aligned = [a.clone() for a in args]  # the same values, 16-byte aligned
+    assert torch.equal(gauss_vi.sample_and_kl_fused(*aligned)[1], kl)  # the order is fixed
+
+
+@pytest.mark.cuda
+def test_sample_and_kl_on_two_streams_at_once(dev):
+    p = 199_210
+    args_a, args_b = _vi_args(p, 1, dev), _vi_args(p, 2, dev, (p, 1, 2, 3, 0))
+    want = [gauss_vi.sample_and_kl_plain(*a) for a in (args_a, args_b)]
+    ref = [gauss_vi.sample_and_kl_fused(*a) for a in (args_a, args_b)]
+    streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(20):  # interleave launches on both streams
+        for i, (s_, a) in enumerate(zip(streams, (args_a, args_b))):
+            with torch.cuda.stream(s_):
+                outs[i].append(gauss_vi.sample_and_kl_fused(*a))
+    torch.cuda.synchronize()
+    for i in range(2):
+        for theta, kl in outs[i]:
+            assert torch.equal(theta, want[i][0]) and torch.equal(theta, ref[i][0])
+            assert torch.equal(kl, ref[i][1])
+            assert abs(float(kl) - float(want[i][1])) <= 1e-5 * abs(float(want[i][1]))
 
 
 ATT_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2, torch.float16: 2e-2}
