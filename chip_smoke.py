@@ -13,8 +13,11 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    masks all-true, all-false and mixed and its active rows bitwise the
    network kernel's; ``consensus_fused_sparse`` and
    ``consensus_fused_masked_sparse`` on the CSR tables of the 3x3 grid
-   (D = 5) and of three gossip windows at P = 199210, and of N = 300
-   ring and Watts-Strogatz graphs; ``payload_validity_fused`` bit-equal on
+   (D = 5) and of three gossip windows at P = 199210, of N = 300 ring and
+   Watts-Strogatz graphs, and of a 70,000-agent ring at P = 3; the dense
+   small-N path bitwise the generic one and the CSR staged path bitwise
+   the gather one wherever both can run; every eq. (6) line names the
+   kernel instance that ran; ``payload_validity_fused`` bit-equal on
    buffers with NaN, +-inf, huge and f16-overflowing lanes planted, aligned
    and as views 4 and 8 bytes off 16-byte alignment, and at N = 70,000,
    P = 3 (each line names the kernel instance that ran, read from a CUDA
@@ -26,8 +29,9 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    aligned copy), and
    ``flash_attention`` on tests/test_kernels.py's sweep at f32, bf16 and
    f16 (bf16/f16 on the tensor-core kernel, f32 on the SIMT kernel), at
-   every head dim 32-256 on ragged tiles at bf16 and f16, and on a case
-   with Sk < S whose window leaves rows with no key (zeros) at each dtype;
+   every head dim 32-256 on ragged tiles at bf16 and f16, on a case
+   with Sk < S whose window leaves rows with no key (zeros) at each dtype,
+   and at B = 70,000 or H = 70,000 (S = 64, hd = 32) at f32 and bf16;
 3. the paths at full width, each with the launch counters set to 0 just
    before and read just after.  The synchronous slice: the paper's Fig. 4
    setting (3x3 grid, 9 agents, ``mnist_like`` 784-dim 10-class data, grid
@@ -60,10 +64,12 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    beside ``scaled_dot_product_attention``'s time and backend, with its
    TFLOP/s, share of the bound, ratio to SDPA and largest error in output
    ulps, and the f32 SIMT kernel's time at the Qwen3-8B heads); for
-   ``payload_validity_fused`` and ``sample_and_kl_fused`` also the device
-   operations one call runs and its kernel instance (both read from a CUDA
-   graph of one call, not from a profiler), and the launch floor (a
-   one-cycle ``torch.cuda._sleep`` under the same timer);
+   the single-kernel wrappers (the four dense and CSR eq. (6) kernels,
+   ``payload_validity_fused``, ``sample_and_kl_fused``) also the device
+   operations one call runs (which must be one) and its kernel instance
+   (both read from a CUDA graph of one call, not from a profiler), the
+   instance's registers and spills as ptxas reported them, and the launch
+   floor (a one-cycle ``torch.cuda._sleep`` under the same timer);
 6. profile: the wall time of a warm synchronous round and of a warm gossip
    window of the slice, and their device time by kernel (torch.profiler).
 
@@ -139,6 +145,7 @@ ATT_HD_CASES = [  # ragged tiles at every head dim: (s, sk, causal, window)
     (100, 100, True, 0), (192, 160, False, 50), (200, 300, True, 64),
 ]
 WIRES = ("f32", "bf16", "f16")
+N_BEYOND_GRID = 70_000  # agents (or attention heads) past a grid dimension's 65,535
 SRC = "src/repro_torch/kernels/csrc/"
 REF = "src/repro/kernels/consensus.py:"
 
@@ -239,6 +246,7 @@ def check_kernels(dev):
     from repro_torch.core import graphs
     from repro_torch.core.flat import neighbor_tables
     from repro_torch.kernels import consensus as k
+    from repro_torch.kernels import launch_plan
 
     worst = {}
     for (n, p) in [(9, P_SLICE), (300, 4_099), (1, 5)]:
@@ -247,8 +255,15 @@ def check_kernels(dev):
             got = k.consensus_fused_network(W, mean, rho, wire_dtype=wire)
             want = k.consensus_network_plain(W, mean, rho, wire)
             errs = eq6_errors(f"consensus_fused_network N={n} P={p}", got, want, wire)
+            generic = {}
+            if launch_plan.dense_instance(n):  # both paths can run: the same bits
+                generic = {"generic_bitwise": eq6_same_bits(
+                    f"consensus_fused_network N={n} P={p} wire={wire} generic", got,
+                    k._network_launch("consensus_fused_network", W, None, mean, rho, wire,
+                                      instance=0))}
             phase("2.consensus", n=n, p=p, wire=wire, max_abs_err_mean=errs[0],
-                  max_abs_err_rho=errs[1])
+                  max_abs_err_rho=errs[1], **generic, variant=kernel_variant(
+                      lambda: k.consensus_fused_network(W, mean, rho, wire_dtype=wire)))
             if (n, p, wire) == (9, P_SLICE, "f32"):
                 worst["consensus_fused_network"] = max(errs)
             masks = {"all": torch.ones(n, dtype=torch.bool), "none": torch.zeros(n, dtype=torch.bool),
@@ -266,8 +281,15 @@ def check_kernels(dev):
                             f"consensus_fused_masked N={n} P={p} mask={mask} wire={wire}: "
                             "active rows not bitwise the network kernel's, or inactive "
                             "rows not passed through")
+                fields = {"variant": kernel_variant(
+                    lambda: k.consensus_fused_masked(W, active, mean, rho, wire_dtype=wire))}
+                if mask == "mixed" and launch_plan.dense_instance(n):
+                    fields["generic_bitwise"] = eq6_same_bits(
+                        f"consensus_fused_masked N={n} P={p} wire={wire} generic", got_m,
+                        k._network_launch("consensus_fused_masked", W, active, mean, rho,
+                                          wire, instance=0))
                 phase("2.masked", n=n, p=p, wire=wire, mask=mask, max_abs_err_mean=errs[0],
-                      max_abs_err_rho=errs[1], active_rows_bitwise_network=True)
+                      max_abs_err_rho=errs[1], active_rows_bitwise_network=True, **fields)
                 if (n, p, wire, mask) == (9, P_SLICE, "f32", "mixed"):
                     worst["consensus_fused_masked"] = max(errs)
     tables = [("grid_base", neighbor_tables(graphs.grid_w(3, 3)), P_SLICE, None)]
@@ -283,8 +305,8 @@ def check_kernels(dev):
                   else torch.arange(n) % 4 != 2).to(dev)
         for wire in WIRES:
             _, mean, rho = eq6_inputs(n, p, seed=n + p + d, device=dev)
-            errs = eq6_errors(f"consensus_fused_sparse {name}",
-                              k.consensus_fused_sparse(nbr, wts, mean, rho, wire_dtype=wire),
+            got_s = k.consensus_fused_sparse(nbr, wts, mean, rho, wire_dtype=wire)
+            errs = eq6_errors(f"consensus_fused_sparse {name}", got_s,
                               k.consensus_sparse_plain(nbr, wts, mean, rho, wire), wire)
             got_m = k.consensus_fused_masked_sparse(nbr, wts, active, mean, rho, wire_dtype=wire)
             errs_m = eq6_errors(f"consensus_fused_masked_sparse {name}", got_m,
@@ -294,13 +316,49 @@ def check_kernels(dev):
                     and torch.equal(got_m[1][~active], rho[~active])):
                 raise AssertionError(f"consensus_fused_masked_sparse {name}: inactive rows "
                                      "not passed through")
+            fields = {"variant": kernel_variant(functools.partial(
+                k.consensus_fused_sparse, nbr, wts, mean, rho, wire_dtype=wire)),
+                "masked_variant": kernel_variant(functools.partial(
+                    k.consensus_fused_masked_sparse, nbr, wts, active, mean, rho,
+                    wire_dtype=wire))}
+            if launch_plan.sparse_staged(n):  # both paths can run: the same bits
+                for tag, act, out in (("sparse", None, got_s), ("masked", active, got_m)):
+                    name_k = "consensus_fused_masked_sparse" if act is not None else \
+                        "consensus_fused_sparse"
+                    fields[f"{tag}_gather_bitwise"] = eq6_same_bits(
+                        f"{name_k} {name} wire={wire} gather", out,
+                        k._sparse_launch(name_k, nbr, wts, act, mean, rho, wire, staged=False))
             phase("2.sparse", tables=name, n=n, d=d, p=p, wire=wire,
                   n_active=int(active.sum()), max_abs_err=max(errs),
-                  masked_max_abs_err=max(errs_m))
+                  masked_max_abs_err=max(errs_m), **fields)
             if wire == "f32" and name == "grid_base":
                 worst["consensus_fused_sparse"] = max(errs)
             if wire == "f32" and name == "window1":
                 worst["consensus_fused_masked_sparse"] = max(errs_m)
+    n, p = N_BEYOND_GRID, 3  # more agents than a grid dimension holds: the flat walk
+    nbr, wts = (torch.from_numpy(x).to(dev)
+                for x in graphs.bidirectional_ring_sparse(n).neighbor_tables())
+    g = torch.Generator(device=dev).manual_seed(n)
+    mean = torch.randn((n, p), generator=g, device=dev)
+    rho = torch.rand((n, p), generator=g, device=dev) * 5.0 - 4.5
+    active = torch.arange(n, device=dev) % 5 != 3
+    for wire in WIRES:  # the plain versions build the dense 70,000^2 W (19.6 GB)
+        errs = eq6_errors(f"consensus_fused_sparse N={n}",
+                          k.consensus_fused_sparse(nbr, wts, mean, rho, wire_dtype=wire),
+                          k.consensus_sparse_plain(nbr, wts, mean, rho, wire), wire)
+        got_m = k.consensus_fused_masked_sparse(nbr, wts, active, mean, rho, wire_dtype=wire)
+        errs_m = eq6_errors(f"consensus_fused_masked_sparse N={n}", got_m,
+                            k.consensus_masked_sparse_plain(nbr, wts, active, mean, rho, wire),
+                            wire)
+        if not (torch.equal(got_m[0][~active], mean[~active])
+                and torch.equal(got_m[1][~active], rho[~active])):
+            raise AssertionError(f"consensus_fused_masked_sparse N={n}: inactive rows not "
+                                 "passed through")
+        phase("2.sparse", tables=f"ring{n}", n=n, d=nbr.shape[1], p=p, wire=wire,
+              n_active=int(active.sum()), max_abs_err=max(errs), masked_max_abs_err=max(errs_m),
+              variant=kernel_variant(functools.partial(
+                  k.consensus_fused_sparse, nbr, wts, mean, rho, wire_dtype=wire)))
+    del nbr, wts, mean, rho, active
     expect = {"f32": [True, False, False, False, False, True, False, True, True],
               "bf16": [True, False, False, False, False, True, False, True, True],
               "f16": [True, False, False, False, False, False, False, True, True]}
@@ -320,7 +378,7 @@ def check_kernels(dev):
                                      f"{expect[wire]}")
             phase("2.validity", wire=wire, case=case, ok=got.cpu().tolist(), bit_equal=True,
                   variant=kernel_variant(fn))
-        n, p = 70_000, 3  # more agents than a grid dimension holds; chunks span many rows
+        n, p = N_BEYOND_GRID, 3  # more agents than a grid dimension holds; chunks span many rows
         g = torch.Generator().manual_seed(70)
         mean, rho = torch.randn((n, p), generator=g), torch.rand((n, p), generator=g) * 3.5 - 3.0
         bad = torch.randperm(n, generator=g)[:700]
@@ -338,14 +396,55 @@ def check_kernels(dev):
     return worst
 
 
-def kernel_variant(fn):
+def eq6_same_bits(what, got, other):
+    """Raise unless two eq. (6) results are the same bits; returns True."""
+    import torch
+
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, other)):
+        raise AssertionError(f"{what}: not bitwise the other path's result")
+    return True
+
+
+def kernel_variant(fn, work=None):
     """The template instance of the one device kernel ``fn`` launches (e.g.
     ``payload_validity_kernel<0, 4>``: wire code, lanes per load), read from
-    the captured graph of one call (``captured_work``)."""
-    work = captured_work(fn)
+    the captured graph of one call (``captured_work``, or ``work`` if given)."""
+    work = captured_work(fn) if work is None else work
     if len(work) != 1 or work[0]["type"] != "kernel" or "<" not in work[0]["name"]:
         raise AssertionError(f"expected one templated device kernel, got {work}")
     return work[0]["name"]
+
+
+def ptxas_usage(variant):
+    """Registers and spill bytes ptxas reported for a kernel instance, e.g.
+    ``consensus_small_kernel<0, 9>``, from this run's build (empty when the
+    library was already built)."""
+    import re
+
+    from repro_torch.kernels import dispatch
+
+    name, args = variant.rstrip(">").split("<")
+    mangled = "".join(f"Li{a.strip().replace('-', 'n')}E" for a in args.split(","))
+    mangled = f"{name}I{mangled}E"  # e.g. consensus_small_kernelILi0ELi9EE
+    lines = dispatch.build_info.get("ptxas", "").splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and mangled in line:
+            block = " ".join(lines[i:i + 4])
+            regs = re.search(r"Used (\d+) registers", block)
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+            return {"ptxas_registers": int(regs.group(1)) if regs else None,
+                    "ptxas_spill_bytes": [int(x) for x in spills.groups()] if spills else None}
+    return {}
+
+
+def launch_fields(fn, launch_floor_ms):
+    """Phase 5's per-call fields of a single-kernel wrapper: device work a
+    call, the kernel instance, the launch floor and ptxas's usage."""
+    work = captured_work(fn)
+    variant = kernel_variant(fn, work)
+    return {"device_kernels_per_call": len(work), "variant": variant,
+            "launch_floor_ms": launch_floor_ms, **ptxas_usage(variant)}
 
 
 def attention_inputs(name, dev, dtype=None):
@@ -407,7 +506,7 @@ def check_ops_kernels(dev):
 
     from repro_torch.kernels import consensus as k
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import gauss_vi
+    from repro_torch.kernels import gauss_vi, launch_plan
 
     worst = {}
     for (n, p) in [(9, P_SLICE), (300, 4_099), (1, 5)]:
@@ -417,11 +516,11 @@ def check_ops_kernels(dev):
             if n > 2:  # zero weights in the row are computed, not skipped
                 w[0] = w[-1] = 0.0
                 w = w / w.sum()
-            errs = eq6_errors(f"consensus_fused N={n} P={p}",
-                              k.consensus_fused(w, mean, rho, wire_dtype=wire),
+            row = functools.partial(k.consensus_fused, w, mean, rho, wire_dtype=wire)
+            errs = eq6_errors(f"consensus_fused N={n} P={p}", row(),
                               k.consensus_row_plain(w, mean, rho, wire), wire)
             phase("2.consensus_row", n=n, p=p, wire=wire, zero_weights=int((w == 0).sum()),
-                  max_abs_err_mean=errs[0], max_abs_err_rho=errs[1])
+                  max_abs_err_mean=errs[0], max_abs_err_rho=errs[1], variant=kernel_variant(row))
             if (n, p, wire) == (9, P_SLICE, "f32"):
                 worst["consensus_fused"] = max(errs)
     vi_cases = [(P_SLICE, None), (2_049, None), (5, None), (P_SLICE, (P_SLICE, 1, 2, 3, 0))]
@@ -472,6 +571,19 @@ def check_ops_kernels(dev):
               max_abs_err=err, rows_without_keys=0 if dead is None else int(dead.sum()))
         if dt != "f32":  # the row reports the tensor-core kernel
             worst["flash_attention"] = max(worst["flash_attention"], err)
+    for dt in ("f32", "bf16"):  # more heads than a grid dimension holds: the flat grid
+        dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[dt]
+        for shape in ((N_BEYOND_GRID, 1, 64, 32), (1, N_BEYOND_GRID, 64, 32)):
+            g = torch.Generator(device=dev).manual_seed(sum(shape))
+            q, kk, vv = (torch.randn(shape, generator=g, device=dev).to(dtype) for _ in range(3))
+            err = attention_errors(f"flash_attention {dt} {shape}",
+                                   fa.flash_attention(q, kk, vv, causal=True),
+                                   fa.flash_attention_plain(q, kk, vv, causal=True), ATT_TOL[dt])
+            bq = launch_plan.ATTN_F32_BQ if dt == "f32" else fa.TC_TILES[32][0]
+            phase("2.flash_attention", dtype=dt, shape=shape, sk=shape[2], causal=True, window=0,
+                  max_abs_err=err,
+                  grid_blocks=launch_plan.attention_blocks(shape[0] * shape[1], shape[2], bq))
+            del q, kk, vv
     return worst
 
 
@@ -836,30 +948,34 @@ def timings(dev, counts, errs):
                                           *(a.clone() for a in vi_args))
     launch_floor_ms = cuda_ms(lambda: torch.cuda._sleep(1))  # one launch, no work
     fp32 = FP32_FLOP_PER_S
+    network = functools.partial(k.consensus_fused_network, W, mean, rho)
+    masked = functools.partial(k.consensus_fused_masked, W_win, act, mean, rho)
+    sparse = functools.partial(k.consensus_fused_sparse, nbr_b, wts_b, mean, rho)
+    masked_sparse = functools.partial(k.consensus_fused_masked_sparse, nbr_w, wts_w, act, mean,
+                                      rho)
     kernels = [  # name, source, replaces, kernel, plain, bytes, ops, peak, library, fields
-        ("consensus_fused_network", "consensus_network.cu", REF + "195",
-         lambda: k.consensus_fused_network(W, mean, rho),
-         lambda: k.consensus_network_plain(W, mean, rho), eq6_bytes, eq6_ops, fp32, None, {}),
+        ("consensus_fused_network", "consensus_network.cu", REF + "195", network,
+         lambda: k.consensus_network_plain(W, mean, rho), eq6_bytes, eq6_ops, fp32, None,
+         launch_fields(network, launch_floor_ms)),
         ("payload_validity_fused", "payload_validity.cu", REF + "436", validity,
          lambda: k.payload_validity_plain(mean, rho, bound=1e20),
          8 * n * p + n, 20 * n * p, fp32, None,  # mean, rho in; [N] bool out
-         {"device_kernels_per_call": len(captured_work(validity)),
-          "variant": kernel_variant(validity), "launch_floor_ms": launch_floor_ms}),
-        ("consensus_fused_masked", "consensus_network.cu", REF + "261",
-         lambda: k.consensus_fused_masked(W_win, act, mean, rho),
+         launch_fields(validity, launch_floor_ms)),
+        ("consensus_fused_masked", "consensus_network.cu", REF + "261", masked,
          lambda: k.consensus_masked_plain(W_win, act, mean, rho),
-         eq6_bytes + 4 * n, eq6_ops, fp32, None, {}),  # + the [N] mask
-        ("consensus_fused_sparse", "consensus_sparse.cu", REF + "355",
-         lambda: k.consensus_fused_sparse(nbr_b, wts_b, mean, rho),
+         eq6_bytes + n, eq6_ops, fp32, None,  # + the [N] bool mask
+         dict(launch_fields(masked, launch_floor_ms), window=win.index, n_active=n_act)),
+        ("consensus_fused_sparse", "consensus_sparse.cu", REF + "355", sparse,
          lambda: k.consensus_sparse_plain(nbr_b, wts_b, mean, rho),
          16 * n * p + 8 * n * d_b,  # every row read once; tables
-         gathered_ops * n * d_b * p + out_ops * n * p, fp32, None, {"d": d_b}),
-        ("consensus_fused_masked_sparse", "consensus_sparse.cu", REF + "529",
-         lambda: k.consensus_fused_masked_sparse(nbr_w, wts_w, act, mean, rho),
+         gathered_ops * n * d_b * p + out_ops * n * p, fp32, None,
+         dict(launch_fields(sparse, launch_floor_ms), d=d_b)),
+        ("consensus_fused_masked_sparse", "consensus_sparse.cu", REF + "529", masked_sparse,
          lambda: k.consensus_masked_sparse_plain(nbr_w, wts_w, act, mean, rho),
-         8 * p * rows_read + 8 * n * p + 8 * n * d_w + 4 * n,  # rows read; out; tables; mask
+         8 * p * rows_read + 8 * n * p + 8 * n * d_w + n,  # rows read; out; tables; mask
          gathered_ops * n_act * d_w * p + out_ops * n_act * p, fp32, None,
-         {"window": win.index, "n_active": n_act, "d": d_w, "rows_read": rows_read}),
+         dict(launch_fields(masked_sparse, launch_floor_ms), window=win.index, n_active=n_act,
+              d=d_w, rows_read=rows_read)),
         ("consensus_fused", "consensus_row.cu", REF + "131",  # one agent's row of W
          lambda: k.consensus_fused(W[0], mean, rho),
          lambda: k.consensus_row_plain(W[0], mean, rho),
@@ -869,8 +985,7 @@ def timings(dev, counts, errs):
          lambda: gauss_vi.sample_and_kl_plain(*vi_args),
          24 * p + 4,  # five [P] in, theta [P] and the KL out
          30 * p, fp32, None,  # two softplus, a log, two divisions, sample, sum per lane
-         {"device_kernels_per_call": len(captured_work(sample_kl)),
-          "variant": kernel_variant(sample_kl), "launch_floor_ms": launch_floor_ms,
+         {**launch_fields(sample_kl, launch_floor_ms),
           "aligned_variant": kernel_variant(sample_kl_aligned),
           "aligned_ms": cuda_ms(sample_kl_aligned),
           "aligned_cold_l2_ms": cuda_ms(sample_kl_aligned, flush)}),
@@ -904,6 +1019,10 @@ def timings(dev, counts, errs):
             kern, plain,
             q.element_size() * 4 * b * h * s * hd,  # q, k, v in; out
             4 * hd * pairs * b * h, BF16_FLOP_PER_S, sdpa, fields))
+    single = [(name, f["device_kernels_per_call"]) for name, *_, f in kernels
+              if "device_kernels_per_call" in f]
+    if any(count != 1 for _, count in single):
+        raise AssertionError(f"5.timing: a wrapper ran more than one device kernel: {single}")
     rows = []
     for name, src, replaces, fn, plain, nbytes, ops, peak, library, fields in kernels:
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3

@@ -9,7 +9,8 @@ synchronous round's and the gossip windows' paths).
       new_prec = W @ prec_x,  new_pm = W @ pm_x         (fp32 accumulation)
       mean' = new_pm / new_prec,  rho' = softplus^-1(new_prec^-1/2)
 
-  CUDA source: ``csrc/consensus_network.cu``.
+  CUDA source: ``csrc/consensus_network.cu`` (N <= 16 keeps every row of
+  a thread's 2 lanes in registers; larger N stages rows in chunks).
 * ``consensus_fused``: eq. (6) for ONE agent, ``w_row [N]`` over the
   stacked neighbour rows ``[N, P]`` -> ``[P]``, in that kernel's own op
   order (``wp = w * prec`` then ``sum(wp * mean)`` at f32; ``sum(w *
@@ -18,18 +19,27 @@ synchronous round's and the gossip windows' paths).
   ``csrc/consensus_row.cu``.
 * ``consensus_fused_masked``: the same pass on one gossip window's W-tilde
   with an ``[N]`` activity mask.  Active rows are bitwise the network
-  kernel's rows (one template, one accumulation loop); inactive rows pass
-  (mean, rho) through untouched.  CUDA source: ``csrc/consensus_network.cu``.
+  kernel's rows (the same kernel instance); inactive rows pass (mean, rho)
+  through untouched.  CUDA source: ``csrc/consensus_network.cu``.
 * ``consensus_fused_sparse`` / ``consensus_fused_masked_sparse``: eq. (6)
   over CSR neighbour tables (``neighbors [N, D]`` self-padded ids,
   ``weights [N, D]`` zero-padded): each agent gathers only its deg(i) rows;
-  the masked form copies an inactive agent's own row.  The plain versions
-  rebuild the small dense W from the tables, as the JAX package's reference
-  path does.  CUDA source: ``csrc/consensus_sparse.cu``.
+  the masked form copies an inactive agent's own row.  Any N: the kernel
+  walks (agent, lane group) by a flat index.  The plain versions rebuild
+  the small dense W from the tables, as the JAX package's reference path
+  does.  CUDA source: ``csrc/consensus_sparse.cu`` (N <= 24 computes each
+  row's per-lane terms once per tile in shared memory; larger N gathers
+  from L2).
 * ``payload_validity_fused``: per agent, every wire-rounded ``prec`` and
   ``prec * mean`` lane finite, ``prec > 0`` and both within ``bound``.
   CUDA source: ``csrc/payload_validity.cu``, one launch planned by
   ``stream_plan``.
+
+Masks: the kernels read an ``[N]`` mask as bytes, nonzero = active.  A
+``bool`` tensor on the card goes to the kernel as it is, so a masked call
+runs one device kernel; other dtypes (and host masks) become ``mask > 0``
+first.  Launch plans (instance, load width, grid of at most one wave):
+``launch_plan``.
 
 Each wrapper takes its plain version only for tensors on the CPU.  A CUDA
 tensor launches the kernel on the current stream or raises: there is no
@@ -45,7 +55,7 @@ from repro_torch.core.numerics import (
     softplus_inv,
     wire_roundtrip,
 )
-from repro_torch.kernels import dispatch, stream_plan
+from repro_torch.kernels import dispatch, launch_plan, stream_plan
 
 _WIRE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -86,31 +96,51 @@ def consensus_network_plain(W, mean, rho, wire_dtype=None):
     return new_pm / new_prec, softplus_inv(torch.rsqrt(new_prec))
 
 
+def _outputs_and_vec(mean, rho):
+    """Empty outputs like (mean, rho) and the load width every row of the
+    four buffers is aligned to."""
+    mean_out, rho_out = torch.empty_like(mean), torch.empty_like(rho)
+    vec = launch_plan.row_vector_width(mean.shape[1], mean.data_ptr(), rho.data_ptr(),
+                                       mean_out.data_ptr(), rho_out.data_ptr())
+    return mean_out, rho_out, vec
+
+
+def _network_launch(name, W, active, mean, rho, wire_dtype, instance=None):
+    """One launch of ``csrc/consensus_network.cu``: ``active`` None or an
+    ``[N]`` mask; ``instance`` the small instance ``dense_instance(N)``
+    (the default) or 0, the generic path, which runs any N."""
+    if mean.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {mean.device}")
+    _check_flat(name, mean, rho)
+    n, p = mean.shape
+    if W.shape != (n, n) or W.device != mean.device or W.dtype != torch.float32:
+        raise ValueError(f"{name}: W must be float32 [{n}, {n}] on {mean.device}, got "
+                         f"{W.dtype} {tuple(W.shape)} on {W.device}")
+    W = W.contiguous()
+    act = None if active is None else _as_mask(active, n, mean.device)
+    mean_out, rho_out, vec = _outputs_and_vec(mean, rho)
+    wire = _WIRE_CODE[canonical_wire_dtype(wire_dtype)]
+    lib = dispatch.library()
+    instance = launch_plan.dense_instance(n) if instance is None else instance
+    wave = dispatch.wave(mean.device, "consensus_network", lib.consensus_network_blocks_per_sm,
+                         wire, instance)
+    plan = launch_plan.dense_plan(n, p, vec, instance, wave)
+    err = lib.consensus_network_launch(
+        W.data_ptr(), None if act is None else act.data_ptr(), mean.data_ptr(),
+        rho.data_ptr(), mean_out.data_ptr(), rho_out.data_ptr(), n, p, wire, plan.instance,
+        plan.vec, plan.grid, _stream(mean.device),
+    )
+    dispatch.check_cuda(err, name)
+    dispatch.count_launch(name)
+    return mean_out, rho_out
+
+
 def consensus_fused_network(W, mean, rho, *, wire_dtype=None):
     """Eq. (6) for every agent: ``W [N, N]`` row-stochastic, ``mean``/``rho``
     ``[N, P]`` float32.  Returns the new (mean, rho), both ``[N, P]``."""
     if mean.device.type == "cpu":
         return consensus_network_plain(W, mean, rho, wire_dtype)
-    if mean.device.type != "cuda":
-        raise ValueError(f"consensus_fused_network: no kernel for {mean.device}")
-    _check_flat("consensus_fused_network", mean, rho)
-    n, p = mean.shape
-    if W.shape != (n, n) or W.device != mean.device or W.dtype != torch.float32:
-        raise ValueError(
-            f"consensus_fused_network: W must be float32 [{n}, {n}] on "
-            f"{mean.device}, got {W.dtype} {tuple(W.shape)} on {W.device}"
-        )
-    W = W.contiguous()
-    mean_out = torch.empty_like(mean)
-    rho_out = torch.empty_like(rho)
-    err = dispatch.library().consensus_network_launch(
-        W.data_ptr(), mean.data_ptr(), rho.data_ptr(),
-        mean_out.data_ptr(), rho_out.data_ptr(), n, p,
-        _WIRE_CODE[canonical_wire_dtype(wire_dtype)], _stream(mean.device),
-    )
-    dispatch.check_cuda(err, "consensus_fused_network")
-    dispatch.count_launch("consensus_fused_network")
-    return mean_out, rho_out
+    return _network_launch("consensus_fused_network", W, None, mean, rho, wire_dtype)
 
 
 # -- eq. (6) for one agent ---------------------------------------------------
@@ -161,11 +191,13 @@ def consensus_fused(w_row, mean, rho, *, wire_dtype=None):
 
 
 def _as_mask(active, n: int, device: torch.device) -> torch.Tensor:
-    """``[N]`` bool from a bool/int/float mask (nonzero = active)."""
+    """``[N]`` bool on ``device`` from a bool/int/float mask (> 0 = active).
+    A bool tensor already there is used as it is (the kernels read its
+    bytes, nonzero = active), so a masked call runs one device kernel."""
     act = torch.as_tensor(active, device=device)
     if act.shape != (n,):
         raise ValueError(f"active mask of shape {tuple(act.shape)}, expected ({n},)")
-    return act > 0
+    return (act if act.dtype == torch.bool else act > 0).contiguous()
 
 
 def consensus_masked_plain(W, active, mean, rho, wire_dtype=None):
@@ -181,27 +213,7 @@ def consensus_fused_masked(W, active, mean, rho, *, wire_dtype=None):
     ``consensus_fused_network``'s; inactive rows are (mean, rho) untouched."""
     if mean.device.type == "cpu":
         return consensus_masked_plain(W, active, mean, rho, wire_dtype)
-    if mean.device.type != "cuda":
-        raise ValueError(f"consensus_fused_masked: no kernel for {mean.device}")
-    _check_flat("consensus_fused_masked", mean, rho)
-    n, p = mean.shape
-    if W.shape != (n, n) or W.device != mean.device or W.dtype != torch.float32:
-        raise ValueError(
-            f"consensus_fused_masked: W must be float32 [{n}, {n}] on "
-            f"{mean.device}, got {W.dtype} {tuple(W.shape)} on {W.device}"
-        )
-    W = W.contiguous()
-    act = _as_mask(active, n, mean.device).to(torch.int32)
-    mean_out = torch.empty_like(mean)
-    rho_out = torch.empty_like(rho)
-    err = dispatch.library().consensus_masked_launch(
-        W.data_ptr(), act.data_ptr(), mean.data_ptr(), rho.data_ptr(),
-        mean_out.data_ptr(), rho_out.data_ptr(), n, p,
-        _WIRE_CODE[canonical_wire_dtype(wire_dtype)], _stream(mean.device),
-    )
-    dispatch.check_cuda(err, "consensus_fused_masked")
-    dispatch.count_launch("consensus_fused_masked")
-    return mean_out, rho_out
+    return _network_launch("consensus_fused_masked", W, active, mean, rho, wire_dtype)
 
 
 # -- eq. (6) over CSR neighbour tables ---------------------------------------
@@ -251,27 +263,27 @@ def consensus_masked_sparse_plain(neighbors, weights, active, mean, rho, wire_dt
                                   mean, rho, wire_dtype)
 
 
-def _sparse_launch(name, neighbors, weights, active, mean, rho, wire_dtype):
+def _sparse_launch(name, neighbors, weights, active, mean, rho, wire_dtype, staged=None):
+    """One launch of ``csrc/consensus_sparse.cu``: ``staged`` None (the
+    plan's choice for N), True (N <= ``launch_plan.STAGE_N_MAX``) or False
+    (the gather path, any N)."""
     if mean.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for {mean.device}")
     _check_flat(name, mean, rho)
     n, p = mean.shape
-    if n > 65535:
-        raise ValueError(f"{name}: N={n} exceeds 65535 agents")
     nbr, wts = csr_tables(name, neighbors, weights, n, mean.device)
-    mean_out = torch.empty_like(mean)
-    rho_out = torch.empty_like(rho)
-    args = [nbr.data_ptr(), wts.data_ptr()]
-    if active is not None:
-        act = _as_mask(active, n, mean.device).to(torch.int32)
-        args.append(act.data_ptr())
-    launch = getattr(dispatch.library(),
-                     "consensus_masked_sparse_launch" if active is not None
-                     else "consensus_sparse_launch")
-    err = launch(
-        *args, mean.data_ptr(), rho.data_ptr(), mean_out.data_ptr(), rho_out.data_ptr(),
-        n, nbr.shape[1], p, _WIRE_CODE[canonical_wire_dtype(wire_dtype)],
-        _stream(mean.device),
+    act = None if active is None else _as_mask(active, n, mean.device)
+    mean_out, rho_out, vec = _outputs_and_vec(mean, rho)
+    wire = _WIRE_CODE[canonical_wire_dtype(wire_dtype)]
+    lib = dispatch.library()
+    staged = launch_plan.sparse_staged(n) if staged is None else staged
+    wave = dispatch.wave(mean.device, "consensus_sparse", lib.consensus_sparse_blocks_per_sm,
+                         wire, int(staged), n if staged else 0)
+    plan = launch_plan.sparse_plan(n, p, vec, staged, wave)
+    err = lib.consensus_sparse_launch(
+        nbr.data_ptr(), wts.data_ptr(), None if act is None else act.data_ptr(),
+        mean.data_ptr(), rho.data_ptr(), mean_out.data_ptr(), rho_out.data_ptr(), n,
+        nbr.shape[1], p, wire, plan.instance, plan.vec, plan.grid, _stream(mean.device),
     )
     dispatch.check_cuda(err, name)
     dispatch.count_launch(name)

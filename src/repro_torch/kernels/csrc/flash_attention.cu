@@ -21,8 +21,10 @@
 // 4 bytes per element of q, k, v and out read or written once.
 //
 // Design (a simple kernel that is right):
-// * One block per (b, h, tile of BQ = 64 query rows); the heaviest causal
-//   tiles (the last ones) are launched first.  256 threads as 16 x 16:
+// * One block per (b * h, tile of BQ = 64 query rows) on a 1-D grid, any
+//   B * H up to the grid's 2^31 - 1 blocks: block x takes head x mod (B H)
+//   and tile n_qt - 1 - x div (B H), so the heaviest causal tiles (the last
+//   ones) of every head are launched first.  256 threads as 16 x 16:
 //   thread (ty, tx) owns query rows ty + 16 i (i < 4), key columns
 //   tx + 16 j of a K tile and output dims tx + 16 e.
 // * The Q tile and one K and V tile at a time are staged in shared memory,
@@ -81,7 +83,7 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out,
-                       int s, int sk, int causal, int window, float scale) {
+                       int bh_count, int s, int sk, int causal, int window, float scale) {
   using TL = Tiles<HD>;
   constexpr int BK = TL::BK, COLS = TL::COLS, DIMS = TL::DIMS;
   constexpr int LD = TL::LD, LDP = TL::LDP;
@@ -93,9 +95,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int ty = threadIdx.x / 16;
   const int tx = threadIdx.x % 16;
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
-  const int q0 = qt * BQ;
-  const long long bh = static_cast<long long>(blockIdx.z) * gridDim.y + blockIdx.y;
+  // block x of the flat grid: head x mod bh_count, and the heaviest causal
+  // tiles of every head first (kernels/launch_plan.py attention_block)
+  const int n_qt = (s + BQ - 1) / BQ;
+  const long long bh = blockIdx.x % static_cast<unsigned>(bh_count);
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x / static_cast<unsigned>(bh_count))) * BQ;
   const T* qh = q + bh * s * HD;
   const T* kh = k + bh * sk * HD;
   const T* vh = v + bh * sk * HD;
@@ -215,11 +219,11 @@ int launch(const void* q, const void* k, const void* v, void* out, int b, int h,
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid(static_cast<unsigned>((s + BQ - 1) / BQ), static_cast<unsigned>(h),
-                  static_cast<unsigned>(b));
+  const int bh = b * h;  // b * h * ceil(s / BQ) < 2^31: checked by the caller
+  const dim3 grid(static_cast<unsigned>(bh) * static_cast<unsigned>((s + BQ - 1) / BQ));
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), s, sk, causal, window, scale);
+      static_cast<T*>(out), bh, s, sk, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -243,7 +247,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
                                       void* out, int b, int h, int s, int sk, int hd,
                                       int causal, int window, float scale, void* stream) {
   using namespace repro_torch;
-  if (b <= 0 || h <= 0 || s <= 0 || sk <= 0 || b > 65535 || h > 65535) {
+  // one block per (b * h, query tile) on a 1-D grid of at most 2^31 - 1
+  if (b <= 0 || h <= 0 || s <= 0 || sk <= 0 ||
+      static_cast<long long>(b) * h * ((s + BQ - 1) / BQ) > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return launch_hd(q, k, v, out, b, h, s, sk, hd, causal, window, scale,

@@ -19,8 +19,9 @@
 // v and out: thousands of operations per byte at S = 4096.
 //
 // Design (Hopper's shape):
-// * One CTA of 384 threads per (b*h, 128-row query tile), the heaviest causal
-//   tiles of every head launched first.  Warpgroup 2 is the producer: after
+// * One CTA of 384 threads per (b*h, 128-row query tile) on a 1-D grid (any
+//   B * H up to its 2^31 - 1 blocks), the heaviest causal tiles of every
+//   head launched first.  Warpgroup 2 is the producer: after
 //   `setmaxnreg.dec` to 24 registers one thread issues TMA loads of Q (once)
 //   and of each K and V tile into a 2-stage ring in shared memory, with a
 //   "full" and an "empty" mbarrier per K slot and per V slot.  Warpgroups 0
@@ -299,7 +300,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_attention_tc_kernel(const __grid_constant__ CUtensorMap map_q,
                           const __grid_constant__ CUtensorMap map_k,
                           const __grid_constant__ CUtensorMap map_v, void* __restrict__ out,
-                          int s, int sk, int causal, int window, float scale_log2) {
+                          int bh_count, int s, int sk, int causal, int window,
+                          float scale_log2) {
   using C = TcCfg<HD>;
   constexpr int BQ = C::BQ, BK = C::BK, ST = C::ST, SW = C::SW;
   extern __shared__ uint8_t smem_raw[];
@@ -314,8 +316,11 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap map_q,
   const uint32_t bar_ek = bar_v + 8 * ST;         // + 8 st: K slot st read
   const uint32_t bar_ev = bar_ek + 8 * ST;        // + 8 st: V slot st read
 
-  const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest causal tiles first
+  // block x of the flat grid: head x mod bh_count, and the heaviest causal
+  // tiles of every head first (kernels/launch_plan.py attention_block)
+  const int n_qt = (s + BQ - 1) / BQ;
+  const int bh = static_cast<int>(blockIdx.x % static_cast<unsigned>(bh_count));
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x / static_cast<unsigned>(bh_count))) * BQ;
   // K tiles kept by the block predicate of flash_attention.py:51-55 at BQ x BK
   const int n_kt = (sk + BK - 1) / BK;
   int kt_hi = n_kt;
@@ -557,8 +562,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int bh, int s
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid(static_cast<unsigned>(bh), static_cast<unsigned>((s + C::BQ - 1) / C::BQ));
-  kernel<<<grid, THREADS, C::SMEM, stream>>>(mq, mk, mv, out, s, sk, causal, window,
+  const dim3 grid(static_cast<unsigned>(bh) * static_cast<unsigned>((s + C::BQ - 1) / C::BQ));
+  kernel<<<grid, THREADS, C::SMEM, stream>>>(mq, mk, mv, out, bh, s, sk, causal, window,
                                              scale * LOG2E);
   return static_cast<int>(cudaGetLastError());
 }
@@ -584,7 +589,9 @@ extern "C" int flash_attention_tc_launch(const void* q, const void* k, const voi
                                          void* out, int bh, int s, int sk, int hd, int dtype,
                                          int causal, int window, float scale, void* stream) {
   using namespace repro_torch;
-  if (bh <= 0 || s <= 0 || sk <= 0 || window < 0 || (s + 127) / 128 > 65535) {
+  // one block per (b * h, 128-row query tile) on a 1-D grid of at most 2^31 - 1
+  if (bh <= 0 || s <= 0 || sk <= 0 || window < 0 ||
+      static_cast<long long>(bh) * ((s + 127) / 128) > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |

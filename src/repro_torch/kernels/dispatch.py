@@ -141,8 +141,10 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build_library()))
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.consensus_network_blocks_per_sm.argtypes = [i32, i32]
+        lib.consensus_network_blocks_per_sm.restype = i32
         lib.consensus_network_launch.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, i32, i64, i32, ptr,
+            ptr, ptr, ptr, ptr, ptr, ptr, i32, i64, i32, i32, i32, i32, ptr,
         ]
         lib.consensus_network_launch.restype = i32
         lib.payload_validity_blocks_per_sm.argtypes = [i32, i32]
@@ -151,18 +153,12 @@ def library() -> ctypes.CDLL:
             ptr, ptr, ptr, ptr, ptr, i64, i64, ctypes.c_float, i32, i32, i64, i32, ptr,
         ]
         lib.payload_validity_launch.restype = i32
-        lib.consensus_masked_launch.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, ptr, i32, i64, i32, ptr,
-        ]
-        lib.consensus_masked_launch.restype = i32
+        lib.consensus_sparse_blocks_per_sm.argtypes = [i32, i32, i32]
+        lib.consensus_sparse_blocks_per_sm.restype = i32
         lib.consensus_sparse_launch.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i64, i32, ptr,
+            ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i64, i32, i32, i32, i32, ptr,
         ]
         lib.consensus_sparse_launch.restype = i32
-        lib.consensus_masked_sparse_launch.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i64, i32, ptr,
-        ]
-        lib.consensus_masked_sparse_launch.restype = i32
         lib.consensus_row_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i64, i32, ptr]
         lib.consensus_row_launch.restype = i32
         lib.sample_and_kl_blocks_per_sm.argtypes = [i32]

@@ -21,6 +21,11 @@ entirely are never loaded.  The scale is ``1/sqrt(hd)``; the output is in
   float32 because the 2e-5 contract against the plain version needs fp32
   products and sums, which the tensor cores do not give.
 
+Both kernels run one block per (b * h, query tile) on a 1-D grid, the
+heaviest causal tiles of every head first (``launch_plan.attention_block``),
+so B and H have no limit of their own: only B * H * (query tiles) is held
+to the grid's 2^31 - 1 blocks.
+
 A 16-bit CUDA tensor goes to the tensor-core kernel or raises; it never
 falls back to the fp32 kernel.  Both kernels count under ``flash_attention``
 in ``dispatch``.
@@ -43,7 +48,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import dispatch
+from repro_torch.kernels import dispatch, launch_plan
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128, 256)
@@ -113,9 +118,12 @@ def flash_attention(q, k, v, *, causal=True, window=0, block_q=512, block_k=512)
                              f"{q.device}; got {t.dtype} on {t.device}")
     if q.dtype != torch.float32 and q.dtype not in _TC_DTYPE_CODE:
         raise TypeError(f"flash_attention: expects float32/bfloat16/float16, got {q.dtype}")
-    if max(b, h) > 65535 or max(s, sk) >= 2 ** 31 or not 0 <= window < 2 ** 31:
+    if max(s, sk) >= 2 ** 31 or not 0 <= window < 2 ** 31:
         raise ValueError(f"flash_attention: shape {tuple(q.shape)} / Sk {sk} / window "
                          f"{window} out of the kernel's range")
+    # one block per (b * h, query tile) on a 1-D grid: raises past 2^31 - 1 blocks
+    launch_plan.attention_blocks(b * h, s, launch_plan.ATTN_F32_BQ if q.dtype == torch.float32
+                                 else TC_TILES[hd][0])
     out = torch.empty_like(q)
     lib = dispatch.library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -126,12 +134,9 @@ def flash_attention(q, k, v, *, causal=True, window=0, block_q=512, block_k=512)
             int(bool(causal)), int(window), scale, stream,
         )
     else:
-        bq = TC_TILES[hd][0]
         if any(t.data_ptr() % 16 for t in (q, k, v, out)):
             raise ValueError("flash_attention: the tensor-core kernel needs 16-byte aligned "
                              "q, k, v (TMA)")
-        if b * h >= 2 ** 31 or -(-s // bq) > 65535:
-            raise ValueError(f"flash_attention: shape {tuple(q.shape)} out of the kernel's range")
         err = lib.flash_attention_tc_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, s, sk, hd,
             _TC_DTYPE_CODE[q.dtype], int(bool(causal)), int(window), scale, stream,

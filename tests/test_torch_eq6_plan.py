@@ -1,0 +1,305 @@
+"""The launch plans of the eq. (6) kernels and of the attention kernels' flat
+grid (``repro_torch.kernels.launch_plan``; ``csrc/consensus_network.cu``,
+``csrc/consensus_sparse.cu``, ``csrc/flash_attention*.cu``), checked on the
+CPU, and the masked wrappers' mask handling against the JAX package.
+
+The CUDA kernels run only on the card; what surrounds them runs here: the
+constants and choices the C++ makes (read back from the sources), the load
+width chosen from the pointers and the row stride, and each kernel's walk
+over its work, emulated from the C++ index arithmetic: every (agent, lane)
+is written exactly once, with the grid at most one wave (132 SMs).  The
+masked plain versions (what a CPU tensor runs) take bool, int and float
+masks as the JAX package does: at f32 rtol 1e-6 / atol 1e-6 (another fp32
+reduction order), at bf16 one wire ulp of the output scale; idle rows
+bitwise their inputs.
+"""
+import dataclasses
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import flat as jflat  # noqa: E402
+from repro.core.graphs import bidirectional_ring_w  # noqa: E402
+from repro.gossip.clocks import PoissonClock  # noqa: E402
+from repro_torch.kernels import consensus as tk  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import launch_plan as lp  # noqa: E402
+
+CSRC = Path(tk.__file__).resolve().parent / "csrc"
+SMS = 132  # H100 SXM
+BASE = 1 << 20  # an address aligned to 16 bytes
+SHAPES = [(9, 199_210), (300, 4_099), (70_000, 3), (1, 5)]  # (N, P)
+WAVES = [SMS * 8, SMS, 7]  # a full card, one block an SM, a grid that walks many items
+
+
+def _constants(name: str) -> dict[str, int]:
+    src = (CSRC / name).read_text()
+    return {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+
+
+def test_plan_constants_are_the_kernels():
+    dense = _constants("consensus_network.cu")
+    assert (dense["SMALL_N_MAX"], dense["SMALL_THREADS"], dense["SMALL_LANES"],
+            dense["GENERIC_TILE"]) == (lp.SMALL_N_MAX, lp.SMALL_THREADS, lp.SMALL_LANES,
+                                       lp.GENERIC_TILE)
+    found = re.search(r"kInstances\[\] = \{([\d, ]+)\}",
+                      (CSRC / "consensus_network.cu").read_text())
+    assert tuple(int(x) for x in found.group(1).split(",")) == lp.SMALL_INSTANCES
+    assert max(lp.SMALL_INSTANCES) == lp.SMALL_N_MAX
+    sparse = _constants("consensus_sparse.cu")
+    assert (sparse["THREADS"], sparse["GROUP"], sparse["SPARSE_TILE"],
+            sparse["STAGE_N_MAX"]) == (lp.SPARSE_THREADS, lp.GROUP, lp.SPARSE_TILE,
+                                       lp.STAGE_N_MAX)
+    # the staged terms of STAGE_N_MAX rows fill the 48 KB a block has without opting in
+    assert 2 * lp.STAGE_N_MAX * lp.SPARSE_TILE * 4 == 48 * 1024
+    assert _constants("flash_attention.cu")["BQ"] == lp.ATTN_F32_BQ
+    assert {bq for bq, _ in fa.TC_TILES.values()} == {
+        int(re.search(r"static constexpr int BQ = (\d+);",
+                      (CSRC / "flash_attention_tc.cu").read_text()).group(1))}
+
+
+@pytest.mark.parametrize("p,ptrs,vec", [
+    (199_210, (BASE, BASE + 4 * 199_210), 2),  # odd rows 8 bytes off 16: no float4
+    (199_210, (BASE, BASE), 2),  # even with every base 16-byte aligned
+    (4_096, (BASE, BASE + 16, BASE + 4096 * 4), 4),
+    (4_098, (BASE, BASE + 32), 2),
+    (4_099, (BASE, BASE), 1),  # odd P: every other row 4 bytes off 8
+    (4_096, (BASE, BASE + 8), 2),  # a base 8 bytes off 16
+    (4_096, (BASE, BASE + 4), 1),
+])
+def test_row_vector_width_from_pointers_and_row_stride(p, ptrs, vec):
+    assert lp.row_vector_width(p, *ptrs) == vec
+    for row in range(4):  # every row of every buffer is aligned to the width
+        assert all((ptr + 4 * p * row) % (4 * vec) == 0 for ptr in ptrs)
+
+
+def test_small_or_generic_as_the_kernel_chooses():
+    # consensus_network.cu dense_instance: the first of kInstances that holds n, else 0
+    for n in range(1, 40):
+        want = next((nb for nb in (1, 2, 4, 8, 9, 16) if n <= nb), 0)
+        assert lp.dense_instance(n) == want
+    assert lp.dense_instance(9) == 9  # the 3x3 grid runs its exact instance
+    assert [lp.sparse_staged(n) for n in (1, 9, 24, 25, 300, 70_000)] == [
+        True, True, True, False, False, False]
+    with pytest.raises(ValueError):
+        lp.dense_instance(0)
+
+
+def test_balanced_grid_at_the_slice():
+    # 779 tiles of 256 lanes at P = 199,210 on 660 resident blocks: 390 blocks
+    # of two tiles each, not 660 of which 119 walk a second tile
+    plan = lp.sparse_plan(9, 199_210, 2, True, 660)
+    assert (plan.items, plan.grid) == (779, 390)
+    assert lp.sparse_plan(9, 199_210, 2, True, 1056).grid == 779  # one tile a block
+    small = lp.dense_plan(9, 199_210, 2, 9, 132 * 6)
+    assert (small.items, small.grid, small.vec) == (99_605, 779, 2)
+
+
+def test_plans_refuse_what_the_kernels_do_not_take():
+    with pytest.raises(ValueError):
+        lp.dense_plan(9, 5, 1, 16, SMS)  # N = 9 runs instance 9
+    with pytest.raises(ValueError):
+        lp.dense_plan(17, 5, 1, 16, SMS)  # no small instance holds 17 rows
+    with pytest.raises(ValueError):
+        lp.sparse_plan(25, 5, 1, True, SMS)  # 25 rows of terms exceed 48 KB
+    for args in ((9, 5, 3, 9, SMS), (9, 5, 1, 9, 0), (0, 5, 1, 0, SMS), (9, 0, 1, 9, SMS)):
+        with pytest.raises(ValueError):
+            lp.dense_plan(*args)
+    lp.dense_plan(300, 5, 1, 0, SMS)  # the generic path takes any N
+    lp.sparse_plan(70_000, 3, 1, False, SMS)
+
+
+def _grid_stride(items: int, threads: int, grid: int) -> np.ndarray:
+    """Every item a grid-stride loop visits, once per visit: thread t of
+    block b takes b * threads + t, then + grid * threads, ..."""
+    stride = grid * threads
+    starts = np.arange(min(stride, items), dtype=np.int64)
+    iters = -(-items // stride)
+    ks = starts[:, None] + stride * np.arange(iters, dtype=np.int64)[None, :]
+    return ks[ks < items]
+
+
+def _block_stride(items: int, grid: int) -> np.ndarray:
+    """Every item block b visits in ``for (x = b; x < items; x += grid)``."""
+    return np.concatenate([np.arange(b, items, grid, dtype=np.int64) for b in range(grid)])
+
+
+def _assert_each_once(agents: np.ndarray, lanes: np.ndarray, n: int, p: int) -> None:
+    keep = lanes < p
+    flat = agents[keep] * p + lanes[keep]
+    assert flat.size == n * p and np.array_equal(np.sort(flat), np.arange(n * p))
+
+
+def _group_lanes(agents, groups, width=lp.GROUP):
+    """(agent, lane) of each of the ``width`` lanes of lane groups ``groups``."""
+    lanes = (width * groups)[:, None] + np.arange(width)[None, :]
+    return np.repeat(agents, width).reshape(lanes.shape), lanes
+
+
+def _assert_balanced(plan, wave):
+    """At most one wave, and every block walks the same number of blocks'
+    worth of items, one more for some."""
+    blocks = -(-plan.items // plan.threads)
+    assert 1 <= plan.grid <= min(wave, blocks)
+    share = -(-blocks // plan.grid)
+    assert share == -(-blocks // wave) and (share - 1) * plan.grid < blocks <= share * plan.grid
+
+
+@pytest.mark.parametrize("wave", WAVES)
+@pytest.mark.parametrize("n,p", SHAPES)
+def test_dense_walks_cover_every_lane_once(n, p, wave):
+    # small path: thread g owns lanes 2 g, 2 g + 1 of every row
+    for instance in ([lp.dense_instance(n)] if lp.dense_instance(n) else []) + [0]:
+        plan = lp.dense_plan(n, p, 4, instance, wave)
+        assert plan.instance == instance and plan.vec == lp.SMALL_LANES
+        if instance:
+            _assert_balanced(plan, wave)
+            gs = _grid_stride(plan.items, plan.threads, plan.grid)
+            rows = np.arange(n)
+            agents, lanes = _group_lanes(np.repeat(rows, gs.size), np.tile(gs, n),
+                                         lp.SMALL_LANES)
+        else:  # generic: block b owns tiles b, b + grid, ...; thread t lane tile * 256 + t
+            _assert_balanced(dataclasses.replace(plan, threads=1), wave)
+            tiles = _block_stride(plan.items, plan.grid)
+            cols = (tiles[:, None] * lp.GENERIC_TILE + np.arange(lp.GENERIC_TILE)).ravel()
+            agents, lanes = np.repeat(np.arange(n), cols.size), np.tile(cols, n)
+        _assert_each_once(agents.ravel(), lanes.ravel(), n, p)
+
+
+@pytest.mark.parametrize("wave", WAVES)
+@pytest.mark.parametrize("n,p", SHAPES)
+def test_sparse_walks_cover_every_agent_lane_once(n, p, wave):
+    groups = -(-p // lp.GROUP)
+    # gather: flat item k -> agent k // G, group k % G, any N
+    plan = lp.sparse_plan(n, p, 1, False, wave)
+    assert plan.items == n * groups
+    _assert_balanced(plan, wave)
+    ks = _grid_stride(plan.items, plan.threads, plan.grid)
+    agents, lanes = _group_lanes(ks // groups, ks % groups)
+    _assert_each_once(agents.ravel(), lanes.ravel(), n, p)
+    if not lp.sparse_staged(n):
+        return
+    # staged: block b owns tiles b, b + grid, ...; in a tile, item k -> row k // 64,
+    # group tile * 64 + k % 64, walked by the block's threads (staging, then gathering)
+    plan = lp.sparse_plan(n, p, 1, True, wave)
+    assert plan.items == -(-p // lp.SPARSE_TILE)
+    _assert_balanced(dataclasses.replace(plan, threads=1), wave)
+    tiles = _block_stride(plan.items, plan.grid)
+    per_tile = _grid_stride(n * (lp.SPARSE_TILE // lp.GROUP), plan.threads, 1)
+    tg = lp.SPARSE_TILE // lp.GROUP
+    rows = np.tile(per_tile // tg, tiles.size)
+    gs = (tiles[:, None] * tg + per_tile[None, :] % tg).ravel()
+    agents, lanes = _group_lanes(rows, gs)
+    _assert_each_once(agents.ravel(), lanes.ravel(), n, p)
+
+
+@pytest.mark.parametrize("bh,s,bq", [(70_000, 64, 64), (70_000, 300, 128), (1, 4_096, 128),
+                                     (3, 320, 64), (70_000 * 32, 64, 64)])
+def test_attention_flat_grid_decodes_every_head_and_tile_once(bh, s, bq):
+    blocks = lp.attention_blocks(bh, s, bq)
+    n_qt = -(-s // bq)
+    assert blocks == bh * n_qt
+    x = np.arange(blocks, dtype=np.int64)
+    head, tile = (x % bh, n_qt - 1 - x // bh)  # the C++ decode
+    for i in (0, blocks // 2, blocks - 1):
+        assert lp.attention_block(int(i), bh, n_qt) == (int(head[i]), int(tile[i]))
+    assert np.array_equal(np.sort(head * n_qt + tile), np.arange(blocks))
+    # heaviest causal tiles first: each head's last tile precedes any head's earlier tile
+    assert np.all(tile[:bh] == n_qt - 1) and np.all(np.diff(tile) <= 0)
+
+
+def test_attention_grid_refuses_past_a_one_dimensional_grid():
+    assert lp.attention_blocks(2 ** 24 - 1, 128 * 128, 128) == (2 ** 24 - 1) * 128
+    with pytest.raises(ValueError):
+        lp.attention_blocks(2 ** 24, 128 * 128, 128)  # 2^31 blocks
+    with pytest.raises(ValueError):
+        lp.attention_blocks(0, 64, 64)
+
+
+# -- the masked wrappers' mask handling against the JAX package ---------------
+
+MASKS = {"bool": np.bool_, "int": np.int32, "float": np.float32}
+WIRE_EPS = {"f32": 0.0, "bf16": 2.0 ** -7}
+
+
+def _window_inputs(seed):
+    win = PoissonClock(bidirectional_ring_w(6), rate=0.7, seed=2).window(0)
+    assert 0 < win.active.sum() < 6
+    rng = np.random.default_rng(seed)
+    mean = rng.normal(size=(6, 130)).astype(np.float32)
+    rho = rng.uniform(-4.5, 0.5, size=(6, 130)).astype(np.float32)
+    return win, mean, rho
+
+
+def _as_dtype(active: np.ndarray, kind: str) -> np.ndarray:
+    """The mask in ``kind``; int and float masks carry values above 1 too
+    (2 and 2.5: active in both the reference's ``> 0`` and its ``!= 0``)."""
+    if kind == "bool":
+        return active.copy()
+    scale = np.where(np.arange(active.size) % 2 == 0, 1.0, 2.5 if kind == "float" else 2)
+    return (active * scale).astype(MASKS[kind])
+
+
+def _close(got, want, wire):
+    if wire == "f32":
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    else:
+        u = WIRE_EPS[wire]
+        np.testing.assert_allclose(got, want, rtol=u, atol=u * np.abs(want).max())
+
+
+@pytest.mark.parametrize("wire", ["f32", "bf16"])
+@pytest.mark.parametrize("kind", sorted(MASKS))
+@pytest.mark.parametrize("form", ["dense", "csr"])
+def test_masked_plain_versions_take_bool_int_and_float_masks(form, kind, wire):
+    win, mean, rho = _window_inputs(seed=len(kind))
+    mask = _as_dtype(win.active, kind)
+    layout = jflat.FlatLayout.for_pytree({"w": jnp.zeros((mean.shape[1],))})
+    jpost = jflat.FlatPosterior(mean=jnp.asarray(mean), rho=jnp.asarray(rho), layout=layout)
+    m_t, r_t = torch.from_numpy(mean), torch.from_numpy(rho)
+    if form == "dense":
+        W = win.w_eff.astype(np.float32)
+        want = jflat.consensus_flat_masked(jpost, jnp.asarray(W), jnp.asarray(mask),
+                                           mode="xla", wire_dtype=wire)
+        got = tk.consensus_fused_masked(torch.from_numpy(W), torch.from_numpy(mask), m_t, r_t,
+                                        wire_dtype=wire)
+    else:
+        nbr, wts = jflat.neighbor_tables(win.w_eff)
+        want = jflat.consensus_flat_masked_sparse(
+            jpost, jnp.asarray(nbr), jnp.asarray(wts), jnp.asarray(mask), mode="interpret",
+            block=128, wire_dtype=wire)
+        got = tk.consensus_fused_masked_sparse(torch.from_numpy(nbr), torch.from_numpy(wts),
+                                               torch.from_numpy(mask), m_t, r_t,
+                                               wire_dtype=wire)
+    _close(got[0].numpy(), np.asarray(want.mean), wire)
+    _close(got[1].numpy(), np.asarray(want.rho), wire)
+    idle = ~win.active
+    assert np.array_equal(got[0].numpy()[idle], mean[idle])
+    assert np.array_equal(got[1].numpy()[idle], rho[idle])
+    # the same mask as bool gives the same bits: the dtype only decides activity
+    ref = (tk.consensus_fused_masked(torch.from_numpy(win.w_eff.astype(np.float32)),
+                                     torch.from_numpy(win.active), m_t, r_t, wire_dtype=wire)
+           if form == "dense" else
+           tk.consensus_fused_masked_sparse(torch.from_numpy(nbr), torch.from_numpy(wts),
+                                            torch.from_numpy(win.active), m_t, r_t,
+                                            wire_dtype=wire))
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def test_mask_handling_keeps_a_bool_mask_and_converts_the_rest():
+    act = torch.tensor([True, False, True])
+    assert tk._as_mask(act, 3, torch.device("cpu")) is act  # no cast, no copy
+    for other in (torch.tensor([1, 0, 2]), torch.tensor([0.5, 0.0, 3.0]), np.array([1, 0, 1]),
+                  [True, False, True]):
+        got = tk._as_mask(other, 3, torch.device("cpu"))
+        assert got.dtype == torch.bool and got.tolist() == [True, False, True]
+    assert tk._as_mask(torch.tensor([-1, 0, 1]), 3, torch.device("cpu")).tolist() == [
+        False, False, True]
+    with pytest.raises(ValueError, match="active mask"):
+        tk._as_mask(act, 4, torch.device("cpu"))

@@ -176,6 +176,85 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("wire", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("n,p", [(1, 5), (5, 4099), (9, 199_210), (16, 257)])
+def test_small_and_generic_dense_paths_agree_bitwise(dev, n, p, wire):
+    """Both dense paths run the same arithmetic in the same order (fmaf over
+    j ascending), so where both can run (N <= 16) they give the same bits,
+    masked and not."""
+    W, mean, rho = _inputs(n, p, n + p + 3, dev)
+    active = torch.arange(n, device=dev) % 3 != 1
+    for name, act in (("consensus_fused_network", None), ("consensus_fused_masked", active)):
+        small = k._network_launch(name, W, act, mean, rho, wire)
+        generic = k._network_launch(name, W, act, mean, rho, wire, instance=0)
+        torch.cuda.synchronize()
+        assert torch.equal(small[0], generic[0]) and torch.equal(small[1], generic[1]), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("tables", ["grid", "window", "ring24"])
+def test_staged_and_gather_csr_paths_agree_bitwise(dev, tables, wire):
+    if tables == "ring24":
+        nbr, wts = neighbor_tables(graphs.bidirectional_ring_w(24))  # STAGE_N_MAX rows
+    else:
+        nbr, wts = _tables(tables)
+    nbr, wts = torch.from_numpy(nbr).to(dev), torch.from_numpy(wts).to(dev)
+    n = nbr.shape[0]
+    _, mean, rho = _inputs(n, 4099, n + 5, dev)
+    mean[1, 7] = float("nan")  # a non-finite lane reaches its readers alike
+    for act in (None, torch.arange(n, device=dev) % 4 != 2):
+        name = "consensus_fused_sparse" if act is None else "consensus_fused_masked_sparse"
+        staged = k._sparse_launch(name, nbr, wts, act, mean, rho, wire)
+        gather = k._sparse_launch(name, nbr, wts, act, mean, rho, wire, staged=False)
+        torch.cuda.synchronize()
+        assert torch.equal(staged[0].isnan(), gather[0].isnan())
+        for s_, g_ in zip(staged, gather):
+            assert torch.equal(torch.nan_to_num(s_), torch.nan_to_num(g_)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2])  # rows 4 and 8 bytes off 16: 4- and 8-byte loads
+def test_eq6_kernels_give_the_same_bits_at_every_load_width(dev, offset):
+    n, p = 9, 4096  # aligned rows take 16-byte loads
+    W, mean, rho = _inputs(n, p, 21, dev)
+    views = [torch.cat([torch.zeros(offset, device=dev), x.reshape(-1)])[offset:].view(n, p)
+             for x in (mean, rho)]
+    nbr, wts = (torch.from_numpy(a).to(dev) for a in _tables("grid"))
+    active = torch.arange(n, device=dev) % 3 != 1
+    calls = [
+        lambda m, r: k.consensus_fused_network(W, m, r),
+        lambda m, r: k.consensus_fused_masked(W, active, m, r),
+        lambda m, r: k.consensus_fused_sparse(nbr, wts, m, r),
+        lambda m, r: k.consensus_fused_masked_sparse(nbr, wts, active, m, r),
+    ]
+    for call in calls:
+        aligned, shifted = call(mean, rho), call(*views)
+        torch.cuda.synchronize()
+        assert torch.equal(aligned[0], shifted[0]) and torch.equal(aligned[1], shifted[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["f32", "bf16"])
+def test_csr_kernels_beyond_65535_agents(dev, wire):
+    """N = 70,000 agents on ring tables (D = 3), P = 3: the flat (agent, lane
+    group) walk has no grid-dimension limit.  The plain versions build the
+    dense 70,000^2 W (19.6 GB)."""
+    n, p = 70_000, 3
+    nbr, wts = (torch.from_numpy(a).to(dev)
+                for a in graphs.bidirectional_ring_sparse(n).neighbor_tables())
+    _, mean, rho = _inputs(1, n * p, 70, dev)
+    mean, rho = mean.view(n, p), rho.view(n, p)
+    active = torch.arange(n, device=dev) % 5 != 3
+    got = k.consensus_fused_sparse(nbr, wts, mean, rho, wire_dtype=wire)
+    _assert_close(got, k.consensus_sparse_plain(nbr, wts, mean, rho, wire), wire)
+    got = k.consensus_fused_masked_sparse(nbr, wts, active, mean, rho, wire_dtype=wire)
+    _assert_close(got, k.consensus_masked_sparse_plain(nbr, wts, active, mean, rho, wire), wire)
+    idle = ~active
+    assert torch.equal(got[0][idle], mean[idle]) and torch.equal(got[1][idle], rho[idle])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["f32", "bf16", "f16"])
 @pytest.mark.parametrize("n,p", [(1, 5), (9, 199_210), (300, 4099)])
 def test_consensus_row_kernel_matches_plain(dev, n, p, wire):
     W, mean, rho = _inputs(n, p, n + p + 2, dev)
@@ -230,12 +309,19 @@ def _device_kernels(fn):
 
 @pytest.mark.cuda
 def test_streaming_kernels_run_one_device_kernel_per_call(dev):
-    _, mean, rho = _inputs(9, 4099, 11, dev)
+    W, mean, rho = _inputs(9, 4099, 11, dev)
     names = _device_kernels(lambda: k.payload_validity_fused(mean, rho, bound=1e20))
     assert len(names) == 1 and "payload_validity_kernel" in names[0], names
     args = [mean[i] for i in range(5)]
     names = _device_kernels(lambda: gauss_vi.sample_and_kl_fused(*args))
     assert len(names) == 1 and "sample_and_kl_kernel" in names[0], names
+    # a masked call on a device bool mask: the kernel reads the mask's bytes
+    active = torch.arange(9, device=dev) % 3 != 1
+    names = _device_kernels(lambda: k.consensus_fused_masked(W, active, mean, rho))
+    assert len(names) == 1 and "consensus_small_kernel" in names[0], names
+    nbr, wts = (torch.from_numpy(a).to(dev) for a in _tables("grid"))
+    names = _device_kernels(lambda: k.consensus_fused_masked_sparse(nbr, wts, active, mean, rho))
+    assert len(names) == 1 and "consensus_staged_kernel" in names[0], names
 
 
 def _poison_edges(mean, rho, chunk):
@@ -398,6 +484,24 @@ def test_flash_attention_kernel_fully_masked_rows_give_zero(dev, dtype):
                           block_q=64, block_k=64)
     dead = torch.arange(128, device=dev) >= 64 + 16 - 1
     assert bool((out[:, :, dead] == 0).all()) and bool((out[:, :, ~dead] != 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h", [(70_000, 1), (1, 70_000)])
+def test_flash_attention_beyond_65535_heads(dev, dtype, b, h):
+    """B or H = 70,000 on the flat grid of (b * h, query tile) blocks (made
+    and compared on the card: 143M elements a tensor)."""
+    g = torch.Generator(device=dev).manual_seed(b + h)
+    q, kk, vv = (torch.randn((b, h, 64, 32), generator=g, device=dev).to(dtype)
+                 for _ in range(3))
+    before = dispatch.launch_counts()["flash_attention"]
+    got = fa.flash_attention(q, kk, vv, causal=True).float()
+    want = fa.flash_attention_plain(q, kk, vv, causal=True).float()
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["flash_attention"] == before + 1
+    tol = ATT_TOL[dtype]
+    assert bool(((got - want).abs() <= tol + tol * want.abs()).all())
 
 
 @pytest.mark.cuda
