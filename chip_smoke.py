@@ -2,6 +2,11 @@
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --timings   # phases 1, 5 and 6 only, no checks
+
+``--timings`` times the kernels and a synchronous round of the tree the
+script sits in, so a copy of this script in another tree (an earlier
+commit's ``git archive``) times that tree's kernels by the same clock.
 
 Phases, one line each (a failed phase raises and the script exits non-zero):
 
@@ -23,7 +28,8 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    P = 3 (each line names the kernel instance that ran, read from a CUDA
    graph of one call); the kernels of
    ``kernels.ops``: ``consensus_fused`` at (N, P) = (9, 199210), (300,
-   4099), (1, 5) with zero weights in the row, ``sample_and_kl_fused`` at
+   4099), (1, 5) with zero weights in the row, its planned instance bitwise
+   its generic one at each, ``sample_and_kl_fused`` at
    P = 199210, 2049, 5 and on views 16, 8 and 4 bytes aligned (theta
    bitwise the plain version's, the KL bitwise the same twice and on an
    aligned copy), and
@@ -58,18 +64,22 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    ladder on the card, bitwise: all-edges gossip == synchronous, zero-fault
    quarantine == strict;
 5. timings: each kernel's median time over warm launches (CUDA events), with
-   its inputs in L2 and with L2 flushed, its plain version's, and its bound
+   its inputs in L2 and with L2 flushed (``Flush``: by overwriting a
+   128 MiB buffer, which leaves L2 dirty, and by reading it, which leaves L2
+   clean), less the launch floor, its plain version's, and its bound
    at the slice's shapes (``consensus_fused`` and ``sample_and_kl_fused`` at
    one agent's P = 199,210, ``flash_attention`` at both head shapes above,
    beside ``scaled_dot_product_attention``'s time and backend, with its
    TFLOP/s, share of the bound, ratio to SDPA and largest error in output
    ulps, and the f32 SIMT kernel's time at the Qwen3-8B heads); for
-   the single-kernel wrappers (the four dense and CSR eq. (6) kernels,
+   the single-kernel wrappers (the five eq. (6) kernels,
    ``payload_validity_fused``, ``sample_and_kl_fused``) also the device
    operations one call runs (which must be one) and its kernel instance
    (both read from a CUDA graph of one call, not from a profiler), the
    instance's registers and spills as ptxas reported them, and the launch
-   floor (a one-cycle ``torch.cuda._sleep`` under the same timer);
+   floor (a one-cycle ``torch.cuda._sleep`` under the same timer), which
+   every row's time less the floor and its share of the bound on that
+   basis take out;
 6. profile: the wall time of a warm synchronous round and of a warm gossip
    window of the slice, and their device time by kernel (torch.profiler).
 
@@ -517,10 +527,14 @@ def check_ops_kernels(dev):
                 w[0] = w[-1] = 0.0
                 w = w / w.sum()
             row = functools.partial(k.consensus_fused, w, mean, rho, wire_dtype=wire)
-            errs = eq6_errors(f"consensus_fused N={n} P={p}", row(),
+            generic = functools.partial(k._row_launch, w, mean, rho, wire, instance=0)
+            got = row()
+            errs = eq6_errors(f"consensus_fused N={n} P={p}", got,
                               k.consensus_row_plain(w, mean, rho, wire), wire)
             phase("2.consensus_row", n=n, p=p, wire=wire, zero_weights=int((w == 0).sum()),
-                  max_abs_err_mean=errs[0], max_abs_err_rho=errs[1], variant=kernel_variant(row))
+                  max_abs_err_mean=errs[0], max_abs_err_rho=errs[1], variant=kernel_variant(row),
+                  generic_variant=kernel_variant(generic), generic_bitwise=eq6_same_bits(
+                      f"consensus_fused N={n} P={p} wire={wire} generic", got, generic()))
             if (n, p, wire) == (9, P_SLICE, "f32"):
                 worst["consensus_fused"] = max(errs)
     vi_cases = [(P_SLICE, None), (2_049, None), (5, None), (P_SLICE, (P_SLICE, 1, 2, 3, 0))]
@@ -886,9 +900,11 @@ def cuda_ms(fn, flush=None, reps=20):
     the spin ends before the host is done, the spin is doubled and the
     timing repeated.  ``reps`` stays small enough that every launch fits in
     the device's queue (about a thousand entries; a full queue stalls the
-    host until the spin ends).  With ``flush`` the L2 is overwritten before each call
-    (cold inputs); without, the inputs stay in L2 as on the main path, where
-    the consensus reads the buffers the last local step just wrote."""
+    host until the spin ends).  ``flush``, a call queued before each timed
+    call and outside its events, evicts the inputs from L2 (cold inputs;
+    ``Flush.dirty`` or ``Flush.clean``); without, the inputs stay in L2 as
+    on the main path, where the consensus reads the buffers the last local
+    step just wrote."""
     import torch
 
     fn()
@@ -898,7 +914,7 @@ def cuda_ms(fn, flush=None, reps=20):
         events = []
         for _ in range(reps):
             if flush is not None:
-                flush.zero_()
+                flush()
             s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             s.record()
             fn()
@@ -910,6 +926,30 @@ def cuda_ms(fn, flush=None, reps=20):
             ms = sorted(s.elapsed_time(e) for s, e in events)
             return ms[len(ms) // 2]
     raise RuntimeError("the host never queued the timed calls ahead of the GPU")
+
+
+class Flush:
+    """Two ways to evict L2 (50 MB) with a 128 MiB buffer before a timed call.
+
+    ``dirty`` overwrites the buffer: L2 is left holding ~50 MB of modified
+    lines, which the timed call's own traffic then writes back to HBM inside
+    its window.  ``clean`` reads the buffer into a sum: L2 is left holding
+    unmodified lines that the timed call drops for free, so its window holds
+    its own reads and writes only."""
+
+    def __init__(self, dev):
+        import torch
+
+        self.buf = torch.zeros(32 * 2 ** 20, dtype=torch.float32, device=dev)
+        self.sink = torch.zeros((), dtype=torch.float32, device=dev)
+
+    def dirty(self):
+        self.buf.zero_()
+
+    def clean(self):
+        import torch
+
+        torch.sum(self.buf, dim=0, out=self.sink)
 
 
 def timings(dev, counts, errs):
@@ -924,7 +964,7 @@ def timings(dev, counts, errs):
     from repro_torch.kernels import gauss_vi
 
     n, p = 9, P_SLICE
-    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device=dev)  # 128 MiB > L2
+    flush = Flush(dev)
     W, mean, rho = eq6_inputs(n, p, seed=7, device=dev)
     win = gossip_windows(2)[1]  # a window with idle agents
     W_win = torch.as_tensor(win.w_eff, dtype=torch.float32, device=dev)
@@ -953,6 +993,16 @@ def timings(dev, counts, errs):
     sparse = functools.partial(k.consensus_fused_sparse, nbr_b, wts_b, mean, rho)
     masked_sparse = functools.partial(k.consensus_fused_masked_sparse, nbr_w, wts_w, act, mean,
                                       rho)
+    row = functools.partial(k.consensus_fused, W[0], mean, rho)
+    read_bytes = {  # what each call reads of HBM when L2 is cold (the inputs, once)
+        "consensus_fused_network": 8 * n * p + 4 * n * n,
+        "payload_validity_fused": 8 * n * p,
+        "consensus_fused_masked": 8 * n * p + 4 * n * n + n,
+        "consensus_fused_sparse": 8 * n * p + 8 * n * d_b,
+        "consensus_fused_masked_sparse": 8 * p * rows_read + 8 * n * d_w + n,
+        "consensus_fused": 8 * n * p + 4 * n,
+        "sample_and_kl_fused": 20 * p,
+    }
     kernels = [  # name, source, replaces, kernel, plain, bytes, ops, peak, library, fields
         ("consensus_fused_network", "consensus_network.cu", REF + "195", network,
          lambda: k.consensus_network_plain(W, mean, rho), eq6_bytes, eq6_ops, fp32, None,
@@ -976,11 +1026,10 @@ def timings(dev, counts, errs):
          gathered_ops * n_act * d_w * p + out_ops * n_act * p, fp32, None,
          dict(launch_fields(masked_sparse, launch_floor_ms), window=win.index, n_active=n_act,
               d=d_w, rows_read=rows_read)),
-        ("consensus_fused", "consensus_row.cu", REF + "131",  # one agent's row of W
-         lambda: k.consensus_fused(W[0], mean, rho),
+        ("consensus_fused", "consensus_row.cu", REF + "131", row,  # one agent's row of W
          lambda: k.consensus_row_plain(W[0], mean, rho),
          8 * n * p + 8 * p + 4 * n,  # mean, rho in; the agent's mean, rho out; w_row
-         gathered_ops * n * p + out_ops * p, fp32, None, {}),
+         gathered_ops * n * p + out_ops * p, fp32, None, launch_fields(row, launch_floor_ms)),
         ("sample_and_kl_fused", "gauss_vi.cu", "src/repro/kernels/gauss_vi.py:46", sample_kl,
          lambda: gauss_vi.sample_and_kl_plain(*vi_args),
          24 * p + 4,  # five [P] in, theta [P] and the KL out
@@ -988,7 +1037,8 @@ def timings(dev, counts, errs):
          {**launch_fields(sample_kl, launch_floor_ms),
           "aligned_variant": kernel_variant(sample_kl_aligned),
           "aligned_ms": cuda_ms(sample_kl_aligned),
-          "aligned_cold_l2_ms": cuda_ms(sample_kl_aligned, flush)}),
+          "aligned_cold_l2_ms": cuda_ms(sample_kl_aligned, flush.dirty),
+          "aligned_cold_l2_clean_ms": cuda_ms(sample_kl_aligned, flush.clean)}),
     ]
     for shape in ATTN_SHAPES:  # the row is Qwen3-8B's; both shapes get a phase line
         q, kk, vv, window = attention_inputs(shape, dev)
@@ -1014,6 +1064,7 @@ def timings(dev, counts, errs):
                 "flash_attention f32 qwen3_8b", simt(),
                 fa.flash_attention_plain(q32, k32, v32, causal=True), ATT_TOL["f32"])
             fields["simt_f32_ms"] = cuda_ms(simt)
+        fields["read_bytes"] = q.element_size() * 3 * b * h * s * hd  # q, k, v
         kernels.append((
             "flash_attention", "flash_attention_tc.cu", "src/repro/kernels/flash_attention.py:94",
             kern, plain,
@@ -1044,10 +1095,20 @@ def timings(dev, counts, errs):
             fields = dict(fields, tflops=ops / row["ms"] / 1e9,
                           bound_share=row["bound_ms"] / row["ms"],
                           sdpa_over_kernel=row["library_ms"] / row["ms"])
+        else:
+            fields = dict(fields, n=n, p=p, read_bytes=read_bytes[name])
+        fields["launch_floor_ms"] = launch_floor_ms
+        cold, clean = cuda_ms(fn, flush.dirty), cuda_ms(fn, flush.clean)
+        less, clean_less = row["ms"] - launch_floor_ms, clean - launch_floor_ms
         phase("5.timing", name=name, ms=row["ms"], plain_ms=row["plain_ms"],
-              library_ms=row["library_ms"], cold_l2_ms=cuda_ms(fn, flush),
-              cold_l2_plain_ms=cuda_ms(plain, flush), bound_ms=row["bound_ms"], bytes=nbytes,
-              ops=ops, **fields, **({} if attention else {"n": n, "p": p}))
+              library_ms=row["library_ms"], cold_l2_ms=cold, cold_l2_clean_ms=clean,
+              cold_l2_plain_ms=cuda_ms(plain, flush.dirty), bound_ms=row["bound_ms"],
+              ms_less_floor=less, cold_l2_clean_ms_less_floor=clean_less,
+              bound_share_less_floor=row["bound_ms"] / less,
+              clean_cold_bound_share_less_floor=row["bound_ms"] / clean_less,
+              dirty_minus_clean_ms=cold - clean,
+              read_bytes_over_hbm_ms=fields["read_bytes"] / HBM_BYTES_PER_S * 1e3,
+              bytes=nbytes, ops=ops, **fields)
         if not attention or fields["shape"] == "qwen3_8b":
             rows.append(row)
     return rows
@@ -1181,6 +1242,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this check needs a GPU",
               file=sys.stderr)
         return 2
+    from repro_torch.api import build_session
     from repro_torch.kernels import dispatch
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in true fp32
@@ -1196,6 +1258,14 @@ def main() -> int:
         if any(w in line for w in ("registers", "Compiling", "spill", "Performance Loss")):
             print("ptxas", line.strip())
 
+    if "--timings" in sys.argv[1:]:  # phases 1, 5 and 6 only: to compare two trees
+        rows = timings(dev, dict.fromkeys(dispatch.KERNELS), dict.fromkeys(dispatch.KERNELS))
+        session = build_session(fig4_spec(), device=dev)
+        session.run(n_rounds=1)
+        profile_round("6.profile", session)
+        print(smi)
+        print(json.dumps({"kernels": rows}))
+        return 0
     errs = check_kernels(dev)
     errs.update(check_ops_kernels(dev))
     session, counts, prior = run_slice(dev)

@@ -16,7 +16,9 @@ synchronous round's and the gossip windows' paths).
   order (``wp = w * prec`` then ``sum(wp * mean)`` at f32; ``sum(w *
   wire(prec))`` and ``sum(w * wire(prec * mean))`` at other wires), the
   kernel behind ``ops.consensus_posterior``.  CUDA source:
-  ``csrc/consensus_row.cu``.
+  ``csrc/consensus_row.cu`` (N <= 16 loads every row of a thread's lane
+  into registers before the arithmetic; larger N runs the first port's
+  kernel).
 * ``consensus_fused_masked``: the same pass on one gossip window's W-tilde
   with an ``[N]`` activity mask.  Active rows are bitwise the network
   kernel's rows (the same kernel instance); inactive rows pass (mean, rho)
@@ -162,32 +164,43 @@ def consensus_row_plain(w_row, mean, rho, wire_dtype=None):
     return mean_out, softplus_inv(torch.rsqrt(prec_out))
 
 
+def _row_launch(w_row, mean, rho, wire_dtype, instance=None):
+    """One launch of ``csrc/consensus_row.cu``: ``instance`` the plan's
+    ``row_instance(N)`` (the default) or 0, the generic kernel, which runs
+    any N with the same bits."""
+    name = "consensus_fused"
+    if mean.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {mean.device}")
+    _check_flat(name, mean, rho)
+    n, p = mean.shape
+    if w_row.shape != (n,) or w_row.device != mean.device or w_row.dtype != torch.float32:
+        raise ValueError(f"{name}: w_row must be float32 [{n}] on {mean.device}, got "
+                         f"{w_row.dtype} {tuple(w_row.shape)} on {w_row.device}")
+    w_row = w_row.contiguous()
+    mean_out = torch.empty(p, dtype=torch.float32, device=mean.device)
+    rho_out = torch.empty_like(mean_out)
+    wire = _WIRE_CODE[canonical_wire_dtype(wire_dtype)]
+    lib = dispatch.library()
+    instance = launch_plan.row_instance(n) if instance is None else instance
+    wave = dispatch.wave(mean.device, "consensus_row", lib.consensus_row_blocks_per_sm,
+                         wire, instance)
+    plan = launch_plan.row_plan(n, p, instance, wave)
+    err = lib.consensus_row_launch(
+        w_row.data_ptr(), mean.data_ptr(), rho.data_ptr(), mean_out.data_ptr(),
+        rho_out.data_ptr(), n, p, wire, plan.instance, plan.grid, _stream(mean.device),
+    )
+    dispatch.check_cuda(err, name)
+    dispatch.count_launch(name)
+    return mean_out, rho_out
+
+
 def consensus_fused(w_row, mean, rho, *, wire_dtype=None):
     """Eq. (6) for one agent: ``w_row [N]`` its row of W, ``mean``/``rho``
     ``[N, P]`` float32 the stacked neighbour posteriors.  Returns the
     agent's new (mean, rho), both ``[P]``."""
     if mean.device.type == "cpu":
         return consensus_row_plain(w_row, mean, rho, wire_dtype)
-    if mean.device.type != "cuda":
-        raise ValueError(f"consensus_fused: no kernel for {mean.device}")
-    _check_flat("consensus_fused", mean, rho)
-    n, p = mean.shape
-    if w_row.shape != (n,) or w_row.device != mean.device or w_row.dtype != torch.float32:
-        raise ValueError(
-            f"consensus_fused: w_row must be float32 [{n}] on {mean.device}, got "
-            f"{w_row.dtype} {tuple(w_row.shape)} on {w_row.device}"
-        )
-    w_row = w_row.contiguous()
-    mean_out = torch.empty(p, dtype=torch.float32, device=mean.device)
-    rho_out = torch.empty_like(mean_out)
-    err = dispatch.library().consensus_row_launch(
-        w_row.data_ptr(), mean.data_ptr(), rho.data_ptr(), mean_out.data_ptr(),
-        rho_out.data_ptr(), n, p, _WIRE_CODE[canonical_wire_dtype(wire_dtype)],
-        _stream(mean.device),
-    )
-    dispatch.check_cuda(err, "consensus_fused")
-    dispatch.count_launch("consensus_fused")
-    return mean_out, rho_out
+    return _row_launch(w_row, mean, rho, wire_dtype)
 
 
 def _as_mask(active, n: int, device: torch.device) -> torch.Tensor:

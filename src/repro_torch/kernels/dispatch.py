@@ -159,7 +159,11 @@ def library() -> ctypes.CDLL:
             ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i64, i32, i32, i32, i32, ptr,
         ]
         lib.consensus_sparse_launch.restype = i32
-        lib.consensus_row_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i64, i32, ptr]
+        lib.consensus_row_blocks_per_sm.argtypes = [i32, i32]
+        lib.consensus_row_blocks_per_sm.restype = i32
+        lib.consensus_row_launch.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, i32, i64, i32, i32, i32, ptr,
+        ]
         lib.consensus_row_launch.restype = i32
         lib.sample_and_kl_blocks_per_sm.argtypes = [i32]
         lib.sample_and_kl_blocks_per_sm.restype = i32

@@ -1,7 +1,7 @@
 """Launch plans of the eq. (6) kernels over ``[N, P]`` buffers
-(``csrc/consensus_network.cu``, ``csrc/consensus_sparse.cu``) and the flat
-grid of the two attention kernels (``csrc/flash_attention.cu``,
-``csrc/flash_attention_tc.cu``).
+(``csrc/consensus_network.cu``, ``csrc/consensus_sparse.cu``,
+``csrc/consensus_row.cu``) and the flat grid of the two attention kernels
+(``csrc/flash_attention.cu``, ``csrc/flash_attention_tc.cu``).
 
 Eq. (6), dense W (``consensus_fused_network`` / ``_masked``):
 
@@ -25,6 +25,16 @@ Eq. (6), CSR tables (``consensus_fused_sparse`` / ``_masked_sparse``):
   ``G = ceil(P / 4)`` groups of a row) goes to thread k mod (grid *
   SPARSE_THREADS) of the flat grid; each agent gathers its rows from L2.
   Indexing by a flat 64-bit item has no 65535-agent limit.
+
+Eq. (6) for one agent's row of W (``consensus_fused``, ``csrc/consensus_row.cu``):
+both paths walk tiles of ``GENERIC_TILE`` lanes, one lane a thread (4-byte
+loads at any alignment), block b taking tiles b, b + grid, ...
+
+* **small** (N <= ``ROW_N_MAX``): a thread loads all N rows of its lane
+  into registers before the arithmetic; an instance is compiled for each
+  N, its loops unrolled over exactly N rows.
+* **generic** (instance 0, N > 16 or forced): the first port's kernel, the
+  row of W staged in shared memory.
 
 Every plan's grid is at most one wave (the card's SM count times the
 instance's blocks per SM), and gives every block the same number of
@@ -63,11 +73,12 @@ SPARSE_TILE = 256  # lanes of a staged tile: 64 groups
 STAGE_N_MAX = 24  # 2 * 24 rows * 256 lanes * 4 bytes = 48 KB
 GRID_MAX = 2 ** 31 - 1  # blocks of a 1-D grid
 ATTN_F32_BQ = 64  # query rows per block of flash_attention.cu
+ROW_N_MAX = 16  # consensus_row.cu: rows of the largest small instance
 
 
 @dataclasses.dataclass(frozen=True)
 class Eq6Plan:
-    instance: int  # dense: rows of the small instance, 0 = generic; CSR: 1 staged, 0 gather
+    instance: int  # dense, row: rows of the small instance, 0 = generic; CSR: 1 staged, 0 gather
     vec: int       # lanes per load: 4, 2 or 1 (dense: 2 or 1)
     items: int     # what the grid walks: lane groups, tiles or (agent, lane group) pairs
     threads: int   # per block
@@ -139,6 +150,25 @@ def sparse_plan(n: int, p: int, vec: int, staged: bool, wave: int) -> Eq6Plan:
         return Eq6Plan(1, vec, items, SPARSE_THREADS, _grid(items, wave))
     items = n * _groups(p)
     return Eq6Plan(0, vec, items, SPARSE_THREADS, _grid(-(-items // SPARSE_THREADS), wave))
+
+
+def row_instance(n: int) -> int:
+    """The instance of ``csrc/consensus_row.cu`` that runs a row of ``n``
+    weights: the small kernel for ``n`` up to ``ROW_N_MAX``, else 0 (the
+    generic kernel)."""
+    if n <= 0:
+        raise ValueError(f"n = {n}: no agents")
+    return n if n <= ROW_N_MAX else 0
+
+
+def row_plan(n: int, p: int, instance: int, wave: int) -> Eq6Plan:
+    """The one-agent eq. (6) launch: ``instance`` is ``row_instance(n)`` or
+    0 (the generic path runs any N).  Both paths take 4-byte loads."""
+    _check(n, p, 1)
+    if instance and instance != row_instance(n):
+        raise ValueError(f"N = {n} runs the row instance {row_instance(n)}, not {instance}")
+    items = -(-p // GENERIC_TILE)
+    return Eq6Plan(instance, 1, items, GENERIC_TILE, _grid(items, wave))
 
 
 def attention_blocks(bh: int, s: int, bq: int) -> int:

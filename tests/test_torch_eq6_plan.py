@@ -1,7 +1,8 @@
 """The launch plans of the eq. (6) kernels and of the attention kernels' flat
 grid (``repro_torch.kernels.launch_plan``; ``csrc/consensus_network.cu``,
-``csrc/consensus_sparse.cu``, ``csrc/flash_attention*.cu``), checked on the
-CPU, and the masked wrappers' mask handling against the JAX package.
+``csrc/consensus_sparse.cu``, ``csrc/consensus_row.cu``,
+``csrc/flash_attention*.cu``), checked on the CPU, and the masked wrappers'
+mask handling against the JAX package.
 
 The CUDA kernels run only on the card; what surrounds them runs here: the
 constants and choices the C++ makes (read back from the sources), the load
@@ -220,6 +221,67 @@ def test_attention_grid_refuses_past_a_one_dimensional_grid():
         lp.attention_blocks(2 ** 24, 128 * 128, 128)  # 2^31 blocks
     with pytest.raises(ValueError):
         lp.attention_blocks(0, 64, 64)
+
+
+# -- eq. (6) for one agent's row (csrc/consensus_row.cu) ----------------------
+
+ROW_P = [5, 4_099, 199_210]  # ragged: odd, odd, the slice's
+
+
+def test_row_plan_constants_are_the_kernel():
+    src = (CSRC / "consensus_row.cu").read_text()
+    row = _constants("consensus_row.cu")
+    assert (row["TILE"], row["ROW_N_MAX"]) == (lp.GENERIC_TILE, lp.ROW_N_MAX)
+    # row_instance: n itself up to ROW_N_MAX, else the generic kernel
+    assert "return n <= ROW_N_MAX ? n : 0;" in src
+    assert "make_integer_sequence<int, ROW_N_MAX>" in src  # an instance for each N
+
+
+def test_row_instance_by_row_length():
+    got = [lp.row_instance(n) for n in (1, 2, 5, 9, 16, 17, 300)]
+    assert got == [1, 2, 5, 9, 16, 0, 0]
+    for n in range(1, 40):
+        assert lp.row_instance(n) == (n if n <= 16 else 0)
+    with pytest.raises(ValueError):
+        lp.row_instance(0)
+
+
+def test_row_plan_at_the_slice():
+    # 779 tiles of 256 lanes at P = 199,210: one a block where 6 blocks an SM fit,
+    # two for most blocks where 3 do (390 blocks, not 396 of which 383 walk two)
+    plan = lp.row_plan(9, 199_210, 9, SMS * 6)
+    assert (plan.instance, plan.vec, plan.items, plan.threads, plan.grid) == (
+        9, 1, 779, 256, 779)
+    assert lp.row_plan(9, 199_210, 9, SMS * 3).grid == 390
+    assert lp.row_plan(9, 199_210, 0, SMS * 8).grid == 779
+    assert lp.row_plan(300, 4_099, 0, SMS).grid == 17
+
+
+def test_row_plan_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError):
+        lp.row_plan(9, 8, 16, SMS)  # N = 9 runs instance 9
+    for instance in (16, 17):  # N = 17 runs the generic kernel
+        with pytest.raises(ValueError):
+            lp.row_plan(17, 8, instance, SMS)
+    for args in ((9, 8, 9, 0), (0, 8, 0, SMS), (9, 0, 9, SMS), (2 ** 31, 8, 0, SMS),
+                 (2 ** 40, 2 ** 23, 0, SMS)):
+        with pytest.raises(ValueError):
+            lp.row_plan(*args)
+    lp.row_plan(70_000, 3, 0, SMS)  # the generic path takes any N
+
+
+@pytest.mark.parametrize("wave", WAVES)
+@pytest.mark.parametrize("p", ROW_P)
+@pytest.mark.parametrize("n", [1, 9, 16])
+def test_row_walks_cover_every_lane_once(n, p, wave):
+    # block b owns tiles b, b + grid, ...; thread t lane tile * 256 + t, on both paths
+    for instance in (lp.row_instance(n), 0):
+        plan = lp.row_plan(n, p, instance, wave)
+        assert plan.instance == instance and plan.threads == lp.GENERIC_TILE
+        _assert_balanced(dataclasses.replace(plan, threads=1), wave)
+        tiles = _block_stride(plan.items, plan.grid)
+        lanes = (tiles[:, None] * lp.GENERIC_TILE + np.arange(lp.GENERIC_TILE)).ravel()
+        _assert_each_once(np.zeros(lanes.size, dtype=np.int64), lanes, 1, p)
 
 
 # -- the masked wrappers' mask handling against the JAX package ---------------

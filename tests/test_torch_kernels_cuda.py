@@ -9,7 +9,8 @@ Tolerances: at f32 rtol 1e-5 / atol 1e-5 (the kernel and cuBLAS sum the
 N terms in another order); at bf16/f16 one wire ulp relative to the output
 scale (a one-ulp fp32 difference in prec can flip a rounding tie).
 Validity is bit-equal; the masked kernel's active rows are bitwise the
-network kernel's and its inactive rows bitwise its inputs.  Sample + KL:
+network kernel's and its inactive rows bitwise its inputs; the one-agent
+kernel's instances are bitwise its generic kernel.  Sample + KL:
 theta bitwise the plain version's (rtol 1e-5 / atol 1e-6 in the older
 test), KL rtol 1e-5, and the KL bitwise the same from run to run, on two
 streams and at any pointer alignment (its summation order is fixed).  The
@@ -270,6 +271,59 @@ def test_consensus_row_kernel_matches_plain(dev, n, p, wire):
     assert dispatch.launch_counts()["consensus_fused"] == before + 1
     assert got[0].shape == (p,)
     _assert_close(got, want, wire)
+
+
+def _row_inputs(n, p, seed, dev):
+    """A row of W with zero weights in it (computed, not skipped) and the
+    stacked rows it weighs."""
+    W, mean, rho = _inputs(n, p, seed, dev)
+    w = W[n // 2].clone()
+    if n > 2:
+        w[0] = 0.0
+        w[-1] = 0.0
+        w = w / w.sum()
+    return w, mean, rho
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("p", [5, 4_099])  # one ragged tile; many tiles
+@pytest.mark.parametrize("n", [1, 2, 5, 9, 16, 17, 300])
+def test_consensus_row_instances_agree_bitwise(dev, n, p, wire):
+    """The planned instance (small for N <= 16, the generic kernel above)
+    and the generic kernel sum each lane over j in the same order, so they
+    give the same bits."""
+    w, mean, rho = _row_inputs(n, p, n + p + 31, dev)
+    planned = k._row_launch(w, mean, rho, wire)
+    generic = k._row_launch(w, mean, rho, wire, instance=0)
+    torch.cuda.synchronize()
+    assert torch.equal(planned[0], generic[0]) and torch.equal(planned[1], generic[1])
+    _assert_close(planned, k.consensus_row_plain(w, mean, rho, wire), wire)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 2])  # rows 16, 4 and 8 bytes off 16
+@pytest.mark.parametrize("n", [9, 16])
+def test_consensus_row_same_bits_on_misaligned_views(dev, n, offset):
+    p = 4_096
+    w, mean, rho = _row_inputs(n, p, 41 + n, dev)
+    views = [torch.cat([torch.zeros(offset, device=dev), x.reshape(-1)])[offset:].view(n, p)
+             for x in (mean, rho)]
+    for instance in (None, 0):
+        aligned = k._row_launch(w, mean, rho, "f32", instance)
+        shifted = k._row_launch(w, *views, "f32", instance)
+        torch.cuda.synchronize()
+        assert torch.equal(aligned[0], shifted[0]) and torch.equal(aligned[1], shifted[1])
+
+
+@pytest.mark.cuda
+def test_consensus_row_runs_one_device_kernel_per_call(dev):
+    for n, kernel in ((9, "consensus_row_small_kernel"), (17, "consensus_row_kernel")):
+        w, mean, rho = _row_inputs(n, 4_099, n, dev)
+        names = _device_kernels(lambda: k.consensus_fused(w, mean, rho))
+        assert len(names) == 1 and kernel in names[0], names
+        names = _device_kernels(lambda: k._row_launch(w, mean, rho, None, instance=0))
+        assert len(names) == 1 and "consensus_row_kernel" in names[0], names
 
 
 @pytest.mark.cuda
