@@ -63,6 +63,21 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    the kernels, the CPU through the plain versions; and the equivalence
    ladder on the card, bitwise: all-edges gossip == synchronous, zero-fault
    quarantine == strict;
+   then the checkpoint, linreg and discrete paths (phase tags 3.*, each with
+   the launch counters set to 0 around its run): ``3.checkpoint``, the
+   synchronous slice saved after ``run(3)`` and ``Session.load``-ed on the
+   card, every state leaf bitwise, one more round on both sessions bitwise
+   (the generator's state rides in the file), and the file loaded on the CPU
+   bitwise the card's, with the file's bytes and the save and load seconds;
+   ``3.gossip_checkpoint``, the same for the chaos + quarantine gossip
+   slice after ``run(4)``, two more windows on each; ``3.linreg``, paper
+   Example 1 (``TopologySpec.complete(4)``, ``linreg`` batches of 10, the
+   conjugate engine, 60 rounds, seed 0) to the noise floor, card against CPU
+   on injected per-round seeds, and its ``FullCovGaussian`` state through
+   save/load bitwise; ``3.discrete``, the finite-Theta rule
+   (``core.discrete.run_social_learning``) at tests/test_discrete.py's
+   rate setting with injected log-likelihoods, card against CPU, and the
+   wrong belief's decay rate beside ``theory.rate_K``;
 5. timings: each kernel's median time over warm launches (CUDA events), with
    its inputs in L2 and with L2 flushed (``Flush``: by overwriting a
    128 MiB buffer, which leaves L2 dirty, and by reading it, which leaves L2
@@ -91,8 +106,10 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -154,6 +171,10 @@ ATT_SWEEP = [  # tests/test_kernels.py:56-66: (s, block_q, block_k, causal, wind
 ATT_HD_CASES = [  # ragged tiles at every head dim: (s, sk, causal, window)
     (100, 100, True, 0), (192, 160, False, 50), (200, 300, True, 64),
 ]
+LINREG_ROUNDS = 60  # tests/test_api.py:262
+LINREG_MEAN_TOL = (1e-5, 1e-6)  # (rtol, atol): tests/test_torch_linreg.py
+LINREG_PREC_TOL = 1e-6  # of sqrt(prec_ii * prec_jj): tests/test_torch_linreg.py
+DISCRETE_TOL = (1e-6, 1e-5)  # (rtol, atol) on log-beliefs: tests/test_torch_discrete.py
 WIRES = ("f32", "bf16", "f16")
 N_BEYOND_GRID = 70_000  # agents (or attention heads) past a grid dimension's 65,535
 SRC = "src/repro_torch/kernels/csrc/"
@@ -891,6 +912,223 @@ def ladders(dev):
             raise AssertionError(f"4.ladder {name}: not bitwise: {same}")
 
 
+def states_bitwise(a, b) -> bool:
+    """Every state leaf of ``a`` equals ``b``'s: dtype, shape and bits (NaN
+    lanes too), on whichever devices they live."""
+    import torch
+
+    from repro_torch.core.tree import tree_leaves
+
+    def bits(x):
+        x = x.detach().cpu().reshape(-1)
+        return x.view(torch.uint8) if x.is_floating_point() else x
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(bits(x), bits(y))
+        for x, y in zip(la, lb))
+
+
+def save_and_load(tag, session, dev, smi):
+    """Save ``session``, load the file on the card and on the CPU; assert the
+    state leaves bitwise across all three.  -> (card session, fields)."""
+    import torch
+
+    from repro_torch.api import Session
+    from repro_torch.checkpoint import io as checkpoint_io
+    from repro_torch.core.tree import tree_leaves
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "session.ckpt")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        session.save(path)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        checkpoint_io.restore_session(path)
+        read_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = Session.load(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        on_cpu = Session.load(path, device="cpu")
+    if loaded.device.type != session.device.type or loaded.round_idx != session.round_idx:
+        raise AssertionError(f"{tag}: loaded on {loaded.device}, round {loaded.round_idx}")
+    for other, where in ((loaded, "card"), (on_cpu, "CPU")):
+        if not states_bitwise(session.state, other.state):
+            raise AssertionError(f"{tag}: the state loaded on the {where} is not bitwise the saved")
+    n_leaves = len(tree_leaves(session.state))
+    raw = sum(leaf.numel() * leaf.element_size() for leaf in tree_leaves(session.state))
+    return loaded, dict(file_bytes=nbytes, leaf_bytes=raw, leaves=n_leaves,
+                        compression="zstd" if checkpoint_io.zstandard else "zlib",
+                        save_s=save_s, read_s=read_s, load_s=load_s, nvidia_smi=smi)
+
+
+def run_checkpoint(dev, smi):
+    """Phase 3.checkpoint: the synchronous slice after ``run(3)`` through
+    save -> load (card and CPU), bitwise, then one more round on both
+    sessions, bitwise (counters around the resumed rounds)."""
+    import torch
+
+    from repro_torch.api import build_session
+    from repro_torch.kernels import dispatch
+
+    session = build_session(fig4_spec(), device=dev)
+    session.run(n_rounds=3)
+    loaded, fields = save_and_load("3.checkpoint", session, dev, smi)
+    dispatch.reset_launch_counts()
+    session.round()
+    loaded.round()
+    torch.cuda.synchronize()
+    counts = dispatch.launch_counts()
+    same = states_bitwise(session.state, loaded.state)
+    phase("3.checkpoint", **fields, resumed_round_bitwise=same, launches=counts)
+    if not same or counts["consensus_fused_network"] != 2:
+        raise AssertionError(f"3.checkpoint: resumed round bitwise {same}, launches {counts}")
+    return counts
+
+
+def run_gossip_checkpoint(dev, smi):
+    """Phase 3.gossip_checkpoint: the chaos + quarantine gossip slice after
+    ``run(4)`` through save -> load, then two more windows on each session,
+    bitwise (tests/test_gossip.py:350); counters around those windows."""
+    import torch
+
+    from repro_torch.api import build_session
+    from repro_torch.kernels import dispatch
+
+    session = build_session(gossip_spec(), device=dev)
+    session.run(n_rounds=4)
+    loaded, fields = save_and_load("3.gossip_checkpoint", session, dev, smi)
+    dispatch.reset_launch_counts()
+    health = loaded.health()
+    session.run(n_rounds=2)
+    loaded.run(n_rounds=2)
+    torch.cuda.synchronize()
+    counts = dispatch.launch_counts()
+    same = {f: states_bitwise(getattr(session.state, f), getattr(loaded.state, f))
+            for f in ("posterior", "last_merge", "n_merges", "n_quarantined")}
+    same["all_leaves"] = states_bitwise(session.state, loaded.state)
+    tel = loaded.engine.telemetry(loaded.state)
+    phase("3.gossip_checkpoint", **fields, resumed_windows_bitwise=same,
+          health_after_load=health["n_healthy"], quarantined=tel["faults"]["quarantined"],
+          launches=counts)
+    if not all(same.values()) or not health["all_ok"] or min(
+            counts["consensus_fused_masked"], counts["payload_validity_fused"]) <= 0:
+        raise AssertionError(f"3.gossip_checkpoint: bitwise {same}, health {health}, "
+                             f"launches {counts}")
+    return counts
+
+
+def linreg_spec():
+    from repro_torch.api import DataSpec, ExperimentSpec, InferenceSpec, RunSpec, TopologySpec
+
+    return ExperimentSpec(
+        topology=TopologySpec.complete(4),
+        data=DataSpec(dataset="linreg", batch_size=10),
+        inference=InferenceSpec(method="conjugate_linreg"),
+        run=RunSpec(n_rounds=LINREG_ROUNDS, seed=0),
+    )
+
+
+def run_linreg(dev, smi):
+    """Phase 3.linreg: paper Example 1 on the card: to the noise floor on
+    the card's own draws, card against CPU on injected per-round seeds, and
+    the ``FullCovGaussian`` state through save/load bitwise."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import build_session
+
+    session = build_session(linreg_spec(), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    session.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    ev = session.evaluate()
+    floor = float(session.data.dataset.noise_std) ** 2
+    loaded, fields = save_and_load("3.linreg", session, dev, smi)
+    session.round()
+    loaded.round()
+    resumed = states_bitwise(session.state, loaded.state)
+
+    card = build_session(linreg_spec(), device=dev)
+    cpu = build_session(linreg_spec(), device="cpu")
+    seeds = np.random.default_rng(2024).integers(0, np.iinfo(np.int32).max, LINREG_ROUNDS)
+    rtol, atol = LINREG_MEAN_TOL
+    mean_ratio = prec_ratio = prec_elementwise = 0.0
+    for seed in seeds:
+        card.round(batch_seed=int(seed))
+        cpu.round(batch_seed=int(seed))
+        got, want = card.state, cpu.state
+        dm = (got.mean.cpu() - want.mean).abs()
+        mean_ratio = max(mean_ratio, float((dm / (atol + rtol * want.mean.abs())).max()))
+        diag = torch.diagonal(want.prec, dim1=-2, dim2=-1).sqrt()
+        scale = diag[..., :, None] * diag[..., None, :]
+        dp = (got.prec.cpu() - want.prec).abs()
+        prec_ratio = max(prec_ratio, float((dp / (LINREG_PREC_TOL * scale)).max()))
+        # at the spec's gaussian consensus the CPU test also holds prec elementwise
+        prec_elementwise = max(prec_elementwise,
+                               float((dp / (atol + rtol * want.prec.abs())).max()))
+    phase("3.linreg", rounds=LINREG_ROUNDS, avg_mse=ev["avg_mse"], mse=ev["mse"],
+          noise_floor=floor, bound=1.2 * floor, run_s=run_s, **fields,
+          resumed_round_bitwise=resumed, card_vs_cpu_mean_tol_share=mean_ratio,
+          card_vs_cpu_prec_tol_share=prec_ratio,
+          card_vs_cpu_prec_elementwise_tol_share=prec_elementwise, mean_tol=LINREG_MEAN_TOL,
+          prec_tol=LINREG_PREC_TOL, health=session.health()["n_healthy"])
+    shares = (mean_ratio, prec_ratio, prec_elementwise)
+    if not ev["avg_mse"] < 1.2 * floor or not resumed or max(shares) > 1:
+        raise AssertionError(f"3.linreg: avg_mse {ev['avg_mse']} (bound {1.2 * floor}), "
+                             f"resumed {resumed}, tolerance shares {shares}")
+
+
+def run_discrete(dev):
+    """Phase 3.discrete: ``run_social_learning`` at tests/test_discrete.py's
+    rate setting (complete W over 4 agents, 3 thetas, 150 rounds) with
+    injected log-likelihoods, card against CPU; the wrong belief's decay
+    rate beside ``theory.rate_K``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import discrete, theory
+    from repro_torch.core.graphs import complete_w
+
+    n, t, rounds, batch = 4, 3, 150, 4
+    means = np.random.default_rng(0).normal(0, 1.0, (n, t)).astype(np.float32)
+    means[:, 0] = 0.0
+    W = complete_w(n)
+    m = torch.from_numpy(means)
+    g = torch.Generator().manual_seed(1)
+    logliks = torch.stack([
+        -0.5 * torch.sum((m[:, 0:1, None] + torch.randn((n, batch, 1), generator=g)
+                          - m[:, None, :]) ** 2, dim=1)
+        for _ in range(rounds)])
+    t0 = time.perf_counter()
+    card = discrete.run_social_learning(None, W, None, rounds, t, device=dev, logliks=logliks)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    cpu = discrete.run_social_learning(None, W, None, rounds, t, device="cpu", logliks=logliks)
+    rtol, atol = DISCRETE_TOL
+    d = (card.cpu() - cpu).abs()
+    share = float((d / (atol + rtol * cpu.abs())).max())
+    wrong = discrete.wrong_belief_trajectory(card, np.arange(1, t)).cpu().numpy()
+    tail = np.arange(rounds // 3, rounds)
+    valid = wrong[tail] > 1e-30
+    slope = float(-np.polyfit(tail[valid], np.log(wrong[tail][valid]), 1)[0])
+    I = np.zeros((n, 1, t - 1))
+    for j in range(n):
+        for k in range(1, t):
+            I[j, 0, k - 1] = batch * float((means[j, 0] - means[j, k]) ** 2) / 2.0
+    K = theory.rate_K(theory.stationary_distribution(W), I)
+    phase("3.discrete", agents=n, thetas=t, rounds=rounds, device=str(card.device),
+          max_abs_err=float(d.max()), tol_share=share, tol=DISCRETE_TOL,
+          decay_rate=slope, rate_K=K, run_s=run_s)
+    if share > 1 or card.device.type != torch.device(dev).type or not slope > 0.5 * K:
+        raise AssertionError(f"3.discrete: tolerance share {share}, slope {slope}, K {K}")
+
+
 def cuda_ms(fn, flush=None, reps=20):
     """Median device time of one call, from CUDA events around each call.
 
@@ -1276,6 +1514,10 @@ def main() -> int:
     card_vs_cpu("4.parity", session, fig4_spec())
     card_vs_cpu("4.gossip_parity", g_session, gossip_spec())
     ladders(dev)
+    run_checkpoint(dev, smi)
+    run_gossip_checkpoint(dev, smi)
+    run_linreg(dev, smi)
+    run_discrete(dev)
     launches = {  # each kernel's launches on the path that runs it
         "consensus_fused_network": counts["consensus_fused_network"],
         "payload_validity_fused": g_counts["payload_validity_fused"],

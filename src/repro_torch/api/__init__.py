@@ -12,9 +12,12 @@
 ``TopologySpec.gossip(base, params, clock=...)`` selects the event-driven
 asynchronous ``GossipEngine`` (``repro_torch.gossip``): one event window per
 round, telemetry under ``evaluate()["engine"]``.
+``InferenceSpec(method="conjugate_linreg")`` runs paper Example 1 on the
+``ConjugateLinregEngine``.  ``session.save(path)`` / ``Session.load(path)``
+write and read the JAX package's checkpoint documents.
 """
 from repro_torch.api.data import DataBundle, build_data
-from repro_torch.api.engines import Engine, SimulatedEngine
+from repro_torch.api.engines import ConjugateLinregEngine, Engine, SimulatedEngine
 from repro_torch.api.models import MODELS, ModelFns, build_model, mlp_init, mlp_logits, mlp_nll
 from repro_torch.api.session import Session, build_session
 from repro_torch.api.spec import (
@@ -29,6 +32,7 @@ from repro_torch.api.spec import (
 from repro_torch.gossip.engine import GossipEngine
 
 __all__ = [
+    "ConjugateLinregEngine",
     "DataBundle",
     "DataSpec",
     "Engine",

@@ -1,7 +1,7 @@
 """Engine implementations behind ``api.Session`` (port of
-``repro.api.engines``; this slice carries the synchronous ``SimulatedEngine``;
-the event-driven ``gossip.engine.GossipEngine`` implements the same
-protocol).
+``repro.api.engines``): the synchronous ``SimulatedEngine`` and paper
+Example 1's ``ConjugateLinregEngine``; the event-driven
+``gossip.engine.GossipEngine`` implements the same protocol.
 
 An Engine owns the state layout and the per-round transition; the Session
 owns the loop, the data and the random generator.
@@ -12,9 +12,11 @@ from typing import Any, Protocol
 
 import torch
 
+from repro_torch.api.data import DataBundle
 from repro_torch.api.models import ModelFns
 from repro_torch.api.spec import ExperimentSpec
 from repro_torch.core.flat import FlatPosterior
+from repro_torch.core.posterior import FullCovGaussian, consensus_full_cov, linreg_bayes_update
 from repro_torch.core.simulated import init_network, make_round_fn
 from repro_torch.optim import Optimizer, adam, sgd
 from repro_torch.optim.schedules import Schedule, constant_schedule, exponential_decay
@@ -81,3 +83,39 @@ class SimulatedEngine:
 
     def posterior(self, state) -> FlatPosterior:
         return state.posterior
+
+
+class ConjugateLinregEngine:
+    """Paper Example 1: exact conjugate Bayesian linear regression (eq. 2)
+    with full-covariance consensus (eq. 6), all agents in one batched
+    update and one batched solve."""
+
+    name = "conjugate_linreg"
+
+    def __init__(self, spec: ExperimentSpec, data: DataBundle, device):
+        self.n_agents = data.n_agents
+        self.d = data.dim
+        self.device = device
+        self.noise_var = float(data.dataset.noise_std) ** 2
+        self.prior_var = spec.inference.prior_var
+        self.consensus_mode = spec.inference.consensus
+
+    def init(self, generator: torch.Generator, params=None) -> FullCovGaussian:
+        del generator, params  # the conjugate prior is deterministic
+        n, d = self.n_agents, self.d
+        eye = torch.eye(d, dtype=torch.float32, device=self.device) / self.prior_var
+        return FullCovGaussian(
+            mean=torch.zeros((n, d), dtype=torch.float32, device=self.device),
+            prec=eye.expand(n, d, d).clone(),
+        )
+
+    def run_round(self, state, batches, W, eps=None, generator=None):
+        del eps, generator  # no draws in the conjugate round
+        upd = linreg_bayes_update(state, batches["phi"], batches["y"], self.noise_var)
+        if self.consensus_mode != "none":
+            upd = consensus_full_cov(upd, W)
+        err = torch.einsum("nbd,nd->nb", batches["phi"], upd.mean) - batches["y"]
+        return upd, torch.mean(torch.square(err), dim=-1)
+
+    def posterior(self, state) -> FullCovGaussian:
+        return state

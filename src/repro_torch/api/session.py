@@ -1,5 +1,6 @@
 """``build_session(spec)`` — the supported front door (port of
-``repro.api.session`` for the synchronous BbB round and the gossip runtime).
+``repro.api.session`` for the synchronous BbB round, the gossip runtime and
+the conjugate linear regression of paper Example 1).
 
     spec = ExperimentSpec(
         topology=TopologySpec.grid(3, 3),
@@ -11,14 +12,18 @@
     session.run()                          # or session.round(), one at a time
     session.evaluate()                     # per-agent MC-predictive accuracy
     session.health()                       # exchange-payload validity probe
+    session.save("exp.ckpt")               # self-describing: spec embedded
+    session = Session.load("exp.ckpt")     # rebuild + resume, on the card
 
 A gossip topology (``TopologySpec.gossip(base, params, clock=...)``) runs on
 the ``GossipEngine``: one event window per round, its telemetry under
-``evaluate()["engine"]``.
+``evaluate()["engine"]``.  ``InferenceSpec(method="conjugate_linreg")`` with
+``DataSpec(dataset="linreg")`` runs the ``ConjugateLinregEngine``;
+``evaluate()`` then returns the global-test MSE.
 
 Randomness: the session owns one ``torch.Generator`` on its device, seeded
 from ``spec.run.seed``, and every draw consumes it in a fixed order.  Each
-draw can instead be injected (``round(batch_idx=, eps=)``,
+draw can instead be injected (``round(batch_idx=, eps=, batch_seed=)``,
 ``evaluate(eps=)``, ``predictive(eps=)``, ``build_session(init_params=)``):
 the port cannot replay JAX's threefry streams, so the parity tests feed the
 JAX package's own draws through these seams.
@@ -32,11 +37,14 @@ import numpy as np
 import torch
 
 from repro_torch.api.data import DataBundle, build_data
-from repro_torch.api.engines import Engine, SimulatedEngine
+from repro_torch.api.engines import ConjugateLinregEngine, Engine, SimulatedEngine
 from repro_torch.api.models import ModelFns, build_model
 from repro_torch.api.spec import ExperimentSpec
+from repro_torch.checkpoint.io import restore_leaf, restore_session, save_session, seed_key_data
 from repro_torch.core.flat import FlatPosterior, payload_validity
+from repro_torch.core.posterior import FullCovGaussian
 from repro_torch.core.simulated import as_w_schedule
+from repro_torch.core.tree import tree_leaves, tree_replace_leaves
 from repro_torch.gossip.engine import GossipEngine
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.vi.bayes_by_backprop import mc_predict
@@ -52,25 +60,28 @@ def build_session(spec: ExperimentSpec, device=None, init_params=None) -> "Sessi
     ``core.simulated.init_network``)."""
     spec.validate()
     device = resolve_device(device)
-    if spec.inference.method == "conjugate_linreg":
-        raise NotImplementedError("the conjugate linreg engine arrives with its slice")
     gossiping = spec.topology.kind == "gossip" or (
         spec.topology.kind == "sparse" and spec.topology.clock is not None
     )
     if spec.run.engine == "launch":
-        raise NotImplementedError("the launch engine arrives with its slice")
+        raise NotImplementedError(
+            "the launch engine arrives with ROADMAP queue A's launch engine item")
     n_agents = spec.topology.n_agents()
     data = build_data(spec.data, n_agents, device=device)
-    model = build_model(
-        spec.inference.model, data.dim, data.n_classes,
-        hidden=spec.inference.hidden, depth=spec.inference.depth,
-    )
-    if gossiping:
-        # a gossip topology IS an execution model: one event window per
-        # round on the GossipEngine
-        engine: Engine = GossipEngine(spec, model, n_agents, device)
+    model: ModelFns | None = None
+    if spec.inference.method == "conjugate_linreg":
+        engine: Engine = ConjugateLinregEngine(spec, data, device)
     else:
-        engine = SimulatedEngine(spec, model, n_agents, device)
+        model = build_model(
+            spec.inference.model, data.dim, data.n_classes,
+            hidden=spec.inference.hidden, depth=spec.inference.depth,
+        )
+        if gossiping:
+            # a gossip topology IS an execution model: one event window per
+            # round on the GossipEngine
+            engine = GossipEngine(spec, model, n_agents, device)
+        else:
+            engine = SimulatedEngine(spec, model, n_agents, device)
     generator = torch.Generator(device=device).manual_seed(spec.run.seed)
     state = engine.init(generator, params=init_params)
     return Session(spec=spec, engine=engine, model=model, data=data, state=state,
@@ -83,7 +94,7 @@ class Session:
 
     spec: ExperimentSpec
     engine: Engine
-    model: ModelFns
+    model: ModelFns | None
     data: DataBundle
     state: Any
     generator: torch.Generator
@@ -99,12 +110,13 @@ class Session:
 
     # -- the loop ------------------------------------------------------------
 
-    def round(self, W=None, *, batch_idx=None, eps=None) -> dict:
+    def round(self, W=None, *, batch_idx=None, eps=None, batch_seed=None) -> dict:
         """One communication round (u local steps + consensus).  Returns
         ``{"round", "loss", "n_trained", "losses"}``, plus ``n_crashed``
         (agents down this window) on a gossip run with faults.  ``W``
         overrides the spec topology for this round; ``batch_idx`` ([N, u*B])
-        and ``eps`` ([N, u, S, P]) inject the round's draws.
+        and ``eps`` ([N, u, S, P]) inject the round's draws, and
+        ``batch_seed`` the linreg sampler's per-round numpy seed.
 
         An engine that declares ``wants_host_w`` (the gossip engine) gets the
         schedule value verbatim: the host float64 w_eff, whose exact activity
@@ -115,7 +127,10 @@ class Session:
             W = self._spec_w_schedule()(r)
         if not getattr(self.engine, "wants_host_w", False):
             W = torch.as_tensor(np.asarray(W), dtype=torch.float32, device=self.device)
-        batches = self.data.sampler(self.generator, r, idx=batch_idx)
+        if self.data.kind == "linreg":
+            batches = self.data.sampler(self.generator, r, seed=batch_seed)
+        else:
+            batches = self.data.sampler(self.generator, r, idx=batch_idx)
         if eps is not None:
             eps = torch.as_tensor(eps, dtype=torch.float32, device=self.device)
         self.state, losses = self.engine.run_round(
@@ -158,13 +173,18 @@ class Session:
 
     # -- results -------------------------------------------------------------
 
-    def posterior(self) -> FlatPosterior:
-        """The network posterior, a ``FlatPosterior`` over [N, P]."""
+    def posterior(self) -> FlatPosterior | FullCovGaussian:
+        """The network posterior: a ``FlatPosterior`` over [N, P] for the BbB
+        engines, a stacked ``FullCovGaussian`` for the conjugate linreg
+        engine."""
         return self.engine.posterior(self.state)
 
-    def agent_posterior(self, agent: int) -> FlatPosterior:
-        """One agent's posterior as a one-agent ``FlatPosterior`` [1, P]."""
+    def agent_posterior(self, agent: int) -> FlatPosterior | FullCovGaussian:
+        """One agent's posterior: a one-agent ``FlatPosterior`` [1, P], or
+        the agent's ``FullCovGaussian`` ([d], [d, d])."""
         post = self.posterior()
+        if isinstance(post, FullCovGaussian):
+            return FullCovGaussian(post.mean[agent], post.prec[agent])
         return FlatPosterior(post.mean[agent:agent + 1], post.rho[agent:agent + 1],
                              post.layout)
 
@@ -172,6 +192,9 @@ class Session:
         """MC predictive class probabilities [T, n_classes] for one agent
         (paper Sec 4.2).  ``n_mc=0`` is the deterministic point estimate at
         the posterior mean; ``eps`` ([n_mc, P]) injects the MC noise."""
+        if self.model is None:
+            raise ValueError("predictive() requires a classification model; the "
+                             "conjugate linreg engine has none")
         post = self.agent_posterior(agent)
         x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
         if n_mc == 0:
@@ -189,12 +212,19 @@ class Session:
                            device=self.device)
 
     def health(self) -> dict:
-        """Per-agent posterior health probe: the exchange-payload validity
-        check (``core.flat.payload_validity``, the CUDA kernel on the card),
-        so ``ok[i]`` is exactly "agent i's posterior would be accepted by a
-        quarantined peer".  Pure read."""
+        """Per-agent posterior health probe.  Flat posteriors run the
+        exchange-payload validity check (``core.flat.payload_validity``, the
+        CUDA kernel on the card), so ``ok[i]`` is exactly "agent i's
+        posterior would be accepted by a quarantined peer"; the conjugate
+        engine's falls back to an all-leaves-finite probe.  Pure read."""
         post = self.posterior()
-        ok = payload_validity(post.mean, post.rho).cpu().numpy()
+        if isinstance(post, FlatPosterior):
+            ok = payload_validity(post.mean, post.rho).cpu().numpy()
+        else:
+            ok = np.logical_and.reduce([
+                torch.isfinite(leaf.reshape(leaf.shape[0], -1)).all(dim=1).cpu().numpy()
+                for leaf in tree_leaves(post)
+            ])
         return {
             "ok": [bool(v) for v in ok],
             "n_healthy": int(ok.sum()),
@@ -202,11 +232,19 @@ class Session:
         }
 
     def evaluate(self, n_mc: int = 4, eps=None) -> dict:
-        """Held-out MC-predictive accuracy per agent.  Every agent sees the
-        same MC noise ``eps`` ([n_mc, P]; default: a fixed draw, so repeated
-        calls agree), as in the JAX package.  An engine with a
-        ``telemetry(state)`` hook (the gossip runtime: staleness, merges,
-        faults and quarantine) adds it under ``"engine"``."""
+        """Held-out metrics per agent: MC-predictive accuracy for
+        classification, global-test MSE (``{"mse", "avg_mse"}``) for linreg.
+        Every agent sees the same MC noise ``eps`` ([n_mc, P]; default: a
+        fixed draw, so repeated calls agree), as in the JAX package.  An
+        engine with a ``telemetry(state)`` hook (the gossip runtime:
+        staleness, merges, faults and quarantine) adds it under
+        ``"engine"``."""
+        if self.data.kind == "linreg":
+            phi_t, y_t = self.data.test_phi, self.data.test_y
+            mean = self.posterior().mean.cpu().numpy()
+            mses = [float(np.mean((phi_t @ mean[i] - y_t) ** 2))
+                    for i in range(self.data.n_agents)]
+            return {"mse": mses, "avg_mse": float(np.mean(mses))}
         if eps is None:
             eps = self._default_noise(EVAL_SEED, n_mc)
         eps = torch.as_tensor(eps, dtype=torch.float32, device=self.device)
@@ -218,3 +256,45 @@ class Session:
         if telemetry is not None:
             out["engine"] = telemetry(self.state)
         return out
+
+    # -- checkpointing -------------------------------------------------------
+
+    def save(self, path: str) -> None:
+        """Self-describing checkpoint in the JAX package's format: the spec
+        doc, the engine-state leaves and the loop counters, plus the
+        generator's state.  ``key_data`` is the JAX key of
+        ``spec.run.seed`` (the port has no threefry key), so the JAX package
+        loading this file resumes from that key.  Pure read: neither the
+        state nor the generator changes."""
+        save_session(
+            path, self.spec.to_doc(), self.state, round_idx=self.round_idx,
+            key_data=seed_key_data(self.spec.run.seed), generator=self.generator,
+        )
+
+    @classmethod
+    def load(cls, path: str, device=None) -> "Session":
+        """Rebuild the session from the embedded spec on ``device`` (default:
+        the card; raises without one) and resume: the saved leaves are
+        restored into the rebuilt state in leaf order.
+
+        The generator continues where it stopped when the checkpoint holds a
+        generator state of the same device type.  Otherwise (a checkpoint the
+        JAX package wrote, or one from the card loaded on the CPU) it is a
+        freshly built session's for the spec: the random stream does not
+        continue across packages or device types, so inject the draws
+        (``round(batch_idx=, eps=, batch_seed=)``) to follow another run."""
+        spec_doc, leaves, round_idx, _, gen = restore_session(path)
+        session = build_session(ExperimentSpec.from_doc(spec_doc), device=device)
+        ref = tree_leaves(session.state)
+        if len(leaves) != len(ref):
+            raise ValueError(
+                f"checkpoint has {len(leaves)} state leaves, the rebuilt engine "
+                f"expects {len(ref)}"
+            )
+        session.state = tree_replace_leaves(
+            session.state, [restore_leaf(s, r) for s, r in zip(leaves, ref)])
+        session.round_idx = int(round_idx)
+        if gen is not None and gen["device"] == session.device.type:
+            session.generator.set_state(
+                torch.frombuffer(bytearray(gen["state"]), dtype=torch.uint8))
+        return session

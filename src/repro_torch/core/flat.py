@@ -112,6 +112,77 @@ class FlatLayout:
             set_path(tree, keys, leaf.to(getattr(torch, spec.dtype)))
         return tree
 
+    # -- checkpoint doc ------------------------------------------------------
+
+    def to_doc(self) -> dict:
+        """Self-describing msgpack-able doc, equal to the JAX package's for
+        the same layout: the skeleton is the parameter dict with each leaf
+        replaced by its index (keys inserted in sorted order, as
+        ``jax.tree.unflatten`` builds a dict)."""
+        skeleton: dict = {}
+        for i, keys in enumerate(self.keys):
+            set_path(skeleton, keys, i)
+        return {
+            "n_params": self.n_params,
+            "specs": [dataclasses.asdict(s) | {"shape": list(s.shape)} for s in self.specs],
+            "skeleton": _encode_skeleton(skeleton),
+        }
+
+    @classmethod
+    def from_doc(cls, doc: dict) -> "FlatLayout":
+        skeleton = _decode_skeleton(doc["skeleton"])
+        keys: dict[int, tuple[str, ...]] = {}
+
+        def walk(node, path):
+            if isinstance(node, dict):
+                for k in sorted(node):
+                    walk(node[k], path + (k,))
+            elif isinstance(node, int):
+                keys[node] = path
+            else:
+                raise TypeError(
+                    f"a {type(node).__name__} node in a layout skeleton: the port's "
+                    "flat layouts are over parameter dicts"
+                )
+
+        walk(skeleton, ())
+        specs = tuple(
+            LeafSpec(path=s["path"], shape=tuple(s["shape"]), dtype=s["dtype"],
+                     offset=s["offset"], size=s["size"])
+            for s in doc["specs"]
+        )
+        return cls(specs=specs, keys=tuple(keys[i] for i in range(len(specs))),
+                   n_params=doc["n_params"])
+
+
+def _encode_skeleton(node):
+    """Encode a dict/list/tuple/int skeleton as msgpack-able JSON-ish data
+    (tuples tagged so they survive the round trip)."""
+    if isinstance(node, dict):
+        if not all(isinstance(k, str) for k in node):
+            raise TypeError("FlatLayout checkpoint docs require str dict keys")
+        return {k: _encode_skeleton(v) for k, v in node.items()}
+    if isinstance(node, tuple):
+        return {"__tuple__": [_encode_skeleton(v) for v in node]}
+    if isinstance(node, list):
+        return [_encode_skeleton(v) for v in node]
+    if isinstance(node, int):
+        return node
+    raise TypeError(
+        f"pytree node {type(node)} not supported in a self-describing flat "
+        "checkpoint; restore with an explicit `like` tree instead"
+    )
+
+
+def _decode_skeleton(node):
+    if isinstance(node, dict):
+        if set(node) == {"__tuple__"}:
+            return tuple(_decode_skeleton(v) for v in node["__tuple__"])
+        return {k: _decode_skeleton(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_decode_skeleton(v) for v in node]
+    return node
+
 
 @dataclasses.dataclass
 class FlatPosterior:

@@ -1,15 +1,16 @@
-"""Mean-field Gaussian posteriors (port of the mean-field half of
-``repro.core.posterior``).
+"""Gaussian posteriors (port of ``repro.core.posterior``): mean-field over
+parameter dicts or flat buffers, and full-covariance over R^d for the
+conjugate linear regression of paper Example 1 (``FullCovGaussian``).
 
 Eq. (6), the closed-form consensus:
     prec_tilde_i = sum_j W_ij prec_j
     mu_tilde_i   = prec_tilde_i^{-1} sum_j W_ij prec_j mu_j
 
-Two forms of a posterior go through the functions here, told apart by the
-type of ``mean``: a parameter dict (a pytree, as in the reference, with
-leaves in sorted-key order, which is ``jax.tree.flatten``'s order for
-dicts) or a flat ``[*B, P]`` tensor (``core.flat.FlatPosterior``, the
-runtime's form).
+Two forms of a mean-field posterior go through the functions here, told
+apart by the type of ``mean``: a parameter dict (a pytree, as in the
+reference, with leaves in sorted-key order, which is ``jax.tree.flatten``'s
+order for dicts) or a flat ``[*B, P]`` tensor (``core.flat.FlatPosterior``,
+the runtime's form).
 """
 from __future__ import annotations
 
@@ -188,3 +189,57 @@ def consensus_mean_only(params, W: torch.Tensor):
     if isinstance(params, dict):
         return _map(avg, params)
     return torch.matmul(W.to(device=params.device, dtype=params.dtype), params)
+
+
+# ---------------------------------------------------------------------------
+# Full-covariance Gaussian over a flat parameter vector (paper Example 1)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class FullCovGaussian:
+    """Full-covariance Gaussian over theta in R^d, stored as (mean, precision).
+
+    Storing the precision (Lambda = Sigma^{-1}) makes both the conjugate
+    Bayesian linear-regression update and the consensus step (eq. 6) linear.
+    """
+
+    mean: torch.Tensor  # [d] (or [N, d] with leading agent axis)
+    prec: torch.Tensor  # [d, d] (or [N, d, d])
+
+    def cov(self) -> torch.Tensor:
+        return torch.linalg.inv(self.prec)
+
+    def sample(self, generator: torch.Generator | None = None,
+               eps: torch.Tensor | None = None) -> torch.Tensor:
+        """theta = mean + chol(cov) eps; ``eps`` injects the standard-normal
+        draw, else it comes from ``generator``."""
+        chol = torch.linalg.cholesky(self.cov())
+        if eps is None:
+            eps = torch.randn(self.mean.shape, generator=generator, dtype=self.mean.dtype,
+                              device=self.mean.device)
+        return self.mean + torch.einsum("...ij,...j->...i", chol, eps)
+
+
+def linreg_bayes_update(post: FullCovGaussian, phi: torch.Tensor, y: torch.Tensor,
+                        noise_var: float) -> FullCovGaussian:
+    """Exact conjugate local Bayesian update (paper eq. 2) for the linear
+    model y = theta^T phi(x) + eta, eta ~ N(0, noise_var).
+
+    phi: [*A, B, d] features, y: [*A, B] labels, for posteriors with the same
+    leading axes ``*A`` (the agents: the reference's vmapped update).
+    """
+    prec_new = post.prec + torch.einsum("...bi,...bj->...ij", phi, phi) / noise_var
+    rhs = (torch.einsum("...ij,...j->...i", post.prec, post.mean)
+           + torch.einsum("...bi,...b->...i", phi, y) / noise_var)
+    mean_new = torch.linalg.solve(prec_new, rhs.unsqueeze(-1)).squeeze(-1)
+    return FullCovGaussian(mean=mean_new, prec=prec_new)
+
+
+def consensus_full_cov(posts: FullCovGaussian, W: torch.Tensor) -> FullCovGaussian:
+    """Eq. (6) over stacked full-covariance posteriors (leading agent axis)."""
+    W = torch.as_tensor(W, dtype=posts.prec.dtype, device=posts.prec.device)
+    prec_new = torch.einsum("ij,jkl->ikl", W, posts.prec)
+    rhs = W @ torch.einsum("jkl,jl->jk", posts.prec, posts.mean)
+    mean_new = torch.linalg.solve(prec_new, rhs.unsqueeze(-1)).squeeze(-1)
+    return FullCovGaussian(mean=mean_new, prec=prec_new)

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.core.flat import FlatLayout, FlatPosterior, flat_posterior_from_pytree, make_flat_nll
 from repro_torch.core.posterior import consensus_all_agents, consensus_mean_only, init_posterior
+from repro_torch.core.tree import tree_map
 from repro_torch.optim import AdamState, Optimizer
 from repro_torch.optim.schedules import Schedule
 from repro_torch.vi.bayes_by_backprop import NllFn, local_vi_steps
@@ -37,17 +38,7 @@ class NetworkState:
     def to(self, device) -> "NetworkState":
         """A copy of the whole state (posterior, Adam moments, counters) on
         ``device``."""
-        def move(x):
-            if isinstance(x, torch.Tensor):
-                return x.to(device, copy=True)
-            return dataclasses.replace(x, **{
-                f.name: move(getattr(x, f.name)) for f in dataclasses.fields(x)
-                if isinstance(getattr(x, f.name), torch.Tensor)
-                or dataclasses.is_dataclass(getattr(x, f.name))
-                and not isinstance(getattr(x, f.name), FlatLayout)
-            })
-
-        return move(self)
+        return tree_map(lambda x: x.to(device, copy=True), self)
 
 
 def init_network(generator: torch.Generator | None, n_agents: int,

@@ -57,6 +57,7 @@ from repro_torch.core.flat import (
     make_flat_nll,
 )
 from repro_torch.core.simulated import init_network, network_local_steps, network_state_from_numpy
+from repro_torch.core.tree import tree_map
 from repro_torch.gossip.clocks import SparseClock
 
 _LATER_GOSSIP = "arrives with ROADMAP queue A's gossip runtime item"
@@ -78,20 +79,7 @@ class GossipState:
 
     def to(self, device) -> "GossipState":
         """A copy of the whole state on ``device``."""
-        return _tree(lambda x: x.to(device, copy=True), self)
-
-
-def _tree(fn, tree, *rest):
-    """Map ``fn`` over the tensors of equally shaped dataclass trees (layouts
-    and ``None`` fields are carried over)."""
-    if isinstance(tree, torch.Tensor):
-        return fn(tree, *rest)
-    if tree is None or isinstance(tree, FlatLayout):
-        return tree
-    return dataclasses.replace(tree, **{
-        f.name: _tree(fn, getattr(tree, f.name), *(getattr(r, f.name) for r in rest))
-        for f in dataclasses.fields(tree)
-    })
+        return tree_map(lambda x: x.to(device, copy=True), self)
 
 
 def _agent_select(active: torch.Tensor, new, old):
@@ -99,7 +87,7 @@ def _agent_select(active: torch.Tensor, new, old):
     def sel(a, b):
         return torch.where(active.reshape((-1,) + (1,) * (a.ndim - 1)), a, b)
 
-    return _tree(sel, new, old)
+    return tree_map(sel, new, old)
 
 
 def gossip_state_from_numpy(mean, rho, *, layout: FlatLayout, mu=None, nu=None, step=None,

@@ -1,6 +1,9 @@
 """The PyTorch port stands alone: no module of ``src/repro_torch`` and not
 ``chip_smoke.py`` imports ``jax`` (or anything under it) or the JAX package
-``repro``, at top level or inside a function."""
+``repro``, at top level or inside a function.  Nor ``msgpack`` or
+``ml_dtypes``, which the JAX package's checkpoints use and the GPU machine
+does not have: the port carries its own MessagePack codec and reads bf16
+leaves by name."""
 import ast
 from pathlib import Path
 
@@ -10,7 +13,7 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack", "ml_dtypes")
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -42,3 +45,10 @@ def test_scanner_catches_a_forbidden_import(tmp_path):
     f = tmp_path / "m.py"
     f.write_text("def g():\n    from repro.core import flat\n    import jax.numpy\n")
     assert _imported_roots(f) >= {"repro", "jax"}
+
+
+def test_scanner_catches_the_checkpoint_dependencies(tmp_path):
+    f = tmp_path / "m.py"
+    f.write_text("import msgpack\ndef g():\n    from ml_dtypes import bfloat16\n")
+    bad = _imported_roots(f) & set(FORBIDDEN)
+    assert bad == {"msgpack", "ml_dtypes"}

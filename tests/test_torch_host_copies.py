@@ -127,3 +127,51 @@ def test_gossip_topologies_wait_for_their_slice():
         inference=tspec.InferenceSpec(hidden=4, depth=1))
     with pytest.raises(NotImplementedError, match="delayed"):
         build_session(spec, device="cpu")
+
+
+def test_linreg_task_sampling_bitwise():
+    from repro.data import linreg as jl
+    from repro_torch.data import linreg as tl
+
+    for kw in (dict(), dict(d=4, n_agents=3), dict(d=5, n_agents=2),
+               dict(d=2, n_agents=2, theta_star=[1.0, -2.0])):
+        a, b = tl.make_linreg_task(**kw), jl.make_linreg_task(**kw)
+        assert a.agent_coords == b.agent_coords and a.d == b.d and a.noise_std == b.noise_std
+        np.testing.assert_array_equal(a.theta_star, b.theta_star)
+        np.testing.assert_array_equal(a.agent_ranges, b.agent_ranges)
+        for agent in range(a.n_agents):
+            ra, rb = np.random.default_rng(agent), np.random.default_rng(agent)
+            for x, y in zip(a.sample_local(ra, agent, 17), b.sample_local(rb, agent, 17)):
+                np.testing.assert_array_equal(x, y)
+        for x, y in zip(a.sample_global(np.random.default_rng(9), 33),
+                        b.sample_global(np.random.default_rng(9), 33)):
+            np.testing.assert_array_equal(x, y)
+
+
+_THEORY_WS = {
+    "star": jg.star_w(3, 0.5), "ring": jg.ring_w(5), "complete": jg.complete_w(4),
+    "torus": jg.torus_w(3, 4), "disconnected": np.eye(3),
+}
+
+
+@pytest.mark.parametrize("w", sorted(_THEORY_WS))
+def test_theory_functions_bitwise(w):
+    from repro.core import theory as jt
+    from repro_torch.core import theory as tt
+
+    W = _THEORY_WS[w]
+    for fn in ("lambda_max", "spectral_gap", "consensus_contraction_rate"):
+        assert getattr(tt, fn)(W) == getattr(jt, fn)(W), fn
+    if w != "disconnected":
+        v = tt.stationary_distribution(W)
+        np.testing.assert_array_equal(v, jt.stationary_distribution(W))
+        I = np.random.default_rng(len(W)).normal(1.0, 0.5, (len(W), 2, 3))
+        assert tt.rate_K(v, I) == jt.rate_K(v, I)
+    args = (len(W), 7, 0.05, 0.1, 2.5, W)
+    assert tt.sample_complexity(*args) == jt.sample_complexity(*args)
+    rng = np.random.default_rng(1)
+    a, b = rng.normal(size=50), rng.normal(size=50)
+    assert tt.gaussian_divergence_gap(a, b, 0.3) == jt.gaussian_divergence_gap(a, b, 0.3)
+    n = np.arange(0, 40)
+    np.testing.assert_array_equal(tt.predicted_decay_curve(0.2, n, 0.01),
+                                  jt.predicted_decay_curve(0.2, n, 0.01))

@@ -247,5 +247,4 @@ def test_later_slices_raise_not_implemented():
         data=tspec.DataSpec(dataset="linreg"),
         inference=tspec.InferenceSpec(method="conjugate_linreg"),
     )
-    with pytest.raises(NotImplementedError):
-        tbuild(lin, device="cpu")
+    assert tbuild(lin, device="cpu").engine.name == "conjugate_linreg"  # its slice arrived
