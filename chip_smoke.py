@@ -38,6 +38,13 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    every head dim 32-256 on ragged tiles at bf16 and f16, on a case
    with Sk < S whose window leaves rows with no key (zeros) at each dtype,
    and at B = 70,000 or H = 70,000 (S = 64, hd = 32) at f32 and bf16;
+   ``consensus_fused_segments`` at every wire dtype on the term lists the
+   paths build: the delayed slice's window 4 (N = 9, P = 199,210, a K = 4
+   ring at f32, bf16 and f16), the same with fill rows after the posterior
+   (the corrupted senders' layout), an edge-native window of the N = 4,200
+   clock below with fill rows at P = 1,024 and at the full P = 199,210
+   that ``3.sparse`` runs, and one of the N = 10,000 cell (P = 90), two
+   launches bitwise equal, one device kernel a call;
 3. the paths at full width, each with the launch counters set to 0 just
    before and read just after.  The synchronous slice: the paper's Fig. 4
    setting (3x3 grid, 9 agents, ``mnist_like`` 784-dim 10-class data, grid
@@ -57,12 +64,30 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    ``kl_gaussian``; ``attention`` at B = 1, S = 4096 (``train_4k``), bf16,
    at the head shapes of Qwen3-8B (H = 32, hd = 128, causal, K/V repeated
    from 8 heads) and of RecurrentGemma-9B's local attention (H = 16,
-   hd = 256, window 2048, K/V repeated from 1 head);
+   hd = 256, window 2048, K/V repeated from 1 head).  The delayed slice
+   (``3.delayed*``): the gossip slice behind geometric delivery latency
+   (p = 0.5, at most 3 windows: a K = 4 slot history ring) under the chaos
+   faults, quarantine, strict and quarantine with a bf16 ring, 4 windows
+   each, the ring's bytes (exactly half at bf16), and both quarantined
+   rings saved, loaded and resumed two windows, bitwise.  ``3.sparse``:
+   edge-native windows at N = 4,200 (above SPARSE_DENSE_GUARD = 4096),
+   Watts-Strogatz k = 6, beta = 0.1, Poisson rate 0.05, chaos faults,
+   quarantine, ``mnist_like`` 784-dim data iid (16 rows an agent), the
+   784-200-200-10 model: 3 windows and ``evaluate()``, every tensor shape of
+   the third window recorded (none has two dimensions equal to N), the
+   dense view refused, the peak device memory.  ``3.sparse_1e4``: the
+   reference's ``engine_sparse`` cell (N = 10,000, P = 90), 3 windows,
+   ``evaluate()``, save -> load -> one resumed window, bitwise;
 4. card vs CPU: one more synchronous round and one more gossip window from
    the same state with the same injected batches and noise, the card through
-   the kernels, the CPU through the plain versions; and the equivalence
-   ladder on the card, bitwise: all-edges gossip == synchronous, zero-fault
-   quarantine == strict;
+   the kernels, the CPU through the plain versions, and likewise one more
+   delayed window and one more edge-native window (the slice's data on a
+   9-agent Watts-Strogatz graph), and the quarantined segments consensus
+   alone on the post-local posterior of an iid 16-agent edge-native
+   session (``4.sparse_iid_consensus``); and the equivalence ladder on the card,
+   bitwise: all-edges gossip == synchronous, zero-fault quarantine ==
+   strict (instant, delayed and edge-native windows), latency 0 == instant
+   (no ring), and one delayed window run twice from one state;
    then the checkpoint, linreg and discrete paths (phase tags 3.*, each with
    the launch counters set to 0 around its run): ``3.checkpoint``, the
    synchronous slice saved after ``run(3)`` and ``Session.load``-ed on the
@@ -87,7 +112,8 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    beside ``scaled_dot_product_attention``'s time and backend, with its
    TFLOP/s, share of the bound, ratio to SDPA and largest error in output
    ulps, and the f32 SIMT kernel's time at the Qwen3-8B heads); for
-   the single-kernel wrappers (the five eq. (6) kernels,
+   ``consensus_fused_segments`` on the delayed slice's window 4; for
+   the single-kernel wrappers (the six eq. (6) kernels,
    ``payload_validity_fused``, ``sample_and_kl_fused``) also the device
    operations one call runs (which must be one) and its kernel instance
    (both read from a CUDA graph of one call, not from a profiler), the
@@ -95,8 +121,9 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    floor (a one-cycle ``torch.cuda._sleep`` under the same timer), which
    every row's time less the floor and its share of the bound on that
    basis take out;
-6. profile: the wall time of a warm synchronous round and of a warm gossip
-   window of the slice, and their device time by kernel (torch.profiler).
+6. profile: the wall time of a warm synchronous round, of a warm gossip
+   window, of a warm delayed window of the slice and of a warm edge-native
+   window at N = 4,200, and their device time by kernel (torch.profiler).
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one JSON
 line describing the kernels, and ``{"ok": true, "device": {...}}``.
@@ -153,6 +180,12 @@ GOSSIP_CLOCK = {"kind": "failure_injected", "inner": {"kind": "poisson", "rate":
 CHAOS = {"crash_rate": 0.15, "recover_rate": 0.5, "corrupt_rate": 0.2, "corrupt_kind": "mix",
          "seed": 7}
 CSR_ATOL = 1e-5  # CSR vs dense quarantined consensus: another fp32 sum order
+# the gossip slice's clock behind geometric delivery latency (K = 4 ring slots)
+DELAYED_CLOCK = {"kind": "delayed", "inner": GOSSIP_CLOCK,
+                 "latency": {"kind": "geometric", "p": 0.5, "max": 3}}
+SPARSE_N = 4_200  # agents: above SPARSE_DENSE_GUARD = 4096, so no dense view can hide
+SPARSE_CLOCK = {"kind": "poisson", "rate": 0.05, "seed": 3}
+SEG_SMALL_P = 1_024  # phase 2's N = 4,200 case
 KL_RTOL = 1e-5    # sample_and_kl vs the pytree kl_gaussian: another fp32 sum order
 THETA_ATOL = 1e-6  # sample_and_kl's theta vs its plain version
 ATT_TOL = {"f32": 2e-5, "bf16": 2e-2, "f16": 2e-2}  # attention vs plain (tests/test_kernels.py:75)
@@ -204,15 +237,69 @@ def fig4_spec():
     )
 
 
-def gossip_spec(policy="quarantine", faults=True, clock=None):
+def gossip_spec(policy="quarantine", faults=True, clock=None, **inf):
     from repro_torch.api import DataSpec, ExperimentSpec, InferenceSpec, RunSpec, TopologySpec
 
     clock = dict(clock or GOSSIP_CLOCK, **({"faults": CHAOS} if faults else {}))
     return ExperimentSpec(
         topology=TopologySpec.gossip("grid", {"rows": 3, "cols": 3}, clock=clock),
         data=DataSpec(**FIG4),
+        inference=InferenceSpec(hidden=HIDDEN, depth=2, fault_policy=policy, **inf),
+        run=RunSpec(n_rounds=4, seed=0),
+    )
+
+
+def sparse_spec(n=SPARSE_N, policy="quarantine", faults=True):
+    """The edge-native path at full width: a Watts-Strogatz graph (k = 6,
+    beta = 0.1) under a thinned-Poisson edge clock, ``mnist_like`` 784-dim
+    10-class data split iid with at least 16 rows an agent, the
+    784-200-200-10 model, batch 16, u = 4."""
+    from repro_torch.api import DataSpec, ExperimentSpec, InferenceSpec, RunSpec, TopologySpec
+
+    clock = dict(SPARSE_CLOCK, **({"faults": CHAOS} if faults else {}))
+    return ExperimentSpec(
+        topology=TopologySpec.sparse("watts_strogatz", n=n, k=6, beta=0.1, seed=1, clock=clock),
+        data=DataSpec(dataset="mnist_like",
+                      dataset_params=dict(dim=784, n_classes=10,
+                                          n_train_per_class=max(600, -(-16 * n // 10))),
+                      partition="iid", partition_params=dict(n_agents=n), batch_size=16,
+                      local_updates=4),
+        inference=InferenceSpec(hidden=HIDDEN, depth=2, fault_policy=policy),
+        run=RunSpec(n_rounds=3, seed=0),
+    )
+
+
+def sparse_slice_spec(policy="quarantine", faults=True):
+    """The gossip slice's data and model on an edge-native topology: a
+    9-agent Watts-Strogatz graph (k = 4, beta = 0.1) under a Poisson edge
+    clock (rate 0.8), the card-vs-CPU check's and the ladder's sparse
+    session."""
+    from repro_torch.api import DataSpec, ExperimentSpec, InferenceSpec, RunSpec, TopologySpec
+
+    clock = {"kind": "poisson", "rate": 0.8, "seed": 0, **({"faults": CHAOS} if faults else {})}
+    return ExperimentSpec(
+        topology=TopologySpec.sparse("watts_strogatz", n=9, k=4, beta=0.1, seed=1, clock=clock),
+        data=DataSpec(**FIG4),
         inference=InferenceSpec(hidden=HIDDEN, depth=2, fault_policy=policy),
         run=RunSpec(n_rounds=4, seed=0),
+    )
+
+
+def sparse_1e4_spec():
+    """The ``engine_sparse`` cell of BENCH_gossip.json
+    (benchmarks/bench_gossip.py:591-618): N = 10,000, Watts-Strogatz k = 6,
+    beta = 0.1, Poisson rate 0.05, e_max = 8192, the 8-8-2 model (P = 90)."""
+    from repro_torch.api import DataSpec, ExperimentSpec, InferenceSpec, RunSpec, TopologySpec
+
+    n = 10_000
+    return ExperimentSpec(
+        topology=TopologySpec.sparse("watts_strogatz", n=n, k=6, beta=0.1, seed=1,
+                                     clock=dict(SPARSE_CLOCK, e_max=8192)),
+        data=DataSpec(dataset_params=dict(n_classes=2, dim=8, n_train_per_class=n, seed=0),
+                      partition="iid", partition_params=dict(n_agents=n), batch_size=2,
+                      local_updates=1),
+        inference=InferenceSpec(hidden=8, depth=1, lr=1e-2),
+        run=RunSpec(n_rounds=3, seed=0),
     )
 
 
@@ -671,8 +758,9 @@ def card_vs_cpu(tag, session, spec):
     cpu = build_session(spec, device="cpu")
     cpu.state = session.state.to("cpu")
     cpu.round_idx = session.round_idx
-    W = torch.as_tensor(np.asarray(spec.topology.w_schedule()(session.round_idx)),
-                        dtype=torch.float32)
+    W = spec.topology.w_schedule()(session.round_idx)
+    W = getattr(W, "w_eff", W)  # a SparseWindow's dense view
+    W = torch.as_tensor(np.asarray(W), dtype=torch.float32)
     n, p = session.posterior().mean.shape
     u, b = FIG4["local_updates"], FIG4["batch_size"]
     g = torch.Generator().manual_seed(2024)
@@ -876,8 +964,10 @@ def run_ops(dev, session, prior):
 
 def ladders(dev):
     """Phase 4.ladder: bitwise rungs on the card — all-edges gossip ==
-    synchronous, zero-fault quarantine == strict — after 2 rounds from the
-    same injected draws."""
+    synchronous, zero-fault quarantine == strict (instant, delayed and
+    segments windows), latency 0 == instant (no ring) — after 2 rounds from
+    the same injected draws; and one delayed window run twice from the same
+    state gives the same bits."""
     import numpy as np
     import torch
 
@@ -886,18 +976,27 @@ def ladders(dev):
 
     edges = [[int(i), int(j)] for i, j in _directed_edges(fig4_spec().topology.w_schedule()(0))]
     all_edges = {"kind": "trace", "trace": [edges]}
+    latency0 = dict(DELAYED_CLOCK, latency={"kind": "constant", "delay": 0})
     pairs = {
         "all_edges_gossip==synchronous": (gossip_spec("strict", False, all_edges), fig4_spec()),
         "zero_fault_quarantine==strict": (gossip_spec("quarantine", False),
                                           gossip_spec("strict", False)),
+        "latency0==instant": (gossip_spec("strict", False, latency0),
+                              gossip_spec("strict", False)),
+        "zero_fault_quarantine==strict(delayed)": (
+            gossip_spec("quarantine", False, DELAYED_CLOCK),
+            gossip_spec("strict", False, DELAYED_CLOCK)),
+        "zero_fault_quarantine==strict(segments)": (
+            sparse_slice_spec("quarantine", False), sparse_slice_spec("strict", False)),
     }
-    n, p = 9, P_SLICE
+    p = P_SLICE
     u, b = FIG4["local_updates"], FIG4["batch_size"]
     for name, (spec_a, spec_b) in pairs.items():
         a, c = build_session(spec_a, device=dev), build_session(spec_b, device=dev)
+        n = a.data.n_agents
         g = torch.Generator().manual_seed(7)
         for _ in range(2):
-            idx = torch.randint(0, 150, (n, u * b), generator=g)
+            idx = torch.randint(0, 150, (n, u * b), generator=g)  # every shard holds >= 150
             eps = torch.randn((n, u, 1, p), generator=g)
             a.round(batch_idx=idx, eps=eps)
             c.round(batch_idx=idx, eps=eps)
@@ -906,10 +1005,31 @@ def ladders(dev):
                 for f in ("mean", "rho")}
         same["adam_nu_rho"] = bool(torch.equal(a.state.opt_state.nu.rho,
                                                c.state.opt_state.nu.rho))
-        phase("4.ladder", rung=name, bitwise=same,
-              engines=[a.engine.name, c.engine.name])
+        fields = {}
+        if name == "latency0==instant":  # no ring: the instant engine's leaves
+            same["no_ring"] = a.engine.hist_slots == 0 and a.state.hist_mean is None
+            fields["hist_slots"] = a.engine.hist_slots
+        phase("4.ladder", rung=name, bitwise=same, agents=n,
+              engines=[a.engine.name, c.engine.name],
+              impls=[("delayed" if getattr(e.engine, "hist_slots", 0) else
+                      getattr(e.engine, "consensus_impl", "synchronous")) for e in (a, c)],
+              **fields)
         if not all(same.values()) or not np.isfinite(a.posterior().mean.cpu().numpy()).all():
             raise AssertionError(f"4.ladder {name}: not bitwise: {same}")
+    session = build_session(gossip_spec("quarantine", True, DELAYED_CLOCK), device=dev)
+    session.run(n_rounds=2)
+    g = torch.Generator().manual_seed(11)
+    r, n = session.round_idx, session.data.n_agents
+    batches = session.data.sampler(session.generator, r,
+                                   idx=torch.randint(0, 150, (n, u * b), generator=g))
+    eps = torch.randn((n, u, 1, p), generator=g).to(dev)
+    W = session.spec.topology.w_schedule()(r)
+    first, second = (session.engine.run_round(session.state, batches, W, eps=eps)[0]
+                     for _ in range(2))
+    same = states_bitwise(first, second)
+    phase("4.ladder", rung="delayed_window_twice==same_bits", bitwise=same, window=r)
+    if not same:
+        raise AssertionError("4.ladder: one delayed window run twice gave other bits")
 
 
 def states_bitwise(a, b) -> bool:
@@ -1129,6 +1249,373 @@ def run_discrete(dev):
         raise AssertionError(f"3.discrete: tolerance share {share}, slope {slope}, K {K}")
 
 
+def seg_inputs(n, p, seed, device):
+    """[n, P] float32 mean and rho (sigma ~1e-2..1: f16-safe), made on the host."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    mean = torch.randn((n, p), generator=g)
+    rho = torch.rand((n, p), generator=g) * 5.0 - 4.5
+    return mean.to(device), rho.to(device)
+
+
+def delayed_terms(win, r, k, corrupt=None):
+    """The term list ``core.flat.consensus_flat_delayed`` builds for
+    ``EventWindow`` ``win`` at round ``r`` with a ring of ``k`` slots: each
+    active row's self term (row i of x, weight W[i, i]), then its events
+    (ring row (r - lag) mod k, source), the pads one zero-weight term.
+    With ``corrupt`` ([N] bool) as ``consensus_flat_delayed_corrupted``
+    lays it out: events from the j-th corrupted agent read x row N + j (its
+    fill row, after the posterior)."""
+    import numpy as np
+
+    from repro_torch.kernels.launch_plan import ragged_terms
+
+    n = win.n_agents
+    ar = np.arange(n)
+    src = win.edges[:, 1]
+    n_x = n if corrupt is None else n + int(corrupt.sum())
+    ring = n_x + ((r - np.asarray(win.delays, np.int64)) % k) * n + src
+    if corrupt is not None:
+        fill = np.full(n, -1)
+        fill[corrupt] = n + np.arange(int(corrupt.sum()))
+        ring = np.where(corrupt[src], fill[src], ring)
+    return ragged_terms(
+        n, np.concatenate([ar, win.edges[:, 0]]), np.concatenate([ar, ring]),
+        np.concatenate([np.diagonal(win.w_eff).astype(np.float32), win.weights]), win.active)
+
+
+def segment_terms(win, corrupt):
+    """The term list ``core.flat.consensus_flat_segments_quarantined``
+    builds for ``SparseWindow`` ``win`` when the agents ``corrupt`` ([N]
+    bool) send fill rows and every payload is valid: fired edges, then self
+    loops, the j-th corrupted agent's edges and self loop reading h row j;
+    an idle corrupted agent passes its fill row through."""
+    import numpy as np
+
+    from repro_torch.kernels.launch_plan import ragged_terms
+
+    n = win.n_agents
+    ar = np.arange(n)
+    tx = ar.copy()
+    tx[corrupt] = n + np.arange(int(corrupt.sum()))
+    return ragged_terms(
+        n, np.concatenate([win.dst, ar]), np.concatenate([tx[win.src], tx]),
+        np.concatenate([win.weights, win.self_weight.astype(np.float32)]), win.active,
+        pass_src=tx)
+
+
+def segment_cases():
+    """Phase 2's cases: (name, terms, N, rows of x, P, rows of h, h dtypes,
+    wp_first).  The delayed slice's window 4 over its K = 4 ring, without
+    and with fill rows after the posterior (every third agent corrupted);
+    edge-native windows of the N = 4,200 clock at a small P and at the
+    full width 3.sparse runs, and of the N = 10,000 cell, every twentieth
+    agent sending a fill row."""
+    import numpy as np
+
+    win = gossip_spec(clock=DELAYED_CLOCK).topology.gossip_clock().window(4)
+    w4200 = sparse_spec().topology.gossip_clock().window(1)
+    w1e4 = sparse_1e4_spec().topology.gossip_clock().window(1)
+    c9, c4200, c1e4 = (np.arange(n) % m == 0 for n, m in ((9, 3), (SPARSE_N, 20),
+                                                          (10_000, 20)))
+    rings, f32 = ("f32", "bf16", "f16"), ("f32",)
+    t4200 = segment_terms(w4200, c4200)
+    return [("delayed_slice", delayed_terms(win, 4, 4), 9, 9, P_SLICE, 36, rings, True),
+            ("delayed_fills", delayed_terms(win, 4, 4, c9), 9, 9 + int(c9.sum()), P_SLICE, 36,
+             rings, True),
+            ("sparse_4200", t4200, SPARSE_N, SPARSE_N, SEG_SMALL_P, int(c4200.sum()), rings,
+             False),
+            ("sparse_4200_full", t4200, SPARSE_N, SPARSE_N, P_SLICE, int(c4200.sum()), f32,
+             False),
+            ("sparse_1e4", segment_terms(w1e4, c1e4), 10_000, 10_000, 90, int(c1e4.sum()),
+             rings, False)]
+
+
+def check_segments(dev):
+    """Phase 2, ``consensus_fused_segments`` against its plain version on the
+    card, per wire and ring dtype on ``segment_cases``: two launches on the
+    same inputs bitwise equal, one device kernel a call."""
+    import torch
+
+    from repro_torch.kernels import consensus as k
+
+    worst = {}
+    for name, terms, n, n_x, p, n_h, rings, wp_first in segment_cases():
+        terms = terms.to(dev)  # resident on the card: a call is the kernel alone
+        mean, rho = seg_inputs(n_x, p, seed=n + p, device=dev)
+        h_mean, h_rho = seg_inputs(n_h, p, seed=n + p + 1, device=dev)
+        for ring in rings:
+            dt = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}[ring]
+            hm, hr = h_mean.to(dt), h_rho.to(dt)
+            for wire in WIRES:
+                fn = functools.partial(k.consensus_fused_segments, terms, mean, rho, hm, hr,
+                                       wire_dtype=wire, wp_first=wp_first)
+                got, again = fn(), fn()
+                bitwise = eq6_same_bits(f"consensus_fused_segments {name} twice", got, again)
+                errs = eq6_errors(f"consensus_fused_segments {name} ring={ring}", got,
+                                  k.consensus_segments_plain(terms, mean, rho, hm, hr, wire,
+                                                             wp_first), wire)
+                del got, again
+                fields = {}
+                if ring == wire == "f32":
+                    work = captured_work(fn)
+                    fields = {"variant": kernel_variant(fn, work),
+                              "device_kernels_per_call": len(work)}
+                phase("2.segments", case=name, n=n, n_x=n_x, p=p, n_h=n_h,
+                      terms=terms.n_terms, ring=ring,
+                      wire=wire, wp_first=wp_first, max_abs_err_mean=errs[0],
+                      max_abs_err_rho=errs[1], twice_bitwise=bitwise,
+                      tolerance=(f"{F32_TOL} + {F32_TOL} |plain|" if wire == "f32" else
+                                 f"{WIRE_EPS[wire]} (|plain| + max |plain|)"), **fields)
+                if (name, ring, wire) == ("delayed_slice", "f32", "f32"):
+                    worst["consensus_fused_segments"] = max(errs)
+        del mean, rho, h_mean, h_rho
+    return worst
+
+
+def sparse_iid_consensus(dev):
+    """Phase 4.sparse_iid_consensus: ``sparse_spec(16)`` (3.sparse's iid
+    data on 16 agents), two windows on the card, then the next window's
+    local phase on the card with injected batches and noise, and that
+    window's quarantined segments consensus with its fault draws, card
+    (kernel) against CPU (plain version) on the same post-local posterior,
+    at F32_TOL.  A whole window of this session is not compared card
+    against CPU: one lane's Adam second moment lands just above
+    NU_NOISE_FLOOR (ROADMAP C.3)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import build_session
+    from repro_torch.core import flat
+
+    spec = sparse_spec(16)
+    card = build_session(spec, device=dev)
+    card.run(n_rounds=2)
+    n, p = card.posterior().mean.shape
+    r = card.round_idx
+    win = spec.topology.w_schedule()(r)
+    g = torch.Generator().manual_seed(2024)
+    u, b = spec.data.local_updates, spec.data.batch_size
+    idx = torch.randint(0, 150, (n, u * b), generator=g)
+    eps = torch.randn((n, u, 1, p), generator=g)
+    faults = card.engine._fault_draws(r)
+    post, _, _, active, _ = card.engine.local_phase(
+        card.state, card.data.sampler(card.generator, r, idx=idx),
+        torch.as_tensor(win.active, device=dev), eps.to(dev), None,
+        torch.as_tensor(faults["up"], device=dev))
+    args = (win.dst, win.src, win.weights, win.self_weight.astype(np.float32))
+    kw = dict(corrupt=faults["corrupt"], fill_mean=faults["fill_mean"],
+              fill_rho=faults["fill_rho"])
+    got, valid = flat.consensus_flat_segments_quarantined(post, *args, active=active, **kw)
+    post_cpu = flat.FlatPosterior(post.mean.cpu(), post.rho.cpu(), post.layout)
+    want, valid_cpu = flat.consensus_flat_segments_quarantined(post_cpu, *args,
+                                                               active=active.cpu(), **kw)
+    errs = eq6_errors("4.sparse_iid_consensus", (got.mean.cpu(), got.rho.cpu()),
+                      (want.mean, want.rho), "f32")
+    same_valid = valid.cpu().tolist() == valid_cpu.tolist()
+    phase("4.sparse_iid_consensus", agents=n, n_params=p, window=r,
+          n_corrupt=int(faults["corrupt"].sum()), n_active=int(active.sum()),
+          edges_dropped=int((~valid_cpu).sum()), max_abs_err_mean=errs[0],
+          max_abs_err_rho=errs[1], tolerance=f"{F32_TOL} + {F32_TOL} |cpu|",
+          validity_equal=same_valid)
+    if not same_valid:
+        raise AssertionError("4.sparse_iid_consensus: the guard's validity differs")
+
+
+def ring_bytes(state) -> int:
+    return sum(t.numel() * t.element_size() for t in (state.hist_mean, state.hist_rho))
+
+
+def run_delayed(dev, smi):
+    """Phase 3.delayed: the gossip slice behind geometric delivery latency
+    (K = 4 ring slots) under chaos faults, at full width: quarantine, strict,
+    and quarantine with a bf16-resident ring, 4 windows each; counters
+    around each run; then save -> load -> two resumed windows, bitwise, for
+    both quarantined rings."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import build_session
+    from repro_torch.kernels import dispatch
+
+    out = {}
+    for tag, policy, ring in [("3.delayed", "quarantine", None),
+                              ("3.delayed_strict", "strict", None),
+                              ("3.delayed_bf16", "quarantine", "bf16")]:
+        session = build_session(gossip_spec(policy, True, DELAYED_CLOCK, history_dtype=ring),
+                                device=dev)
+        torch.cuda.synchronize()
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        hist = session.run(n_rounds=4, eval_every=1)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = dispatch.launch_counts()
+        ev = session.evaluate()
+        health = session.health()
+        tel = ev["engine"]
+        losses = [r["loss"] for r in hist]
+        fields = dict(ring_dtype=str(session.state.hist_mean.dtype).removeprefix("torch."),
+                      ring_shape=list(session.state.hist_mean.shape),
+                      ring_bytes=ring_bytes(session.state), hist_slots=session.engine.hist_slots)
+        if counts["consensus_fused_segments"] != 4 or session.engine.hist_slots != 4:
+            raise AssertionError(f"{tag}: launches {counts}, slots {session.engine.hist_slots}")
+        if policy == "quarantine":
+            finite = bool(torch.isfinite(session.posterior().mean).all())
+            if (not health["all_ok"] or not finite or counts["payload_validity_fused"] <= 0
+                    or any(x is None or not np.isfinite(x) for x in losses)):
+                raise AssertionError(f"{tag}: health {health}, launches {counts}")
+        phase(tag, **fields, n_params=session.posterior().n_params(), losses=losses,
+              n_trained=[r["n_trained"] for r in hist],
+              n_crashed=[r.get("n_crashed") for r in hist], avg_acc=ev["avg_acc"],
+              engine=tel, health=health["n_healthy"], launches=counts, run_s=run_s,
+              nvidia_smi=smi)
+        out[tag] = (session, counts)
+    b32, b16 = (ring_bytes(out[t][0].state) for t in ("3.delayed", "3.delayed_bf16"))
+    if b32 != 2 * 4 * 9 * P_SLICE * 4 or 2 * b16 != b32:
+        raise AssertionError(f"3.delayed: ring bytes {b32} (f32) and {b16} (bf16)")
+    for tag in ("3.delayed", "3.delayed_bf16"):
+        session = out[tag][0]
+        loaded, fields = save_and_load(f"{tag}_checkpoint", session, dev, smi)
+        dispatch.reset_launch_counts()
+        session.run(n_rounds=2)
+        loaded.run(n_rounds=2)
+        torch.cuda.synchronize()
+        counts = dispatch.launch_counts()
+        same = states_bitwise(session.state, loaded.state)
+        phase(f"{tag}_checkpoint", **fields, ring_dtype=str(loaded.state.hist_mean.dtype),
+              resumed_windows_bitwise=same, launches=counts)
+        if not same or counts["consensus_fused_segments"] != 4:
+            raise AssertionError(f"{tag}_checkpoint: bitwise {same}, launches {counts}")
+    return out["3.delayed"]
+
+
+def shape_recorder():
+    """A ``TorchDispatchMode`` that records the shape of every tensor an
+    operation returns (its class is built here: the module imports no
+    torch at import time)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class ShapeRecorder(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.shapes = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(t, torch.Tensor):
+                    self.shapes.add(tuple(t.shape))
+            return out
+
+    return ShapeRecorder()
+
+
+def run_sparse(dev, smi):
+    """Phase 3.sparse: the edge-native path at full width on N = 4,200
+    agents (above SPARSE_DENSE_GUARD), chaos faults and quarantine, 3
+    windows with every tensor shape of the third recorded, then
+    ``evaluate()``; counters around the windows; peak device memory; then
+    phase 6's profile of one more window.  The session is freed after."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import build_session
+    from repro_torch.api.spec import SPARSE_DENSE_GUARD
+    from repro_torch.kernels import dispatch
+    from repro_torch.vi.bayes_by_backprop import agent_blocks
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the window holds most of the card: no cached blocks in the way
+    t0 = time.perf_counter()
+    session = build_session(sparse_spec(), device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n = session.data.n_agents
+    torch.cuda.reset_peak_memory_stats(dev)
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = session.run(n_rounds=2, eval_every=1)
+    rec = shape_recorder()
+    with rec:
+        hist.append(session.round())
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = dispatch.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    peak_reserved = torch.cuda.max_memory_reserved(dev)
+    ev = session.evaluate()
+    health = session.health()
+    losses = [r["loss"] for r in hist]
+    n_by_n = sorted(sh for sh in rec.shapes if sh.count(n) >= 2)
+    try:
+        session.spec.topology.w_schedule()(0).w_eff
+        dense_view_refused = False
+    except ValueError:
+        dense_view_refused = True
+    tel = ev["engine"]
+    phase("3.sparse", agents=n, n_params=session.posterior().n_params(), losses=losses,
+          n_trained=[r["n_trained"] for r in hist], n_crashed=[r.get("n_crashed") for r in hist],
+          avg_acc=ev["avg_acc"], quarantined=tel["faults"]["quarantined"]["total"],
+          health=health["n_healthy"], launches=counts, setup_s=setup_s, run3_s=run_s,
+          max_memory_allocated=peak, max_memory_reserved=peak_reserved,
+          card_memory=torch.cuda.get_device_properties(dev).total_memory,
+          allocator_conf=os.environ.get("PYTORCH_CUDA_ALLOC_CONF"),
+          local_step_blocks=len(agent_blocks(n, session.posterior().n_params())),
+          shapes_recorded=len(rec.shapes), n_by_n_shapes=n_by_n,
+          dense_view_refused=dense_view_refused, nvidia_smi=smi)
+    if (n <= SPARSE_DENSE_GUARD or session.posterior().n_params() != P_SLICE or n_by_n
+            or not dense_view_refused or not health["all_ok"]
+            or counts["consensus_fused_segments"] != 3 or counts["payload_validity_fused"] <= 0
+            or any(x is None or not np.isfinite(x) for x in losses)):
+        raise AssertionError(f"3.sparse: losses {losses}, health {health}, launches {counts}, "
+                             f"[N, N] shapes {n_by_n}")
+    profile_round("6.sparse_profile", session, rounds=2)
+    del session, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_sparse_1e4(dev, smi):
+    """Phase 3.sparse_1e4: the reference's population cell (N = 10,000,
+    P = 90), 3 windows and ``evaluate()``, counters around the windows; then
+    save -> load -> one resumed window, bitwise."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import build_session
+    from repro_torch.kernels import dispatch
+
+    session = build_session(sparse_1e4_spec(), device=dev)
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = session.run(n_rounds=3, eval_every=1)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = dispatch.launch_counts()
+    ev = session.evaluate()
+    loaded, fields = save_and_load("3.sparse_1e4", session, dev, smi)
+    session.round()
+    loaded.round()
+    torch.cuda.synchronize()
+    same = states_bitwise(session.state, loaded.state)
+    losses = [r["loss"] for r in hist]
+    phase("3.sparse_1e4", agents=session.data.n_agents, n_params=session.posterior().n_params(),
+          losses=losses, avg_acc=ev["avg_acc"], staleness=ev["engine"]["staleness"],
+          merges=ev["engine"]["merges"], launches=counts, run3_s=run_s, **fields,
+          resumed_window_bitwise=same)
+    if (not same or counts["consensus_fused_segments"] != 3
+            or any(x is None or not np.isfinite(x) for x in losses)):
+        raise AssertionError(f"3.sparse_1e4: bitwise {same}, launches {counts}, losses {losses}")
+    return counts
+
+
 def cuda_ms(fn, flush=None, reps=20):
     """Median device time of one call, from CUDA events around each call.
 
@@ -1192,6 +1679,7 @@ class Flush:
 
 def timings(dev, counts, errs):
     """Phase 5: kernel, plain version and bound at the slice's shapes."""
+    import numpy as np
     import torch
     import torch.nn.functional as F
 
@@ -1232,6 +1720,16 @@ def timings(dev, counts, errs):
     masked_sparse = functools.partial(k.consensus_fused_masked_sparse, nbr_w, wts_w, act, mean,
                                       rho)
     row = functools.partial(k.consensus_fused, W[0], mean, rho)
+    # the delayed slice's window 4: 7 self terms, 10 events over the K = 4 ring, one pad term
+    dwin = gossip_spec(clock=DELAYED_CLOCK).topology.gossip_clock().window(4)
+    seg_terms = delayed_terms(dwin, 4, 4)
+    seg_terms_dev = seg_terms.to(dev)  # resident on the card, as phase 2's
+    h_mean, h_rho = seg_inputs(4 * n, p, seed=8, device=dev)
+    segments = functools.partial(k.consensus_fused_segments, seg_terms_dev, mean, rho,
+                                 h_mean, h_rho, wp_first=True)
+    seg_idle = seg_terms.row_ptr[1:] == seg_terms.row_ptr[:-1]
+    seg_rows_read = len(set(seg_terms.src.tolist()) | set(np.flatnonzero(seg_idle).tolist()))
+    seg_plan_bytes = 4 * (n + 1) + 8 * seg_terms.n_terms  # offsets; int32 source, f32 weight
     read_bytes = {  # what each call reads of HBM when L2 is cold (the inputs, once)
         "consensus_fused_network": 8 * n * p + 4 * n * n,
         "payload_validity_fused": 8 * n * p,
@@ -1240,6 +1738,7 @@ def timings(dev, counts, errs):
         "consensus_fused_masked_sparse": 8 * p * rows_read + 8 * n * d_w + n,
         "consensus_fused": 8 * n * p + 4 * n,
         "sample_and_kl_fused": 20 * p,
+        "consensus_fused_segments": 8 * p * seg_rows_read + seg_plan_bytes,
     }
     kernels = [  # name, source, replaces, kernel, plain, bytes, ops, peak, library, fields
         ("consensus_fused_network", "consensus_network.cu", REF + "195", network,
@@ -1277,6 +1776,16 @@ def timings(dev, counts, errs):
           "aligned_ms": cuda_ms(sample_kl_aligned),
           "aligned_cold_l2_ms": cuda_ms(sample_kl_aligned, flush.dirty),
           "aligned_cold_l2_clean_ms": cuda_ms(sample_kl_aligned, flush.clean)}),
+        ("consensus_fused_segments", "consensus_segments.cu", "src/repro/core/flat.py:522",
+         segments,  # no pallas_call: the reference's XLA scatter-add
+         lambda: k.consensus_segments_plain(seg_terms_dev, mean, rho, h_mean, h_rho, None,
+                                            True),
+         8 * p * seg_rows_read + 8 * n * p + seg_plan_bytes,  # distinct rows read; out; plan
+         gathered_ops * seg_terms.n_terms * p + out_ops * int((~seg_idle).sum()) * p, fp32, None,
+         dict(launch_fields(segments, launch_floor_ms), window=dwin.index,
+              n_active=int((~seg_idle).sum()), terms=seg_terms.n_terms, rows_read=seg_rows_read,
+              term_bytes=8 * p * seg_terms.n_terms,
+              plain_reps=5)),  # its plain version runs 78 ops a call: 20 calls overfill the queue
     ]
     for shape in ATTN_SHAPES:  # the row is Qwen3-8B's; both shapes get a phase line
         q, kk, vv, window = attention_inputs(shape, dev)
@@ -1323,7 +1832,7 @@ def timings(dev, counts, errs):
             "launches": counts[name],
             "max_abs_err": errs[name],
             "ms": cuda_ms(fn),
-            "plain_ms": cuda_ms(plain),
+            "plain_ms": cuda_ms(plain, reps=fields.get("plain_reps", 20)),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None if library is None else cuda_ms(library),
@@ -1340,7 +1849,8 @@ def timings(dev, counts, errs):
         less, clean_less = row["ms"] - launch_floor_ms, clean - launch_floor_ms
         phase("5.timing", name=name, ms=row["ms"], plain_ms=row["plain_ms"],
               library_ms=row["library_ms"], cold_l2_ms=cold, cold_l2_clean_ms=clean,
-              cold_l2_plain_ms=cuda_ms(plain, flush.dirty), bound_ms=row["bound_ms"],
+              cold_l2_plain_ms=cuda_ms(plain, flush.dirty, fields.get("plain_reps", 20)),
+              bound_ms=row["bound_ms"],
               ms_less_floor=less, cold_l2_clean_ms_less_floor=clean_less,
               bound_share_less_floor=row["bound_ms"] / less,
               clean_cold_bound_share_less_floor=row["bound_ms"] / clean_less,
@@ -1506,13 +2016,23 @@ def main() -> int:
         return 0
     errs = check_kernels(dev)
     errs.update(check_ops_kernels(dev))
+    errs.update(check_segments(dev))
     session, counts, prior = run_slice(dev)
     gossip = run_gossip(dev)
     g_session, g_counts = gossip["3.gossip"]
     csr_counts = run_csr(dev, g_session)
     ops_counts = run_ops(dev, session, prior)
+    d_session, d_counts = run_delayed(dev, smi)
+    run_sparse(dev, smi)
+    run_sparse_1e4(dev, smi)
     card_vs_cpu("4.parity", session, fig4_spec())
     card_vs_cpu("4.gossip_parity", g_session, gossip_spec())
+    card_vs_cpu("4.delayed_parity", d_session, gossip_spec(clock=DELAYED_CLOCK))
+    s_session = build_session(sparse_slice_spec(), device=dev)
+    s_session.run(n_rounds=4)
+    card_vs_cpu("4.sparse_parity", s_session, sparse_slice_spec())
+    del s_session
+    sparse_iid_consensus(dev)
     ladders(dev)
     run_checkpoint(dev, smi)
     run_gossip_checkpoint(dev, smi)
@@ -1527,10 +2047,12 @@ def main() -> int:
         "consensus_fused": ops_counts["consensus_fused"],
         "sample_and_kl_fused": ops_counts["sample_and_kl_fused"],
         "flash_attention": ops_counts["flash_attention"],
+        "consensus_fused_segments": d_counts["consensus_fused_segments"],
     }
     rows = timings(dev, launches, errs)
     profile_round("6.profile", session)
     profile_round("6.gossip_profile", g_session)
+    profile_round("6.delayed_profile", d_session)
 
     print(smi)
     print(json.dumps({"kernels": rows}))

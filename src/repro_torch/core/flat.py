@@ -30,12 +30,14 @@ from repro_torch.kernels.consensus import (
     consensus_fused_masked,
     consensus_fused_masked_sparse,
     consensus_fused_network,
+    consensus_fused_segments,
     consensus_fused_sparse,
     consensus_masked_plain,
     consensus_network_plain,
     csr_tables,
     payload_validity_fused,
 )
+from repro_torch.kernels.launch_plan import ragged_terms
 
 PyTree = Any  # a (possibly nested) dict of tensors
 
@@ -420,3 +422,294 @@ def consensus_flat_masked_sparse_quarantined(posts: FlatPosterior, neighbors, we
     act_g = (torch.as_tensor(active, device=dev) > 0) & valid_self
     out = consensus_flat_masked_sparse(posts_x, nbr, wts_g, act_g, wire_dtype=wire_dtype)
     return _keep_resident(posts, out, valid_self), valid_src
+
+
+# ---------------------------------------------------------------------------
+# Delayed delivery and edge-native windows: eq. (6) over ragged term lists
+# ---------------------------------------------------------------------------
+#
+# The reference scatters these with XLA (``.at[dst].add``).  Here each window
+# becomes a destination-sorted term list on the host (``launch_plan.
+# ragged_terms``: the reference's summation order per row, no [E, P] gather)
+# and one ``consensus_fused_segments`` call sums it, in a fixed order on the
+# card.  The quarantine guard's validity is read back to the host, where the
+# dropped mass is summed in event order (``np.add.at`` in float32): no float
+# scatter-add runs on the card.  A dropped contribution is left out of the
+# list; the reference adds it as an exact 0.
+
+
+def _host(x, dtype=None) -> np.ndarray:
+    """A host numpy copy of an array-like or a tensor."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x) if dtype is None else np.asarray(x, dtype)
+
+
+def _diag(W) -> np.ndarray:
+    """[N] float32 diagonal of a dense W, cast as the reference casts W."""
+    return np.ascontiguousarray(np.diagonal(_host(W)).astype(np.float32))
+
+
+def _fill_rows(agents, fill_mean, fill_rho, p: int, device, dtype=None):
+    """[C, P] float32 constant rows of the agents' (fill_mean, fill_rho),
+    rounded through ``dtype`` first when the ring would hold them in it."""
+    rows = []
+    for fill in (fill_mean, fill_rho):
+        v = torch.from_numpy(_host(fill, np.float32)[agents].copy()).to(device)
+        if dtype is not None:
+            v = v.to(dtype).to(torch.float32)
+        rows.append(v[:, None].expand(len(agents), p).contiguous())
+    return rows
+
+
+def _ring_consensus(posts, self_w, active, dst, ring_row, ev_w, hist_mean, hist_rho, *,
+                    fill=None, wire_dtype=None) -> FlatPosterior:
+    """Eq. (6) of a delayed window: active row i sums ``self_w[i]`` times its
+    own current row first, then its events in order, event e reading ring
+    row ``ring_row[e]`` of the ``[K N, P]`` view, or, where ``ring_row[e]``
+    is ``-1 - j``, row j of ``fill`` (two ``[C, P]`` float32 buffers).
+    Inactive rows pass through."""
+    n, p = posts.mean.shape
+    k = hist_mean.shape[0]
+    x_mean, x_rho = posts.mean, posts.rho
+    if fill is not None:
+        x_mean, x_rho = torch.cat([x_mean, fill[0]]), torch.cat([x_rho, fill[1]])
+    n_x = x_mean.shape[0]
+    ring_row = np.asarray(ring_row, np.int64)
+    src = np.where(ring_row >= 0, n_x + ring_row, n - 1 - ring_row)
+    ar = np.arange(n)
+    terms = ragged_terms(n, np.concatenate([ar, dst]), np.concatenate([ar, src]),
+                         np.concatenate([self_w, ev_w]), active)
+    mean, rho = consensus_fused_segments(
+        terms, x_mean, x_rho, hist_mean.reshape(k * n, p), hist_rho.reshape(k * n, p),
+        wire_dtype=wire_dtype, wp_first=True)
+    return FlatPosterior(mean=mean, rho=rho, layout=posts.layout)
+
+
+def _events(edges, weights, lags, round_idx, k: int, n: int):
+    """(dst, src, weight, ring row) of a window's [E] event list: event e
+    reads ring slot ``(round - lag) mod K`` of its source."""
+    edges = _host(edges, np.int64).reshape(-1, 2)
+    lags = _host(lags, np.int64).reshape(-1)
+    slot = (int(round_idx) - lags) % k
+    return edges[:, 0], edges[:, 1], _host(weights, np.float32).reshape(-1), slot * n + edges[:, 1]
+
+
+def consensus_flat_delayed(posts: FlatPosterior, W, active, edges, weights, lags, hist_mean,
+                           hist_rho, round_idx, wire_dtype=None) -> FlatPosterior:
+    """Delivery-latency eq. (6): one gossip window whose events merge stale
+    source posteriors (``gossip.clocks.DelayedClock``).
+
+    Event k = ``(dst, src) = edges[k]`` with weight ``weights[k]`` delivers
+    src's posterior as of window ``round_idx - lags[k]``, row ``src`` of ring
+    slot ``(round_idx - lags[k]) mod K`` of ``hist_mean``/``hist_rho``
+    ([K, N, P], resident in float32, bf16 or f16, decoded to fp32 before any
+    arithmetic; the engine writes the window's own slot before the call, so
+    a lag-0 event reads the current posterior).  Each active row sums
+    ``W[i, i] * (prec, prec * mean)`` of its current row first, then its
+    events in window order; inactive rows pass through bitwise.  At f32 the
+    terms are ``(w * prec) * mean``, else ``w * wire(prec * mean)``.  Pad
+    events (``(0, 0)`` at weight 0) add ``0 *`` ring row 0, once, as the
+    reference's pads do (a non-finite row 0 makes agent 0's merge NaN)."""
+    n = posts.mean.shape[0]
+    dst, _, w, ring = _events(edges, weights, lags, round_idx, hist_mean.shape[0], n)
+    return _ring_consensus(posts, _diag(W), _host(active) > 0, dst, ring, w, hist_mean,
+                           hist_rho, wire_dtype=wire_dtype)
+
+
+def consensus_flat_delayed_corrupted(posts: FlatPosterior, W, active, edges, weights, lags,
+                                     hist_mean, hist_rho, round_idx, *, corrupt, fill_mean,
+                                     fill_rho, wire_dtype=None) -> FlatPosterior:
+    """``consensus_flat_delayed`` with the strict policy's sender-side
+    corruption: every event from a ``corrupt`` source reads that agent's
+    (fill_mean, fill_rho) as the ring would hold it (rounded through the
+    ring's dtype), whatever its lag; the ring itself stays clean.  The
+    reference (``repro/gossip/engine.py:514-528``) copies the whole ring
+    with the fills written in; this reads [C, P] fill rows instead."""
+    n, p = posts.mean.shape
+    dst, src, w, ring = _events(edges, weights, lags, round_idx, hist_mean.shape[0], n)
+    bad = _host(corrupt, bool).reshape(-1)[src]
+    fill = None
+    if bad.any():
+        agents, j = np.unique(src[bad], return_inverse=True)
+        ring = ring.copy()
+        ring[bad] = -1 - j
+        fill = _fill_rows(agents, fill_mean, fill_rho, p, posts.mean.device, hist_mean.dtype)
+    return _ring_consensus(posts, _diag(W), _host(active) > 0, dst, ring, w, hist_mean,
+                           hist_rho, fill=fill, wire_dtype=wire_dtype)
+
+
+def consensus_flat_delayed_quarantined(posts: FlatPosterior, W, active, edges, weights, lags,
+                                       hist_mean, hist_rho, round_idx, *, corrupt=None,
+                                       fill_mean=None, fill_rho=None, wire_dtype=None,
+                                       bound: float = QUARANTINE_BOUND):
+    """Quarantine-guarded ``consensus_flat_delayed``: validate each delivered
+    event's stale payload, drop invalid events (their weight moves to the
+    destination's self term, summed in event order), keep agents with
+    garbage resident state out of the merge.  Returns ``(posterior,
+    valid_event [E] bool)``.
+
+    ``corrupt``/``fill_mean``/``fill_rho`` ([N]) inject sender-side
+    corruption at delivery time by source id (the ring stays clean).  A
+    delivered row's validity is taken once per (slot, source) pair on the
+    ring rows (``payload_validity``), a corrupted source's once per agent on
+    its fill, never on an [E, P] gather.  Zero faults is a value-identity
+    against ``consensus_flat_delayed``."""
+    n, p = posts.mean.shape
+    dev = posts.mean.device
+    k = hist_mean.shape[0]
+    dst, src, w, ring = _events(edges, weights, lags, round_idx, k, n)
+    pairs, inv = np.unique(ring, return_inverse=True)
+    rows = torch.from_numpy(pairs).to(dev)
+    valid_e = _host(payload_validity(
+        hist_mean.reshape(k * n, p).index_select(0, rows).to(torch.float32),
+        hist_rho.reshape(k * n, p).index_select(0, rows).to(torch.float32),
+        wire_dtype=wire_dtype, bound=bound))[inv.reshape(-1)]
+    bad = (np.zeros(len(src), bool) if corrupt is None
+           else _host(corrupt, bool).reshape(-1)[src])
+    fill = None
+    if bad.any():
+        agents, j = np.unique(src[bad], return_inverse=True)
+        fm, fr = _fill_rows(agents, fill_mean, fill_rho, 1, dev)
+        valid_fill = _host(payload_validity(fm, fr, wire_dtype=wire_dtype, bound=bound))
+        valid_e[bad] = valid_fill[j]
+        read = bad & valid_e  # a valid fill is merged: read its row
+        if read.any():
+            agents, j = np.unique(src[read], return_inverse=True)
+            ring = ring.copy()
+            ring[read] = -1 - j
+            fill = _fill_rows(agents, fill_mean, fill_rho, p, dev)
+    w_g = np.where(valid_e, w, np.float32(0.0))
+    drop = np.zeros(n, np.float32)
+    np.add.at(drop, dst, w - w_g)
+    valid_self = _host(payload_validity(posts.mean, posts.rho, wire_dtype=wire_dtype,
+                                        bound=bound))
+    out = _ring_consensus(posts, _diag(W) + drop, (_host(active) > 0) & valid_self,
+                          dst[valid_e], ring[valid_e], w[valid_e], hist_mean, hist_rho,
+                          fill=fill, wire_dtype=wire_dtype)
+    return out, torch.from_numpy(valid_e).to(dev)
+
+
+def _segments(posts: FlatPosterior, dst, src, w, act, h_mean=None, h_rho=None, *,
+              block=None, wire_dtype=None) -> FlatPosterior:
+    """Eq. (6) over an edge list whose sources index the stacked
+    (posterior, h) rows; inactive rows pass through their resident row."""
+    n = posts.mean.shape[0]
+    # an active row no edge reaches sums nothing: 0 / 0, as in the reference
+    lonely = np.flatnonzero(act & (np.bincount(dst, minlength=n) == 0))
+    terms = ragged_terms(n, np.concatenate([dst, lonely]), np.concatenate([src, lonely]),
+                         np.concatenate([w, np.zeros(len(lonely), np.float32)]), act)
+    mean, rho = consensus_fused_segments(terms, posts.mean, posts.rho, h_mean, h_rho,
+                                         wire_dtype=wire_dtype, block=block)
+    return FlatPosterior(mean=mean, rho=rho, layout=posts.layout)
+
+
+def _edge_arrays(posts, dst, src, weights, active):
+    n = posts.mean.shape[0]
+    return (_host(dst, np.int64).reshape(-1), _host(src, np.int64).reshape(-1),
+            _host(weights, np.float32).reshape(-1),
+            np.ones(n, bool) if active is None else _host(active) > 0)
+
+
+def _transmissions(posts: FlatPosterior, corrupt=None, fill_mean=None, fill_rho=None,
+                   mean_src=None, rho_src=None):
+    """``(tx, h_mean, h_rho)``: agent j transmits row ``tx[j]`` of the
+    stacked (posterior, h) rows.  With ``mean_src``/``rho_src`` h is those
+    [N, P] buffers; with ``corrupt`` it is the corrupted agents' [C, P] fill
+    rows; else there is no h and every agent transmits its resident row."""
+    n, p = posts.mean.shape
+    tx = np.arange(n)
+    if mean_src is not None:
+        return tx + n, mean_src, rho_src
+    agents = (np.zeros(0, np.int64) if corrupt is None
+              else np.flatnonzero(_host(corrupt, bool).reshape(-1)))
+    if not len(agents):
+        return tx, None, None
+    tx[agents] = n + np.arange(len(agents))
+    return (tx, *_fill_rows(agents, fill_mean, fill_rho, p, posts.mean.device))
+
+
+def consensus_flat_segments(posts: FlatPosterior, dst, src, weights, *, active=None,
+                            block=None, wire_dtype=None) -> FlatPosterior:
+    """Edge-native eq. (6) over flat [E] edge arrays (self-loops included,
+    e.g. ``SparseGraph.edge_arrays()``), never a dense [N, N] W:
+
+        prec_out[i] = sum_{e: dst_e = i} w_e * prec_x[src_e]
+        pm_out[i]   = sum_{e: dst_e = i} w_e * (prec * mu)_x[src_e]
+
+    summed per row in edge order, with (prec, prec*mu) rounded through
+    ``wire_dtype`` (a structural no-op at f32).  Zero-weight pad edges add
+    ``0 *`` their source row.  ``active`` masks rows gossip-style: inactive
+    rows pass through bitwise.  ``block`` (lanes) blocks the plain
+    version's gather on the CPU; the kernel needs none."""
+    dst, src, w, act = _edge_arrays(posts, dst, src, weights, active)
+    return _segments(posts, dst, src, w, act, block=block, wire_dtype=wire_dtype)
+
+
+def consensus_flat_segments_corrupted(posts: FlatPosterior, dst, src, weights, *, corrupt,
+                                      fill_mean, fill_rho, active=None, block=None,
+                                      wire_dtype=None) -> FlatPosterior:
+    """``consensus_flat_segments`` with the strict policy's sender-side
+    corruption: every edge from a ``corrupt`` source, its self loop
+    included, reads that agent's constant (fill_mean, fill_rho) row;
+    inactive rows keep their resident rows.  The reference
+    (``repro/gossip/engine.py:590-603``) merges a full [N, P] copy with the
+    fills written in and selects the inactive rows back; this reads [C, P]
+    fill rows instead."""
+    dst, src, w, act = _edge_arrays(posts, dst, src, weights, active)
+    tx, h_mean, h_rho = _transmissions(posts, corrupt, fill_mean, fill_rho)
+    return _segments(posts, dst, tx[src], w, act, h_mean, h_rho, block=block,
+                     wire_dtype=wire_dtype)
+
+
+def consensus_flat_segments_quarantined(posts: FlatPosterior, dst, src, weights, self_weight, *,
+                                        active, mean_src=None, rho_src=None, corrupt=None,
+                                        fill_mean=None, fill_rho=None, block=None,
+                                        wire_dtype=None, bound: float = QUARANTINE_BOUND):
+    """Quarantine-guarded ``consensus_flat_segments`` for edge-native windows
+    (``gossip.clocks.SparseWindow``): ``dst``/``src``/``weights`` are the
+    window's fired non-self edges (zero-weight pads allowed), ``self_weight``
+    the conserve-rule self terms.  Every fired edge's wire payload is
+    validated (its source's ``payload_validity`` on what the source
+    transmits); invalid ones are dropped and their weight moves to the
+    destination's self term; an agent whose resident state is invalid
+    passes through unchanged; a sender whose transmission is invalid still
+    merges, its self term reading its true resident row.  Returns
+    ``(posterior, valid_edge [E] bool)``.
+
+    What agents transmit: ``mean_src``/``rho_src`` ([N, P], the reference's
+    injection hook), or the resident rows with ``corrupt`` agents' rows
+    replaced by their constant (fill_mean, fill_rho), which the engine
+    passes: those are read from [C, P] fill rows and validated once per
+    agent.  With zero faults the terms are the unguarded call's over the
+    fired-then-self edge list, so the output is bitwise that call's."""
+    n = posts.mean.shape[0]
+    valid_self = _host(payload_validity(posts.mean, posts.rho, wire_dtype=wire_dtype,
+                                        bound=bound))
+    tx, h_mean, h_rho = _transmissions(posts, corrupt, fill_mean, fill_rho, mean_src, rho_src)
+    if mean_src is not None:
+        valid_tx = _host(payload_validity(mean_src, rho_src, wire_dtype=wire_dtype, bound=bound))
+    else:
+        valid_tx = valid_self.copy()
+        if h_mean is not None:
+            fills = tx >= n
+            valid_tx[fills] = _host(payload_validity(h_mean[:, :1].contiguous(),
+                                                     h_rho[:, :1].contiguous(),
+                                                     wire_dtype=wire_dtype, bound=bound))
+    dst = _host(dst, np.int64).reshape(-1)
+    src = _host(src, np.int64).reshape(-1)
+    w = _host(weights, np.float32).reshape(-1)
+    valid_e = valid_tx[src]
+    drop = np.zeros(n, np.float32)
+    np.add.at(drop, dst, w - np.where(valid_e, w, np.float32(0.0)))
+    w_self = _host(self_weight).astype(np.float32).reshape(-1) + drop
+    ar = np.arange(n)
+    own = np.where(valid_tx, tx, ar)  # an invalid sender's self term reads its resident row
+    terms = ragged_terms(
+        n, np.concatenate([dst[valid_e], ar]), np.concatenate([tx[src[valid_e]], own]),
+        np.concatenate([w[valid_e], w_self]), (_host(active) > 0) & valid_self,
+        pass_src=np.where(valid_self, own, ar))
+    mean, rho = consensus_fused_segments(terms, posts.mean, posts.rho, h_mean, h_rho,
+                                         wire_dtype=wire_dtype, block=block)
+    return (FlatPosterior(mean=mean, rho=rho, layout=posts.layout),
+            torch.from_numpy(valid_e).to(posts.mean.device))

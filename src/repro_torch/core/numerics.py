@@ -86,7 +86,10 @@ def wire_roundtrip(x: torch.Tensor, wire_dtype) -> torch.Tensor:
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
-    return torch.logaddexp(x, torch.zeros_like(x))
+    """``logaddexp(x, 0)`` against a broadcast 0-d zero: the same bits as a
+    full zero tensor, without one more [N, P] buffer (autograd saves the
+    second operand)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def softplus_inv(y: torch.Tensor) -> torch.Tensor:

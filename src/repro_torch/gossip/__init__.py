@@ -7,9 +7,11 @@
   row-stochastic W-tilde), bitwise the JAX package's for the same doc.
 * ``faults`` — deterministic agent churn and payload corruption (copied).
 * ``engine`` — ``GossipEngine``, the Engine-protocol runtime that executes
-  one event window per ``run_round``: local VI steps, masked active-edge
-  consensus (the CUDA kernel ``consensus_fused_masked`` on the card), the
-  strict/quarantine fault policies and per-agent staleness telemetry.
+  one event window per ``run_round``: local VI steps, then the window's
+  consensus, masked (the CUDA kernel ``consensus_fused_masked`` on the
+  card), delayed from a ``[K, N, P]`` history ring, or edge-native over a
+  ``SparseWindow``'s fired edges (both on ``consensus_fused_segments``);
+  the strict/quarantine fault policies and per-agent staleness telemetry.
 
 A gossip experiment is declared like any other: ``TopologySpec.gossip(...)``
 inside an ``ExperimentSpec``, then ``build_session(spec)``.

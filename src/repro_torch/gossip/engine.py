@@ -1,11 +1,29 @@
 """``GossipEngine`` — the event-driven asynchronous runtime behind
-``api.Session`` (port of the dense masked execution of
-``repro.gossip.engine``).
+``api.Session`` (port of ``repro.gossip.engine``, all but the sharded
+``ppermute`` execution).
 
 One ``run_round`` call executes one EVENT WINDOW (``gossip.clocks``):
-per-agent local Bayes-by-Backprop steps, then the masked active-edge
-consensus (``core.flat.consensus_flat_masked`` — the CUDA kernel
-``consensus_fused_masked`` on the card, its plain version on the CPU).  The
+per-agent local Bayes-by-Backprop steps, then the window's consensus, in
+one of three executions (the same eq. (6)):
+
+* dense masked (``InferenceSpec.consensus_impl="auto"|"masked"``):
+  ``core.flat.consensus_flat_masked``, the CUDA kernel
+  ``consensus_fused_masked`` on the card, its plain version on the CPU;
+* delayed delivery (a ``{"kind": "delayed", ...}`` clock, ``max_delay >
+  0``): the window's post-local, pre-merge posterior is written into slot
+  ``round mod K`` of a ``[K, N, P]`` history ring (``K = max_delay + 1``,
+  resident at ``history_dtype``), then each event merges its source's row
+  as of its fire window (``core.flat.consensus_flat_delayed``);
+* edge-native segments (``consensus_impl="segments"``, the ``"auto"``
+  choice for ``kind="sparse"`` topologies with a clock): the window is the
+  ``SparseWindow``'s fired edge list plus N self terms, and nothing
+  ``[N, N]`` exists on the host or the card
+  (``core.flat.consensus_flat_segments``).
+
+The delayed and segment windows run ``consensus_fused_segments``
+(``csrc/consensus_segments.cu``): the reference's XLA scatter-add becomes
+one ragged, destination-sorted sum in a fixed order, so a window gives the
+same bits every run on the card.  The
 Session hands the engine the window's W-tilde exactly as it hands the
 synchronous engine a scheduled W, but VERBATIM (``wants_host_w``): the
 activity mask is the clock's host-exact ``window.active``, never re-derived
@@ -34,12 +52,10 @@ state intact).  ``InferenceSpec.fault_policy="strict"`` trusts the wire;
 (``core.flat.consensus_flat_masked_quarantined``) and counts drops per
 agent in ``GossipState.n_quarantined``.
 
-Not here yet, and refused at construction: delayed delivery
-(``max_delay > 0``), the edge-native ``segments`` execution and
-``kind="sparse"`` clocks (ROADMAP queue A, gossip runtime), and the sharded
-``ppermute`` execution (ROADMAP queue A, sharded windows).  PyTorch runs
-eagerly, so the JAX engine's ``jax.jit`` of the window and its retrace
-counter ``n_traces`` have no counterpart here.
+Not here yet, and refused at construction: the sharded ``ppermute``
+execution (ROADMAP queue A, sharded windows).  PyTorch runs eagerly, so
+the JAX engine's ``jax.jit`` of the window and its retrace counter
+``n_traces`` have no counterpart here.
 """
 from __future__ import annotations
 
@@ -52,21 +68,31 @@ import torch
 from repro_torch.core.flat import (
     FlatLayout,
     FlatPosterior,
+    consensus_flat_delayed,
+    consensus_flat_delayed_corrupted,
+    consensus_flat_delayed_quarantined,
     consensus_flat_masked,
     consensus_flat_masked_quarantined,
+    consensus_flat_segments,
+    consensus_flat_segments_corrupted,
+    consensus_flat_segments_quarantined,
     make_flat_nll,
 )
+from repro_torch.core.numerics import canonical_wire_dtype, wire_dtype_name
 from repro_torch.core.simulated import init_network, network_local_steps, network_state_from_numpy
 from repro_torch.core.tree import tree_map
-from repro_torch.gossip.clocks import SparseClock
+from repro_torch.gossip.clocks import SparseClock, SparseWindow
 
-_LATER_GOSSIP = "arrives with ROADMAP queue A's gossip runtime item"
 _LATER_SHARDED = "arrives with ROADMAP queue A's sharded windows item"
 
 
 @dataclasses.dataclass
 class GossipState:
-    """Network state + per-agent gossip telemetry (agent-leading tensors).
+    """Network state + per-agent gossip telemetry (agent-leading tensors),
+    in the JAX package's field order.  ``hist_mean``/``hist_rho`` are the
+    delivery-latency history ring ([K, N, P]; slot ``r mod K`` holds window
+    r's post-local, pre-merge posterior), ``None`` when delivery is
+    instant, so instant states keep their leaf list and checkpoints.
     ``n_quarantined`` is ``None`` unless ``fault_policy="quarantine"``."""
 
     posterior: FlatPosterior  # [N, P]
@@ -75,6 +101,8 @@ class GossipState:
     round: torch.Tensor  # scalar int32 window counter
     last_merge: torch.Tensor  # [N] int32 window index of last merge (-1 = never)
     n_merges: torch.Tensor  # [N] int32 total merges per agent
+    hist_mean: torch.Tensor | None = None  # [K, N, P] stale-posterior ring
+    hist_rho: torch.Tensor | None = None  # [K, N, P]
     n_quarantined: torch.Tensor | None = None  # [N] int32 dropped contributions
 
     def to(self, device) -> "GossipState":
@@ -83,20 +111,35 @@ class GossipState:
 
 
 def _agent_select(active: torch.Tensor, new, old):
-    """Per-tensor ``where`` over agent-leading tensors (wake-on-event)."""
+    """Per-tensor ``where`` over agent-leading tensors (wake-on-event),
+    written into ``new`` (the local phase's own fresh outputs): at N = 4,200
+    and full width a copy of the posterior and the Adam moments would hold
+    20 GB more at the window's peak."""
     def sel(a, b):
-        return torch.where(active.reshape((-1,) + (1,) * (a.ndim - 1)), a, b)
+        return torch.where(active.reshape((-1,) + (1,) * (a.ndim - 1)), a, b, out=a)
 
     return tree_map(sel, new, old)
 
 
+def _ring_tensor(a, device) -> torch.Tensor | None:
+    """A history ring from numpy (a bfloat16 array, as JAX hands one over,
+    by its int16 bits) or a tensor, on ``device``."""
+    if a is None or isinstance(a, torch.Tensor):
+        return None if a is None else a.to(device, copy=True)
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
 def gossip_state_from_numpy(mean, rho, *, layout: FlatLayout, mu=None, nu=None, step=None,
-                            round=0, last_merge=None, n_merges=None, n_quarantined=None,
-                            device=None) -> GossipState:
+                            round=0, last_merge=None, n_merges=None, hist_mean=None,
+                            hist_rho=None, n_quarantined=None, device=None) -> GossipState:
     """Carry a JAX-side ``GossipState`` across as numpy arrays: the
     ``network_state_from_numpy`` fields plus ``last_merge`` and ``n_merges``
-    [N] (defaults -1 and 0) and ``n_quarantined`` [N] (``None`` under the
-    strict policy)."""
+    [N] (defaults -1 and 0), the history ring ``hist_mean``/``hist_rho``
+    [K, N, P] (``None`` when delivery is instant; bf16 arrays keep their
+    dtype) and ``n_quarantined`` [N] (``None`` under the strict policy)."""
     ns = network_state_from_numpy(mean, rho, layout=layout, mu=mu, nu=nu, step=step,
                                   round=round, device=device)
     n = ns.posterior.mean.shape[0]
@@ -108,6 +151,7 @@ def gossip_state_from_numpy(mean, rho, *, layout: FlatLayout, mu=None, nu=None, 
     return GossipState(
         posterior=ns.posterior, opt_state=ns.opt_state, step=ns.step, round=ns.round,
         last_merge=ints(last_merge, -1), n_merges=ints(n_merges, 0),
+        hist_mean=_ring_tensor(hist_mean, device), hist_rho=_ring_tensor(hist_rho, device),
         n_quarantined=None if n_quarantined is None else ints(n_quarantined, 0),
     )
 
@@ -143,20 +187,22 @@ class GossipEngine:
                 f"unknown gossip local_policy {self.local_policy!r}; known: all | active"
             )
         self.clock = spec.topology.gossip_clock()
-        if isinstance(self.clock, SparseClock) or inf.consensus_impl == "segments":
-            raise NotImplementedError(
-                f"edge-native gossip (kind='sparse' clocks, segments) {_LATER_GOSSIP}"
+        self.max_delay = int(getattr(self.clock, "max_delay", 0))
+        self.hist_slots = self.max_delay + 1 if self.max_delay > 0 else 0
+        if self.max_delay > 0 and self.consensus_mode == "mean_only":
+            raise ValueError(
+                "delivery-latency gossip implements gaussian/none consensus; mean_only "
+                "(the FedAvg baseline) runs on instant delivery"
             )
-        if inf.consensus_impl == "ppermute":
-            raise NotImplementedError(f"the sharded ppermute execution {_LATER_SHARDED}")
-        if getattr(self.clock, "max_delay", 0) > 0:
-            raise NotImplementedError(f"delayed delivery (max_delay > 0) {_LATER_GOSSIP}")
-        if inf.history_dtype is not None:
+        if inf.history_dtype is not None and not self.hist_slots:
             raise ValueError(
                 "history_dtype sizes the delivery-latency posterior history ring; "
                 'this clock has no delay (wrap it in {"kind": "delayed", ...} or '
                 "drop history_dtype)"
             )
+        # resident dtype of the [K, N, P] ring (bf16 halves it; rows decode to fp32)
+        self.hist_dtype = canonical_wire_dtype(inf.history_dtype)
+        self._init_impl(inf.consensus_impl, n_agents)
         # agent-level fault model attached by build_clock from the clock
         # doc's "faults" entry; None = no churn or corruption
         self.faults = getattr(self.clock, "faults", None)
@@ -176,6 +222,44 @@ class GossipEngine:
         # (zero-fault quarantine is bitwise the same, by the ladder)
         self._guarded = self.quarantine or self.faults is not None
         self.last_crashed = None
+
+    def _init_impl(self, impl: str, n_agents: int) -> None:
+        """Pick the window execution and refuse what it cannot run."""
+        from repro_torch.api.spec import SPARSE_DENSE_GUARD
+
+        sparse_clock = isinstance(self.clock, SparseClock)
+        if impl == "auto":
+            impl = "segments" if sparse_clock else "masked"
+        self.consensus_impl = impl
+        if impl == "segments":
+            if not sparse_clock:
+                raise ValueError(
+                    "consensus_impl='segments' executes edge-native SparseWindows; this "
+                    "topology's clock emits dense EventWindows (use TopologySpec "
+                    "kind='sparse' with a clock doc, or consensus_impl='masked')"
+                )
+            if self.consensus_mode == "mean_only":
+                raise ValueError(
+                    "consensus_impl='segments' implements gaussian/none consensus; "
+                    "mean_only (the FedAvg baseline) runs on the dense masked path"
+                )
+        elif sparse_clock:
+            # the dense view of a sparse clock: legal below the guard (the
+            # segments-vs-masked ladder runs on it), refused above it
+            if impl == "ppermute":
+                raise ValueError(
+                    "consensus_impl='ppermute' shards dense EventWindows by their static "
+                    "edge schedule; a sparse clock emits edge-native SparseWindows (use "
+                    "'segments', or 'masked' below the dense guard)"
+                )
+            if n_agents > SPARSE_DENSE_GUARD:
+                raise ValueError(
+                    "consensus_impl='masked' materializes the dense [N, N] window view; "
+                    f"N={n_agents} is above SPARSE_DENSE_GUARD={SPARSE_DENSE_GUARD} "
+                    "(use consensus_impl='segments')"
+                )
+        if impl == "ppermute":
+            raise NotImplementedError(f"the sharded ppermute execution {_LATER_SHARDED}")
 
     # -- the window ----------------------------------------------------------
 
@@ -269,6 +353,102 @@ class GossipEngine:
             post = self._mean_only(post, W, active)
         return self.finish(state, post, opt_state, step, active, n_q), losses
 
+    def _write_slot(self, state, post):
+        """The ring with this window's post-local, pre-merge posterior in slot
+        ``round mod K``, written before the merge so that a lag-0 event reads
+        the current posterior (what instant delivery merges).  A new ring:
+        the state passed in is not changed."""
+        slot = int(state.round) % self.hist_slots
+        hist_mean, hist_rho = state.hist_mean.clone(), state.hist_rho.clone()
+        hist_mean[slot] = post.mean.to(self.hist_dtype)
+        hist_rho[slot] = post.rho.to(self.hist_dtype)
+        return hist_mean, hist_rho
+
+    def _n_q(self, n_q, dst, weights, valid_e):
+        """``n_q`` plus, per destination, its real dropped contributions
+        (pad slots carry weight 0 and are not counted), counted on the host."""
+        bad = ~valid_e.cpu().numpy() & (np.asarray(weights) > 0.0)
+        add = np.bincount(np.asarray(dst)[bad], minlength=self.n_agents).astype(np.int32)
+        return n_q + torch.from_numpy(add).to(n_q.device)
+
+    def window_fn_delayed(self, state, batches, W, active, win, eps=None, generator=None):
+        """Delayed-delivery window: write the slot, then merge each event's
+        source as of its fire window."""
+        post, opt_state, step, active, losses = self.local_phase(
+            state, batches, active, eps, generator)
+        hist_mean, hist_rho = self._write_slot(state, post)
+        if self.consensus_mode == "gaussian":
+            post = consensus_flat_delayed(post, W, active, win.edges, win.weights, win.delays,
+                                          hist_mean, hist_rho, state.round,
+                                          wire_dtype=self.wire_dtype)
+        new = self.finish(state, post, opt_state, step, active)
+        return dataclasses.replace(new, hist_mean=hist_mean, hist_rho=hist_rho), losses
+
+    def window_fn_delayed_guarded(self, state, batches, W, active, win, eps=None,
+                                  generator=None, *, up, faults):
+        """Fault-aware delayed window: corruption applies at delivery time by
+        source id (every event from a corrupted agent reads garbage, whatever
+        its fire time); the ring always records the true resident
+        posterior."""
+        post, opt_state, step, active, losses = self.local_phase(
+            state, batches, active, eps, generator, up)
+        hist_mean, hist_rho = self._write_slot(state, post)
+        n_q = state.n_quarantined
+        if self.consensus_mode == "gaussian":
+            args = (post, W, active, win.edges, win.weights, win.delays, hist_mean, hist_rho,
+                    state.round)
+            kw = dict(corrupt=faults["corrupt"], fill_mean=faults["fill_mean"],
+                      fill_rho=faults["fill_rho"], wire_dtype=self.wire_dtype)
+            if self.quarantine:
+                post, valid_e = consensus_flat_delayed_quarantined(*args, **kw)
+                n_q = self._n_q(n_q, win.edges[:, 0], win.weights, valid_e)
+            else:
+                post = consensus_flat_delayed_corrupted(*args, **kw)
+        new = self.finish(state, post, opt_state, step, active, n_q)
+        return dataclasses.replace(new, hist_mean=hist_mean, hist_rho=hist_rho), losses
+
+    @staticmethod
+    def _self_loops(win):
+        """The window's fired edges then N self loops at the conserve-rule
+        self-weights: ``consensus_flat_segments`` takes self loops in the
+        edge arrays."""
+        ar = np.arange(win.n_agents, dtype=win.dst.dtype)
+        return (np.concatenate([win.dst, ar]), np.concatenate([win.src, ar]),
+                np.concatenate([win.weights, win.self_weight.astype(np.float32)]))
+
+    def window_fn_segments(self, state, batches, win, active, eps=None, generator=None):
+        """Edge-native window: the [E_max] fired arrays, [N] self-weights and
+        the host-exact active mask are the whole exchange structure."""
+        post, opt_state, step, active, losses = self.local_phase(
+            state, batches, active, eps, generator)
+        if self.consensus_mode == "gaussian":
+            post = consensus_flat_segments(post, *self._self_loops(win), active=active,
+                                           wire_dtype=self.wire_dtype)
+        return self.finish(state, post, opt_state, step, active), losses
+
+    def window_fn_segments_guarded(self, state, batches, win, active, eps=None,
+                                   generator=None, *, up, faults):
+        """Fault-aware edge-native window.  The clock already filtered crashed
+        agents' fired edges, so ``up`` only gates local training; quarantine
+        validates every fired edge's payload and moves dropped mass to the
+        destination's self term."""
+        post, opt_state, step, active, losses = self.local_phase(
+            state, batches, active, eps, generator, up)
+        n_q = state.n_quarantined
+        if self.consensus_mode == "gaussian":
+            kw = dict(active=active, corrupt=faults["corrupt"], fill_mean=faults["fill_mean"],
+                      fill_rho=faults["fill_rho"], wire_dtype=self.wire_dtype)
+            if self.quarantine:
+                post, valid_e = consensus_flat_segments_quarantined(
+                    post, win.dst, win.src, win.weights, win.self_weight.astype(np.float32),
+                    **kw)
+                n_q = self._n_q(n_q, win.dst, win.weights, valid_e)
+            else:
+                # strict: the wire is trusted verbatim, so the garbage reaches
+                # every receiver; non-merging agents keep their resident state
+                post = consensus_flat_segments_corrupted(post, *self._self_loops(win), **kw)
+        return self.finish(state, post, opt_state, step, active, n_q), losses
+
     # -- Engine protocol -----------------------------------------------------
 
     def init(self, generator: torch.Generator, params=None) -> GossipState:
@@ -278,17 +458,24 @@ class GossipEngine:
             device=self.device, params=params,
         )
         n, dev = self.n_agents, ns.step.device
+        # zero-filled: window r reads only slots of windows >= max(0, r - max_delay),
+        # each written before it is read
+        ring = ((self.hist_slots,) + tuple(ns.posterior.mean.shape), self.hist_dtype)
         return GossipState(
             posterior=ns.posterior, opt_state=ns.opt_state, step=ns.step, round=ns.round,
             last_merge=torch.full((n,), -1, dtype=torch.int32, device=dev),
             n_merges=torch.zeros((n,), dtype=torch.int32, device=dev),
+            hist_mean=(torch.zeros(ring[0], dtype=ring[1], device=dev)
+                       if self.hist_slots else None),
+            hist_rho=(torch.zeros(ring[0], dtype=ring[1], device=dev)
+                      if self.hist_slots else None),
             n_quarantined=(torch.zeros((n,), dtype=torch.int32, device=dev)
                            if self.quarantine else None),
         )
 
-    def _fault_arrays(self, r: int):
-        """Host-side fault draws of window ``r`` (pure functions of (seed, r))
-        as device tensors; records ``last_crashed`` for ``Session.round``."""
+    def _fault_draws(self, r: int) -> dict:
+        """Host-side fault draws of window ``r`` (pure functions of (seed, r)),
+        numpy [N] arrays; records ``last_crashed`` for ``Session.round``."""
         n = self.n_agents
         if self.faults is None:
             up, corrupt = np.ones(n, bool), np.zeros(n, bool)
@@ -297,10 +484,25 @@ class GossipEngine:
             up, corrupt = self.faults.up(r), self.faults.corrupted(r)
             fm, fr = self.faults.fills(r)
         self.last_crashed = ~up
-        return {k: torch.as_tensor(np.asarray(a), device=self.device) for k, a in
-                (("up", up), ("corrupt", corrupt), ("fill_mean", fm), ("fill_rho", fr))}
+        return {"up": np.asarray(up), "corrupt": np.asarray(corrupt),
+                "fill_mean": np.asarray(fm), "fill_rho": np.asarray(fr)}
 
-    def _host_active(self, r: int, W) -> np.ndarray:
+    def _window_for(self, r: int, W):
+        """The clock's own window ``r``: the delayed path needs its event
+        list, which the Session's W-tilde alone does not carry.  Windows are
+        pure functions of (seed, round), so this is the Session's stream;
+        ``W`` must be that window's w_eff in float64, so per-round W
+        overrides cannot run on this path."""
+        win = self.clock.window(r)
+        if not np.array_equal(np.asarray(W, np.float64), np.asarray(win.w_eff, np.float64)):
+            raise ValueError(
+                "delayed gossip windows come from the spec clock; the W passed for "
+                f"window {r} does not match its stream (per-round w_schedule overrides "
+                "are unsupported on this path)"
+            )
+        return win
+
+    def _host_active(self, r: int, W, win=None) -> np.ndarray:
         """The host-exact [N] activity mask of window ``r``: the clock's
         ``window.active`` when ``W`` is the clock's own host float64 w_eff
         (what the Session hands over verbatim); for a foreign W the diagonal
@@ -308,20 +510,61 @@ class GossipEngine:
         if isinstance(W, torch.Tensor):  # a device W is foreign by definition
             return np.diagonal(W.cpu().numpy().astype(np.float64)) < 1.0
         w64 = np.asarray(W, np.float64)
-        if isinstance(W, np.ndarray) and W.dtype == np.float64:
+        if win is None and isinstance(W, np.ndarray) and W.dtype == np.float64:
             win = self.clock.window(r)
-            if np.array_equal(w64, np.asarray(win.w_eff, np.float64)):
-                return np.asarray(win.active)
+        if (win is not None and not isinstance(win, SparseWindow)
+                and np.array_equal(w64, np.asarray(win.w_eff, np.float64))):
+            return np.asarray(win.active)
         return np.diagonal(w64) < 1.0
+
+    def _segments_round(self, state, batches, W, eps, generator, r: int):
+        """Edge-native window: no [N, N] on the host or the card."""
+        if not isinstance(W, SparseWindow):
+            raise ValueError(
+                "consensus_impl='segments' executes the spec clock's SparseWindow stream; "
+                "run_round received an array-like W (per-round dense w_schedule overrides "
+                "are unsupported: the Session's w_schedule yields the windows verbatim)"
+            )
+        if int(W.index) != r:
+            raise ValueError(
+                f"SparseWindow index {int(W.index)} does not match the engine round {r} "
+                "(windows are pure functions of (seed, round); the stream must be "
+                "consumed in order)"
+            )
+        active = torch.as_tensor(np.asarray(W.active), device=self.device)
+        if self._guarded:
+            faults = self._fault_draws(r)
+            up = torch.as_tensor(faults["up"], device=self.device)
+            return self.window_fn_segments_guarded(state, batches, W, active, eps, generator,
+                                                   up=up, faults=faults)
+        return self.window_fn_segments(state, batches, W, active, eps, generator)
 
     def run_round(self, state, batches, W, eps=None, generator=None):
         r = int(state.round)
-        active = torch.as_tensor(self._host_active(r, W), device=self.device)
+        if self.consensus_impl == "segments":
+            return self._segments_round(state, batches, W, eps, generator, r)
+        spec_win = None
+        if isinstance(W, SparseWindow):
+            # the dense view of an edge-native window (below the guard only):
+            # the segments-vs-masked ladder runs on it
+            spec_win, W = W, W.w_eff
+        win = self._window_for(r, W) if self.hist_slots else None
+        active = torch.as_tensor(
+            np.asarray(spec_win.active) if spec_win is not None
+            else self._host_active(r, W, win), device=self.device)
+        faults = self._fault_draws(r) if self._guarded else None
+        if self.hist_slots:
+            if faults is None:
+                return self.window_fn_delayed(state, batches, W, active, win, eps, generator)
+            up = torch.as_tensor(faults["up"], device=self.device)
+            return self.window_fn_delayed_guarded(state, batches, W, active, win, eps,
+                                                  generator, up=up, faults=faults)
         W = torch.as_tensor(W, dtype=torch.float32).to(self.device)
-        if self._guarded:
-            return self.window_fn_guarded(state, batches, W, active, eps, generator,
-                                          **self._fault_arrays(r))
-        return self.window_fn(state, batches, W, active, eps, generator)
+        if faults is None:
+            return self.window_fn(state, batches, W, active, eps, generator)
+        return self.window_fn_guarded(
+            state, batches, W, active, eps, generator,
+            **{k: torch.as_tensor(a, device=self.device) for k, a in faults.items()})
 
     def posterior(self, state) -> FlatPosterior:
         return state.posterior
@@ -354,8 +597,12 @@ class GossipEngine:
             },
             "windows": int(state.round),
         }
+        if self.max_delay:
+            out["max_delay"] = self.max_delay
         if self.wire_dtype != "f32":
             out["wire_dtype"] = self.wire_dtype
+        if self.hist_slots and wire_dtype_name(self.hist_dtype) != "f32":
+            out["history_dtype"] = wire_dtype_name(self.hist_dtype)
         if self._guarded:
             nw = int(state.round)
             faults: dict = {"policy": self.fault_policy}

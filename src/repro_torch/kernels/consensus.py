@@ -32,6 +32,15 @@ synchronous round's and the gossip windows' paths).
   does.  CUDA source: ``csrc/consensus_sparse.cu`` (N <= 24 computes each
   row's per-lane terms once per tile in shared memory; larger N gathers
   from L2).
+* ``consensus_fused_segments``: eq. (6) over a ragged, destination-sorted
+  term list (``launch_plan.RaggedTerms``), the one kernel of the gossip
+  runtime's delayed delivery and edge-native segment windows.  A term's
+  source index addresses a row of ``x`` ([N_x, P] float32) below N_x and a
+  row of ``h`` (the [K N, P] history ring in float32, bf16 or f16, or a
+  second float32 buffer) above; ``wp_first`` picks the delayed path's f32
+  association ``(w * prec) * mean``.  No TPU kernel exists for it (the
+  reference scatters with XLA); the sums run in a fixed order, so the bits
+  are the same every run.  CUDA source: ``csrc/consensus_segments.cu``.
 * ``payload_validity_fused``: per agent, every wire-rounded ``prec`` and
   ``prec * mean`` lane finite, ``prec > 0`` and both within ``bound``.
   CUDA source: ``csrc/payload_validity.cu``, one launch planned by
@@ -322,6 +331,144 @@ def consensus_fused_masked_sparse(neighbors, weights, active, mean, rho, *,
                                              wire_dtype)
     return _sparse_launch("consensus_fused_masked_sparse", neighbors, weights, active,
                           mean, rho, wire_dtype)
+
+
+# -- eq. (6) over a ragged term list ------------------------------------------
+
+_HIST_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_SEGMENT_GATHER_ELEMS = 1 << 24  # the plain version's [T, block] gather cap (elements)
+
+
+def _source_rows(idx, x, h):
+    """Rows ``idx`` of the stacked (x, h) index space as float32 (two
+    gathers and a select: no host sync on the card)."""
+    n_x = x.shape[0]
+    rows = x.index_select(0, idx.clamp(max=n_x - 1))
+    if h is None:
+        return rows
+    h_rows = h.index_select(0, (idx - n_x).clamp(min=0)).to(torch.float32)
+    return torch.where((idx < n_x)[:, None], rows, h_rows)
+
+
+def consensus_segments_plain(terms, x_mean, x_rho, h_mean=None, h_rho=None, wire_dtype=None,
+                             wp_first=False, block=None):
+    """The plain PyTorch version of ``consensus_fused_segments``: per block
+    of lanes, gather every term's source rows and ``index_add_`` the terms
+    into their rows (on the CPU in term order), as the reference blocks its
+    scatter."""
+    wd = canonical_wire_dtype(wire_dtype)
+    dev = x_mean.device
+    t = terms.to(dev)
+    n, p = terms.n_rows, x_mean.shape[1]
+    counts = t.row_ptr[1:] - t.row_ptr[:-1]
+    rows = torch.searchsorted(t.row_ptr[1:], torch.arange(terms.n_terms, device=dev,
+                                                         dtype=torch.int32), right=True)
+    src = t.src.long()
+    w = t.weight[:, None]
+    idle = (counts == 0)[:, None]
+    pass_src = torch.arange(n, device=dev) if t.pass_src is None else t.pass_src.long()
+    if block is None:
+        block = max(128, _SEGMENT_GATHER_ELEMS // max(terms.n_terms, 1))
+    mean_out = torch.empty((n, p), dtype=torch.float32, device=dev)
+    rho_out = torch.empty_like(mean_out)
+    for s in range(0, p, block):
+        e = min(s + block, p)
+        m = _source_rows(src, x_mean[:, s:e], None if h_mean is None else h_mean[:, s:e])
+        r = _source_rows(src, x_rho[:, s:e], None if h_rho is None else h_rho[:, s:e])
+        prec = 1.0 / torch.square(softplus(r))
+        if wd == torch.float32 and wp_first:
+            t_prec = w * prec
+            t_pm = t_prec * m
+        else:
+            t_prec = w * wire_roundtrip(prec, wd)
+            t_pm = w * wire_roundtrip(prec * m, wd)
+        acc_prec = torch.zeros((n, e - s), dtype=torch.float32, device=dev)
+        acc_pm = torch.zeros_like(acc_prec)
+        acc_prec.index_add_(0, rows, t_prec)
+        acc_pm.index_add_(0, rows, t_pm)
+        pm = _source_rows(pass_src, x_mean[:, s:e], None if h_mean is None else h_mean[:, s:e])
+        pr = _source_rows(pass_src, x_rho[:, s:e], None if h_rho is None else h_rho[:, s:e])
+        mean_out[:, s:e] = torch.where(idle, pm, acc_pm / acc_prec)
+        rho_out[:, s:e] = torch.where(idle, pr, softplus_inv(torch.rsqrt(acc_prec)))
+    return mean_out, rho_out
+
+
+def _check_terms(terms, n_x: int, n_h: int) -> None:
+    """Host terms read rows of the sources only.  Terms already on the card
+    are not checked (that would stall the host); the kernel sets a lane
+    whose source index is out of range to NaN."""
+    if isinstance(terms.src, torch.Tensor) and terms.src.device.type != "cpu":
+        return
+    n_src = n_x + n_h
+    src = torch.as_tensor(terms.src)
+    if terms.n_terms and int(src.max()) >= n_src:
+        raise ValueError(f"consensus_fused_segments: a term reads row {int(src.max())} "
+                         f"of {n_src}")
+    if terms.pass_src is None and terms.n_rows > n_x:
+        raise ValueError(f"consensus_fused_segments: {terms.n_rows} rows pass through from "
+                         f"x of {n_x} rows")
+    if terms.pass_src is not None and int(torch.as_tensor(terms.pass_src).max()) >= n_src:
+        raise ValueError("consensus_fused_segments: a pass-through row outside the sources")
+
+
+def _segments_launch(terms, x_mean, x_rho, h_mean, h_rho, wire_dtype, wp_first):
+    """One launch of ``csrc/consensus_segments.cu``."""
+    name = "consensus_fused_segments"
+    if x_mean.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {x_mean.device}")
+    _check_flat(name, x_mean, x_rho)
+    dev = x_mean.device
+    n_x, p = x_mean.shape
+    n_h = 0
+    if h_mean is not None:
+        if (h_rho is None or h_mean.dtype not in _HIST_CODE or h_rho.dtype != h_mean.dtype
+                or h_mean.shape != h_rho.shape or h_mean.ndim != 2 or h_mean.shape[1] != p
+                or h_mean.device != dev or h_rho.device != dev
+                or not (h_mean.is_contiguous() and h_rho.is_contiguous())):
+            raise ValueError(f"{name}: h must be two contiguous [n_h, {p}] float32, bf16 or "
+                             f"f16 buffers on {dev}")
+        n_h = h_mean.shape[0]
+    _check_terms(terms, n_x, n_h)
+    n = terms.n_rows
+    t = terms.to(dev)
+    if not (t.row_ptr.dtype == t.src.dtype == torch.int32 and t.weight.dtype == torch.float32
+            and (t.pass_src is None or t.pass_src.dtype == torch.int32)):
+        raise TypeError(f"{name}: int32 offsets and sources, float32 weights")
+    mean_out = torch.empty((n, p), dtype=torch.float32, device=dev)
+    rho_out = torch.empty_like(mean_out)
+    wire = _WIRE_CODE[canonical_wire_dtype(wire_dtype)]
+    hist = _HIST_CODE[torch.float32 if h_mean is None else h_mean.dtype]
+    wp = int(bool(wp_first) and wire == 0)
+    lib = dispatch.library()
+    wave = dispatch.wave(dev, "consensus_segments", lib.consensus_segments_blocks_per_sm,
+                         hist, wire, wp)
+    plan = launch_plan.segments_plan(n, p, wave)
+    ptr = (lambda x: None if x is None else x.data_ptr())
+    err = lib.consensus_segments_launch(
+        t.row_ptr.data_ptr(), ptr(t.src), ptr(t.weight), ptr(t.pass_src), x_mean.data_ptr(),
+        x_rho.data_ptr(), ptr(h_mean), ptr(h_rho), mean_out.data_ptr(), rho_out.data_ptr(),
+        n_x, n_h, n, p, hist, wire, wp, plan.grid, _stream(dev),
+    )
+    dispatch.check_cuda(err, name)
+    dispatch.count_launch(name)
+    return mean_out, rho_out
+
+
+def consensus_fused_segments(terms, x_mean, x_rho, h_mean=None, h_rho=None, *,
+                             wire_dtype=None, wp_first=False, block=None):
+    """Eq. (6) over the ragged term list ``terms`` (``launch_plan.
+    RaggedTerms``): row i of the output sums its terms in order, each
+    ``weight * (prec, prec * mean)`` of its source row, with sources below
+    ``x_mean.shape[0]`` rows of ``x`` and the rest rows of ``h`` (decoded to
+    float32); a row without terms copies its pass-through row bitwise.
+    ``wp_first`` (f32 wire only) multiplies ``(w * prec) * mean``, else
+    ``w * wire(prec * mean)``; ``block`` (lanes) blocks the plain version's
+    gather.  Returns the new (mean, rho), ``[N, P]``."""
+    if x_mean.device.type == "cpu":
+        _check_terms(terms, x_mean.shape[0], 0 if h_mean is None else h_mean.shape[0])
+        return consensus_segments_plain(terms, x_mean, x_rho, h_mean, h_rho, wire_dtype,
+                                        wp_first, block)
+    return _segments_launch(terms, x_mean, x_rho, h_mean, h_rho, wire_dtype, wp_first)
 
 
 # -- exchange-payload validity ----------------------------------------------

@@ -37,7 +37,7 @@ NVCC_FLAGS = (
 KERNELS = (
     "consensus_fused_network", "payload_validity_fused", "consensus_fused_masked",
     "consensus_fused_sparse", "consensus_fused_masked_sparse", "consensus_fused",
-    "sample_and_kl_fused", "flash_attention",
+    "sample_and_kl_fused", "flash_attention", "consensus_fused_segments",
 )
 _launches = dict.fromkeys(KERNELS, 0)
 _lib: ctypes.CDLL | None = None
@@ -179,6 +179,13 @@ def library() -> ctypes.CDLL:
             ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, ptr,
         ]
         lib.flash_attention_tc_launch.restype = i32
+        lib.consensus_segments_blocks_per_sm.argtypes = [i32, i32, i32]
+        lib.consensus_segments_blocks_per_sm.restype = i32
+        lib.consensus_segments_launch.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64,
+            i32, i32, i32, i32, ptr,
+        ]
+        lib.consensus_segments_launch.restype = i32
         _lib = lib
     return _lib
 

@@ -46,6 +46,18 @@ widest that every row of every buffer is aligned to: the base pointers and
 the row stride of 4 P bytes (at P = 199,210 the odd rows lie 8 bytes off
 16, so 8 bytes).
 
+Eq. (6) over a ragged term list (``consensus_fused_segments``,
+``csrc/consensus_segments.cu``, the gossip runtime's delayed and segment
+windows): ``ragged_terms`` turns a window's parallel (dst, src, weight)
+arrays into row offsets, source indices and weights sorted by destination
+with a stable sort, so each row keeps the caller's summation order, in
+O(E + N) host memory.  Zero-weight terms that repeat a row's source (the
+``E_max - n_events`` pad slots of a window, all ``(0, 0)`` at weight 0)
+collapse into the first of them: adding ``0 * x`` twice is adding it once,
+``0 * NaN`` included.  Inactive rows get no terms.  ``segments_plan``: one
+lane a thread, item k = i * P + c walked grid-stride by a flat 64-bit
+index.
+
 Attention: block index x of a 1-D grid of ``bh * n_qt`` blocks (``bh`` = B
 H heads, ``n_qt`` query tiles) decodes to head ``x mod bh`` and query tile
 ``n_qt - 1 - x div bh``, so the heaviest causal tiles of every head go
@@ -59,6 +71,8 @@ and emulates the walks).
 from __future__ import annotations
 
 import dataclasses
+
+import numpy as np
 
 from repro_torch.kernels import stream_plan
 
@@ -74,6 +88,8 @@ STAGE_N_MAX = 24  # 2 * 24 rows * 256 lanes * 4 bytes = 48 KB
 GRID_MAX = 2 ** 31 - 1  # blocks of a 1-D grid
 ATTN_F32_BQ = 64  # query rows per block of flash_attention.cu
 ROW_N_MAX = 16  # consensus_row.cu: rows of the largest small instance
+SEGMENT_THREADS = 256  # consensus_segments.cu: threads per block, one lane each
+INDEX_MAX = 2 ** 31 - 1  # int32 row offsets and source indices
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,6 +185,81 @@ def row_plan(n: int, p: int, instance: int, wave: int) -> Eq6Plan:
         raise ValueError(f"N = {n} runs the row instance {row_instance(n)}, not {instance}")
     items = -(-p // GENERIC_TILE)
     return Eq6Plan(instance, 1, items, GENERIC_TILE, _grid(items, wave))
+
+
+@dataclasses.dataclass(frozen=True)
+class RaggedTerms:
+    """A destination-sorted term list: row i owns terms ``row_ptr[i] ..
+    row_ptr[i + 1] - 1``, each a source row index and a weight; a row with
+    no terms copies source row ``pass_src[i]`` (``None``: row i).  Built on
+    the host as numpy arrays; ``to(device)`` gives the same list as
+    tensors there (a kernel call on device-resident terms copies
+    nothing)."""
+
+    row_ptr: "np.ndarray"  # [N + 1] int32
+    src: "np.ndarray"  # [T] int32
+    weight: "np.ndarray"  # [T] float32
+    pass_src: "np.ndarray | None" = None  # [N] int32
+
+    @property
+    def n_rows(self) -> int:
+        return len(self.row_ptr) - 1
+
+    @property
+    def n_terms(self) -> int:
+        return len(self.src)
+
+    def to(self, device) -> "RaggedTerms":
+        """The list as tensors on ``device`` (no copy of what is there)."""
+        import torch
+
+        def move(a):
+            return None if a is None else torch.as_tensor(a).to(device)
+
+        return RaggedTerms(move(self.row_ptr), move(self.src), move(self.weight),
+                           move(self.pass_src))
+
+
+def ragged_terms(n_rows: int, dst, src, weight, active=None, pass_src=None) -> RaggedTerms:
+    """The term list of parallel ``dst``/``src``/``weight`` arrays, given in
+    the order each row sums them: terms of rows not ``active`` dropped, a
+    zero-weight term whose (row, source) an earlier zero-weight term of the
+    row already holds dropped, the rest stably sorted by ``dst``."""
+    dst = np.asarray(dst, np.int64).reshape(-1)
+    src = np.asarray(src, np.int64).reshape(-1)
+    weight = np.asarray(weight, np.float32).reshape(-1)
+    if not dst.shape == src.shape == weight.shape:
+        raise ValueError(f"dst {dst.shape}, src {src.shape}, weight {weight.shape} differ")
+    if n_rows <= 0 or n_rows > INDEX_MAX or len(dst) > INDEX_MAX:
+        raise ValueError(f"{n_rows} rows, {len(dst)} terms: outside int32 offsets")
+    if len(dst) and (dst.min() < 0 or dst.max() >= n_rows):
+        raise ValueError(f"destinations outside [0, {n_rows})")
+    if len(src) and (src.min() < 0 or src.max() > INDEX_MAX):
+        raise ValueError("source indices outside [0, 2^31)")
+    keep = (np.ones(len(dst), bool) if active is None
+            else np.asarray(active, bool).reshape(-1)[dst])
+    zero = np.flatnonzero(keep & (weight == 0.0))
+    if len(zero):
+        _, first = np.unique(dst[zero] * (INDEX_MAX + 1) + src[zero], return_index=True)
+        repeat = np.ones(len(zero), bool)
+        repeat[first] = False
+        keep[zero[repeat]] = False
+    idx = np.flatnonzero(keep)
+    order = idx[np.argsort(dst[idx], kind="stable")]
+    row_ptr = np.zeros(n_rows + 1, np.int32)
+    np.cumsum(np.bincount(dst[order], minlength=n_rows), out=row_ptr[1:])
+    if pass_src is not None:
+        pass_src = np.asarray(pass_src, np.int32).reshape(n_rows)
+    return RaggedTerms(row_ptr=row_ptr, src=src[order].astype(np.int32),
+                       weight=weight[order], pass_src=pass_src)
+
+
+def segments_plan(n: int, p: int, wave: int) -> Eq6Plan:
+    """The ragged eq. (6) launch: ``n * p`` lanes, one a thread."""
+    _check(n, p, 1)
+    items = n * p
+    return Eq6Plan(0, 1, items, SEGMENT_THREADS,
+                   _grid(-(-items // SEGMENT_THREADS), wave))
 
 
 def attention_blocks(bh: int, s: int, bq: int) -> int:

@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.core.flat import FlatPosterior
 from repro_torch.core.posterior import kl_gaussian
+from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.optim import Optimizer, apply_updates
 
 PyTree = Any
@@ -42,6 +43,20 @@ def free_energy(post: FlatPosterior, prior: FlatPosterior, nll_fn: NllFn,
     return kl_scale * kl + enll
 
 
+AGENT_BLOCK_BYTES = 1 << 30  # a block's [agents, P] float32 buffer, at most
+
+
+def agent_blocks(n: int, p: int) -> list[slice]:
+    """The agent blocks a local step runs its autograd over: equal blocks
+    whose [b, P] float32 buffer holds at most ``AGENT_BLOCK_BYTES``, so the
+    graph's saved tensors and the optimizer's temporaries stay a fraction
+    of the [N, P] state (N = 4,200 at the 784-200-200-10 model's P =
+    199,210 runs 4 blocks; the paper's networks run one)."""
+    k = min(n, max(1, -(-n * p * 4 // AGENT_BLOCK_BYTES)))
+    b = -(-n // k)
+    return [slice(s, min(s + b, n)) for s in range(0, n, b)]
+
+
 def local_vi_steps(post: FlatPosterior, prior: FlatPosterior, opt: Optimizer,
                    opt_state: Any, nll_fn: NllFn, batches: dict, lr: torch.Tensor,
                    step0: torch.Tensor, n_samples: int = 1, kl_scale: float = 1.0,
@@ -51,11 +66,16 @@ def local_vi_steps(post: FlatPosterior, prior: FlatPosterior, opt: Optimizer,
 
     ``batches``: dict of ``[N, u, ...]`` tensors (one slice per local step).
     ``eps``: the injected noise ``[N, u, S, P]``; without it each step draws
-    ``[N, S, P]`` from ``generator``.  Returns (new_post, new_opt_state,
+    ``[N, S, P]`` from ``generator``.  Agents are independent, so each step
+    runs over ``agent_blocks`` and writes every block's new rows into one
+    set of output buffers (new at the first step: the inputs stay as they
+    were; updated in place after).  Returns (new_post, new_opt_state,
     per-agent mean loss over the u steps [N])."""
     n, p = post.mean.shape
     u = next(iter(batches.values())).shape[1]
     prior = FlatPosterior(prior.mean.detach(), prior.rho.detach(), prior.layout)
+    blocks = agent_blocks(n, p)
+    out = out_opt = None
     step = step0
     losses = []
     for t in range(u):
@@ -63,16 +83,27 @@ def local_vi_steps(post: FlatPosterior, prior: FlatPosterior, opt: Optimizer,
         eps_t = eps[:, t] if eps is not None else torch.randn(
             (n, n_samples, p), generator=generator, device=post.mean.device
         )
-        mean = post.mean.detach().requires_grad_(True)
-        rho = post.rho.detach().requires_grad_(True)
-        q = FlatPosterior(mean, rho, post.layout)
-        loss = free_energy(q, prior, nll_fn, batch, eps_t, kl_scale)
-        g_mean, g_rho = torch.autograd.grad(loss.sum(), (mean, rho))
-        grads = FlatPosterior(g_mean, g_rho, post.layout)
-        updates, opt_state = opt.update(grads, opt_state, step, lr)
-        post = apply_updates(FlatPosterior(mean.detach(), rho.detach(), post.layout), updates)
+        if out is None:
+            out, out_opt = tree_map(torch.empty_like, post), tree_map(torch.empty_like, opt_state)
+        loss_t = []
+        for rows in blocks:
+            mean = post.mean[rows].detach().requires_grad_(True)
+            rho = post.rho[rows].detach().requires_grad_(True)
+            loss = free_energy(FlatPosterior(mean, rho, post.layout),
+                               tree_map(lambda x: x[rows], prior), nll_fn,
+                               {k: v[rows] for k, v in batch.items()}, eps_t[rows], kl_scale)
+            g_mean, g_rho = torch.autograd.grad(loss.sum(), (mean, rho))
+            updates, new_opt = opt.update(FlatPosterior(g_mean, g_rho, post.layout),
+                                          tree_map(lambda x: x[rows], opt_state), step[rows], lr)
+            del g_mean, g_rho  # [b, P] each: not held into the next block's forward
+            new = apply_updates(FlatPosterior(mean.detach(), rho.detach(), post.layout), updates)
+            del updates
+            for dst, src in zip(tree_leaves((out, out_opt)), tree_leaves((new, new_opt))):
+                dst[rows].copy_(src)
+            loss_t.append(loss.detach())
+        post, opt_state = out, out_opt
         step = step + 1
-        losses.append(loss.detach())
+        losses.append(torch.cat(loss_t))
     return post, opt_state, torch.stack(losses).mean(dim=0)
 
 

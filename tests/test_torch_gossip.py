@@ -257,10 +257,12 @@ def test_active_mask_survives_subresolution_weight():
 
 
 def test_later_executions_raise_not_implemented():
+    """Only the sharded ppermute execution is still refused: the delayed and
+    edge-native executions build (tests/test_torch_delayed.py,
+    tests/test_torch_segments.py)."""
     delayed = {"kind": "delayed", "inner": {"kind": "poisson", "rate": 0.8},
                "latency": {"kind": "constant", "delay": 1}}
-    with pytest.raises(NotImplementedError, match="delayed"):
-        tbuild(_spec(tspec, delayed), device="cpu")
+    assert tbuild(_spec(tspec, delayed), device="cpu").engine.hist_slots == 2
     with pytest.raises(NotImplementedError, match="sharded"):
         tbuild(_spec(tspec, UNRELIABLE, consensus_impl="ppermute"), device="cpu")
     sparse = tspec.ExperimentSpec(
@@ -268,8 +270,7 @@ def test_later_executions_raise_not_implemented():
                                            clock={"kind": "poisson", "rate": 0.5}),
         data=_data(tspec), inference=tspec.InferenceSpec(hidden=8, depth=1),
     )
-    with pytest.raises(NotImplementedError, match="edge-native"):
-        tbuild(sparse, device="cpu")
+    assert tbuild(sparse, device="cpu").engine.consensus_impl == "segments"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tbuild(_spec(tspec, UNRELIABLE))

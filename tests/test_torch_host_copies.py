@@ -107,8 +107,8 @@ def test_spec_validation_and_w_schedule_match():
 
 
 def test_gossip_topologies_wait_for_their_slice():
-    """Gossip topologies build their clocks in the port now; the gossip
-    executions of later slices (delayed delivery) still raise."""
+    """Gossip topologies build their clocks in the port, and the delayed
+    execution runs: a constant latency of 1 gives a 2-slot ring."""
     from repro_torch.api import build_session
 
     topo = tspec.TopologySpec.gossip("ring", {"n": 4})
@@ -125,8 +125,11 @@ def test_gossip_topologies_wait_for_their_slice():
         data=tspec.DataSpec(dataset_params=dict(n_classes=4, dim=8, n_train_per_class=20),
                             partition="iid", partition_params=dict(n_agents=4)),
         inference=tspec.InferenceSpec(hidden=4, depth=1))
-    with pytest.raises(NotImplementedError, match="delayed"):
-        build_session(spec, device="cpu")
+    session = build_session(spec, device="cpu")
+    assert session.engine.hist_slots == 2
+    assert tuple(session.state.hist_mean.shape[:2]) == (2, 4)
+    session.round()
+    assert int(session.state.round) == 1
 
 
 def test_linreg_task_sampling_bitwise():

@@ -16,7 +16,10 @@ test), KL rtol 1e-5, and the KL bitwise the same from run to run, on two
 streams and at any pointer alignment (its summation order is fixed).  The
 validity check and sample + KL run one device kernel per call.  Flash
 attention: 2e-5 at f32, 2e-2 at bf16/f16 (the output is rounded to the
-input type), as tests/test_kernels.py holds the Pallas kernel.
+input type), as tests/test_kernels.py holds the Pallas kernel.  The
+segments kernel (the delayed and edge-native windows): rtol/atol 1e-5 at
+f32 and one wire ulp otherwise against its plain version, and bitwise the
+same on a second launch (no atomics).
 """
 import numpy as np
 import pytest
@@ -593,3 +596,56 @@ def test_flash_attention_routes_by_dtype(dev):
             _attention_case(dev, dtype, (1, 2, 128, 64), 128, True, 0, seed=5)
         names = [e.key for e in prof.key_averages() if "flash_attention" in e.key]
         assert names and all(kernel in n for n in names), names
+
+
+def _ragged_case(n, p, k, seed, dev, ring):
+    """A delayed window's term list: a self term first, then 0-3 events a
+    row reading the [K N, P] ring, a pad term on row 0, a third of the rows
+    idle."""
+    from repro_torch.kernels.launch_plan import ragged_terms
+
+    rng = np.random.default_rng(seed)
+    x_m, x_r = (torch.from_numpy(a).to(dev) for a in (
+        rng.normal(size=(n, p)).astype(np.float32),
+        rng.uniform(-4.5, 0.5, (n, p)).astype(np.float32)))
+    h_m, h_r = (torch.from_numpy(a).to(dev).to(ring) for a in (
+        rng.normal(size=(k * n, p)).astype(np.float32),
+        rng.uniform(-4.5, 0.5, (k * n, p)).astype(np.float32)))
+    e = 2 * n
+    dst = np.concatenate([np.arange(n), rng.integers(0, n, e), [0, 0]])
+    src = np.concatenate([np.arange(n), n + rng.integers(0, k * n, e), [n, n]])
+    w = np.concatenate([rng.uniform(0.3, 0.7, n), rng.uniform(0.0, 0.2, e), [0.0, 0.0]])
+    active = rng.random(n) < 0.67
+    active[0] = True
+    return ragged_terms(n, dst, src, w.astype(np.float32), active), x_m, x_r, h_m, h_r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("ring", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("wp_first", [False, True])
+@pytest.mark.parametrize("n,p", [(9, 4099), (300, 257), (70_000, 3)])
+def test_segments_kernel_matches_plain_and_repeats_its_bits(dev, n, p, ring, wire, wp_first):
+    """consensus_fused_segments against its plain version (rtol/atol 1e-5
+    at f32: another fp32 order; one wire ulp otherwise), bitwise the same
+    on a second launch (no atomics), idle rows bitwise their inputs; N past
+    a grid dimension's 65,535."""
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}[ring]
+    terms, x_m, x_r, h_m, h_r = _ragged_case(n, p, 4, n + p, dev, dt)
+    before = dispatch.launch_counts()["consensus_fused_segments"]
+    got = k.consensus_fused_segments(terms, x_m, x_r, h_m, h_r, wire_dtype=wire,
+                                     wp_first=wp_first)
+    again = k.consensus_fused_segments(terms, x_m, x_r, h_m, h_r, wire_dtype=wire,
+                                       wp_first=wp_first)
+    assert dispatch.launch_counts()["consensus_fused_segments"] == before + 2
+    want = k.consensus_segments_plain(terms, x_m, x_r, h_m, h_r, wire, wp_first)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g.view(torch.int32), a.view(torch.int32))
+        if wire == "f32":
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+        else:
+            u = WIRE_EPS[wire]
+            assert bool(torch.all((g - w).abs() <= u * w.abs() + u * w.abs().max()))
+    idle = torch.from_numpy(terms.row_ptr[1:] == terms.row_ptr[:-1]).to(dev)
+    assert torch.equal(got[0][idle], x_m[idle]) and torch.equal(got[1][idle], x_r[idle])

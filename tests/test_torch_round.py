@@ -248,3 +248,37 @@ def test_later_slices_raise_not_implemented():
         inference=tspec.InferenceSpec(method="conjugate_linreg"),
     )
     assert tbuild(lin, device="cpu").engine.name == "conjugate_linreg"  # its slice arrived
+
+
+def test_agent_blocks_size_the_local_step():
+    from repro_torch.vi.bayes_by_backprop import agent_blocks
+
+    assert [(b.start, b.stop) for b in agent_blocks(4_200, 199_210)] == \
+        [(0, 1050), (1050, 2100), (2100, 3150), (3150, 4200)]
+    assert agent_blocks(9, 199_210) == [slice(0, 9)]
+    assert agent_blocks(10_000, 90) == [slice(0, 10_000)]
+
+
+@pytest.mark.parametrize("agents_per_block", [1, 2, 3])
+def test_agent_blocks_match_one_block(monkeypatch, agents_per_block):
+    """Two rounds whose local steps run over agent blocks agree with the
+    one-block rounds within atol 1e-6 (every op is per agent; the CPU's
+    batched matmul sums in another fp32 order for another batch size), and
+    the blocked rounds are the same bits run to run."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.vi import bayes_by_backprop as bbb
+
+    def run():
+        s = tbuild(_spec(tspec), device="cpu")
+        s.run(n_rounds=2)
+        return s.state
+
+    whole = run()
+    p = whole.posterior.mean.shape[1]
+    monkeypatch.setattr(bbb, "AGENT_BLOCK_BYTES", agents_per_block * 4 * p)
+    assert len(bbb.agent_blocks(4, p)) == -(-4 // agents_per_block)
+    blocked, again = run(), run()
+    for a, b, c in zip(tree_leaves(whole), tree_leaves(blocked), tree_leaves(again)):
+        a, b, c = (torch.as_tensor(x) for x in (a, b, c))
+        assert torch.equal(b, c)
+        torch.testing.assert_close(b.double(), a.double(), rtol=1e-5, atol=1e-6)
