@@ -40,7 +40,9 @@ synchronous round's and the gossip windows' paths).
   second float32 buffer) above; ``wp_first`` picks the delayed path's f32
   association ``(w * prec) * mean``.  No TPU kernel exists for it (the
   reference scatters with XLA); the sums run in a fixed order, so the bits
-  are the same every run.  CUDA source: ``csrc/consensus_segments.cu``.
+  are the same every run.  CUDA source: ``csrc/consensus_segments.cu``
+  ((row, tile) items, a row's terms staged in chunks and every load of a
+  chunk issued before its arithmetic, idle rows copied by whole blocks).
 * ``payload_validity_fused``: per agent, every wire-rounded ``prec`` and
   ``prec * mean`` lane finite, ``prec > 0`` and both within ``bound``.
   CUDA source: ``csrc/payload_validity.cu``, one launch planned by
@@ -394,9 +396,11 @@ def consensus_segments_plain(terms, x_mean, x_rho, h_mean=None, h_rho=None, wire
 
 
 def _check_terms(terms, n_x: int, n_h: int) -> None:
-    """Host terms read rows of the sources only.  Terms already on the card
-    are not checked (that would stall the host); the kernel sets a lane
-    whose source index is out of range to NaN."""
+    """Host terms read rows of the sources only, and their order puts the
+    rows with terms first.  Terms already on the card are not checked (that
+    would stall the host); the kernel sets a row whose source index is out
+    of range to NaN, and a row with terms that the order puts among the
+    idle ones."""
     if isinstance(terms.src, torch.Tensor) and terms.src.device.type != "cpu":
         return
     n_src = n_x + n_h
@@ -409,10 +413,21 @@ def _check_terms(terms, n_x: int, n_h: int) -> None:
                          f"x of {n_x} rows")
     if terms.pass_src is not None and int(torch.as_tensor(terms.pass_src).max()) >= n_src:
         raise ValueError("consensus_fused_segments: a pass-through row outside the sources")
+    if terms.order is not None:
+        order = torch.as_tensor(terms.order).long()
+        busy = torch.as_tensor(terms.row_ptr[1:] != terms.row_ptr[:-1])
+        a = terms.n_active
+        if (a is None or not torch.equal(order.sort().values, torch.arange(terms.n_rows))
+                or not bool(busy[order[:a]].all()) or bool(busy[order[a:]].any())):
+            raise ValueError("consensus_fused_segments: the order does not put the "
+                             f"{a} rows with terms first")
 
 
-def _segments_launch(terms, x_mean, x_rho, h_mean, h_rho, wire_dtype, wp_first):
-    """One launch of ``csrc/consensus_segments.cu``."""
+def _segments_launch(terms, x_mean, x_rho, h_mean, h_rho, wire_dtype, wp_first, instance=None):
+    """One launch of ``csrc/consensus_segments.cu``: ``instance`` None (the
+    tile kernel at ``launch_plan.segments_instance`` lanes a thread), 1 or 4
+    (the tile kernel at that many), or 0 (PR 19's lane kernel: the same
+    bits)."""
     name = "consensus_fused_segments"
     if x_mean.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for {x_mean.device}")
@@ -432,22 +447,30 @@ def _segments_launch(terms, x_mean, x_rho, h_mean, h_rho, wire_dtype, wp_first):
     n = terms.n_rows
     t = terms.to(dev)
     if not (t.row_ptr.dtype == t.src.dtype == torch.int32 and t.weight.dtype == torch.float32
-            and (t.pass_src is None or t.pass_src.dtype == torch.int32)):
-        raise TypeError(f"{name}: int32 offsets and sources, float32 weights")
+            and all(a is None or a.dtype == torch.int32 for a in (t.pass_src, t.order))):
+        raise TypeError(f"{name}: int32 offsets, sources and rows, float32 weights")
     mean_out = torch.empty((n, p), dtype=torch.float32, device=dev)
     rho_out = torch.empty_like(mean_out)
     wire = _WIRE_CODE[canonical_wire_dtype(wire_dtype)]
     hist = _HIST_CODE[torch.float32 if h_mean is None else h_mean.dtype]
     wp = int(bool(wp_first) and wire == 0)
+    ptr = (lambda x: None if x is None else x.data_ptr())
+    if instance is None:
+        instance = launch_plan.segments_instance(
+            p, (x_mean.data_ptr(), x_rho.data_ptr(), mean_out.data_ptr(), rho_out.data_ptr()),
+            () if h_mean is None else (h_mean.data_ptr(), h_rho.data_ptr()),
+            4 if h_mean is None else h_mean.element_size())
     lib = dispatch.library()
     wave = dispatch.wave(dev, "consensus_segments", lib.consensus_segments_blocks_per_sm,
-                         hist, wire, wp)
-    plan = launch_plan.segments_plan(n, p, wave)
-    ptr = (lambda x: None if x is None else x.data_ptr())
+                         hist, wire, wp, instance)
+    order = t.order if instance and t.order is not None else None
+    n_active = n if order is None else t.n_active
+    plan = launch_plan.segments_plan(n, p, instance, wave, n_active)
     err = lib.consensus_segments_launch(
-        t.row_ptr.data_ptr(), ptr(t.src), ptr(t.weight), ptr(t.pass_src), x_mean.data_ptr(),
-        x_rho.data_ptr(), ptr(h_mean), ptr(h_rho), mean_out.data_ptr(), rho_out.data_ptr(),
-        n_x, n_h, n, p, hist, wire, wp, plan.grid, _stream(dev),
+        t.row_ptr.data_ptr(), ptr(t.src), ptr(t.weight), ptr(t.pass_src), ptr(order),
+        x_mean.data_ptr(), x_rho.data_ptr(), ptr(h_mean), ptr(h_rho), mean_out.data_ptr(),
+        rho_out.data_ptr(), n_x, n_h, n, n_active, p, hist, wire, wp, plan.instance, plan.grid,
+        _stream(dev),
     )
     dispatch.check_cuda(err, name)
     dispatch.count_launch(name)

@@ -179,11 +179,11 @@ def library() -> ctypes.CDLL:
             ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, ptr,
         ]
         lib.flash_attention_tc_launch.restype = i32
-        lib.consensus_segments_blocks_per_sm.argtypes = [i32, i32, i32]
+        lib.consensus_segments_blocks_per_sm.argtypes = [i32, i32, i32, i32]
         lib.consensus_segments_blocks_per_sm.restype = i32
         lib.consensus_segments_launch.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64,
-            i32, i32, i32, i32, ptr,
+            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64,
+            i32, i32, i32, i32, i32, ptr,
         ]
         lib.consensus_segments_launch.restype = i32
         _lib = lib

@@ -54,9 +54,22 @@ with a stable sort, so each row keeps the caller's summation order, in
 O(E + N) host memory.  Zero-weight terms that repeat a row's source (the
 ``E_max - n_events`` pad slots of a window, all ``(0, 0)`` at weight 0)
 collapse into the first of them: adding ``0 * x`` twice is adding it once,
-``0 * NaN`` included.  Inactive rows get no terms.  ``segments_plan``: one
-lane a thread, item k = i * P + c walked grid-stride by a flat 64-bit
-index.
+``0 * NaN`` included.  Inactive rows get no terms.  ``segments_plan``:
+
+* **tile** (instances 1 and ``SEGMENT_LANES`` = 4, the default): block b
+  takes items b, b + grid, ...  The list's ``order`` puts the rows with
+  terms first, those with most terms first: each gives tile items, one per
+  tile of ``SEGMENT_THREADS * L`` lanes at L = instance lanes a thread, its
+  terms staged ``SEGMENT_CHUNK_LANES / L`` at a time.  The idle rows after
+  them give copy items, one per ``SEGMENT_COPY_TILE`` lanes, each copied by
+  the whole block.  Item x is copy item floor(x C / T) where that floor steps up at
+  x + 1 (C copy items of T), else tile item x - floor(x C / T): the copies
+  spread evenly among the tiles.  Without an order every row takes tile
+  items.  ``segments_instance`` picks L = ``SEGMENT_LANES`` (in pairs:
+  8-byte x loads, 4-byte bf16/f16 loads) where every row of every buffer is
+  aligned to a pair, else 1.
+* **lane** (instance 0, PR 19's kernel, forced only): one lane a thread,
+  item k = i * P + c walked grid-stride by a flat 64-bit index.
 
 Attention: block index x of a 1-D grid of ``bh * n_qt`` blocks (``bh`` = B
 H heads, ``n_qt`` query tiles) decodes to head ``x mod bh`` and query tile
@@ -88,7 +101,10 @@ STAGE_N_MAX = 24  # 2 * 24 rows * 256 lanes * 4 bytes = 48 KB
 GRID_MAX = 2 ** 31 - 1  # blocks of a 1-D grid
 ATTN_F32_BQ = 64  # query rows per block of flash_attention.cu
 ROW_N_MAX = 16  # consensus_row.cu: rows of the largest small instance
-SEGMENT_THREADS = 256  # consensus_segments.cu: threads per block, one lane each
+SEGMENT_THREADS = 256  # consensus_segments.cu: threads per block
+SEGMENT_CHUNK_LANES = 8  # a chunk of terms times lanes a thread: loaded ahead, at a time
+SEGMENT_LANES = 4  # lanes a thread on the tile kernel where the rows allow pairs, else 1
+SEGMENT_COPY_TILE = 4096  # lanes of an idle row's item
 INDEX_MAX = 2 ** 31 - 1  # int32 row offsets and source indices
 
 
@@ -191,15 +207,19 @@ def row_plan(n: int, p: int, instance: int, wave: int) -> Eq6Plan:
 class RaggedTerms:
     """A destination-sorted term list: row i owns terms ``row_ptr[i] ..
     row_ptr[i + 1] - 1``, each a source row index and a weight; a row with
-    no terms copies source row ``pass_src[i]`` (``None``: row i).  Built on
-    the host as numpy arrays; ``to(device)`` gives the same list as
-    tensors there (a kernel call on device-resident terms copies
-    nothing)."""
+    no terms copies source row ``pass_src[i]`` (``None``: row i).
+    ``order`` (``None``, or the rows with terms, most terms first, then the
+    rows without, ``n_active`` of the first kind) is the kernel's walk; it
+    does not change the bits.  Built on the host as numpy arrays;
+    ``to(device)`` gives the same list as tensors there (a kernel call on
+    device-resident terms copies nothing)."""
 
     row_ptr: "np.ndarray"  # [N + 1] int32
     src: "np.ndarray"  # [T] int32
     weight: "np.ndarray"  # [T] float32
     pass_src: "np.ndarray | None" = None  # [N] int32
+    order: "np.ndarray | None" = None  # [N] int32
+    n_active: "int | None" = None  # rows with terms (with an order)
 
     @property
     def n_rows(self) -> int:
@@ -217,7 +237,7 @@ class RaggedTerms:
             return None if a is None else torch.as_tensor(a).to(device)
 
         return RaggedTerms(move(self.row_ptr), move(self.src), move(self.weight),
-                           move(self.pass_src))
+                           move(self.pass_src), move(self.order), self.n_active)
 
 
 def ragged_terms(n_rows: int, dst, src, weight, active=None, pass_src=None) -> RaggedTerms:
@@ -245,21 +265,54 @@ def ragged_terms(n_rows: int, dst, src, weight, active=None, pass_src=None) -> R
         repeat[first] = False
         keep[zero[repeat]] = False
     idx = np.flatnonzero(keep)
-    order = idx[np.argsort(dst[idx], kind="stable")]
+    by_dst = idx[np.argsort(dst[idx], kind="stable")]
+    counts = np.bincount(dst[by_dst], minlength=n_rows)
     row_ptr = np.zeros(n_rows + 1, np.int32)
-    np.cumsum(np.bincount(dst[order], minlength=n_rows), out=row_ptr[1:])
+    np.cumsum(counts, out=row_ptr[1:])
     if pass_src is not None:
         pass_src = np.asarray(pass_src, np.int32).reshape(n_rows)
-    return RaggedTerms(row_ptr=row_ptr, src=src[order].astype(np.int32),
-                       weight=weight[order], pass_src=pass_src)
+    busy = np.flatnonzero(counts)
+    order = np.concatenate([busy[np.argsort(-counts[busy], kind="stable")],
+                            np.flatnonzero(counts == 0)]).astype(np.int32)
+    return RaggedTerms(row_ptr=row_ptr, src=src[by_dst].astype(np.int32),
+                       weight=weight[by_dst], pass_src=pass_src, order=order,
+                       n_active=len(busy))
 
 
-def segments_plan(n: int, p: int, wave: int) -> Eq6Plan:
-    """The ragged eq. (6) launch: ``n * p`` lanes, one a thread."""
+def segments_instance(p: int, x_ptrs, h_ptrs=(), h_bytes: int = 4) -> int:
+    """The tile instance (lanes a thread) for ``[*, P]`` rows of x (float32,
+    and the outputs) at ``x_ptrs`` and of h (``h_bytes`` an element) at
+    ``h_ptrs``: ``SEGMENT_LANES``, loaded in pairs, where every row of every
+    buffer is aligned to two of its elements (P even, each pointer so
+    aligned), else 1."""
+    pairs = p % 2 == 0 and all(x % 8 == 0 for x in x_ptrs)
+    return SEGMENT_LANES if pairs and all(h % (2 * h_bytes) == 0 for h in h_ptrs) else 1
+
+
+def segments_plan(n: int, p: int, instance: int, wave: int, n_active=None) -> Eq6Plan:
+    """The ragged eq. (6) launch: ``instance`` 1 or ``SEGMENT_LANES``, the
+    tile kernel with that many lanes a thread (``segments_instance``), over
+    the ``n_active`` rows with terms and the idle rows after them in the
+    list's order (None: no order, every row tiled alike); 0, PR 19's lane
+    kernel."""
     _check(n, p, 1)
-    items = n * p
-    return Eq6Plan(0, 1, items, SEGMENT_THREADS,
-                   _grid(-(-items // SEGMENT_THREADS), wave))
+    if instance == 0:
+        items = n * p
+        return Eq6Plan(0, 1, items, SEGMENT_THREADS, _grid(-(-items // SEGMENT_THREADS), wave))
+    if instance not in (1, SEGMENT_LANES):
+        raise ValueError(f"segments instance {instance}: 0 (lane), 1 or {SEGMENT_LANES} "
+                         "(lanes a thread)")
+    if instance > 1 and p % 2:
+        raise ValueError(f"P = {p}: {instance} lanes a thread need an even row length")
+    n_active = n if n_active is None else n_active
+    if not 0 <= n_active <= n:
+        raise ValueError(f"{n_active} rows with terms of {n}")
+    copied = (n - n_active) * -(-p // SEGMENT_COPY_TILE)
+    items = n_active * -(-p // (SEGMENT_THREADS * instance)) + copied
+    grid = _grid(items, wave)
+    if copied * grid >= 2 ** 63:
+        raise ValueError(f"{copied} copy items on {grid} blocks: past the kernel's carry")
+    return Eq6Plan(instance, instance, items, SEGMENT_THREADS, grid)
 
 
 def attention_blocks(bh: int, s: int, bq: int) -> int:

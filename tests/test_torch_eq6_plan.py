@@ -365,3 +365,196 @@ def test_mask_handling_keeps_a_bool_mask_and_converts_the_rest():
         False, False, True]
     with pytest.raises(ValueError, match="active mask"):
         tk._as_mask(act, 4, torch.device("cpu"))
+
+
+# -- eq. (6) over a ragged term list (csrc/consensus_segments.cu) --------------
+
+SEG_N = [1, 9, 4_200, 70_000]
+SEG_P = [5, 4_099, 199_210]
+
+
+def test_segments_plan_constants_are_the_kernel():
+    seg = _constants("consensus_segments.cu")
+    src = (CSRC / "consensus_segments.cu").read_text()
+    seg.update({k: int(v) for k, v in re.findall(r"#define SEGMENT_(\w+) (\d+)", src)})
+    assert (seg["THREADS"], seg["CHUNK_LANES"], seg["COPY_TILE"]) == (
+        lp.SEGMENT_THREADS, lp.SEGMENT_CHUNK_LANES, lp.SEGMENT_COPY_TILE)
+    shipped = src[:src.index("#if SEGMENT_PROBE_LANES  //")]  # probe builds add 2 and 8
+    assert [int(x) for x in re.findall(r"consensus_segments_tile_kernel<HIST, WIRE, WP, (\d)>",
+                                       shipped)] == [1, lp.SEGMENT_LANES]
+    # the walk _segment_items emulates
+    for line in ("constexpr int TILE = THREADS * L;",
+                 "const long long copied = (n - n_active) * copies;",
+                 "const long long items = tiled + copied;",
+                 "const long long step_q = grid * copied / items;",
+                 "long long q = blockIdx.x * copied / items;",
+                 "x += grid, q += step_q + (rem >= items - step_r),",
+                 "rem += step_r - (rem >= items - step_r ? items : 0)) {",
+                 "if (rem >= items - copied) {",
+                 "const long long ri = quotient(q, copies);",
+                 "const long long c0 = (q - ri * copies) * COPY_TILE;",
+                 "const long long row = order[n_active + ri];",
+                 "const long long ri = quotient(x - q, tiles);",
+                 "const long long c0 = (x - q - ri * tiles) * TILE;",
+                 "const long long row = order != nullptr ? order[ri] : ri;",
+                 "const int lane = threadIdx.x * L;"):
+        assert line in src, line
+    # the C++'s refusals: the pair instance needs P even, x and outputs 8 bytes, h two
+    # elements; no order (or the lane kernel) means every row is tiled alike
+    assert "const int h_pair = hist == HIST_F32 ? 8 : 4;" in src
+    assert "(instance > 1 &&\n       (p % 2 != 0 || !aligned(x_mean, 8)" in src
+    assert "((order == nullptr || instance == 0) && n_active != n)" in src
+    assert "0x7fffffffffffffffLL / grid) ||" in src  # the carry's copied * grid < 2^63
+
+
+def _segment_decode(plan, n, p, n_active, item):
+    """(row position in the order, first lane, lanes) of tile-kernel items
+    ``item``, from its C++ index arithmetic: item x is copy item
+    floor(x C / T) where that floor steps up at x + 1, else tile item
+    x - floor(x C / T)."""
+    tile = lp.SEGMENT_THREADS * plan.instance
+    tiles, copies = -(-p // tile), -(-p // lp.SEGMENT_COPY_TILE)
+    copied = (n - n_active) * copies
+    total = n_active * tiles + copied
+    assert total == plan.items
+    item = np.asarray(item, dtype=object)  # exact products
+    q = item * copied // total
+    copy = (item + 1) * copied // total > q
+    k = np.where(copy, q, item - q).astype(np.int64)
+    pos = np.where(copy, n_active + k // copies, k // tiles)
+    c0 = np.where(copy, k % copies * lp.SEGMENT_COPY_TILE, k % tiles * tile)
+    width = np.where(copy, lp.SEGMENT_COPY_TILE, tile)
+    return pos, c0, np.minimum(width, p - c0)
+
+
+def _segment_carry(plan, n, p, n_active, blocks, steps):
+    """The kernel's carried (q, x copied mod items) over ``steps`` steps of
+    blocks ``blocks``, against the exact products."""
+    tile = lp.SEGMENT_THREADS * plan.instance
+    copied = (n - n_active) * -(-p // lp.SEGMENT_COPY_TILE)
+    items = n_active * -(-p // tile) + copied
+    grid = plan.grid
+    step_q, step_r = divmod(grid * copied, items)
+    for b in blocks:
+        q, rem = divmod(b * copied, items)
+        for x in range(b, min(items, b + steps * grid), grid):
+            assert (q, rem) == divmod(x * copied, items)
+            assert (rem >= items - copied) == ((x + 1) * copied // items > q)
+            carry = rem >= items - step_r
+            q, rem = q + step_q + carry, rem + step_r - (items if carry else 0)
+
+
+@pytest.mark.parametrize("wave", WAVES)
+@pytest.mark.parametrize("p", SEG_P)
+@pytest.mark.parametrize("n", SEG_N)
+def test_segments_walk_covers_every_row_lane_once(n, p, wave):
+    """Block b takes items b, b + grid, ...: the tile items of the rows
+    with terms (in the order) and the copy items of the idle rows spread
+    among them, the kernel's carried quotient exact; each row's tiles cover
+    its lanes once, and a tile's threads its lanes.  Every item is
+    decoded up to 4M lanes; above, the first and last item of each kind."""
+    for instance in (0, 1) + ((lp.SEGMENT_LANES,) if p % 2 == 0 else ()):
+        for n_active in ([n] if instance == 0 else sorted({n, n // 3, 0})):
+            plan = lp.segments_plan(n, p, instance, wave, None if instance == 0 else n_active)
+            _assert_balanced(dataclasses.replace(plan, threads=1)
+                             if instance else plan, wave)
+            if instance == 0:  # PR 19's lane kernel: one lane a thread, grid-stride
+                assert plan.items == n * p and plan.threads == lp.SEGMENT_THREADS
+                if n * p <= 2_000_000:
+                    ks = _grid_stride(plan.items, plan.threads, plan.grid)
+                    _assert_each_once(ks // p, ks % p, n, p)
+                continue
+            assert plan.vec == instance
+            _segment_carry(plan, n, p, n_active, {0, plan.grid // 2, plan.grid - 1}, 200)
+            if n * p <= 4_000_000:  # every block's items, decoded
+                item = _block_stride(plan.items, plan.grid)
+                pos, c0, ln = _segment_decode(plan, n, p, n_active, item)
+                assert (ln > 0).all()
+                rows = np.repeat(pos, ln)
+                lanes = np.repeat(c0 - np.cumsum(ln) + ln, ln) + np.arange(ln.sum())
+                _assert_each_once(rows, lanes, n, p)
+            else:  # the first and last item of each kind
+                pos, c0, ln = _segment_decode(plan, n, p, n_active, [0, plan.items - 1])
+                assert pos.min() == 0 and c0[0] == 0 and (ln > 0).all()
+                assert pos[-1] == (n - 1 if n_active < n else n_active - 1)
+                assert c0[-1] + ln[-1] == p
+            # a tile's threads: lane = t L and min(L, len - lane) lanes from there (whole
+            # pairs for L > 1, P being even)
+            first = np.arange(lp.SEGMENT_THREADS) * instance
+            tile = lp.SEGMENT_THREADS * instance
+            for ln in {min(tile, p), p - (-(-p // tile) - 1) * tile}:
+                live = first[first < ln]
+                lanes = np.minimum(instance, ln - live)
+                assert instance == 1 or (lanes % 2 == 0).all()
+                got = np.concatenate([a + np.arange(k) for a, k in zip(live, lanes)])
+                assert np.array_equal(np.sort(got), np.arange(ln))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_segments_order_puts_the_rows_with_terms_first(seed):
+    """ragged_terms' order: a permutation of the rows, the rows with terms
+    first (most terms first, ties in row order), then the idle rows in row
+    order; n_active counts the first."""
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(1, 60))
+    e = int(rng.integers(0, 4 * n))
+    terms = lp.ragged_terms(n, rng.integers(0, n, e), rng.integers(0, 2 * n, e),
+                            rng.uniform(0.1, 1, e), rng.random(n) < 0.7)
+    counts = np.diff(terms.row_ptr)
+    order, a = terms.order, terms.n_active
+    assert order.dtype == np.int32 and np.array_equal(np.sort(order), np.arange(n))
+    assert a == int((counts > 0).sum()) and (counts[order[:a]] > 0).all()
+    assert (counts[order[a:]] == 0).all() and np.array_equal(order[a:], np.sort(order[a:]))
+    busy = order[:a]
+    assert all(counts[x] > counts[y] or (counts[x] == counts[y] and x < y)
+               for x, y in zip(busy, busy[1:]))
+
+
+PAIRS = lp.SEGMENT_LANES
+
+
+@pytest.mark.parametrize("p,x_ptrs,h_ptrs,h_bytes,want", [
+    (199_210, (BASE, BASE + 4 * 199_210), (BASE,), 4, PAIRS),  # the slice: odd rows 8 off 16
+    (199_210, (BASE,), (BASE, BASE + 2 * 199_210), 2, PAIRS),  # bf16 rows 4 bytes aligned
+    (199_210, (BASE,), (BASE + 2,), 2, 1),  # a ring view one element off
+    (199_210, (BASE + 4,), (), 4, 1),  # an x view one lane off
+    (4_099, (BASE,), (), 4, 1),  # odd P: every other row one lane off
+    (4_099, (BASE,), (BASE,), 2, 1),
+    (4_100, (BASE + 8,), (BASE + 8,), 4, PAIRS),  # 8 bytes is enough for a pair
+    (4_100, (BASE,), (BASE + 4,), 4, 1),  # an f32 h row one lane off
+    (6, (BASE,), (BASE + 4,), 2, PAIRS),  # a bf16 h view two elements off
+])
+def test_segments_lanes_from_pointers_and_row_stride(p, x_ptrs, h_ptrs, h_bytes, want):
+    assert lp.segments_instance(p, x_ptrs, h_ptrs, h_bytes) == want
+    if want > 1:  # every row of every buffer holds whole pairs
+        for row in range(4):
+            assert all((x + 4 * p * row) % 8 == 0 for x in x_ptrs)
+            assert all((h + h_bytes * p * row) % (2 * h_bytes) == 0 for h in h_ptrs)
+
+
+def test_segments_plan_at_the_delayed_slice():
+    # 7 rows x 195 tiles of 1024 lanes, then 2 idle rows x 49 tiles of 4096, on 4 blocks
+    # an SM: 1,463 items, 3 a block on 488 blocks
+    plan = lp.segments_plan(9, 199_210, 4, SMS * 4, n_active=7)
+    assert (plan.instance, plan.vec, plan.items, plan.threads, plan.grid) == (
+        4, 4, 7 * 195 + 2 * 49, 256, 488)
+    assert lp.segments_plan(9, 199_210, 1, SMS * 8).items == 9 * 779  # no order
+    assert lp.segments_plan(4_200, 199_210, 4, SMS * 4, n_active=784).grid == SMS * 4
+    lane = lp.segments_plan(9, 199_210, 0, SMS * 8)
+    assert (lane.items, lane.grid) == (9 * 199_210, 1_001)
+
+
+def test_segments_plan_refuses_what_the_kernel_does_not_take():
+    for instance in (-1, 2, 3, 8):
+        with pytest.raises(ValueError):
+            lp.segments_plan(9, 8, instance, SMS)
+    with pytest.raises(ValueError):
+        lp.segments_plan(9, 4_099, lp.SEGMENT_LANES, SMS)  # odd P: no pairs
+    for n_active in (-1, 10):
+        with pytest.raises(ValueError):
+            lp.segments_plan(9, 8, 1, SMS, n_active)
+    for args in ((9, 8, 1, 0), (0, 8, 1, SMS), (9, 0, 1, SMS), (2 ** 31, 8, 1, SMS),
+                 (2 ** 40, 2 ** 23, 1, SMS)):
+        with pytest.raises(ValueError):
+            lp.segments_plan(*args)
+    lp.segments_plan(70_000, 3, 1, SMS)  # any N

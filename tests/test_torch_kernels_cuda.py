@@ -649,3 +649,184 @@ def test_segments_kernel_matches_plain_and_repeats_its_bits(dev, n, p, ring, wir
             assert bool(torch.all((g - w).abs() <= u * w.abs() + u * w.abs().max()))
     idle = torch.from_numpy(terms.row_ptr[1:] == terms.row_ptr[:-1]).to(dev)
     assert torch.equal(got[0][idle], x_m[idle]) and torch.equal(got[1][idle], x_r[idle])
+
+
+# -- the tile kernel of csrc/consensus_segments.cu against PR 19's lane kernel --
+
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
+
+
+def _segments_instances(terms, x_m, x_r, h_m, h_r, wire, wp_first, instances):
+    """The (mean, rho) of each forced instance, and of the planned one (None)."""
+    return {inst: k._segments_launch(terms, x_m, x_r, h_m, h_r, wire, wp_first, inst)
+            for inst in instances}
+
+
+def _same_bits(a, b):
+    return all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("ring", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("wp_first", [False, True])
+@pytest.mark.parametrize("n,p", [(9, 4_099), (9, 4_100), (300, 258), (70_000, 4)])
+def test_segments_tile_kernel_is_the_lane_kernel_bitwise(dev, n, p, ring, wire, wp_first):
+    """The tile kernel (planned, and forced at 1 and, at even P, 4 lanes a
+    thread) gives PR 19's lane kernel's bits, and is within 1e-5 (one wire
+    ulp) of the plain version."""
+    terms, x_m, x_r, h_m, h_r = _ragged_case(n, p, 4, n + p + 3, dev, DTYPES[ring])
+    got = _segments_instances(terms, x_m, x_r, h_m, h_r, wire, wp_first,
+                              [0, None, 1] + ([4] if p % 2 == 0 else []))
+    torch.cuda.synchronize()
+    for inst in got:
+        assert _same_bits(got[inst], got[0]), inst
+    want = k.consensus_segments_plain(terms, x_m, x_r, h_m, h_r, wire, wp_first)
+    for g, w in zip(got[None], want):
+        if wire == "f32":
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+        else:
+            u = WIRE_EPS[wire]
+            assert bool(torch.all((g - w).abs() <= u * w.abs() + u * w.abs().max()))
+
+
+def _long_row_case(n, p, dev, ring, offset=0):
+    """Row 1 sums 11 terms (more than one chunk of 4), mixing x and ring rows;
+    row 2 is idle; the other rows take one to three terms.  x and h are views
+    ``offset`` elements into a larger buffer."""
+    from repro_torch.kernels.launch_plan import ragged_terms
+
+    rng = np.random.default_rng(n + p + offset)
+
+    def view(rows, dtype, lo, hi):
+        a = torch.from_numpy(rng.uniform(lo, hi, (rows * p + offset,)).astype(np.float32))
+        return a.to(dev).to(dtype)[offset:].view(rows, p)
+
+    x_m, x_r = view(n, torch.float32, -2, 2), view(n, torch.float32, -4.5, 0.5)
+    h_m, h_r = view(2 * n, ring, -2, 2), view(2 * n, ring, -4.5, 0.5)
+    dst = [1] * 11 + [i for i in range(n) if i not in (1, 2) for _ in range(1 + i % 3)]
+    src = rng.integers(0, 3 * n, len(dst))
+    w = rng.uniform(0.05, 0.5, len(dst)).astype(np.float32)
+    return ragged_terms(n, dst, src, w), x_m, x_r, h_m, h_r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ring", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("offset", [0, 1, 2])  # rows 16 (or 8), 4 and 8 bytes off 16
+@pytest.mark.parametrize("p", [4_096, 4_099])
+def test_segments_tile_kernel_on_views_and_long_rows(dev, p, offset, ring):
+    """Misaligned views (the plan falls back to one lane a thread where a
+    row is off its pair alignment) and a row of 11 terms, more than one
+    chunk at every width: the lane kernel's bits, and the aligned copy's."""
+    terms, x_m, x_r, h_m, h_r = _long_row_case(9, p, dev, DTYPES[ring], offset)
+    aligned = [a.clone() for a in (x_m, x_r, h_m, h_r)]
+    for wire in ("f32", "bf16"):
+        got = _segments_instances(terms, x_m, x_r, h_m, h_r, wire, False, [0, None, 1])
+        again = k._segments_launch(terms, *aligned, wire, False)
+        torch.cuda.synchronize()
+        assert _same_bits(got[None], got[0]) and _same_bits(got[1], got[0])
+        assert _same_bits(again, got[0])
+        assert bool(torch.isfinite(got[None][0]).all())
+    if p % 2:  # the plan refuses pairs on odd rows
+        with pytest.raises(ValueError, match="even row length"):
+            k._segments_launch(terms, x_m, x_r, h_m, h_r, None, False, 4)
+    elif offset % 2:
+        with pytest.raises(RuntimeError, match="CUDA error"):  # the C++ refuses them off pairs
+            k._segments_launch(terms, x_m, x_r, h_m, h_r, None, False, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("instance", [0, None])
+def test_segments_non_finite_and_out_of_range_sources_give_nan(dev, instance):
+    """A row whose only term reads a NaN source at weight 0 stays NaN
+    (0 * NaN, as in the reference); a term reading past the sources sets its
+    row to NaN; the other rows are the clean call's bits."""
+    from repro_torch.kernels.launch_plan import RaggedTerms
+
+    n, p = 6, 1_030
+    rng = np.random.default_rng(3)
+    x_m, x_r = (torch.from_numpy(rng.uniform(-2, 0.5, (n, p)).astype(np.float32)).to(dev)
+                for _ in range(2))
+    row_ptr = np.array([0, 1, 2, 4, 5, 5, 6], np.int32)
+    src = np.array([0, 5, 1, 2, 3, 5], np.int32)
+    w = np.array([1.0, 0.0, 0.5, 0.5, 1.0, 1.0], np.float32)
+    clean = RaggedTerms(row_ptr, src, w).to(dev)
+    bad = RaggedTerms(row_ptr, np.array([0, 5, 1, 2, n + 7, 5], np.int32), w).to(dev)
+    poisoned_m, poisoned_r = x_m.clone(), x_r.clone()
+    poisoned_m[5], poisoned_r[5] = float("nan"), float("nan")
+    want = k._segments_launch(clean, x_m, x_r, None, None, None, False, instance)
+    nan_src = k._segments_launch(clean, poisoned_m, poisoned_r, None, None, None, False,
+                                 instance)
+    out_of_range = k._segments_launch(bad, x_m, x_r, None, None, None, False, instance)
+    torch.cuda.synchronize()
+    for got in nan_src:
+        assert bool(torch.isnan(got[1]).all()) and bool(torch.isnan(got[5]).all())
+    for got, ref in zip(out_of_range, want):  # row 1 is 0 / 0 = NaN in both
+        assert bool(torch.isnan(got[3]).all())
+        keep = torch.arange(n, device=dev) != 3
+        assert torch.equal(got[keep].view(torch.int32), ref[keep].view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_segments_tile_kernel_pass_through_rows(dev):
+    """Idle rows copy their pass-through row bitwise from x or from a
+    bf16 h (decoded), at every copy width (rows 16, 8 and 4 bytes aligned);
+    a pass-through index past the sources gives NaN."""
+    from repro_torch.kernels.launch_plan import RaggedTerms
+
+    n, p = 6, 3_001  # odd P: rows start 0, 4, 8 and 12 bytes off 16
+    rng = np.random.default_rng(9)
+    x_m, x_r = (torch.from_numpy(rng.normal(size=(n, p)).astype(np.float32)).to(dev)
+                for _ in range(2))
+    h_m, h_r = (torch.from_numpy(rng.normal(size=(2, p)).astype(np.float32)).to(dev)
+                .to(torch.bfloat16) for _ in range(2))
+    row_ptr = np.array([0, 1, 1, 1, 1, 1, 1], np.int32)
+    # rows 1, 2, 4 copy at 4, 8 and 16 bytes; row 3 decodes h row 1; row 5 reads past h
+    terms = RaggedTerms(row_ptr, np.array([0], np.int32), np.array([1.0], np.float32),
+                        np.array([0, 3, 2, n + 1, 0, n + 2], np.int32)).to(dev)
+    mean, rho = k._segments_launch(terms, x_m, x_r, h_m, h_r, None, False)
+    torch.cuda.synchronize()
+    for row, s in ((1, 3), (2, 2), (4, 0)):
+        assert torch.equal(mean[row], x_m[s]) and torch.equal(rho[row], x_r[s])
+    assert torch.equal(mean[3], h_m[1].float()) and torch.equal(rho[3], h_r[1].float())
+    assert bool(torch.isnan(mean[5]).all()) and bool(torch.isnan(rho[5]).all())
+
+
+@pytest.mark.cuda
+def test_segments_runs_one_device_kernel_per_call(dev):
+    terms, x_m, x_r, h_m, h_r = _ragged_case(9, 4_100, 4, 1, dev, torch.bfloat16)
+    terms = terms.to(dev)  # resident: a call is the kernel alone
+    names = _device_kernels(lambda: k.consensus_fused_segments(terms, x_m, x_r, h_m, h_r))
+    assert len(names) == 1 and "consensus_segments_tile_kernel" in names[0], names
+    names = _device_kernels(lambda: k._segments_launch(terms, x_m, x_r, h_m, h_r, None, False, 0))
+    assert len(names) == 1 and "consensus_segments_kernel" in names[0], names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,p", [(9, 199_210), (300, 5_000), (4_200, 64)])
+def test_segments_row_order_does_not_change_the_bits(dev, n, p):
+    """The list's order (rows with terms first, heaviest first; idle rows
+    then copied in 4096-lane items) against no order (every row tiled
+    alike) and PR 19's lane kernel: the same bits; a row with terms that
+    an order on the card puts among the idle rows is NaN, not skipped."""
+    import dataclasses
+
+    terms, x_m, x_r, h_m, h_r = _ragged_case(n, p, 4, n + p + 5, dev, torch.bfloat16)
+    assert terms.order is not None and 0 < terms.n_active < n
+    plain = dataclasses.replace(terms, order=None, n_active=None)
+    ordered = k._segments_launch(terms, x_m, x_r, h_m, h_r, None, False)
+    unordered = k._segments_launch(plain, x_m, x_r, h_m, h_r, None, False)
+    lane = k._segments_launch(terms, x_m, x_r, h_m, h_r, None, False, 0)
+    torch.cuda.synchronize()
+    assert _same_bits(ordered, lane) and _same_bits(unordered, lane)
+    wrong = terms.order.copy()
+    a = terms.n_active
+    wrong[a - 1], wrong[a] = wrong[a], wrong[a - 1]  # a busy row among the idle ones
+    bad = dataclasses.replace(terms, order=wrong).to(dev)  # on the card: not checked
+    got = k._segments_launch(bad, x_m, x_r, h_m, h_r, None, False)
+    torch.cuda.synchronize()
+    busy_row = int(terms.order[a - 1])
+    assert bool(torch.isnan(got[0][busy_row]).all())
+    with pytest.raises(ValueError, match="order"):  # the host's check
+        k._segments_launch(dataclasses.replace(terms, order=wrong), x_m, x_r, h_m, h_r,
+                           None, False)
