@@ -51,7 +51,22 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    setting (3x3 grid, 9 agents, ``mnist_like`` 784-dim 10-class data, grid
    partition, the 784-200-200-10 Bayes-by-Backprop MLP, P = 199,210 per
    agent, batch 16, u = 4) through ``build_session -> run(3) -> evaluate()
-   -> health()``.  The gossip slice: the same data and model on
+   -> health()``.  ``3.launch``: the same spec on the production launch
+   engine (``RunSpec(engine="launch")``, ``launch.steps``), 3 rounds,
+   against the synchronous slice of the same seed (atol/rtol 1e-5,
+   accuracies 1e-6; whether bitwise is printed), with the per-round wall
+   time; ``3.launch_checkpoint``: that session saved and loaded on the card
+   and the CPU (its leaves a ``BayesTrainState``'s, the 0-d int32 step),
+   one more round bitwise.  ``3.serve``: f32 and bf16 snapshots of the
+   slice (14,343,120 and 7,171,560 bytes), a ragged request stream over the
+   buckets (1, 2, 4, 8, 16, 32) at mc 8 and 0 across the agents through the
+   ``PredictiveServer`` (one CUDA-graph capture per key; captures equal to
+   the keys the stream touched, none added by a republish or a replay),
+   the served probabilities against ``mc_predict`` and the point estimate
+   on the same noise (1e-5), against the CPU's (1e-5) and, bf16-resident,
+   against the f32 snapshot's (5e-2), the staleness SLO under the flag and
+   strict policies, p50/p99 latency per call, publish ms, the device memory
+   the graphs hold.  The gossip slice: the same data and model on
    ``TopologySpec.gossip("grid", ...)`` with examples/async_gossip.py's
    unreliable Poisson clock and chaos faults under ``fault_policy=
    "quarantine"``, ``run(4) -> evaluate() -> health()``, then the same spec
@@ -86,7 +101,8 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    9-agent Watts-Strogatz graph), and the quarantined segments consensus
    alone on the post-local posterior of an iid 16-agent edge-native
    session (``4.sparse_iid_consensus``) and that session's whole window
-   (``4.sparse_iid_parity``).  Each card-vs-CPU round exempts Adam's noise
+   (``4.sparse_iid_parity``), and one more launch-engine round
+   (``4.launch_parity``).  Each card-vs-CPU round exempts Adam's noise
    lanes (``adam_noise_lanes``: the two devices' moments apart by more than
    rounding of a well-set gradient explains) and the lanes consensus mixes
    them into from PARITY_ATOL on the posterior, holds them to the 2 u lr
@@ -94,7 +110,9 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    exempt; and the equivalence ladder on the card,
    bitwise: all-edges gossip == synchronous, zero-fault quarantine ==
    strict (instant, delayed and edge-native windows), latency 0 == instant
-   (no ring), and one delayed window run twice from one state;
+   (no ring), one delayed window run twice from one state, and a round
+   with a server attached (snapshots published, queries served) == the
+   round without (``serve_attached==detached``, the generators too);
    then the checkpoint, linreg and discrete paths (phase tags 3.*, each with
    the launch counters set to 0 around its run): ``3.checkpoint``, the
    synchronous slice saved after ``run(3)`` and ``Session.load``-ed on the
@@ -132,7 +150,8 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    basis take out;
 6. profile: the wall time of a warm synchronous round, of a warm gossip
    window, of a warm delayed window of the slice and of a warm edge-native
-   window at N = 4,200, and their device time by kernel (torch.profiler).
+   window at N = 4,200 and of a warm launch-engine round, and their device
+   time by kernel (torch.profiler).
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one JSON
 line describing the kernels, and ``{"ok": true, "device": {...}}``.
@@ -234,6 +253,13 @@ LINREG_ROUNDS = 60  # tests/test_api.py:262
 LINREG_MEAN_TOL = (1e-5, 1e-6)  # (rtol, atol): tests/test_torch_linreg.py
 LINREG_PREC_TOL = 1e-6  # of sqrt(prec_ii * prec_jj): tests/test_torch_linreg.py
 DISCRETE_TOL = (1e-6, 1e-5)  # (rtol, atol) on log-beliefs: tests/test_torch_discrete.py
+LAUNCH_TOL = (1e-5, 1e-5)  # (rtol, atol) launch vs simulated posterior: tests/test_api.py:46
+LAUNCH_ACC_ATOL = 1e-6  # launch vs simulated accuracies: tests/test_api.py:76
+SERVE_BUCKETS = (1, 2, 4, 8, 16, 32)  # serve.DEFAULT_BUCKETS
+SERVE_SIZES = [1, 3, 7, 12, 20, 33, 64, 5, 2, 17, 9, 30]  # a ragged stream's request rows
+SERVE_ATOL = 1e-5  # served vs mc_predict, card vs CPU: fp32 sums in another order
+SERVE_BF16_ATOL = 5e-2  # bf16- vs f32-resident snapshot's probabilities: tests/test_serve.py:172
+SNAPSHOT_F32_BYTES = 2 * 9 * P_SLICE * 4  # mean and rho of 9 agents: 14,343,120
 WIRES = ("f32", "bf16", "f16")
 N_BEYOND_GRID = 70_000  # agents (or attention heads) past a grid dimension's 65,535
 SRC = "src/repro_torch/kernels/csrc/"
@@ -261,6 +287,12 @@ def fig4_spec():
         inference=InferenceSpec(hidden=HIDDEN, depth=2),
         run=RunSpec(n_rounds=3, seed=0),
     )
+
+
+def launch_spec():
+    """The synchronous slice on the production launch engine."""
+    spec = fig4_spec()
+    return dataclasses.replace(spec, run=dataclasses.replace(spec.run, engine="launch"))
 
 
 def gossip_spec(policy="quarantine", faults=True, clock=None, **inf):
@@ -773,6 +805,225 @@ def run_slice(dev):
     return session, counts, prior
 
 
+def run_launch(dev, slice_session):
+    """Phase 3.launch: the slice's spec on the launch engine, 3 rounds, held
+    against the simulated slice session of the same seed (after its 3
+    rounds); counters around the rounds."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import build_session
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import BayesTrainState
+
+    session = build_session(launch_spec(), device=dev)
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    losses, walls = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        losses.append(session.round()["loss"])
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    ev = session.evaluate()
+    health = session.health()
+    counts = dispatch.launch_counts()
+    sim_ev = slice_session.evaluate()
+    lp, sp = session.posterior(), slice_session.posterior()
+    errs = {f: float((getattr(lp, f) - getattr(sp, f)).abs().max()) for f in ("mean", "rho")}
+    close = all(torch.allclose(getattr(lp, f), getattr(sp, f), rtol=LAUNCH_TOL[0],
+                               atol=LAUNCH_TOL[1]) for f in ("mean", "rho"))
+    bitwise = all(torch.equal(getattr(lp, f), getattr(sp, f)) for f in ("mean", "rho"))
+    acc_err = float(np.abs(np.asarray(ev["acc"]) - np.asarray(sim_ev["acc"])).max())
+    phase("3.launch", losses=losses, avg_acc=ev["avg_acc"], acc=ev["acc"],
+          health=health["n_healthy"], launches=counts, round_wall_ms=walls,
+          state=type(session.state).__name__, step=int(session.state.step),
+          vs_simulated_max_abs_err=errs, tol=LAUNCH_TOL, acc_max_abs_err=acc_err,
+          acc_atol=LAUNCH_ACC_ATOL, bitwise_simulated=bitwise)
+    if not isinstance(session.state, BayesTrainState) or int(session.state.step) != 3 * 4:
+        raise AssertionError(f"3.launch: state {type(session.state).__name__}")
+    if not np.all(np.isfinite(losses)) or not health["all_ok"]:
+        raise AssertionError(f"3.launch: losses {losses}, health {health}")
+    if counts["consensus_fused_network"] != 3 or counts["payload_validity_fused"] <= 0:
+        raise AssertionError(f"3.launch: launches {counts}")
+    if not close or acc_err > LAUNCH_ACC_ATOL:
+        raise AssertionError(f"3.launch: against the simulated slice {errs}, acc {acc_err}")
+    return session, counts
+
+
+def run_launch_checkpoint(dev, smi, session):
+    """Phase 3.launch_checkpoint: the launch session through save -> load
+    (card and CPU, bitwise), its leaves a ``BayesTrainState``'s, then one
+    more round on both card sessions, bitwise (counters around it)."""
+    import torch
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import BayesTrainState
+
+    loaded, fields = save_and_load("3.launch_checkpoint", session, dev, smi)
+    step = loaded.state.step
+    leaves_ok = (isinstance(loaded.state, BayesTrainState) and step.shape == ()
+                 and step.dtype == torch.int32 and fields["leaves"] == 7)
+    dispatch.reset_launch_counts()
+    session.round()
+    loaded.round()
+    torch.cuda.synchronize()
+    counts = dispatch.launch_counts()
+    same = states_bitwise(session.state, loaded.state)
+    phase("3.launch_checkpoint", **fields, bayes_train_state_leaves=leaves_ok,
+          resumed_round_bitwise=same, launches=counts)
+    if not same or not leaves_ok or counts["consensus_fused_network"] != 2:
+        raise AssertionError(f"3.launch_checkpoint: leaves {leaves_ok}, resumed bitwise "
+                             f"{same}, launches {counts}")
+
+
+def run_serve(dev, session, smi):
+    """Phase 3.serve: snapshots of the slice session and a ragged request
+    stream through the bucketed MC-predictive server (one CUDA-graph
+    capture per key), checked against ``mc_predict``, the CPU and the f32
+    snapshot, and the staleness SLO under both policies."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.flat import FlatPosterior
+    from repro_torch.serve import PredictiveServer, SnapshotStore, StalenessSLOError
+    from repro_torch.vi.bayes_by_backprop import mc_predict
+
+    live = session.posterior()
+    publish_ms = {}
+    snaps = {}
+    for dt in ("f32", "bf16"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snaps[dt] = session.snapshot(dtype=dt)
+        publish_ms[dt] = (time.perf_counter() - t0) * 1e3
+    nbytes = {dt: s.nbytes() for dt, s in snaps.items()}
+    shared = any(getattr(s.posterior, f).untyped_storage().data_ptr()
+                 == getattr(live, f).untyped_storage().data_ptr()
+                 for s in snaps.values() for f in ("mean", "rho"))
+    failures = []
+    if nbytes["f32"] != SNAPSHOT_F32_BYTES or 2 * nbytes["bf16"] != nbytes["f32"] or shared:
+        failures.append(f"snapshot bytes {nbytes}, storage shared {shared}")
+
+    # the stream, on the server's own generator: captures, replays, latency
+    x = session.data.x_test[:max(SERVE_SIZES)].cpu().numpy()
+    n_agents = session.data.n_agents
+    session.snapshot(dtype="f32")
+    server = session.attach_server(mc_samples=8, bucket_sizes=SERVE_BUCKETS)
+    torch.cuda.synchronize()
+    reserved0, allocated0 = torch.cuda.memory_reserved(dev), torch.cuda.memory_allocated(dev)
+    keys = set()
+
+    def stream(dtype, agent0=0):
+        for mc in (8, 0):
+            for i, n in enumerate(SERVE_SIZES):
+                probs, _ = server.query(x[:n], agent=(agent0 + i) % n_agents, mc_samples=mc)
+                if tuple(probs.shape) != (n, 10) or not torch.isfinite(probs).all():
+                    failures.append(f"probs {tuple(probs.shape)} for {n} rows")
+                keys.update((b, mc, dtype) for b in server._bucket_plan(n))
+
+    stream("f32")
+    captures = server.n_traces
+    torch.cuda.synchronize()
+    graph_reserved = torch.cuda.memory_reserved(dev) - reserved0
+    graph_allocated = torch.cuda.memory_allocated(dev) - allocated0
+    session.snapshot(dtype="f32")  # republish: no new capture
+    n_cold = len(server._lat_us)
+    stream("f32", agent0=4)
+    warm_us = np.asarray(server._lat_us[n_cold:])
+    replay_added = server.n_traces - captures
+    session.snapshot(dtype="bf16")
+    stream("bf16")
+    bf16_captures = server.n_traces - captures
+    stream("bf16", agent0=2)
+    bf16_replay_added = server.n_traces - captures - bf16_captures
+    if server.n_traces != len(keys) or replay_added or bf16_replay_added:
+        failures.append(f"captures {server.n_traces} for {len(keys)} keys, replays added "
+                        f"{replay_added} and {bf16_replay_added}")
+
+    # correctness on recorded noise: against mc_predict, the CPU, the f32 snapshot
+    def noise_fn(counter, mc, p):
+        return torch.randn((mc, p), generator=torch.Generator().manual_seed(5000 + counter))
+
+    cases = [(0, 7), (4, 32), (8, 1), (2, 20)]  # (agent, rows): one slab each
+    errs = {"vs_mc_predict": 0.0, "point_vs_predictive": 0.0, "card_vs_cpu": 0.0,
+            "bf16_vs_f32": 0.0}
+    served = {}
+    for dt in ("f32", "bf16"):
+        snap = session.snapshot(dtype=dt)
+        host = SnapshotStore()
+        host.publish(FlatPosterior(snap.posterior.mean.float().cpu(),
+                                   snap.posterior.rho.float().cpu(), snap.posterior.layout),
+                     window=snap.window, dtype=dt)
+        for mc in (8, 0):
+            card = PredictiveServer(session.serve_store, session.model.logits_fn, mc_samples=mc,
+                                    bucket_sizes=SERVE_BUCKETS, noise_fn=noise_fn)
+            cpu = PredictiveServer(host, session.model.logits_fn, mc_samples=mc,
+                                   bucket_sizes=SERVE_BUCKETS, noise_fn=noise_fn)
+            for c, (agent, n) in enumerate(cases):
+                got = card.query(x[:n], agent=agent)[0]
+                want = cpu.query(x[:n], agent=agent)[0]
+                errs["card_vs_cpu"] = max(errs["card_vs_cpu"],
+                                          float((got.cpu() - want).abs().max()))
+                served[dt, mc, c] = got
+                if dt != "f32":
+                    continue
+                xt = torch.as_tensor(x[:n], device=dev)
+                post = FlatPosterior(snap.posterior.mean[agent:agent + 1],
+                                     snap.posterior.rho[agent:agent + 1], snap.posterior.layout)
+                if mc:
+                    ref = mc_predict(post, session.model.logits_fn, xt,
+                                     eps=noise_fn(c, mc, post.n_params()).to(dev))[0]
+                    errs["vs_mc_predict"] = max(errs["vs_mc_predict"],
+                                                float((got - ref).abs().max()))
+                else:
+                    ref = session.predictive(agent, x[:n], n_mc=0)
+                    errs["point_vs_predictive"] = max(errs["point_vs_predictive"],
+                                                      float((got - ref).abs().max()))
+    for (dt, mc, c), got in served.items():
+        if dt == "bf16":
+            errs["bf16_vs_f32"] = max(errs["bf16_vs_f32"],
+                                      float((got - served["f32", mc, c]).abs().max()))
+    if max(errs["vs_mc_predict"], errs["point_vs_predictive"], errs["card_vs_cpu"]) > SERVE_ATOL \
+            or errs["bf16_vs_f32"] > SERVE_BF16_ATOL:
+        failures.append(f"errors {errs}")
+
+    # the staleness SLO on a store whose clock the phase sets
+    now = [session.round_idx]
+    store = SnapshotStore(clock=lambda: now[0])
+    store.publish(live, window=session.round_idx, dtype="bf16")
+    flag = PredictiveServer(store, session.model.logits_fn, mc_samples=2, max_staleness=1,
+                            staleness_policy="flag", bucket_sizes=(8,))
+    strict = PredictiveServer(store, session.model.logits_fn, mc_samples=2, max_staleness=1,
+                              staleness_policy="strict", bucket_sizes=(8,))
+    slo = {"fresh": strict.query(x[:3])[1]["slo_ok"]}
+    now[0] += 1
+    slo["age1_strict"] = strict.query(x[:3])[1]["slo_ok"]
+    now[0] += 1
+    slo["age2_flag"] = flag.query(x[:3])[1]["slo_ok"]
+    try:
+        strict.query(x[:3])
+        slo["age2_strict_refused"] = False
+    except StalenessSLOError:
+        slo["age2_strict_refused"] = True
+    slo["breaches"] = [flag.n_slo_breaches, strict.n_slo_breaches]
+    if slo != {"fresh": True, "age1_strict": True, "age2_flag": False,
+               "age2_strict_refused": True, "breaches": [1, 1]}:
+        failures.append(f"SLO {slo}")
+    tel = server.telemetry()
+    phase("3.serve", snapshot_bytes=nbytes, publish_ms=publish_ms, captures=server.n_traces,
+          keys=len(keys), f32_captures=captures, bf16_captures=bf16_captures,
+          replay_added=[replay_added, bf16_replay_added], requests=tel["requests"],
+          rows=tel["rows"], slabs=tel["batches"], padded_rows=tel["padded_rows"],
+          latency_warm_us={"p50": float(np.percentile(warm_us, 50)),
+                           "p99": float(np.percentile(warm_us, 99)), "n": int(warm_us.size)},
+          latency_all_us=tel["latency"], graph_reserved_bytes=graph_reserved,
+          graph_allocated_bytes=graph_allocated, max_abs_err=errs, atol=SERVE_ATOL,
+          bf16_atol=SERVE_BF16_ATOL, slo=slo, nvidia_smi=smi, failures=failures)
+    if failures:
+        raise AssertionError(f"3.serve: {'; '.join(failures)}")
+
+
 def adam_noise_lanes(card, cpu):
     """``[N, P]`` bool: the lanes whose Adam step rounding decided in the
     compared round, from the two devices' states after it (``card``,
@@ -1099,6 +1350,41 @@ def ladders(dev):
     phase("4.ladder", rung="delayed_window_twice==same_bits", bitwise=same, window=r)
     if not same:
         raise AssertionError("4.ladder: one delayed window run twice gave other bits")
+    serve_rung(dev)
+
+
+def serve_rung(dev):
+    """4.ladder rung serve_attached==detached: two slice sessions, one with
+    snapshots published and queries served around its rounds; after one
+    more round the states and the generators are bitwise equal."""
+    import torch
+
+    from repro_torch.api import build_session
+
+    p = P_SLICE
+    u, b = FIG4["local_updates"], FIG4["batch_size"]
+    a, c = build_session(fig4_spec(), device=dev), build_session(fig4_spec(), device=dev)
+    n = a.data.n_agents
+    x = a.data.x_test[:12].cpu().numpy()
+    g = torch.Generator().manual_seed(13)
+    server = None
+    for r in range(2):
+        idx = torch.randint(0, 150, (n, u * b), generator=g)  # every shard holds >= 150
+        eps = torch.randn((n, u, 1, p), generator=g)
+        a.snapshot(dtype="bf16" if r else "f32")
+        server = server or a.attach_server(mc_samples=8, bucket_sizes=SERVE_BUCKETS)
+        server.query(x, agent=r)
+        a.round(batch_idx=idx, eps=eps)
+        c.round(batch_idx=idx, eps=eps)
+    a.round()
+    c.round()
+    torch.cuda.synchronize()
+    same = {"state": states_bitwise(a.state, c.state),
+            "generator": bool(torch.equal(a.generator.get_state(), c.generator.get_state()))}
+    phase("4.ladder", rung="serve_attached==detached", bitwise=same, agents=n,
+          captures=server.n_traces, published=a.serve_store.n_published)
+    if not all(same.values()):
+        raise AssertionError(f"4.ladder serve_attached==detached: not bitwise: {same}")
 
 
 def states_bitwise(a, b) -> bool:
@@ -2175,6 +2461,8 @@ def main() -> int:
     errs.update(check_ops_kernels(dev))
     errs.update(check_segments(dev))
     session, counts, prior = run_slice(dev)
+    l_session, l_counts = run_launch(dev, session)
+    run_launch_checkpoint(dev, smi, l_session)
     gossip = run_gossip(dev)
     g_session, g_counts = gossip["3.gossip"]
     csr_counts = run_csr(dev, g_session)
@@ -2182,7 +2470,9 @@ def main() -> int:
     d_session, d_counts = run_delayed(dev, smi)
     sp_counts = run_sparse(dev, smi)
     run_sparse_1e4(dev, smi)
+    run_serve(dev, session, smi)  # after 3.sparse: its graphs stay out of that peak
     card_vs_cpu("4.parity", session, fig4_spec())
+    card_vs_cpu("4.launch_parity", l_session, launch_spec())
     card_vs_cpu("4.gossip_parity", g_session, gossip_spec())
     card_vs_cpu("4.delayed_parity", d_session, gossip_spec(clock=DELAYED_CLOCK))
     s_session = build_session(sparse_slice_spec(), device=dev)
@@ -2215,6 +2505,7 @@ def main() -> int:
     profile_round("6.profile", session)
     profile_round("6.gossip_profile", g_session)
     profile_round("6.delayed_profile", d_session)
+    profile_round("6.launch_profile", l_session)
 
     print(smi)
     print(json.dumps({"kernels": rows}))

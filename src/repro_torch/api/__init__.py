@@ -17,7 +17,7 @@ round, telemetry under ``evaluate()["engine"]``.
 write and read the JAX package's checkpoint documents.
 """
 from repro_torch.api.data import DataBundle, build_data
-from repro_torch.api.engines import ConjugateLinregEngine, Engine, SimulatedEngine
+from repro_torch.api.engines import ConjugateLinregEngine, Engine, LaunchEngine, SimulatedEngine
 from repro_torch.api.models import MODELS, ModelFns, build_model, mlp_init, mlp_logits, mlp_nll
 from repro_torch.api.session import Session, build_session
 from repro_torch.api.spec import (
@@ -39,6 +39,7 @@ __all__ = [
     "ExperimentSpec",
     "GossipEngine",
     "InferenceSpec",
+    "LaunchEngine",
     "MODELS",
     "ModelFns",
     "ObsSpec",

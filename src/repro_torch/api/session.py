@@ -12,6 +12,8 @@ the conjugate linear regression of paper Example 1).
     session.run()                          # or session.round(), one at a time
     session.evaluate()                     # per-agent MC-predictive accuracy
     session.health()                       # exchange-payload validity probe
+    session.snapshot(dtype="bf16")         # publish the serving copy
+    server = session.attach_server()       # batched MC-predictive serving
     session.save("exp.ckpt")               # self-describing: spec embedded
     session = Session.load("exp.ckpt")     # rebuild + resume, on the card
 
@@ -19,7 +21,9 @@ A gossip topology (``TopologySpec.gossip(base, params, clock=...)``) runs on
 the ``GossipEngine``: one event window per round, its telemetry under
 ``evaluate()["engine"]``.  ``InferenceSpec(method="conjugate_linreg")`` with
 ``DataSpec(dataset="linreg")`` runs the ``ConjugateLinregEngine``;
-``evaluate()`` then returns the global-test MSE.
+``evaluate()`` then returns the global-test MSE.  ``RunSpec(engine=
+"launch")`` runs the same round on the production ``LaunchEngine``
+(``launch.steps``).
 
 Randomness: the session owns one ``torch.Generator`` on its device, seeded
 from ``spec.run.seed``, and every draw consumes it in a fixed order.  Each
@@ -37,7 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.api.data import DataBundle, build_data
-from repro_torch.api.engines import ConjugateLinregEngine, Engine, SimulatedEngine
+from repro_torch.api.engines import ConjugateLinregEngine, Engine, LaunchEngine, SimulatedEngine
 from repro_torch.api.models import ModelFns, build_model
 from repro_torch.api.spec import ExperimentSpec
 from repro_torch.checkpoint.io import restore_leaf, restore_session, save_session, seed_key_data
@@ -63,9 +67,6 @@ def build_session(spec: ExperimentSpec, device=None, init_params=None) -> "Sessi
     gossiping = spec.topology.kind == "gossip" or (
         spec.topology.kind == "sparse" and spec.topology.clock is not None
     )
-    if spec.run.engine == "launch":
-        raise NotImplementedError(
-            "the launch engine arrives with ROADMAP queue A's launch engine item")
     n_agents = spec.topology.n_agents()
     data = build_data(spec.data, n_agents, device=device)
     model: ModelFns | None = None
@@ -80,6 +81,8 @@ def build_session(spec: ExperimentSpec, device=None, init_params=None) -> "Sessi
             # a gossip topology IS an execution model: one event window per
             # round on the GossipEngine
             engine = GossipEngine(spec, model, n_agents, device)
+        elif spec.run.engine == "launch":
+            engine = LaunchEngine(spec, model, n_agents, device)
         else:
             engine = SimulatedEngine(spec, model, n_agents, device)
     generator = torch.Generator(device=device).manual_seed(spec.run.seed)
@@ -102,6 +105,8 @@ class Session:
     round_idx: int = 0
     history: list = dataclasses.field(default_factory=list)
     _w_schedule: Any = dataclasses.field(default=None, repr=False)
+    _serve_store: Any = dataclasses.field(default=None, repr=False)
+    _server: Any = dataclasses.field(default=None, repr=False)
 
     def _spec_w_schedule(self):
         if self._w_schedule is None:
@@ -211,6 +216,58 @@ class Session:
         return torch.randn((n_mc, self.posterior().n_params()), generator=g,
                            device=self.device)
 
+    # -- serving (repro_torch.serve) ----------------------------------------
+
+    @property
+    def serve_store(self):
+        """The session's ``serve.SnapshotStore`` (made on first use; its
+        clock is the round counter, so a snapshot's age is in windows)."""
+        if self._serve_store is None:
+            from repro_torch.serve import SnapshotStore
+
+            self._serve_store = SnapshotStore(clock=lambda: self.round_idx)
+        return self._serve_store
+
+    def snapshot(self, dtype=None):
+        """Publish the consensus posterior into the serving double buffer: an
+        immutable copy resident in ``dtype`` (default
+        ``spec.serve.snapshot_dtype``; ``"bf16"`` halves the bytes), stamped
+        with the current window and the engine's ``snapshot_meta`` (gossip
+        staleness, quarantine totals), swapped in as the served front
+        buffer.  Only reads training state: a run with serving readers is
+        bitwise the run without."""
+        post = self.posterior()
+        if not isinstance(post, FlatPosterior):
+            raise ValueError(
+                "Session.snapshot() serves flat BbB posteriors; the "
+                f"{type(self.engine).__name__} posterior is not a FlatPosterior"
+            )
+        if dtype is None:
+            dtype = self.spec.serve.snapshot_dtype
+        meta_fn = getattr(self.engine, "snapshot_meta", None)
+        telemetry = meta_fn(self.state) if meta_fn is not None else {}
+        return self.serve_store.publish(post, window=self.round_idx, dtype=dtype,
+                                        telemetry=telemetry)
+
+    def attach_server(self, **overrides):
+        """A ``serve.PredictiveServer`` on this session's snapshot store and
+        model apply.  Defaults come from ``spec.serve`` (``mc_samples``,
+        ``bucket_sizes``, ``max_staleness``, ``staleness_policy``); keyword
+        ``overrides`` win (``seed``, ``noise_fn`` too).  It serves published
+        snapshots only: call ``snapshot()`` first, and again to roll the
+        served posterior forward.  Its telemetry shows in ``evaluate()``."""
+        if self.model is None:
+            raise ValueError("attach_server() requires a classification model (the "
+                             "conjugate linreg engine has no serving path)")
+        from repro_torch.serve import PredictiveServer
+
+        s = self.spec.serve
+        kwargs = dict(mc_samples=s.mc_samples, bucket_sizes=s.bucket_sizes,
+                      max_staleness=s.max_staleness, staleness_policy=s.staleness_policy)
+        kwargs.update(overrides)
+        self._server = PredictiveServer(self.serve_store, self.model.logits_fn, **kwargs)
+        return self._server
+
     def health(self) -> dict:
         """Per-agent posterior health probe.  Flat posteriors run the
         exchange-payload validity check (``core.flat.payload_validity``, the
@@ -238,7 +295,8 @@ class Session:
         fixed draw, so repeated calls agree), as in the JAX package.  An
         engine with a ``telemetry(state)`` hook (the gossip runtime:
         staleness, merges, faults and quarantine) adds it under
-        ``"engine"``."""
+        ``"engine"``, and a serving tier (a published snapshot or an
+        attached server) its block under ``"serving"``."""
         if self.data.kind == "linreg":
             phi_t, y_t = self.data.test_phi, self.data.test_y
             mean = self.posterior().mean.cpu().numpy()
@@ -255,6 +313,10 @@ class Session:
         telemetry = getattr(self.engine, "telemetry", None)
         if telemetry is not None:
             out["engine"] = telemetry(self.state)
+        if self._server is not None:
+            out["serving"] = self._server.telemetry()
+        elif self._serve_store is not None:
+            out["serving"] = self._serve_store.telemetry()
         return out
 
     # -- checkpointing -------------------------------------------------------

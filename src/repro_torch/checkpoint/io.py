@@ -42,6 +42,7 @@ PyTree = Any
 _ARR = "__arr__"
 _SCALAR = "__scalar__"
 _FLAT = "__flat_posterior__"
+_SNAPSHOT = "__posterior_snapshot__"
 _SESSION = "__session__"
 _ZSTD_MAGIC = b"\x28\xb5\x2f\xfd"
 _BF16 = "bfloat16"
@@ -179,6 +180,46 @@ def restore_flat_posterior(path: str, device=None) -> FlatPosterior:
         rho=_as_tensor(_unpack_leaf(doc["rho"])).to(device),
         layout=FlatLayout.from_doc(doc["layout"]),
     )
+
+
+def save_snapshot(path: str, snap, compress_level: int = 3) -> None:
+    """Checkpoint a ``serve.PosteriorSnapshot``: its buffers in their
+    resident dtype (a bf16 snapshot by the dtype's name) and its provenance
+    (window, version, dtype, telemetry) in the document, so a serving
+    replica restores the served posterior without any training state."""
+    post = snap.posterior
+    doc = {
+        _SNAPSHOT: True,
+        "layout": post.layout.to_doc(),
+        "mean": _pack_leaf(post.mean),
+        "rho": _pack_leaf(post.rho),
+        "window": int(snap.window),
+        "version": int(snap.version),
+        "dtype": snap.dtype,
+        "telemetry": snap.telemetry,
+    }
+    _write_doc(path, doc, compress_level)
+
+
+def restore_snapshot(path: str, device=None):
+    """Restore a ``serve.PosteriorSnapshot`` that either package's
+    ``save_snapshot`` wrote, in its resident dtype, onto ``device``
+    (default: the card; ``"cpu"`` to opt out)."""
+    from repro_torch.kernels.dispatch import resolve_device
+    from repro_torch.serve.snapshot import PosteriorSnapshot
+
+    doc = _read_doc(path)
+    if not doc.get(_SNAPSHOT):
+        raise ValueError(f"{path} is not a posterior-snapshot checkpoint")
+    device = resolve_device(device)
+    post = FlatPosterior(
+        mean=_as_tensor(_unpack_leaf(doc["mean"])).to(device),
+        rho=_as_tensor(_unpack_leaf(doc["rho"])).to(device),
+        layout=FlatLayout.from_doc(doc["layout"]),
+    )
+    return PosteriorSnapshot(posterior=post, window=int(doc["window"]),
+                             version=int(doc["version"]), dtype=doc["dtype"],
+                             telemetry=dict(doc.get("telemetry") or {}))
 
 
 def seed_key_data(seed: int) -> np.ndarray:

@@ -24,7 +24,7 @@ import torch
 import numpy as np
 
 from repro_torch.core import graphs
-from repro_torch.core.numerics import COMPUTE_DTYPE, softplus, softplus_inv_py
+from repro_torch.core.numerics import COMPUTE_DTYPE, canonical_wire_dtype, softplus, softplus_inv_py
 from repro_torch.core.posterior import leaves_with_keys, set_path
 from repro_torch.kernels.consensus import (
     consensus_fused_masked,
@@ -212,6 +212,31 @@ class FlatPosterior:
 
     def n_params(self) -> int:
         return self.layout.n_params
+
+    # -- serving-snapshot views (``repro_torch.serve``) -----------------------
+
+    def astype(self, dtype) -> "FlatPosterior":
+        """Both buffers cast to ``dtype`` (layout unchanged): the decode half
+        of the serving snapshot.  A same-dtype cast returns ``self``."""
+        if self.mean.dtype == dtype and self.rho.dtype == dtype:
+            return self
+        return FlatPosterior(mean=self.mean.to(dtype), rho=self.rho.to(dtype),
+                             layout=self.layout)
+
+    def snapshot(self, dtype=None) -> "FlatPosterior":
+        """A decoupled copy of both buffers, resident in ``dtype`` (a wire
+        dtype name or dtype; ``None`` is f32, ``"bf16"`` halves the bytes):
+        the publish half of the serving tier's double buffer.  The copy
+        shares no storage with the training buffers, so later training never
+        changes what a reader serves, and it only reads them."""
+        dt = canonical_wire_dtype(dtype)
+        return FlatPosterior(
+            mean=self.mean.detach().to(dtype=dt, memory_format=torch.contiguous_format,
+                                       copy=True),
+            rho=self.rho.detach().to(dtype=dt, memory_format=torch.contiguous_format,
+                                     copy=True),
+            layout=self.layout,
+        )
 
 
 def flat_posterior_from_pytree(post, layout: FlatLayout | None = None,

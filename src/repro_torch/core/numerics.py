@@ -85,6 +85,17 @@ def wire_roundtrip(x: torch.Tensor, wire_dtype) -> torch.Tensor:
     return x.to(wd).to(x.dtype)
 
 
+def wire_cast_pair(prec: torch.Tensor, pm: torch.Tensor, wire_dtype):
+    """Cast the (prec, prec*mu) sufficient-statistic pair to the wire dtype
+    for a real exchange (the payload stays compressed on the wire; the
+    receiver casts back and accumulates in fp32).  Identity for f32: returns
+    its inputs themselves."""
+    wd = canonical_wire_dtype(wire_dtype)
+    if wd == prec.dtype:
+        return prec, pm
+    return prec.to(wd), pm.to(wd)
+
+
 def softplus(x: torch.Tensor) -> torch.Tensor:
     """``logaddexp(x, 0)`` against a broadcast 0-d zero: the same bits as a
     full zero tensor, without one more [N, P] buffer (autograd saves the

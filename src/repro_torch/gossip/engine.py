@@ -578,6 +578,25 @@ class GossipEngine:
         last = state.last_merge.cpu().numpy()
         return np.where(last >= 0, (n - 1) - last, n).astype(np.int64)
 
+    def snapshot_meta(self, state) -> dict:
+        """The gossip provenance a serving snapshot carries: the window
+        index, staleness percentiles, merge counts and quarantine totals at
+        publish time, the raw material of the serving tier's staleness SLO.
+        Plain data, embeddable in the snapshot's checkpoint."""
+        age = self.staleness(state)
+        meta = {
+            "window": int(state.round),
+            "staleness": {
+                "p50": float(np.percentile(age, 50)),
+                "p90": float(np.percentile(age, 90)),
+                "max": int(age.max()),
+            },
+            "merges_total": int(state.n_merges.sum()),
+        }
+        if state.n_quarantined is not None:
+            meta["quarantined_total"] = int(state.n_quarantined.sum())
+        return meta
+
     def telemetry(self, state) -> dict:
         """Merged into ``Session.evaluate`` under ``"engine"``: staleness
         percentiles, merge counts, and the fault block when guarded."""

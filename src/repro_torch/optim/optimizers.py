@@ -14,6 +14,8 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.core import tree as _tree
+
 PyTree = Any
 
 
@@ -91,3 +93,15 @@ def sgd(momentum: float = 0.0) -> Optimizer:
 @torch.no_grad()
 def apply_updates(params: PyTree, updates: PyTree) -> PyTree:
     return tree_map(lambda p, u: p + u.to(p.dtype), params, updates)
+
+
+def global_norm(tree: PyTree) -> torch.Tensor:
+    """The l2 norm of all of ``tree``'s leaves together, in float32."""
+    return torch.sqrt(sum(torch.sum(torch.square(leaf.to(torch.float32)))
+                          for leaf in _tree.tree_leaves(tree)))
+
+
+def clip_by_global_norm(grads: PyTree, max_norm: float) -> PyTree:
+    """``grads`` scaled by ``min(1, max_norm / (global_norm + 1e-12))``."""
+    scale = torch.clamp(max_norm / (global_norm(grads) + 1e-12), max=1.0)
+    return _tree.tree_map(lambda g: g * scale, grads)

@@ -57,6 +57,52 @@ def agent_blocks(n: int, p: int) -> list[slice]:
     return [slice(s, min(s + b, n)) for s in range(0, n, b)]
 
 
+def free_energy_and_grad(post: FlatPosterior, prior: FlatPosterior, nll_fn: NllFn,
+                         batch: Any, eps: torch.Tensor, kl_scale: float = 1.0):
+    """``free_energy`` ``[N]`` and its gradient with respect to ``post``'s
+    buffers, a ``FlatPosterior``: the gradient of the summed per-agent free
+    energies, which is each agent's own (``torch.autograd.grad``; the prior
+    is held fixed).  ``eps [N, S, P]`` is the injected MC noise."""
+    mean = post.mean.detach().requires_grad_(True)
+    rho = post.rho.detach().requires_grad_(True)
+    prior = FlatPosterior(prior.mean.detach(), prior.rho.detach(), prior.layout)
+    with torch.enable_grad():
+        value = free_energy(FlatPosterior(mean, rho, post.layout), prior, nll_fn, batch, eps,
+                            kl_scale)
+        g_mean, g_rho = torch.autograd.grad(value.sum(), (mean, rho))
+    return value.detach(), FlatPosterior(g_mean, g_rho, post.layout)
+
+
+def vi_step(post: FlatPosterior, prior: FlatPosterior, opt: Optimizer, opt_state: Any,
+            nll_fn: NllFn, batch: dict, lr: torch.Tensor, step: torch.Tensor,
+            eps: torch.Tensor, kl_scale: float = 1.0, out=None):
+    """One Bayes-by-Backprop step on every agent (``batch``: dict of
+    ``[N, ...]`` tensors, ``eps [N, S, P]``), run over ``agent_blocks``.
+    ``step`` is the per-agent counter ``[N]`` or one scalar for all.  Every
+    block's new rows go into ``out`` (a ``(posterior, opt_state)`` pair,
+    which may be ``post`` and ``opt_state`` themselves: a block's rows are
+    read before they are written), else into new buffers.  Returns
+    (post', opt_state', loss [N])."""
+    n, p = post.mean.shape
+    if out is None:
+        out = (tree_map(torch.empty_like, post), tree_map(torch.empty_like, opt_state))
+    losses = []
+    for rows in agent_blocks(n, p):
+        block = tree_map(lambda x: x[rows], post)
+        loss, grads = free_energy_and_grad(
+            block, tree_map(lambda x: x[rows], prior), nll_fn,
+            {k: v[rows] for k, v in batch.items()}, eps[rows], kl_scale)
+        updates, new_opt = opt.update(grads, tree_map(lambda x: x[rows], opt_state),
+                                      step[rows] if step.ndim else step, lr)
+        del grads  # [b, P] each: not held into the next block's forward
+        new = apply_updates(block, updates)
+        del updates
+        for dst, src in zip(tree_leaves(out), tree_leaves((new, new_opt))):
+            dst[rows].copy_(src)
+        losses.append(loss)
+    return out[0], out[1], torch.cat(losses)
+
+
 def local_vi_steps(post: FlatPosterior, prior: FlatPosterior, opt: Optimizer,
                    opt_state: Any, nll_fn: NllFn, batches: dict, lr: torch.Tensor,
                    step0: torch.Tensor, n_samples: int = 1, kl_scale: float = 1.0,
@@ -66,44 +112,25 @@ def local_vi_steps(post: FlatPosterior, prior: FlatPosterior, opt: Optimizer,
 
     ``batches``: dict of ``[N, u, ...]`` tensors (one slice per local step).
     ``eps``: the injected noise ``[N, u, S, P]``; without it each step draws
-    ``[N, S, P]`` from ``generator``.  Agents are independent, so each step
-    runs over ``agent_blocks`` and writes every block's new rows into one
-    set of output buffers (new at the first step: the inputs stay as they
-    were; updated in place after).  Returns (new_post, new_opt_state,
-    per-agent mean loss over the u steps [N])."""
+    ``[N, S, P]`` from ``generator``.  Each step is a ``vi_step``: into new
+    buffers at the first step (the inputs stay as they were), in place
+    after.  Returns (new_post, new_opt_state, per-agent mean loss over the u
+    steps [N])."""
     n, p = post.mean.shape
     u = next(iter(batches.values())).shape[1]
-    prior = FlatPosterior(prior.mean.detach(), prior.rho.detach(), prior.layout)
-    blocks = agent_blocks(n, p)
-    out = out_opt = None
+    out = None
     step = step0
     losses = []
     for t in range(u):
-        batch = {k: v[:, t] for k, v in batches.items()}
         eps_t = eps[:, t] if eps is not None else torch.randn(
             (n, n_samples, p), generator=generator, device=post.mean.device
         )
-        if out is None:
-            out, out_opt = tree_map(torch.empty_like, post), tree_map(torch.empty_like, opt_state)
-        loss_t = []
-        for rows in blocks:
-            mean = post.mean[rows].detach().requires_grad_(True)
-            rho = post.rho[rows].detach().requires_grad_(True)
-            loss = free_energy(FlatPosterior(mean, rho, post.layout),
-                               tree_map(lambda x: x[rows], prior), nll_fn,
-                               {k: v[rows] for k, v in batch.items()}, eps_t[rows], kl_scale)
-            g_mean, g_rho = torch.autograd.grad(loss.sum(), (mean, rho))
-            updates, new_opt = opt.update(FlatPosterior(g_mean, g_rho, post.layout),
-                                          tree_map(lambda x: x[rows], opt_state), step[rows], lr)
-            del g_mean, g_rho  # [b, P] each: not held into the next block's forward
-            new = apply_updates(FlatPosterior(mean.detach(), rho.detach(), post.layout), updates)
-            del updates
-            for dst, src in zip(tree_leaves((out, out_opt)), tree_leaves((new, new_opt))):
-                dst[rows].copy_(src)
-            loss_t.append(loss.detach())
-        post, opt_state = out, out_opt
+        post, opt_state, loss = vi_step(post, prior, opt, opt_state, nll_fn,
+                                        {k: v[:, t] for k, v in batches.items()}, lr, step,
+                                        eps_t, kl_scale, out=out)
+        out = (post, opt_state)
         step = step + 1
-        losses.append(torch.cat(loss_t))
+        losses.append(loss)
     return post, opt_state, torch.stack(losses).mean(dim=0)
 
 
@@ -128,3 +155,8 @@ def mc_predict(post: FlatPosterior, logits_fn, x: torch.Tensor,
         for e in eps
     ]
     return torch.stack(probs).mean(dim=0)
+
+
+def predictive_confidence(probs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(argmax prediction, confidence = its predictive probability)."""
+    return torch.argmax(probs, dim=-1), torch.amax(probs, dim=-1)

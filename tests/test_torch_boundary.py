@@ -1,6 +1,7 @@
-"""The PyTorch port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports ``jax`` (or anything under it) or the JAX package
-``repro``, at top level or inside a function.  Nor ``msgpack`` or
+"""The PyTorch port stands alone: no module of ``src/repro_torch``, no port
+example (``examples/torch_*.py``) and not ``chip_smoke.py`` imports ``jax``
+(or anything under it) or the JAX package ``repro``, at top level or inside
+a function.  Nor ``msgpack`` or
 ``ml_dtypes``, which the JAX package's checkpoints use and the GPU machine
 does not have: the port carries its own MessagePack codec and reads bf16
 leaves by name."""
@@ -12,7 +13,9 @@ import pytest
 pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
+    ROOT / "examples" / f"torch_{name}.py"
+    for name in ("quickstart", "linear_regression", "serve_batched")]
 FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack", "ml_dtypes")
 
 

@@ -292,7 +292,7 @@ def test_segments_engine_matches_masked_engine_per_wire(wire):
     from the same state.  (Over several windows the fp32 order's last bits
     reach the next local step, whose Adam turns a gradient of rounding noise
     on a lane no sample has moved, v ~ 1e-9, into a step of ~lr: chip_smoke
-    NU_NOISE_FLOOR.)"""
+    adam_noise_lanes.)"""
     seg = tapi.build_session(_clocked(tapi, wire=wire, rounds=3), device="cpu")
     msk = tapi.build_session(_clocked(tapi, impl="masked", wire=wire, rounds=3), device="cpu")
     assert seg.engine.consensus_impl == "segments"
