@@ -58,7 +58,9 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    time; ``3.launch_checkpoint``: that session saved and loaded on the card
    and the CPU (its leaves a ``BayesTrainState``'s, the 0-d int32 step),
    one more round bitwise.  ``3.serve``: f32 and bf16 snapshots of the
-   slice (14,343,120 and 7,171,560 bytes), a ragged request stream over the
+   slice (14,343,120 and 7,171,560 bytes, exactly ``launch.costmodel
+   .serve_roofline``'s ``snapshot_hbm_bytes``; its modeled publish and
+   apply µs printed beside the measured ones), a ragged request stream over the
    buckets (1, 2, 4, 8, 16, 32) at mc 8 and 0 across the agents through the
    ``PredictiveServer`` (one CUDA-graph capture per key; captures equal to
    the keys the stream touched, none added by a republish or a replay),
@@ -91,7 +93,21 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    quarantine, ``mnist_like`` 784-dim data iid (16 rows an agent), the
    784-200-200-10 model: 3 windows and ``evaluate()``, every tensor shape of
    the third window recorded (none has two dimensions equal to N), the
-   dense view refused, the peak device memory.  ``3.sparse_1e4``: the
+   dense view refused, the peak device memory, and ``obs.network_stats``
+   once on the N = 4,200 posterior after the timed windows (its ms, and
+   its column chunks' extra device memory: at most 2 GiB).  ``3.obs``: the
+   synchronous slice with ``ObsSpec(enabled=True)`` (spans, convergence, a
+   JSONL sink), 3 rounds, a snapshot, an attached server's queries,
+   ``evaluate()`` and ``dashboard()``: the eight session and serving spans
+   present, the first round the compile bucket's (n = 1, warm n = 2), span
+   and counter events in the JSONL file, the convergence report's theory
+   rate the grid's ``consensus_contraction_rate``; the dashboard, the
+   spans' p50s and the round p50 beside ``3.slice``'s round wall ms.
+   ``3.obs_gossip``: the gossip slice with observability on, 4 windows:
+   ``gossip.windows`` 4, the ``gossip.jit_traces`` gauge equal to the
+   engine's ``n_traces`` (1), four ``gossip.window`` spans (masked), and
+   the window p50's ``window_attainment`` against the cost model's
+   ``window_masked`` roofline.  ``3.sparse_1e4``: the
    reference's ``engine_sparse`` cell (N = 10,000, P = 90), 3 windows,
    ``evaluate()``, save -> load -> one resumed window, bitwise;
 4. card vs CPU: one more synchronous round and one more gossip window from
@@ -112,7 +128,10 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    strict (instant, delayed and edge-native windows), latency 0 == instant
    (no ring), one delayed window run twice from one state, and a round
    with a server attached (snapshots published, queries served) == the
-   round without (``serve_attached==detached``, the generators too);
+   round without (``serve_attached==detached``, the generators too), and
+   the synchronous and gossip slices with observability on against off
+   (``obs_on==obs_off``: every state leaf, so every checkpoint leaf, and
+   the generators);
    then the checkpoint, linreg and discrete paths (phase tags 3.*, each with
    the launch counters set to 0 around its run): ``3.checkpoint``, the
    synchronous slice saved after ``run(3)`` and ``Session.load``-ed on the
@@ -147,7 +166,10 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    instance's registers and spills as ptxas reported them, and the launch
    floor (a one-cycle ``torch.cuda._sleep`` under the same timer), which
    every row's time less the floor and its share of the bound on that
-   basis take out;
+   basis take out; rows ``consensus_fused_network`` and
+   ``consensus_fused_masked`` also print ``costmodel_bound_ms``, the cost
+   model's ``flat_fused`` roofline, which agrees with ``bound_ms`` within
+   0.1% (the hand-written bound adds W's 4 N^2 bytes);
 6. profile: the wall time of a warm synchronous round, of a warm gossip
    window, of a warm delayed window of the slice and of a warm edge-native
    window at N = 4,200 and of a warm launch-engine round, and their device
@@ -171,10 +193,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM published peaks: 3.35 TB/s HBM, 67 TFLOP/s fp32 outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
+# H100 SXM published peaks: HBM and dense bf16 from the port's one home for
+# them (launch/mesh.py, no torch import); 67 TFLOP/s fp32 outside the tensor cores
+from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.launch.mesh import PEAK_FLOPS_BF16 as BF16_FLOP_PER_S  # noqa: E402
+
 FP32_FLOP_PER_S = 67e12
-BF16_FLOP_PER_S = 989e12  # dense bf16 on the tensor cores
 
 # stated tolerances
 F32_TOL = 1e-5            # kernel vs cuBLAS/plain, fp32 reduction order
@@ -231,6 +255,8 @@ DELAYED_CLOCK = {"kind": "delayed", "inner": GOSSIP_CLOCK,
 SPARSE_N = 4_200  # agents: above SPARSE_DENSE_GUARD = 4096, so no dense view can hide
 SPARSE_CLOCK = {"kind": "poisson", "rate": 0.05, "seed": 3}
 SEG_SMALL_P = 1_024  # phase 2's N = 4,200 case
+STATS_EXTRA_MAX = 2 << 30  # network_stats' temporaries at N = 4,200, full width
+COSTMODEL_RTOL = 1e-3  # phase 5 rows 1, 3: the hand bound adds W's 4 N^2 (+ N) bytes
 KL_RTOL = 1e-5    # sample_and_kl vs the pytree kl_gaussian: another fp32 sum order
 THETA_ATOL = 1e-6  # sample_and_kl's theta vs its plain version
 ATT_TOL = {"f32": 2e-5, "bf16": 2e-2, "f16": 2e-2}  # attention vs plain (tests/test_kernels.py:75)
@@ -802,7 +828,7 @@ def run_slice(dev):
     phase("3.slice", agents=session.data.n_agents, n_params=p, losses=losses,
           avg_acc=ev["avg_acc"], acc=ev["acc"], health=health["n_healthy"],
           launches=counts, setup_s=setup_s, run3_s=run_s)
-    return session, counts, prior
+    return session, counts, prior, run_s
 
 
 def run_launch(dev, slice_session):
@@ -886,6 +912,7 @@ def run_serve(dev, session, smi):
     import torch
 
     from repro_torch.core.flat import FlatPosterior
+    from repro_torch.launch.costmodel import serve_roofline
     from repro_torch.serve import PredictiveServer, SnapshotStore, StalenessSLOError
     from repro_torch.vi.bayes_by_backprop import mc_predict
 
@@ -898,16 +925,21 @@ def run_serve(dev, session, smi):
         snaps[dt] = session.snapshot(dtype=dt)
         publish_ms[dt] = (time.perf_counter() - t0) * 1e3
     nbytes = {dt: s.nbytes() for dt, s in snaps.items()}
+    n_agents = session.data.n_agents
+    modeled = {dt: serve_roofline(n_agents, session.posterior().n_params(), snapshot_dtype=dt)
+               for dt in ("f32", "bf16")}
     shared = any(getattr(s.posterior, f).untyped_storage().data_ptr()
                  == getattr(live, f).untyped_storage().data_ptr()
                  for s in snaps.values() for f in ("mean", "rho"))
     failures = []
     if nbytes["f32"] != SNAPSHOT_F32_BYTES or 2 * nbytes["bf16"] != nbytes["f32"] or shared:
         failures.append(f"snapshot bytes {nbytes}, storage shared {shared}")
+    if any(nbytes[dt] != modeled[dt]["snapshot_hbm_bytes"] for dt in nbytes):
+        failures.append(f"snapshot bytes {nbytes} against serve_roofline "
+                        f"{ {dt: m['snapshot_hbm_bytes'] for dt, m in modeled.items()} }")
 
     # the stream, on the server's own generator: captures, replays, latency
     x = session.data.x_test[:max(SERVE_SIZES)].cpu().numpy()
-    n_agents = session.data.n_agents
     session.snapshot(dtype="f32")
     server = session.attach_server(mc_samples=8, bucket_sizes=SERVE_BUCKETS)
     torch.cuda.synchronize()
@@ -1011,7 +1043,16 @@ def run_serve(dev, session, smi):
                "age2_strict_refused": True, "breaches": [1, 1]}:
         failures.append(f"SLO {slo}")
     tel = server.telemetry()
-    phase("3.serve", snapshot_bytes=nbytes, publish_ms=publish_ms, captures=server.n_traces,
+    p = session.posterior().n_params()
+    modeled_us = {  # the cost model's roofline at the card's HBM rate
+        "publish": {dt: m["roofline_seconds"]["publish"] * 1e6 for dt, m in modeled.items()},
+        "apply_per_slab_mc8": {b: serve_roofline(n_agents, p, mc_samples=8, batch=b, dim=784,
+                                                 n_classes=10)["roofline_seconds"]
+                               ["apply_per_batch"] * 1e6 for b in SERVE_BUCKETS},
+    }
+    phase("3.serve", snapshot_bytes=nbytes,
+          modeled_snapshot_bytes={dt: m["snapshot_hbm_bytes"] for dt, m in modeled.items()},
+          modeled_us=modeled_us, publish_ms=publish_ms, captures=server.n_traces,
           keys=len(keys), f32_captures=captures, bf16_captures=bf16_captures,
           replay_added=[replay_added, bf16_replay_added], requests=tel["requests"],
           rows=tel["rows"], slabs=tel["batches"], padded_rows=tel["padded_rows"],
@@ -1022,6 +1063,205 @@ def run_serve(dev, session, smi):
           bf16_atol=SERVE_BF16_ATOL, slo=slo, nvidia_smi=smi, failures=failures)
     if failures:
         raise AssertionError(f"3.serve: {'; '.join(failures)}")
+
+
+OBS_SPANS = {"session.run", "session.round", "session.w_build", "session.batches",
+             "obs.convergence", "serve.publish", "serve.request", "session.evaluate"}
+
+
+def with_obs(spec, jsonl_path=None):
+    """``spec`` with observability on: spans, convergence, a JSONL sink."""
+    from repro_torch.api import ObsSpec
+
+    return dataclasses.replace(spec, obs=ObsSpec(enabled=True, trace=True, convergence=True,
+                                                 jsonl_path=jsonl_path))
+
+
+def span_p50s(obs):
+    """{span name: {mode: (n, p50 us)}} of a session's tracer."""
+    return {name: {mode: (v["n"], v["p50_us"]) for mode, v in modes.items()}
+            for name, modes in obs.tracer.summary().items()}
+
+
+def span_cost_us(sync, reps=200):
+    """Median µs of one empty span: live with ``sync`` (the card idle),
+    live without, and a disabled tracer's."""
+    from repro_torch.obs import Tracer
+
+    out = {}
+    for name, tracer in [("live_sync", Tracer(sync=sync)), ("live", Tracer()),
+                         ("disabled", Tracer(enabled=False))]:
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            with tracer.span("probe", round=0):
+                pass
+            times.append((time.perf_counter() - t0) * 1e6)
+        out[name] = sorted(times)[reps // 2]
+    return out
+
+
+def run_obs(dev, smi, slice_wall_ms):
+    """Phase 3.obs: the synchronous slice with observability on (spans,
+    convergence, a JSONL sink), 3 rounds (``run(2)``, then ``round()``,
+    which builds its W from the schedule), then ``snapshot()``,
+    ``attach_server()``, queries, ``evaluate()`` and ``dashboard()``;
+    counters around the rounds."""
+    import numpy as np
+
+    from repro_torch.api import build_session
+    from repro_torch.core.theory import consensus_contraction_rate
+    from repro_torch.kernels import dispatch
+    from repro_torch.obs import Observability
+
+    failures = []
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "obs.jsonl")
+        session = build_session(with_obs(fig4_spec(), path), device=dev)
+        dispatch.reset_launch_counts()
+        hist = session.run(n_rounds=2, eval_every=1)
+        hist.append(session.round())
+        counts = dispatch.launch_counts()
+        session.snapshot()
+        server = session.attach_server(mc_samples=8, bucket_sizes=SERVE_BUCKETS)
+        x = session.data.x_test[:max(SERVE_SIZES)].cpu().numpy()
+        for i, n in enumerate(SERVE_SIZES[:6]):
+            server.query(x[:n], agent=i % session.data.n_agents)
+        ev = session.evaluate()
+        dashboard = session.dashboard()
+        events = [json.loads(line) for line in open(path)]
+    obs = session.obs
+    reg = obs.registry
+    names = {sp.name for sp in obs.tracer.spans}
+    summ = obs.tracer.summary()
+    rounds = summ.get("session.round", {})
+    kinds = {e["kind"] for e in events}
+    rep = obs.convergence.report()
+    theory = consensus_contraction_rate(fig4_spec().topology.w_schedule()(0))
+    losses = [r["loss"] for r in hist]
+    if not isinstance(obs, Observability) or obs.tracer.sync is None:
+        failures.append(f"bundle {type(obs).__name__}, sync {obs.tracer.sync}")
+    if reg.counter("session.rounds").value() != 3:
+        failures.append(f"session.rounds {reg.counter('session.rounds').value()}")
+    if not OBS_SPANS <= names:
+        failures.append(f"spans missing: {sorted(OBS_SPANS - names)}")
+    if rounds.get("compile", {}).get("n") != 1 or rounds.get("warm", {}).get("n") != 2:
+        failures.append(f"session.round split {rounds}")
+    if "span" not in kinds or not kinds & {"counter", "gauge"}:
+        failures.append(f"JSONL event kinds {sorted(kinds)}")
+    if rep["theory_rate"] != theory or rep["n_rounds"] != 3:
+        failures.append(f"convergence report {rep['theory_rate']} vs {theory}")
+    if counts["consensus_fused_network"] != 3 or not np.all(np.isfinite(losses)):
+        failures.append(f"launches {counts}, losses {losses}")
+    warm_round_p50_ms = rounds.get("warm", {}).get("p50_us", float("nan")) / 1e3
+    phase("3.obs", rounds=int(reg.counter("session.rounds").value()), losses=losses,
+          avg_acc=ev["avg_acc"], launches=counts, spans=span_p50s(obs),
+          round_warm_p50_ms=warm_round_p50_ms, slice_round_wall_ms=slice_wall_ms,
+          convergence={k: rep[k] for k in ("measured_rate", "theory_rate", "rate_attainment")},
+          latest=rep["latest"], serve_requests=reg.counter("serve.requests").value(),
+          jsonl_events=len(events), jsonl_kinds=sorted(kinds),
+          span_cost_us=span_cost_us(obs.tracer.sync), nvidia_smi=smi, failures=failures)
+    print(dashboard, flush=True)
+    if failures:
+        raise AssertionError(f"3.obs: {'; '.join(failures)}")
+    return counts
+
+
+def run_obs_gossip(dev, smi):
+    """Phase 3.obs_gossip: the gossip slice (chaos faults, quarantine) with
+    observability on, 4 windows; the window spans' p50 against the
+    ``window_masked`` roofline of the cost model."""
+    import numpy as np
+
+    from repro_torch.api import build_session
+    from repro_torch.kernels import dispatch
+    from repro_torch.obs import window_attainment
+
+    session = build_session(with_obs(gossip_spec()), device=dev)
+    dispatch.reset_launch_counts()
+    hist = session.run(n_rounds=4, eval_every=1)
+    counts = dispatch.launch_counts()
+    ev = session.evaluate()
+    reg = session.obs.registry
+    spans = [sp for sp in session.obs.tracer.spans if sp.name == "gossip.window"]
+    clock = session.spec.topology.gossip_clock()
+    wins = [clock.window(r) for r in range(4)]
+    part = [int(w.participating().sum()) for w in wins]
+    merging = [int(w.active.sum()) for w in wins]
+    window_us = sorted(sp.dur_us for sp in spans)
+    p50_us = window_us[len(window_us) // 2]
+    att = window_attainment(p50_us, n_agents=session.data.n_agents,
+                            n_params=session.posterior().n_params(),
+                            n_participating=int(np.median(part)),
+                            n_merging=int(np.median(merging)))
+    failures = []
+    if reg.counter("gossip.windows").value() != 4:
+        failures.append(f"gossip.windows {reg.counter('gossip.windows').value()}")
+    if reg.gauge("gossip.jit_traces").value() != session.engine.n_traces or \
+            session.engine.n_traces != 1:
+        failures.append(f"jit_traces {reg.gauge('gossip.jit_traces').value()}, "
+                        f"n_traces {session.engine.n_traces}")
+    if [sp.attrs["impl"] for sp in spans] != ["masked"] * 4:
+        failures.append(f"gossip.window spans {[sp.attrs for sp in spans]}")
+    if counts["consensus_fused_masked"] != 4 or counts["payload_validity_fused"] <= 0:
+        failures.append(f"launches {counts}")
+    phase("3.obs_gossip", windows=int(reg.counter("gossip.windows").value()),
+          jit_traces=reg.gauge("gossip.jit_traces").value(), n_traces=session.engine.n_traces,
+          losses=[r["loss"] for r in hist], avg_acc=ev["avg_acc"], launches=counts,
+          spans=span_p50s(session.obs), window_us=window_us, participating=part,
+          merging=merging, window_attainment=att,
+          quarantined=reg.gauge("engine.faults.quarantined.total").value(),
+          nvidia_smi=smi, failures=failures)
+    print(session.dashboard(), flush=True)
+    if failures:
+        raise AssertionError(f"3.obs_gossip: {'; '.join(failures)}")
+    return counts
+
+
+def obs_rung(dev):
+    """4.ladder rung obs_on==obs_off: the synchronous and the gossip slice,
+    each twice from one seed, one session with observability on (spans
+    synchronising the card, convergence sampled every round, a JSONL sink);
+    after the same rounds every state leaf (the posterior, the optimizer
+    state, every leaf a checkpoint writes) and the generators are bitwise
+    equal."""
+    import torch
+
+    from repro_torch.api import build_session
+
+    for name, spec, n_rounds in [("synchronous", fig4_spec(), 3),
+                                 ("gossip", gossip_spec(), 4)]:
+        with tempfile.TemporaryDirectory() as tmp:
+            on = build_session(with_obs(spec, os.path.join(tmp, "o.jsonl")), device=dev)
+            off = build_session(spec, device=dev)
+            on.run(n_rounds=n_rounds)
+            off.run(n_rounds=n_rounds)
+            on.snapshot()
+            on.attach_server(mc_samples=8).query(on.data.x_test[:7].cpu().numpy())
+            on.evaluate()
+            on.dashboard()
+            on.round()
+            off.round()
+            torch.cuda.synchronize()
+        same = {"state": states_bitwise(on.state, off.state),
+                "generator": bool(torch.equal(on.generator.get_state(),
+                                              off.generator.get_state()))}
+        walls = {"on": [], "off": []}  # warm rounds, in turns, after the check
+        for _ in range(4):
+            for key, sess in (("on", on), ("off", off)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sess.round()
+                torch.cuda.synchronize()
+                walls[key].append((time.perf_counter() - t0) * 1e3)
+        p50 = {k: sorted(v)[len(v) // 2] for k, v in walls.items()}
+        phase("4.ladder", rung=f"obs_on==obs_off({name})", bitwise=same,
+              agents=on.data.n_agents, rounds=n_rounds + 1,
+              spans=len(on.obs.tracer.spans), convergence_samples=len(on.obs.convergence.stats),
+              warm_round_ms=walls, warm_round_p50_ms=p50,
+              obs_overhead_ms=p50["on"] - p50["off"])
+        if not all(same.values()):
+            raise AssertionError(f"4.ladder obs_on==obs_off({name}): not bitwise: {same}")
 
 
 def adam_noise_lanes(card, cpu):
@@ -1351,6 +1591,7 @@ def ladders(dev):
     if not same:
         raise AssertionError("4.ladder: one delayed window run twice gave other bits")
     serve_rung(dev)
+    obs_rung(dev)
 
 
 def serve_rung(dev):
@@ -1888,6 +2129,7 @@ def run_sparse(dev, smi):
     from repro_torch.api import build_session
     from repro_torch.api.spec import SPARSE_DENSE_GUARD
     from repro_torch.kernels import dispatch
+    from repro_torch.obs import network_stats
     from repro_torch.vi.bayes_by_backprop import agent_blocks
 
     gc.collect()
@@ -1909,6 +2151,17 @@ def run_sparse(dev, smi):
     counts = dispatch.launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     peak_reserved = torch.cuda.max_memory_reserved(dev)
+    # the convergence statistic once on the N = 4,200 posterior, after the
+    # timed windows: its column chunks must add at most 2 GiB to the phase
+    post = session.posterior()
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    stats = network_stats(post.mean, post.rho)
+    torch.cuda.synchronize()
+    stats_ms = (time.perf_counter() - t0) * 1e3
+    stats_extra = torch.cuda.max_memory_allocated(dev) - held
+    stats_added_to_peak = max(0, held + stats_extra - peak)
     ev = session.evaluate()
     health = session.health()
     losses = [r["loss"] for r in hist]
@@ -1928,8 +2181,11 @@ def run_sparse(dev, smi):
           allocator_conf=os.environ.get("PYTORCH_CUDA_ALLOC_CONF"),
           local_step_blocks=len(agent_blocks(n, session.posterior().n_params())),
           shapes_recorded=len(rec.shapes), n_by_n_shapes=n_by_n,
-          dense_view_refused=dense_view_refused, nvidia_smi=smi)
+          dense_view_refused=dense_view_refused, network_stats=stats,
+          network_stats_ms=stats_ms, network_stats_extra_bytes=stats_extra,
+          network_stats_added_to_peak_bytes=stats_added_to_peak, nvidia_smi=smi)
     if (n <= SPARSE_DENSE_GUARD or session.posterior().n_params() != P_SLICE or n_by_n
+            or stats_extra > STATS_EXTRA_MAX or not all(np.isfinite(list(stats.values())))
             or not dense_view_refused or not health["all_ok"]
             or counts["consensus_fused_segments"] != 3 or counts["payload_validity_fused"] <= 0
             or any(x is None or not np.isfinite(x) for x in losses)):
@@ -2049,6 +2305,7 @@ def timings(dev, counts, errs):
     from repro_torch.kernels import consensus as k
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gauss_vi
+    from repro_torch.launch.costmodel import consensus_roofline
 
     n, p = 9, P_SLICE
     flush = Flush(dev)
@@ -2200,6 +2457,12 @@ def timings(dev, counts, errs):
             "library_ms": None if library is None else cuda_ms(library),
         }
         attention = "shape" in fields
+        if name in ("consensus_fused_network", "consensus_fused_masked"):
+            modeled = consensus_roofline(n, p, 1)["roofline_seconds"]["flat_fused"] * 1e3
+            fields = dict(fields, costmodel_bound_ms=modeled)
+            if abs(modeled - row["bound_ms"]) > COSTMODEL_RTOL * row["bound_ms"]:
+                raise AssertionError(f"5.timing {name}: bound {row['bound_ms']} ms, cost "
+                                     f"model {modeled} ms")
         if attention:
             fields = dict(fields, tflops=ops / row["ms"] / 1e9,
                           bound_share=row["bound_ms"] / row["ms"],
@@ -2460,7 +2723,7 @@ def main() -> int:
     errs = check_kernels(dev)
     errs.update(check_ops_kernels(dev))
     errs.update(check_segments(dev))
-    session, counts, prior = run_slice(dev)
+    session, counts, prior, slice_run_s = run_slice(dev)
     l_session, l_counts = run_launch(dev, session)
     run_launch_checkpoint(dev, smi, l_session)
     gossip = run_gossip(dev)
@@ -2471,6 +2734,8 @@ def main() -> int:
     sp_counts = run_sparse(dev, smi)
     run_sparse_1e4(dev, smi)
     run_serve(dev, session, smi)  # after 3.sparse: its graphs stay out of that peak
+    run_obs(dev, smi, slice_wall_ms=slice_run_s * 1e3 / 3)
+    run_obs_gossip(dev, smi)
     card_vs_cpu("4.parity", session, fig4_spec())
     card_vs_cpu("4.launch_parity", l_session, launch_spec())
     card_vs_cpu("4.gossip_parity", g_session, gossip_spec())

@@ -9,10 +9,13 @@ edge agents learn labels they have never seen.  The spec is
 ``examples/quickstart.py``'s; ``--engine launch`` runs the same experiment
 on the production ``launch.steps`` path.
 
-The reference example's convergence overlay (measured disagreement decay
-against the ring's Theorem-1 rate) needs ``obs/convergence.py``, which the
-port does not have yet (ROADMAP queue A item 8); this example prints a line
-saying so in its place.
+To watch a run instead of just reading its result, attach the
+observability layer: ``ExperimentSpec(obs=ObsSpec(enabled=True))`` gives
+``session.obs`` (metrics registry, spans that synchronise the card, live
+convergence tracking against theory) and ``session.dashboard()``; a pure
+observer, so the trajectory is bitwise the same.  ``convergence_demo``
+below overlays a measured disagreement decay against the ring's spectral
+prediction.
 
     PYTHONPATH=src python examples/torch_quickstart.py                 # on the card
     PYTHONPATH=src python examples/torch_quickstart.py --device cpu --rounds 5
@@ -26,6 +29,7 @@ from repro_torch.api import (
     DataSpec,
     ExperimentSpec,
     InferenceSpec,
+    ObsSpec,
     RunSpec,
     TopologySpec,
     build_session,
@@ -45,6 +49,30 @@ SPEC = ExperimentSpec(
     inference=InferenceSpec(hidden=32, depth=1, lr=5e-3, kl_scale=1e-3),
     run=RunSpec(n_rounds=20, seed=0, eval_every=5),
 )
+
+
+def convergence_demo(device=None):
+    """Theory against measurement: on a static ring with lr=0 and
+    per-agent inits, consensus is a plain W-average, so disagreement must
+    decay at the spectral rate -log lambda_max(W)."""
+    spec = ExperimentSpec(
+        topology=TopologySpec(kind="bidirectional_ring", params={"n": 4}),
+        data=DataSpec(dataset_params=dict(n_classes=3, dim=8, n_train_per_class=30),
+                      partition="iid", partition_params=dict(n_agents=4),
+                      batch_size=4, local_updates=1),
+        inference=InferenceSpec(hidden=8, depth=1, lr=0.0, shared_init=False),
+        run=RunSpec(n_rounds=10, seed=0),
+        obs=ObsSpec(enabled=True),
+    )
+    session = build_session(spec, device=device)
+    session.run()
+    report = session.obs.convergence.report()
+    for row in report["overlay"]:
+        print(f"  round {row['round']:2d}  measured {row['measured']:.3e}  "
+              f"predicted {row['predicted']:.3e}")
+    print(f"  measured rate {report['measured_rate']:.4f} vs theory "
+          f"{report['theory_rate']:.4f} -> attainment "
+          f"{report['rate_attainment']:.2f}")
 
 
 def main(argv=None):
@@ -71,7 +99,7 @@ def main(argv=None):
 
     print("\nconvergence overlay (lr=0 ring: measured decay vs Theorem-1 "
           "spectral rate):")
-    print("  not in the port yet: it needs obs/convergence.py (ROADMAP queue A item 8)")
+    convergence_demo(args.device)
 
 
 if __name__ == "__main__":

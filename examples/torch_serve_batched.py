@@ -5,9 +5,10 @@ Train a small gossip network, publish the consensus posterior into an
 immutable double-buffered snapshot (bf16-resident: half the bytes), attach
 a ``PredictiveServer``, and stream ragged request batches through its
 padding-bucket programs (one CUDA-graph capture per bucket on the card)
-under a bounded-staleness SLO.  The spec is ``examples/serve_batched.py``'s
-without ``ObsSpec`` and the dashboard, which need the port's observability
-layer (ROADMAP queue A item 8).
+under a bounded-staleness SLO.  The spec is ``examples/serve_batched.py``'s,
+with ``ObsSpec`` on: request spans and serve counters land in the metrics
+registry, the dashboard at the end reads them, and the trained posteriors
+are bitwise what they would be without it.
 
     PYTHONPATH=src python examples/torch_serve_batched.py              # on the card
     PYTHONPATH=src python examples/torch_serve_batched.py --device cpu
@@ -22,6 +23,10 @@ not):
     after 3 more windows: snapshot_age=3 slo_ok=False
     after republish: snapshot_age=0 slo_ok=True
     evaluate() serving block: published=2 slo_breaches=1
+
+    === session dashboard · engine=gossip round=9 ===
+    ...                                  (loop, gossip and serving counters
+                                          and the warm/compile span table)
 """
 import argparse
 
@@ -31,6 +36,7 @@ from repro_torch.api import (
     DataSpec,
     ExperimentSpec,
     InferenceSpec,
+    ObsSpec,
     RunSpec,
     ServeSpec,
     TopologySpec,
@@ -61,6 +67,8 @@ def main(argv=None):
             max_staleness=2,         # SLO: refuse/flag >2-window-old answers
             staleness_policy="flag",
         ),
+        # pure observer: the dashboard below reads the registry it fills
+        obs=ObsSpec(enabled=True),
     )
     sess = build_session(spec, device=args.device)
     hist = sess.run(eval_every=spec.run.n_rounds)  # history: final round only
@@ -106,6 +114,11 @@ def main(argv=None):
     serving = sess.evaluate(n_mc=2)["serving"]
     print(f"evaluate() serving block: published={serving['published']} "
           f"slo_breaches={serving['slo']['breaches']}")
+
+    # the same numbers from the metrics registry, as a terminal summary:
+    # loop counters, gossip staleness, serving state, and the span table
+    print()
+    print(sess.dashboard())
 
 
 if __name__ == "__main__":

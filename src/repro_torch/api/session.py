@@ -14,6 +14,7 @@ the conjugate linear regression of paper Example 1).
     session.health()                       # exchange-payload validity probe
     session.snapshot(dtype="bf16")         # publish the serving copy
     server = session.attach_server()       # batched MC-predictive serving
+    print(session.dashboard())             # with ExperimentSpec(obs=ObsSpec(enabled=True))
     session.save("exp.ckpt")               # self-describing: spec embedded
     session = Session.load("exp.ckpt")     # rebuild + resume, on the card
 
@@ -23,7 +24,11 @@ the ``GossipEngine``: one event window per round, its telemetry under
 ``DataSpec(dataset="linreg")`` runs the ``ConjugateLinregEngine``;
 ``evaluate()`` then returns the global-test MSE.  ``RunSpec(engine=
 "launch")`` runs the same round on the production ``LaunchEngine``
-(``launch.steps``).
+(``launch.steps``).  ``ExperimentSpec(obs=ObsSpec(enabled=True))`` attaches
+the observability bundle (``Session.obs``: metrics registry, spans that
+synchronise the card before they read the clock, the Theorem-1 convergence
+tracker) and ``Session.dashboard()`` prints it; a pure observer, so the run
+is bitwise the run without it.
 
 Randomness: the session owns one ``torch.Generator`` on its device, seeded
 from ``spec.run.seed``, and every draw consumes it in a fixed order.  Each
@@ -51,6 +56,7 @@ from repro_torch.core.simulated import as_w_schedule
 from repro_torch.core.tree import tree_leaves, tree_replace_leaves
 from repro_torch.gossip.engine import GossipEngine
 from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.obs.trace import maybe_span
 from repro_torch.vi.bayes_by_backprop import mc_predict
 
 EVAL_SEED = 99  # evaluate()'s default MC noise, the same on every call
@@ -87,8 +93,15 @@ def build_session(spec: ExperimentSpec, device=None, init_params=None) -> "Sessi
             engine = SimulatedEngine(spec, model, n_agents, device)
     generator = torch.Generator(device=device).manual_seed(spec.run.seed)
     state = engine.init(generator, params=init_params)
+    obs = None
+    if spec.obs.enabled:
+        from repro_torch.obs import Observability
+
+        obs = Observability.from_spec(spec, device=device)
+        # engines read this host-side hook at their dispatch boundaries only
+        engine.obs = obs
     return Session(spec=spec, engine=engine, model=model, data=data, state=state,
-                   generator=generator, device=device)
+                   generator=generator, device=device, _obs=obs)
 
 
 @dataclasses.dataclass
@@ -107,6 +120,15 @@ class Session:
     _w_schedule: Any = dataclasses.field(default=None, repr=False)
     _serve_store: Any = dataclasses.field(default=None, repr=False)
     _server: Any = dataclasses.field(default=None, repr=False)
+    _obs: Any = dataclasses.field(default=None, repr=False)
+
+    @property
+    def obs(self):
+        """The session's ``repro_torch.obs.Observability`` bundle (registry,
+        tracer, convergence tracker), or ``None`` when ``spec.obs`` is
+        disabled, the default: nothing is recorded and the run is the
+        uninstrumented run."""
+        return self._obs
 
     def _spec_w_schedule(self):
         if self._w_schedule is None:
@@ -126,16 +148,43 @@ class Session:
         An engine that declares ``wants_host_w`` (the gossip engine) gets the
         schedule value verbatim: the host float64 w_eff, whose exact activity
         mask a float32 cast would lose.  NaN-sentinel losses (agents that did
-        not train) are skipped; ``loss`` is ``None`` when none trained."""
+        not train) are skipped; ``loss`` is ``None`` when none trained.
+
+        With observability on (``spec.obs``) the round runs in a
+        ``session.round`` span, marked ``compile`` when the engine's
+        ``n_traces`` grew in it or, for an engine without one, on the first
+        observed round (which pays the kernel library's load, cuBLAS
+        handles and the allocator's first growth), and the loop's counters
+        and gauges land in the registry.  They observe values this method
+        computes anyway: the training math is the same either way."""
+        obs = self._obs
+        if obs is None:
+            return self._round_impl(W, batch_idx, eps, batch_seed)
+        tr = obs.tracer
+        n_traces0 = getattr(self.engine, "n_traces", None)
+        first = obs.registry.counter("session.rounds").value() == 0
+        with tr.span("session.round", round=self.round_idx):
+            rec = self._round_impl(W, batch_idx, eps, batch_seed)
+        if tr.enabled and tr.spans:
+            retraced = (n_traces0 is not None
+                        and getattr(self.engine, "n_traces") > n_traces0)
+            if retraced or (n_traces0 is None and first):
+                tr.spans[-1].attrs["compile"] = True
+        self._obs_after_round(rec)
+        return rec
+
+    def _round_impl(self, W, batch_idx, eps, batch_seed) -> dict:
         r = self.round_idx
         if W is None:
-            W = self._spec_w_schedule()(r)
+            with maybe_span(self._obs, "session.w_build", round=r):
+                W = self._spec_w_schedule()(r)
         if not getattr(self.engine, "wants_host_w", False):
             W = torch.as_tensor(np.asarray(W), dtype=torch.float32, device=self.device)
-        if self.data.kind == "linreg":
-            batches = self.data.sampler(self.generator, r, seed=batch_seed)
-        else:
-            batches = self.data.sampler(self.generator, r, idx=batch_idx)
+        with maybe_span(self._obs, "session.batches", round=r):
+            if self.data.kind == "linreg":
+                batches = self.data.sampler(self.generator, r, seed=batch_seed)
+            else:
+                batches = self.data.sampler(self.generator, r, idx=batch_idx)
         if eps is not None:
             eps = torch.as_tensor(eps, dtype=torch.float32, device=self.device)
         self.state, losses = self.engine.run_round(
@@ -155,6 +204,26 @@ class Session:
             rec["n_crashed"] = int(np.asarray(crashed).sum())
         return rec
 
+    def _obs_after_round(self, rec: dict) -> None:
+        """Post-round registry and convergence bookkeeping (observability on
+        only).  Reads ``rec`` and, on the convergence-sample rounds (every
+        ``convergence_every``), the posterior buffers."""
+        obs = self._obs
+        reg = obs.registry
+        reg.counter("session.rounds", "communication rounds run").inc()
+        reg.gauge("session.n_trained", "agents trained last round").set(rec["n_trained"])
+        if rec["loss"] is not None:
+            reg.gauge("session.loss", "mean trained-agent loss").set(rec["loss"])
+            reg.histogram("session.loss_dist", "per-round loss").observe(rec["loss"])
+        if "n_crashed" in rec:
+            reg.counter("session.crashed_agent_windows", "agent-windows down").inc(
+                rec["n_crashed"])
+        conv = obs.convergence
+        if conv is not None and (rec["round"] - 1) % obs.spec.convergence_every == 0:
+            with obs.tracer.span("obs.convergence", round=rec["round"]):
+                stats = conv.update(self.posterior(), rec["round"])
+            reg.ingest("convergence", stats)
+
     def run(self, n_rounds: int | None = None, w_schedule=None,
             eval_fn: Callable[["Session"], dict] | None = None,
             eval_every: int | None = None) -> list[dict]:
@@ -167,12 +236,13 @@ class Session:
                        else self._spec_w_schedule())
         eval_every = self.spec.run.eval_every if eval_every is None else eval_every
         history: list[dict] = []
-        for i in range(n):
-            rec = self.round(W=w_for_round(self.round_idx))
-            if eval_every and ((i + 1) % eval_every == 0 or i == n - 1):
-                if eval_fn is not None:
-                    rec.update(eval_fn(self))
-                history.append(rec)
+        with maybe_span(self._obs, "session.run", n_rounds=n):
+            for i in range(n):
+                rec = self.round(W=w_for_round(self.round_idx))
+                if eval_every and ((i + 1) % eval_every == 0 or i == n - 1):
+                    if eval_fn is not None:
+                        rec.update(eval_fn(self))
+                    history.append(rec)
         self.history.extend(history)
         return history
 
@@ -246,8 +316,15 @@ class Session:
             dtype = self.spec.serve.snapshot_dtype
         meta_fn = getattr(self.engine, "snapshot_meta", None)
         telemetry = meta_fn(self.state) if meta_fn is not None else {}
-        return self.serve_store.publish(post, window=self.round_idx, dtype=dtype,
-                                        telemetry=telemetry)
+        obs = self._obs
+        with maybe_span(obs, "serve.publish", window=self.round_idx, dtype=dtype):
+            snap = self.serve_store.publish(post, window=self.round_idx, dtype=dtype,
+                                            telemetry=telemetry)
+        if obs is not None:
+            obs.registry.counter("serve.published", "snapshots published").inc()
+            obs.registry.gauge("serve.snapshot_bytes", "front-buffer residency").set(
+                snap.nbytes())
+        return snap
 
     def attach_server(self, **overrides):
         """A ``serve.PredictiveServer`` on this session's snapshot store and
@@ -266,6 +343,8 @@ class Session:
                       max_staleness=s.max_staleness, staleness_policy=s.staleness_policy)
         kwargs.update(overrides)
         self._server = PredictiveServer(self.serve_store, self.model.logits_fn, **kwargs)
+        # host-side observer hook: request spans and counters in the registry
+        self._server.obs = self._obs
         return self._server
 
     def health(self) -> dict:
@@ -296,7 +375,30 @@ class Session:
         engine with a ``telemetry(state)`` hook (the gossip runtime:
         staleness, merges, faults and quarantine) adds it under
         ``"engine"``, and a serving tier (a published snapshot or an
-        attached server) its block under ``"serving"``."""
+        attached server) its block under ``"serving"``.  Each producer owns
+        its namespace, so no telemetry key can clobber a metric key.  With
+        observability on, both blocks are also ingested into the registry
+        under the same namespaces, with ``eval.avg_acc``/``eval.avg_mse``."""
+        obs = self._obs
+        with maybe_span(obs, "session.evaluate", n_mc=n_mc):
+            out = self._evaluate_metrics(n_mc, eps)
+            telemetry = getattr(self.engine, "telemetry", None)
+            if telemetry is not None:
+                out["engine"] = telemetry(self.state)
+            if self._server is not None:
+                out["serving"] = self._server.telemetry()
+            elif self._serve_store is not None:
+                out["serving"] = self._serve_store.telemetry()
+        if obs is not None:
+            for ns in ("engine", "serving"):
+                if ns in out:
+                    obs.registry.ingest(ns, out[ns])
+            for k in ("avg_acc", "avg_mse"):
+                if k in out:
+                    obs.registry.gauge(f"eval.{k}").set(out[k])
+        return out
+
+    def _evaluate_metrics(self, n_mc: int, eps) -> dict:
         if self.data.kind == "linreg":
             phi_t, y_t = self.data.test_phi, self.data.test_y
             mean = self.posterior().mean.cpu().numpy()
@@ -309,15 +411,79 @@ class Session:
         probs = mc_predict(self.posterior(), self.model.logits_fn, self.data.x_test, eps=eps)
         pred = torch.argmax(probs, dim=-1).cpu().numpy()
         accs = [float(v) for v in (pred == np.asarray(self.data.y_test)[None]).mean(axis=1)]
-        out = {"acc": accs, "avg_acc": float(np.mean(accs))}
-        telemetry = getattr(self.engine, "telemetry", None)
-        if telemetry is not None:
-            out["engine"] = telemetry(self.state)
-        if self._server is not None:
-            out["serving"] = self._server.telemetry()
-        elif self._serve_store is not None:
-            out["serving"] = self._serve_store.telemetry()
-        return out
+        return {"acc": accs, "avg_acc": float(np.mean(accs))}
+
+    def dashboard(self) -> str:
+        """Compact terminal summary of the run so far: loop counters, the
+        engine's staleness/merge registry reads, serving state, the
+        convergence verdict (measured decay rate vs the graph's theoretical
+        rate), and the warm/compile span table.  Returns a printable string;
+        works with observability off (a one-line pointer at ``ObsSpec``) so
+        examples can call it unconditionally."""
+        lines = [
+            f"=== session dashboard · engine={self.engine.name} "
+            f"round={self.round_idx} ==="
+        ]
+        obs = self._obs
+        if obs is None:
+            lines.append(
+                "observability disabled — enable with "
+                "ExperimentSpec(obs=ObsSpec(enabled=True))"
+            )
+            return "\n".join(lines)
+        reg = obs.registry
+        loss = reg.gauge("session.loss").value()
+        n_tr = reg.gauge("session.n_trained").value()
+        lines.append(
+            f"rounds {int(reg.counter('session.rounds').value())}"
+            f"  loss {loss:.4f}  n_trained {int(n_tr)}"
+        )
+        g_windows = reg.counter("gossip.windows").value()
+        if g_windows:
+            lines.append(
+                f"gossip: windows {int(g_windows)}"
+                f"  jit_traces {int(reg.gauge('gossip.jit_traces').value())}"
+                f"  staleness p50/p90/max "
+                f"{reg.gauge('engine.staleness.p50').value():.0f}/"
+                f"{reg.gauge('engine.staleness.p90').value():.0f}/"
+                f"{reg.gauge('engine.staleness.max').value():.0f}"
+                f"  merges {int(reg.gauge('engine.merges.total').value())}"
+            )
+        published = reg.counter("serve.published").value()
+        if published:
+            lines.append(
+                f"serving: published {int(published)}"
+                f"  snapshot_bytes "
+                f"{int(reg.gauge('serve.snapshot_bytes').value())}"
+                f"  requests {int(reg.counter('serve.requests').value())}"
+                f"  slo_breaches "
+                f"{int(reg.gauge('serving.slo.breaches').value())}"
+            )
+        if obs.convergence is not None and obs.convergence.stats:
+            rep = obs.convergence.report()
+            latest = rep["latest"]
+            line = f"convergence: disagreement {latest['disagreement']:.3e}"
+            if "kl_to_mean" in latest:
+                line += f"  KL(q_i||q_bar) {latest['kl_to_mean']:.3e}"
+            if rep["measured_rate"] is not None:
+                line += f"  measured_rate {rep['measured_rate']:.4f}"
+            if rep["theory_rate"] is not None:
+                line += f"  theory_rate {rep['theory_rate']:.4f}"
+            if rep["rate_attainment"] is not None:
+                line += f"  rate_attainment {rep['rate_attainment']:.2f}"
+            lines.append(line)
+        summ = obs.tracer.summary()
+        for name in sorted(summ):
+            for mode in ("warm", "compile"):
+                if mode in summ[name]:
+                    s = summ[name][mode]
+                    lines.append(
+                        f"span {name:<22s} {mode:<7s} n {s['n']:>4d}"
+                        f"  p50 {s['p50_us']:>10.1f}us"
+                        f"  max {s['max_us']:>10.1f}us"
+                    )
+        obs.flush()
+        return "\n".join(lines)
 
     # -- checkpointing -------------------------------------------------------
 
@@ -338,6 +504,9 @@ class Session:
         """Rebuild the session from the embedded spec on ``device`` (default:
         the card; raises without one) and resume: the saved leaves are
         restored into the rebuilt state in leaf order.
+
+        A spec with observability on gets a fresh ``Observability`` bundle
+        (``build_session``); the bundle holds no state leaves.
 
         The generator continues where it stopped when the checkpoint holds a
         generator state of the same device type.  Otherwise (a checkpoint the

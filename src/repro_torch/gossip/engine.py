@@ -52,10 +52,24 @@ state intact).  ``InferenceSpec.fault_policy="strict"`` trusts the wire;
 (``core.flat.consensus_flat_masked_quarantined``) and counts drops per
 agent in ``GossipState.n_quarantined``.
 
+Retrace telemetry: the JAX engine jits its window and counts the traces
+of the shared local phase (``n_traces``; one for a whole run, since every
+window of a run has the same static shapes).  The port runs eagerly, and
+its ``n_traces`` keeps that meaning: the number of distinct signatures (the
+shapes and dtypes of the state, the batches and the activity mask, and
+whether the fault gate is in) that the shared local phase has run.  Where
+the JAX engine pins one trace, the port counts one.
+
+Observability (``engine.obs``, attached by ``build_session`` when
+``spec.obs.enabled``): each window runs in a ``gossip.window_build`` span
+(the host's fault draws and window lookup) and a ``gossip.window`` span
+whose ``impl`` is ``masked``, ``delayed`` or ``segments``, and after it the
+``gossip.windows`` counter and the ``gossip.jit_traces`` gauge
+(``n_traces``) are updated.  On the card each span synchronises before it
+reads the clock; nothing of it touches the window's tensors.
+
 Not here yet, and refused at construction: the sharded ``ppermute``
-execution (ROADMAP queue A, sharded windows).  PyTorch runs eagerly, so
-the JAX engine's ``jax.jit`` of the window and its retrace counter
-``n_traces`` have no counterpart here.
+execution (ROADMAP queue A, sharded windows).
 """
 from __future__ import annotations
 
@@ -80,8 +94,9 @@ from repro_torch.core.flat import (
 )
 from repro_torch.core.numerics import canonical_wire_dtype, wire_dtype_name
 from repro_torch.core.simulated import init_network, network_local_steps, network_state_from_numpy
-from repro_torch.core.tree import tree_map
+from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.gossip.clocks import SparseClock, SparseWindow
+from repro_torch.obs.trace import maybe_span
 
 _LATER_SHARDED = "arrives with ROADMAP queue A's sharded windows item"
 
@@ -119,6 +134,11 @@ def _agent_select(active: torch.Tensor, new, old):
         return torch.where(active.reshape((-1,) + (1,) * (a.ndim - 1)), a, b, out=a)
 
     return tree_map(sel, new, old)
+
+
+def _signature(tree) -> tuple:
+    """Shapes and dtypes of a tree's tensor leaves, in leaf order."""
+    return tuple((tuple(x.shape), x.dtype) for x in tree_leaves(tree))
 
 
 def _ring_tensor(a, device) -> torch.Tensor | None:
@@ -222,6 +242,17 @@ class GossipEngine:
         # (zero-fault quarantine is bitwise the same, by the ladder)
         self._guarded = self.quarantine or self.faults is not None
         self.last_crashed = None
+        # distinct local-phase signatures run (see the module docstring)
+        self._signatures: set = set()
+        # host-side observability hook (repro_torch.obs.Observability),
+        # attached by build_session when ObsSpec is enabled
+        self.obs = None
+
+    @property
+    def n_traces(self) -> int:
+        """The distinct signatures the shared local phase has run: the JAX
+        engine's retrace count."""
+        return len(self._signatures)
 
     def _init_impl(self, impl: str, n_agents: int) -> None:
         """Pick the window execution and refuse what it cannot run."""
@@ -267,6 +298,8 @@ class GossipEngine:
         """Per-agent local VI steps + the wake-on-event / fault select: the
         synchronous round's ``network_local_steps``, then selects that are
         identities when every agent trains."""
+        self._signatures.add((_signature(state), _signature(batches), tuple(active.shape),
+                              active.dtype, up is None))
         nll = make_flat_nll(self.model.nll_fn, state.posterior.layout)
         lr = self.lr_schedule(state.round)
         post, opt_state, losses = network_local_steps(
@@ -517,7 +550,7 @@ class GossipEngine:
             return np.asarray(win.active)
         return np.diagonal(w64) < 1.0
 
-    def _segments_round(self, state, batches, W, eps, generator, r: int):
+    def _segments_round(self, state, batches, W, eps, generator, r: int, obs):
         """Edge-native window: no [N, N] on the host or the card."""
         if not isinstance(W, SparseWindow):
             raise ValueError(
@@ -531,40 +564,64 @@ class GossipEngine:
                 "(windows are pure functions of (seed, round); the stream must be "
                 "consumed in order)"
             )
-        active = torch.as_tensor(np.asarray(W.active), device=self.device)
-        if self._guarded:
-            faults = self._fault_draws(r)
-            up = torch.as_tensor(faults["up"], device=self.device)
-            return self.window_fn_segments_guarded(state, batches, W, active, eps, generator,
-                                                   up=up, faults=faults)
-        return self.window_fn_segments(state, batches, W, active, eps, generator)
+        with maybe_span(obs, "gossip.window_build", round=r):
+            active = torch.as_tensor(np.asarray(W.active), device=self.device)
+            faults = self._fault_draws(r) if self._guarded else None
+        with maybe_span(obs, "gossip.window", impl="segments", round=r):
+            if faults is None:
+                out = self.window_fn_segments(state, batches, W, active, eps, generator)
+            else:
+                up = torch.as_tensor(faults["up"], device=self.device)
+                out = self.window_fn_segments_guarded(state, batches, W, active, eps,
+                                                      generator, up=up, faults=faults)
+        self._obs_after_window(obs)
+        return out
 
     def run_round(self, state, batches, W, eps=None, generator=None):
+        obs = self.obs
         r = int(state.round)
         if self.consensus_impl == "segments":
-            return self._segments_round(state, batches, W, eps, generator, r)
+            return self._segments_round(state, batches, W, eps, generator, r, obs)
         spec_win = None
         if isinstance(W, SparseWindow):
             # the dense view of an edge-native window (below the guard only):
             # the segments-vs-masked ladder runs on it
             spec_win, W = W, W.w_eff
-        win = self._window_for(r, W) if self.hist_slots else None
-        active = torch.as_tensor(
-            np.asarray(spec_win.active) if spec_win is not None
-            else self._host_active(r, W, win), device=self.device)
-        faults = self._fault_draws(r) if self._guarded else None
+        with maybe_span(obs, "gossip.window_build", round=r):
+            win = self._window_for(r, W) if self.hist_slots else None
+            active = torch.as_tensor(
+                np.asarray(spec_win.active) if spec_win is not None
+                else self._host_active(r, W, win), device=self.device)
+            faults = self._fault_draws(r) if self._guarded else None
         if self.hist_slots:
-            if faults is None:
-                return self.window_fn_delayed(state, batches, W, active, win, eps, generator)
-            up = torch.as_tensor(faults["up"], device=self.device)
-            return self.window_fn_delayed_guarded(state, batches, W, active, win, eps,
-                                                  generator, up=up, faults=faults)
+            with maybe_span(obs, "gossip.window", impl="delayed", round=r):
+                if faults is None:
+                    out = self.window_fn_delayed(state, batches, W, active, win, eps, generator)
+                else:
+                    up = torch.as_tensor(faults["up"], device=self.device)
+                    out = self.window_fn_delayed_guarded(state, batches, W, active, win, eps,
+                                                         generator, up=up, faults=faults)
+            self._obs_after_window(obs)
+            return out
         W = torch.as_tensor(W, dtype=torch.float32).to(self.device)
-        if faults is None:
-            return self.window_fn(state, batches, W, active, eps, generator)
-        return self.window_fn_guarded(
-            state, batches, W, active, eps, generator,
-            **{k: torch.as_tensor(a, device=self.device) for k, a in faults.items()})
+        with maybe_span(obs, "gossip.window", impl="masked", round=r):
+            if faults is None:
+                out = self.window_fn(state, batches, W, active, eps, generator)
+            else:
+                out = self.window_fn_guarded(
+                    state, batches, W, active, eps, generator,
+                    **{k: torch.as_tensor(a, device=self.device) for k, a in faults.items()})
+        self._obs_after_window(obs)
+        return out
+
+    def _obs_after_window(self, obs) -> None:
+        """Registry bookkeeping after one window (host-side, pure observer)."""
+        if obs is None:
+            return
+        obs.registry.counter("gossip.windows", "event windows executed").inc()
+        obs.registry.gauge(
+            "gossip.jit_traces", "distinct window traces (retrace telemetry)"
+        ).set(self.n_traces)
 
     def posterior(self, state) -> FlatPosterior:
         return state.posterior

@@ -29,7 +29,12 @@ from the ``SnapshotStore``'s front buffer, with three guarantees:
   and counts every breach.
 
 The server never touches training state; it reads the immutable snapshot
-the store fronts.  ``noise_fn(counter, mc, P) -> [mc, P]`` injects each
+the store fronts.  With an ``Observability`` bundle attached (``obs``, set
+by ``Session.attach_server``) each ``serve()`` call adds to the
+``serve.requests``, ``serve.rows`` and ``serve.slo_breaches`` counters and
+the ``serve.latency_us`` histogram (labelled by ``mc``), and records one
+``serve.request`` span: the interval ``serve()`` already measures, which
+ends after its CUDA synchronise.  ``noise_fn(counter, mc, P) -> [mc, P]`` injects each
 slab's noise in place of the generator's draw (``counter`` is the server's
 monotone slab count), so a test can feed another implementation's draws.
 """
@@ -43,6 +48,7 @@ import torch
 
 from repro_torch.core.flat import FlatLayout
 from repro_torch.core.numerics import COMPUTE_DTYPE, softplus
+from repro_torch.obs.trace import Span
 from repro_torch.serve.snapshot import PosteriorSnapshot, SnapshotStore
 
 DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32)
@@ -148,6 +154,9 @@ class PredictiveServer:
         self.n_slo_breaches = 0
         self._batch_counter = 0
         self._lat_us: list[float] = []
+        # host-side observability hook (repro_torch.obs.Observability),
+        # attached by Session.attach_server: counters and spans only
+        self.obs = None
 
     # -- staleness SLO -------------------------------------------------------
 
@@ -279,7 +288,23 @@ class PredictiveServer:
         lat_us = (time.perf_counter() - t0) * 1e6
         self._lat_us.append(lat_us)
         self.n_requests += len(reqs)
-        self.n_rows += sum(int(r.shape[0]) for r in reqs)
+        n_rows = sum(int(r.shape[0]) for r in reqs)
+        self.n_rows += n_rows
+        if self.obs is not None:
+            reg = self.obs.registry
+            reg.counter("serve.requests", "requests served").inc(len(reqs))
+            reg.counter("serve.rows", "rows served").inc(n_rows)
+            reg.histogram("serve.latency_us", "per-call serve latency").observe(
+                lat_us, mc=str(mc))
+            if not slo_ok:
+                reg.counter("serve.slo_breaches").inc()
+            tr = self.obs.tracer
+            if tr.enabled:
+                # the call already synchronised: record the measured
+                # [t0, t0 + lat] interval as one span
+                tr.spans.append(Span(
+                    name="serve.request", t0_us=(t0 - tr._epoch) * 1e6, dur_us=lat_us,
+                    depth=tr._depth, attrs={"rows": n_rows, "mc": mc, "slo_ok": slo_ok}))
         meta = {
             "snapshot_window": snap.window,
             "snapshot_version": snap.version,

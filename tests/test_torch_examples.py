@@ -1,10 +1,10 @@
 """The port's examples (``examples/torch_*.py``) run on the CPU at a few
 rounds and print the line structure of the reference examples they port,
-which run here at their own sizes (quickstart cut to the same rounds,
-without its convergence overlay; serve_batched without its dashboard): each
-line with its numbers masked, and whole where the line is a count or a
-deterministic host value (the serving counts, SLO verdicts and snapshot
-provenance)."""
+which run here at their own sizes (quickstart cut to the same rounds, with
+its convergence overlay; serve_batched with its dashboard): each line with
+its numbers masked, and whole where the line is a count or a deterministic
+host value (the serving counts, SLO verdicts, snapshot provenance, and the
+dashboard's gossip and serving counters)."""
 import pytest
 
 pytest.importorskip("torch")
@@ -39,15 +39,16 @@ def test_torch_quickstart_prints_the_reference_lines(capsys):
     ref = _module("quickstart")
     ref.SPEC = dataclasses.replace(ref.SPEC, run=dataclasses.replace(ref.SPEC.run, n_rounds=5,
                                                                      eval_every=5))
-    ref.convergence_demo = lambda: None
     want = _lines(capsys, ref.main)
     got = _lines(capsys, lambda: _module("torch_quickstart").main(
         ["--device", "cpu", "--rounds", "5"]))
-    assert [_template(x) for x in got[:len(want)]] == [_template(x) for x in want]
-    assert got[len(want):] == [
-        "  not in the port yet: it needs obs/convergence.py (ROADMAP queue A item 8)"]
+    assert [_template(x) for x in got] == [_template(x) for x in want]
     final = float(re.search(r"final average accuracy ([\d.]+)", "\n".join(got)).group(1))
     assert final > 0.5
+    # the lr = 0 overlay: ten rounds, and the ring's rate attained
+    overlay = got[got.index(next(x for x in got if x.startswith("convergence overlay"))) + 1:]
+    assert [x.split()[1] for x in overlay[:-1]] == [str(r) for r in range(1, 11)]
+    assert overlay[-1].endswith("vs theory 1.0986 -> attainment 1.00")
 
 
 def test_torch_quickstart_runs_the_launch_engine(capsys):
@@ -65,12 +66,13 @@ def test_torch_linear_regression_prints_the_reference_lines(capsys):
     assert [x for x in got if x.startswith("round")][-1].startswith("round   10")
 
 
-def test_torch_serve_batched_prints_the_reference_lines(capsys, monkeypatch):
-    import repro.api.session as jsession
-
-    monkeypatch.setattr(jsession.Session, "dashboard", lambda self: "")
-    want = _lines(capsys, _module("serve_batched").main)[:7]
+def test_torch_serve_batched_prints_the_reference_lines(capsys):
+    want = _lines(capsys, _module("serve_batched").main)
     got = _lines(capsys, lambda: _module("torch_serve_batched").main(["--device", "cpu"]))
-    assert len(got) == 7
     assert [_template(x) for x in got] == [_template(x) for x in want]
-    assert got[1:] == want[1:]  # every line but the loss: counts, provenance, verdicts
+    assert got[1:7] == want[1:7]  # every line but the loss: counts, provenance, verdicts
+    dash = got.index(next(x for x in got if x.startswith("=== session dashboard")))
+    assert got[dash] == want[dash]
+    counters = [x for x in got[dash:] if x.startswith(("gossip:", "serving:"))]
+    assert len(counters) == 2 and counters == [
+        x for x in want[dash:] if x.startswith(("gossip:", "serving:"))]

@@ -1,8 +1,8 @@
 """The serving tier of repro_torch (``repro_torch.serve``,
 ``Session.snapshot/attach_server``, ``checkpoint.io.save_snapshot``) on the
-CPU: each contract of tests/test_serve.py on the port (all but
-``serve_roofline``'s modeled bytes, which come with the cost model), and
-the port against the JAX package:
+CPU: each contract of tests/test_serve.py on the port (``serve_roofline``'s
+modeled bytes from the port's ``launch.costmodel``), and the port against
+the JAX package:
 
 * the apply program against the reference's (``serve/server.py:145
   _apply_for``) and whole ragged streams against the reference server, on
@@ -154,6 +154,22 @@ def test_bf16_snapshot_halves_live_bytes(trained):
     assert s32.nbytes() == 2 * s16.nbytes()
     assert s16.posterior.mean.dtype == torch.bfloat16
     assert s32.nbytes() == 2 * N_AGENTS * s32.posterior.mean.shape[1] * 4
+
+
+def test_bf16_snapshot_halves_live_and_modeled_hbm(trained):
+    """tests/test_serve.py:154: the live resident bytes equal
+    ``serve_roofline``'s model exactly, and bf16 halves both."""
+    from repro_torch.launch.costmodel import serve_roofline
+
+    s32 = trained.snapshot(dtype="f32")
+    s16 = trained.snapshot(dtype="bf16")
+    n_params = int(s32.posterior.mean.shape[1])
+    r32 = serve_roofline(N_AGENTS, n_params, snapshot_dtype="f32")
+    r16 = serve_roofline(N_AGENTS, n_params, snapshot_dtype="bf16")
+    assert r32["snapshot_hbm_bytes"] == 2 * r16["snapshot_hbm_bytes"]
+    assert r16["snapshot_saving_vs_f32"] == 2.0
+    assert s16.nbytes() == r16["snapshot_hbm_bytes"]
+    assert s32.nbytes() == r32["snapshot_hbm_bytes"]
 
 
 def test_bf16_snapshot_serves_close_to_f32(trained):
