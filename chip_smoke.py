@@ -45,7 +45,11 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    clock below with fill rows at P = 1,024 and at the full P = 199,210
    that ``3.sparse`` runs, and one of the N = 10,000 cell (P = 90), two
    launches bitwise equal, bitwise PR 19's lane kernel and the tile kernel
-   at one lane a thread, one device kernel a call;
+   at one lane a thread, one device kernel a call; ``2.shard``: the
+   sharded windows' ``consensus_shard_encode`` and ``consensus_fused_shard``
+   at N = 9, P = 199,210 over 3 and 9 shards at every wire dtype, against
+   their plain versions, every reduced row bitwise the masked kernel's row
+   (small and generic instance), on finite and on poisoned inputs;
 3. the paths at full width, each with the launch counters set to 0 just
    before and read just after.  The synchronous slice: the paper's Fig. 4
    setting (3x3 grid, 9 agents, ``mnist_like`` 784-dim 10-class data, grid
@@ -109,11 +113,21 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    the window p50's ``window_attainment`` against the cost model's
    ``window_masked`` roofline.  ``3.sparse_1e4``: the
    reference's ``engine_sparse`` cell (N = 10,000, P = 90), 3 windows,
-   ``evaluate()``, save -> load -> one resumed window, bitwise;
+   ``evaluate()``, save -> load -> one resumed window, bitwise.
+   ``3.sharded`` (after ``3.gossip``): the gossip slice on
+   ``consensus_impl="ppermute"``, 4 windows, over 3 virtual shards of the
+   card at wire f32 and bf16, over 9 at f32, and over the real cards where
+   more than one divides N = 9 (``3.sharded_cards`` says which): each
+   window's wall ms, rotations and copied bytes beside the cost model's
+   ``window_ppermute`` bytes (equal; bf16 half of f32), and its 4.ladder
+   rungs right after (``sharded==masked`` at f32 against 3.gossip's state
+   and at bf16, ``sharded_quarantine0==sharded_strict`` over 9 shards,
+   ``obs_on==obs_off(sharded)``);
 4. card vs CPU: one more synchronous round and one more gossip window from
    the same state with the same injected batches and noise, the card through
    the kernels, the CPU through the plain versions, and likewise one more
-   delayed window and one more edge-native window (the slice's data on a
+   delayed window, one more sharded window (3 virtual shards on each
+   device, ``4.sharded_parity``) and one more edge-native window (the slice's data on a
    9-agent Watts-Strogatz graph), and the quarantined segments consensus
    alone on the post-local posterior of an iid 16-agent edge-native
    session (``4.sparse_iid_consensus``) and that session's whole window
@@ -156,6 +170,8 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    beside ``scaled_dot_product_attention``'s time and backend, with its
    TFLOP/s, share of the bound, ratio to SDPA and largest error in output
    ulps, and the f32 SIMT kernel's time at the Qwen3-8B heads); for
+   ``consensus_fused_shard`` and ``consensus_shard_encode`` on one shard
+   of 3 rows (3.sharded's first run; gossip window 1's W-tilde); for
    ``consensus_fused_segments`` on the delayed slice's window 4, and on a
    line of its own at N = 4,200 and full width (phase 2's
    ``sparse_4200_full`` terms), each beside PR 19's lane kernel; for
@@ -595,6 +611,98 @@ def check_kernels(dev):
         phase("2.validity", wire=wire, case=f"n{n}_p{p}", n_invalid=int((~got).sum()),
               bit_equal=True, variant=kernel_variant(fn))
     worst["payload_validity_fused"] = 0.0
+    return worst
+
+
+SHARD_COUNTS = (3, 9)  # virtual shards of the 9-agent slice
+
+
+def same_bits(a, b) -> bool:
+    """Equal bits, NaN lanes included (``torch.equal`` fails on NaN)."""
+    import torch
+
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def shard_stats(k, mean, rho, shards, wire):
+    """Every shard's rows encoded into one [2, N, P] wire-dtype buffer (what
+    a shard holds once every offset has rotated)."""
+    import torch
+
+    from repro_torch.core.numerics import canonical_wire_dtype
+
+    n, p = mean.shape
+    per = n // shards
+    stats = torch.empty((2, n, p), dtype=canonical_wire_dtype(wire), device=mean.device)
+    for s in range(shards):
+        rows = slice(s * per, (s + 1) * per)
+        k.consensus_shard_encode(mean[rows], rho[rows], stats[0], stats[1], row0=s * per)
+    return stats
+
+
+def check_shard(dev):
+    """Phase 2.shard: ``consensus_shard_encode`` and ``consensus_fused_shard``
+    at the slice's N = 9, P = 199,210 over 3 and 9 shards, at every wire
+    dtype: the encode against its plain version, each shard's reduce against
+    its plain version, and every reduced row bitwise the masked kernel's row
+    (its small instance and its generic one), on finite inputs and on the
+    poisoned buffers (NaN, +-inf, huge and f16-overflowing lanes)."""
+    import torch
+
+    from repro_torch.kernels import consensus as k
+
+    worst = {"consensus_fused_shard": 0.0, "consensus_shard_encode": 0.0}
+    n, p = 9, P_SLICE
+    W, mean, rho = eq6_inputs(n, p, seed=91, device=dev)
+    active = torch.arange(n, device=dev) % 3 != 1
+    inputs = {"finite": (mean, rho), "poisoned": poisoned(n, p, seed=5, device=dev)}
+    for case, (m, r) in inputs.items():
+        for wire in WIRES:
+            masked = [k.consensus_fused_masked(W, active, m, r, wire_dtype=wire),
+                      k._network_launch("consensus_fused_masked", W, active, m, r, wire,
+                                        instance=0)]
+            plain_x = k.consensus_shard_encode_plain(m, r, n, 0, wire)
+            for shards in SHARD_COUNTS:
+                per = n // shards
+                stats = shard_stats(k, m, r, shards, wire)
+                fields = {}
+                if case == "finite":
+                    enc = eq6_errors(f"consensus_shard_encode S={shards}",
+                                     [x.float() for x in stats], [x.float() for x in plain_x],
+                                     wire)
+                    fields["encode_max_abs_err"] = enc
+                    if wire == "f32":
+                        worst["consensus_shard_encode"] = max(worst["consensus_shard_encode"],
+                                                              *enc)
+                errs = []
+                for sh in range(shards):
+                    rows = slice(sh * per, (sh + 1) * per)
+                    args = (W[rows], active[rows], stats[0], stats[1], m[rows], r[rows])
+                    got = k.consensus_fused_shard(*args, row0=sh * per)
+                    if case == "finite":
+                        errs.append(max(eq6_errors(
+                            f"consensus_fused_shard S={shards} shard {sh}", got,
+                            k.consensus_shard_plain(W[rows], active[rows], *plain_x, m[rows],
+                                                    r[rows], row0=sh * per), wire)))
+                    torch.cuda.synchronize()
+                    for inst, ref in zip(("small", "generic"), masked):
+                        if not all(same_bits(g_, x[rows]) for g_, x in zip(got, ref)):
+                            raise AssertionError(
+                                f"2.shard {case} wire={wire} S={shards} shard {sh}: rows not "
+                                f"bitwise the masked kernel's ({inst} instance)")
+                if errs:
+                    fields["max_abs_err"] = max(errs)
+                    if wire == "f32":
+                        worst["consensus_fused_shard"] = max(worst["consensus_fused_shard"],
+                                                             max(errs))
+                phase("2.shard", case=case, n=n, p=p, wire=wire, shards=shards,
+                      rows_bitwise_masked=["small", "generic"], **fields,
+                      variant=kernel_variant(functools.partial(
+                          k.consensus_fused_shard, W[:per], active[:per], stats[0], stats[1],
+                          m[:per], r[:per])),
+                      encode_variant=kernel_variant(functools.partial(
+                          k.consensus_shard_encode, m[:per], r[:per], stats[0], stats[1])))
     return worst
 
 
@@ -1312,9 +1420,10 @@ def parity_errors(tag, diffs, noise, W, exempt_atol):
                 exempt_atol=exempt_atol, failures=failures)
 
 
-def card_vs_cpu(tag, session, spec):
+def card_vs_cpu(tag, session, spec, cpu_devices=None):
     """One more round on the card and on the CPU from the same state with
-    the same injected draws; the CPU runs the plain versions.  Adam's noise
+    the same injected draws; the CPU runs the plain versions (over
+    ``cpu_devices`` virtual shards on a sharded session).  Adam's noise
     lanes are exempt, within bounds (``adam_noise_lanes``,
     ``parity_errors``)."""
     import numpy as np
@@ -1322,7 +1431,7 @@ def card_vs_cpu(tag, session, spec):
 
     from repro_torch.api import build_session
 
-    cpu = build_session(spec, device="cpu")
+    cpu = build_session(spec, device="cpu", devices=cpu_devices)
     cpu.state = session.state.to("cpu")
     cpu.round_idx = session.round_idx
     W = spec.topology.w_schedule()(session.round_idx)
@@ -1396,6 +1505,149 @@ def run_gossip(dev):
               engine=tel, health=health["n_healthy"], launches=counts, run_s=run_s)
         out[tag] = (session, counts)
     return out
+
+
+def sharded_windows(session, n_windows):
+    """Run ``n_windows`` windows one at a time: each one's record, wall ms
+    (synchronised) and the rotations and bytes its consensus copied."""
+    import torch
+
+    from repro_torch.launch import consensus_opt
+
+    out = []
+    for _ in range(n_windows):
+        consensus_opt.reset_rotation_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = session.run(n_rounds=1, eval_every=1)[0]
+        torch.cuda.synchronize()
+        out.append((rec, (time.perf_counter() - t0) * 1e3, consensus_opt.rotation_counts()))
+    return out
+
+
+def run_sharded(dev, smi):
+    """Phase 3.sharded: the gossip slice (chaos faults, quarantine) on the
+    sharded execution, 4 windows, over 3 virtual shards at wire f32 and
+    bf16 and over 9 at f32, on the card; then over the real cards where
+    there are more than one (the largest count that divides N = 9).  Each
+    window's wall ms, rotations and copied bytes, beside the cost model's
+    ``window_ppermute`` bytes for its fired offsets (equal), the bf16
+    window's bytes half the f32 window's; counters around each run.
+    -> {(wire, shards, cards): (session, launch counts)}."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import build_session
+    from repro_torch.gossip.engine import _largest_divisor_leq
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.consensus_opt import window_shard_offsets
+    from repro_torch.launch.costmodel import gossip_window_roofline
+    from repro_torch.launch.mesh import local_devices
+
+    n_win = 4
+    clock = gossip_spec().topology.gossip_clock()
+    wins = [clock.window(r) for r in range(n_win)]
+    cards = torch.cuda.device_count()
+    real = _largest_divisor_leq(9, cards)
+    configs = [("f32", 3, [dev] * 3), ("bf16", 3, [dev] * 3), ("f32", 9, [dev] * 9)]
+    if real > 1:
+        configs.append(("f32", real, local_devices(dev)[:real]))
+    phase("3.sharded_cards", cards=cards, real_card_shards=real,
+          real_card_run=("over cuda:0..cuda:%d" % (real - 1)) if real > 1 else
+          f"not possible: {cards} card(s), no count above 1 divides N = 9",
+          nvidia_smi=smi)
+    runs, moved = {}, {}
+    for wire, shards, devices in configs:
+        session = build_session(gossip_spec(consensus_impl="ppermute", wire_dtype=wire),
+                                device=dev, devices=devices)
+        n_cards = session.engine.mesh.n_cards
+        dispatch.reset_launch_counts()
+        done = sharded_windows(session, n_win)
+        counts = dispatch.launch_counts()
+        ev = session.evaluate()
+        health = session.health()
+        offsets = [window_shard_offsets(w, shards) for w in wins]
+        modeled = [gossip_window_roofline(9, P_SLICE, int(w.participating().sum()),
+                                          n_shards=shards, n_cross_offsets=len(o),
+                                          wire_dtype=wire)["ici_bytes"]["window_ppermute"]
+                   for w, o in zip(wins, offsets)]
+        copied = [rot["bytes"] for _, _, rot in done]
+        losses = [rec["loss"] for rec, _, _ in done]
+        failures = []
+        if copied != modeled or [rot["rotations"] for _, _, rot in done] != \
+                [len(o) for o in offsets]:
+            failures.append(f"copied {copied} vs modeled {modeled}")
+        if any(x is None or not np.isfinite(x) for x in losses) or not health["all_ok"] or \
+                not torch.isfinite(session.posterior().mean).all():
+            failures.append(f"losses {losses}, health {health}")
+        if min(counts["consensus_fused_shard"], counts["consensus_shard_encode"],
+               counts["payload_validity_fused"]) <= 0 or counts["consensus_fused_masked"]:
+            failures.append(f"launches {counts}")
+        if ev["engine"]["consensus_shards"] != shards or session.engine.n_shards != shards:
+            failures.append(f"shards {ev['engine']['consensus_shards']}")
+        moved[wire, shards, n_cards] = copied
+        phase("3.sharded", wire=wire, shards=shards, cards=n_cards, agents=9, n_params=P_SLICE,
+              window_wall_ms=[ms for _, ms, _ in done], offsets=offsets,
+              rotations=[rot["rotations"] for _, _, rot in done],
+              block_copies=[rot["copies"] for _, _, rot in done], copied_bytes=copied,
+              modeled_window_ppermute_bytes=modeled, losses=losses, avg_acc=ev["avg_acc"],
+              quarantined=ev["engine"]["faults"]["quarantined"]["total"], launches=counts,
+              health=health["n_healthy"], nvidia_smi=smi, failures=failures)
+        if failures:
+            raise AssertionError(f"3.sharded wire={wire} S={shards}: {'; '.join(failures)}")
+        runs[wire, shards, n_cards] = (session, counts)
+    half = [b * 2 for b in moved["bf16", 3, 1]]
+    if half != moved["f32", 3, 1] or not any(half):
+        raise AssertionError(f"3.sharded: bf16 bytes {moved['bf16', 3, 1]} are not half of "
+                             f"f32's {moved['f32', 3, 1]}")
+    return runs
+
+
+def sharded_rungs(dev, runs, masked_state):
+    """4.ladder rungs of the sharded execution, bitwise: ``sharded==masked``
+    (each of 3.sharded's f32 runs against 3.gossip's state after the same
+    4 windows, and the bf16 run against a masked bf16 run),
+    ``sharded_quarantine0==sharded_strict`` (9 shards, zero faults, 2
+    windows) and ``obs_on==obs_off(sharded)`` (3 shards, with the spans
+    ``gossip.local_phase`` and ``gossip.consensus``)."""
+    import torch
+
+    from repro_torch.api import build_session
+
+    def rung(name, a_state, b_state, **fields):
+        same = states_bitwise(a_state, b_state)
+        phase("4.ladder", rung=name, bitwise=same, **fields)
+        if not same:
+            raise AssertionError(f"4.ladder {name}: not bitwise")
+
+    for (wire, shards, cards), (session, _) in runs.items():
+        if wire == "f32":
+            rung("sharded==masked", session.state, masked_state, wire=wire, shards=shards,
+                 cards=cards, windows=4)
+    masked = build_session(gossip_spec(wire_dtype="bf16"), device=dev)
+    sharded_windows(masked, 4)
+    rung("sharded==masked", runs["bf16", 3, 1][0].state, masked.state, wire="bf16", shards=3,
+         cards=1, windows=4)
+    del masked
+    pair = [build_session(gossip_spec(policy, False, consensus_impl="ppermute"), device=dev,
+                          devices=[dev] * 9) for policy in ("quarantine", "strict")]
+    for sess in pair:
+        sharded_windows(sess, 2)
+    # the quarantined state also counts drops (n_quarantined): the rest is compared
+    rung("sharded_quarantine0==sharded_strict",
+         *[dataclasses.replace(x.state, n_quarantined=None) for x in pair], shards=9,
+         windows=2, quarantined=int(pair[0].state.n_quarantined.sum()))
+    del pair
+    on = build_session(with_obs(gossip_spec(consensus_impl="ppermute")), device=dev,
+                       devices=[dev] * 3)
+    sharded_windows(on, 4)
+    torch.cuda.synchronize()
+    spans = sorted({(sp.name, sp.attrs.get("impl")) for sp in on.obs.tracer.spans
+                    if sp.name in ("gossip.local_phase", "gossip.consensus")})
+    if spans != [("gossip.consensus", "ppermute"), ("gossip.local_phase", "ppermute")]:
+        raise AssertionError(f"4.ladder obs_on==obs_off(sharded): spans {spans}")
+    rung("obs_on==obs_off(sharded)", on.state, runs["f32", 3, 1][0].state, shards=3, windows=4,
+         spans=span_p50s(on.obs))
 
 
 def run_csr(dev, session):
@@ -2349,6 +2601,14 @@ def timings(dev, counts, errs):
                                  None, True, 0)  # PR 19's lane kernel, the same bits
     seg_idle = seg_terms.row_ptr[1:] == seg_terms.row_ptr[:-1]
     seg_rows_read, seg_plan_bytes = segments_reads(seg_terms)
+    # one shard of the 3.sharded slice: 3 shards of 3 rows, the window's W-tilde, f32 wire
+    per = n // SHARD_COUNTS[0]
+    stats = shard_stats(k, mean, rho, SHARD_COUNTS[0], "f32")
+    shard = functools.partial(k.consensus_fused_shard, W_win[:per], act[:per], stats[0],
+                              stats[1], mean[:per], rho[:per])
+    shard_enc = functools.partial(k.consensus_shard_encode, mean[:per], rho[:per], stats[0],
+                                  stats[1])
+    shard_act = int(win.active[:per].sum())
     read_bytes = {  # what each call reads of HBM when L2 is cold (the inputs, once)
         "consensus_fused_network": 8 * n * p + 4 * n * n,
         "payload_validity_fused": 8 * n * p,
@@ -2358,6 +2618,8 @@ def timings(dev, counts, errs):
         "consensus_fused": 8 * n * p + 4 * n,
         "sample_and_kl_fused": 20 * p,
         "consensus_fused_segments": 8 * p * seg_rows_read + seg_plan_bytes,
+        "consensus_fused_shard": 4 * per * n + per + 8 * n * p + 8 * per * p,
+        "consensus_shard_encode": 8 * per * p,
     }
     kernels = [  # name, source, replaces, kernel, plain, bytes, ops, peak, library, fields
         ("consensus_fused_network", "consensus_network.cu", REF + "195", network,
@@ -2405,6 +2667,21 @@ def timings(dev, counts, errs):
               n_active=int((~seg_idle).sum()), terms=seg_terms.n_terms, rows_read=seg_rows_read,
               term_bytes=8 * p * seg_terms.n_terms, **lane_kernel_fields(seg_lane, flush),
               plain_reps=5)),  # its plain version runs 78 ops a call: 20 calls overfill the queue
+        ("consensus_fused_shard", "consensus_shard.cu", "src/repro/launch/consensus_opt.py:254",
+         shard,  # no pallas_call: the reference's shard body is XLA; its contract is :261's
+         lambda: k.consensus_shard_plain(W_win[:per], act[:per], stats[0], stats[1],
+                                         mean[:per], rho[:per]),
+         # W rows and mask; the two [N, P] planes; own rows in; rows out
+         4 * per * n + per + 8 * n * p + 16 * per * p,
+         4 * shard_act * n * p + out_ops * shard_act * p, fp32, None,
+         dict(launch_fields(shard, launch_floor_ms), window=win.index, shards=SHARD_COUNTS[0],
+              rows=per, n_active=shard_act)),
+        ("consensus_shard_encode", "consensus_shard.cu", "src/repro/launch/consensus_opt.py:254",
+         shard_enc,
+         lambda: k.consensus_shard_encode_plain(mean[:per], rho[:per], n, 0, "f32"),
+         16 * per * p,  # the rows' mean, rho in; prec_x, pm_x out (f32 wire)
+         gathered_ops * per * p, fp32, None,
+         dict(launch_fields(shard_enc, launch_floor_ms), shards=SHARD_COUNTS[0], rows=per)),
     ]
     for shape in ATTN_SHAPES:  # the row is Qwen3-8B's; both shapes get a phase line
         q, kk, vv, window = attention_inputs(shape, dev)
@@ -2723,11 +3000,15 @@ def main() -> int:
     errs = check_kernels(dev)
     errs.update(check_ops_kernels(dev))
     errs.update(check_segments(dev))
+    errs.update(check_shard(dev))
     session, counts, prior, slice_run_s = run_slice(dev)
     l_session, l_counts = run_launch(dev, session)
     run_launch_checkpoint(dev, smi, l_session)
     gossip = run_gossip(dev)
     g_session, g_counts = gossip["3.gossip"]
+    sharded = run_sharded(dev, smi)
+    sharded_rungs(dev, sharded, g_session.state)
+    sh_session, sh_counts = sharded["f32", 3, 1]  # 3 virtual shards, f32
     csr_counts = run_csr(dev, g_session)
     ops_counts = run_ops(dev, session, prior)
     d_session, d_counts = run_delayed(dev, smi)
@@ -2740,6 +3021,8 @@ def main() -> int:
     card_vs_cpu("4.launch_parity", l_session, launch_spec())
     card_vs_cpu("4.gossip_parity", g_session, gossip_spec())
     card_vs_cpu("4.delayed_parity", d_session, gossip_spec(clock=DELAYED_CLOCK))
+    card_vs_cpu("4.sharded_parity", sh_session, gossip_spec(consensus_impl="ppermute"),
+                cpu_devices=[torch.device("cpu")] * 3)
     s_session = build_session(sparse_slice_spec(), device=dev)
     s_session.run(n_rounds=4)
     card_vs_cpu("4.sparse_parity", s_session, sparse_slice_spec())
@@ -2765,6 +3048,8 @@ def main() -> int:
         "flash_attention": ops_counts["flash_attention"],
         "consensus_fused_segments": d_counts["consensus_fused_segments"],
         "consensus_fused_segments_4200": sp_counts["consensus_fused_segments"],
+        "consensus_fused_shard": sh_counts["consensus_fused_shard"],
+        "consensus_shard_encode": sh_counts["consensus_shard_encode"],
     }
     rows = timings(dev, launches, errs)
     profile_round("6.profile", session)

@@ -63,11 +63,16 @@ EVAL_SEED = 99  # evaluate()'s default MC noise, the same on every call
 PREDICT_SEED = 97  # predictive()'s default MC noise
 
 
-def build_session(spec: ExperimentSpec, device=None, init_params=None) -> "Session":
+def build_session(spec: ExperimentSpec, device=None, init_params=None,
+                  devices=None) -> "Session":
     """Validate ``spec`` eagerly and return a ready-to-run ``Session`` on
     ``device`` (default: the CUDA card; raises if there is none).
     ``init_params`` injects the initial parameter draw (see
-    ``core.simulated.init_network``)."""
+    ``core.simulated.init_network``).  ``devices`` are the devices the
+    sharded gossip execution (``consensus_impl="ppermute"``) may shard the
+    agent axis over, one shard an entry (default: every card of the
+    session's device type, ``launch.mesh.local_devices``); a device may
+    repeat, as a virtual shard."""
     spec.validate()
     device = resolve_device(device)
     gossiping = spec.topology.kind == "gossip" or (
@@ -86,7 +91,7 @@ def build_session(spec: ExperimentSpec, device=None, init_params=None) -> "Sessi
         if gossiping:
             # a gossip topology IS an execution model: one event window per
             # round on the GossipEngine
-            engine = GossipEngine(spec, model, n_agents, device)
+            engine = GossipEngine(spec, model, n_agents, device, devices=devices)
         elif spec.run.engine == "launch":
             engine = LaunchEngine(spec, model, n_agents, device)
         else:

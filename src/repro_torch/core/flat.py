@@ -312,12 +312,33 @@ def consensus_flat_masked_reference(mean, rho, W, active, wire_dtype=None):
     return consensus_masked_plain(W, active, mean, rho, wire_dtype)
 
 
-def consensus_flat_masked(posts: FlatPosterior, W, active, *, wire_dtype=None) -> FlatPosterior:
+def _sharded_window(what, posts, mesh, axis, window, wire_dtype, **override):
+    from repro_torch.launch.consensus_opt import consensus_ppermute_window
+
+    if mesh is None or window is None:
+        raise ValueError(f"{what}(mode='ppermute') needs mesh= and window= (the "
+                         "EventWindow's edges are the static rotation schedule)")
+    return consensus_ppermute_window(posts, window, mesh, axis, wire_dtype=wire_dtype,
+                                     **override)
+
+
+def consensus_flat_masked(posts: FlatPosterior, W, active, *, wire_dtype=None, mode=None,
+                          mesh=None, axis: str = "agents", window=None) -> FlatPosterior:
     """Masked network-wide consensus for one gossip event window: ``W`` is
     the window's W-tilde (cast to float32 on the posterior's device) and
     ``active`` its [N] mask.  Active agents merge per eq. (6); inactive ones
     pass through bit-identically.  The CUDA kernel on the card, its plain
-    version on the CPU."""
+    version on the CPU.
+
+    ``mode="ppermute"`` executes the window sharded over ``mesh``'s agent
+    axis (``launch.consensus_opt.consensus_ppermute_window``, the window's
+    own W-tilde and mask, as the reference): ``window`` is the
+    ``EventWindow``, whose edges are the rotation schedule.  Bitwise the
+    default mode where every payload is finite."""
+    if mode == "ppermute":
+        return _sharded_window("consensus_flat_masked", posts, mesh, axis, window, wire_dtype)
+    if mode is not None:
+        raise ValueError(f"unknown consensus_flat_masked mode {mode!r}")
     dev = posts.mean.device
     W = torch.as_tensor(W).to(device=dev, dtype=torch.float32)
     mean, rho = consensus_fused_masked(W, torch.as_tensor(active, device=dev),
@@ -405,7 +426,8 @@ def _keep_resident(posts, out, valid_self) -> FlatPosterior:
 
 def consensus_flat_masked_quarantined(posts: FlatPosterior, W, active, *, mean_src=None,
                                       rho_src=None, wire_dtype=None,
-                                      bound: float = QUARANTINE_BOUND):
+                                      bound: float = QUARANTINE_BOUND, mode=None, mesh=None,
+                                      axis: str = "agents", window=None):
     """Quarantine-guarded ``consensus_flat_masked``: validate every incoming
     contribution at the exchange boundary, drop invalid ones, move their row
     mass to self.  Returns ``(posterior, valid_src [N] bool)``.
@@ -414,12 +436,24 @@ def consensus_flat_masked_quarantined(posts: FlatPosterior, W, active, *, mean_s
     (default: the resident ``posts``), the fault-injection hook.  A
     corrupted sender still merges; an agent whose resident state is invalid
     passes through unchanged.  With zero faults every step is a
-    value-identity, so the output is bitwise the unguarded path's."""
+    value-identity, so the output is bitwise the unguarded path's.
+
+    ``mode="ppermute"`` (with ``mesh=``, ``window=``) runs the guarded
+    window sharded: validity, sanitised sources and ``quarantine_w`` as
+    above, then ``consensus_ppermute_window`` with ``w_eff`` the guarded
+    W-tilde and ``active`` the guarded mask, on the window's own rotation
+    schedule (the guard only removes weight from scheduled edges)."""
     valid_src, valid_self, posts_x = _guard(posts, mean_src, rho_src, wire_dtype, bound)
     dev = posts.mean.device
     W_g = quarantine_w(torch.as_tensor(W).to(device=dev, dtype=COMPUTE_DTYPE), valid_src)
     act_g = (torch.as_tensor(active, device=dev) > 0) & valid_self
-    out = consensus_flat_masked(posts_x, W_g, act_g, wire_dtype=wire_dtype)
+    if mode == "ppermute":
+        out = _sharded_window("consensus_flat_masked_quarantined", posts_x, mesh, axis, window,
+                              wire_dtype, w_eff=W_g, active=act_g)
+    elif mode is None:
+        out = consensus_flat_masked(posts_x, W_g, act_g, wire_dtype=wire_dtype)
+    else:
+        raise ValueError(f"unknown consensus_flat_masked_quarantined mode {mode!r}")
     return _keep_resident(posts, out, valid_self), valid_src
 
 

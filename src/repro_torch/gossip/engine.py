@@ -1,14 +1,23 @@
 """``GossipEngine`` — the event-driven asynchronous runtime behind
-``api.Session`` (port of ``repro.gossip.engine``, all but the sharded
-``ppermute`` execution).
+``api.Session`` (port of ``repro.gossip.engine``).
 
 One ``run_round`` call executes one EVENT WINDOW (``gossip.clocks``):
 per-agent local Bayes-by-Backprop steps, then the window's consensus, in
-one of three executions (the same eq. (6)):
+one of four executions (the same eq. (6)):
 
 * dense masked (``InferenceSpec.consensus_impl="auto"|"masked"``):
   ``core.flat.consensus_flat_masked``, the CUDA kernel
   ``consensus_fused_masked`` on the card, its plain version on the CPU;
+* sharded (``consensus_impl="ppermute"``): the agent axis is block-sharded
+  over an ``("agents",)`` mesh (``launch.mesh.AgentMesh``: the session's
+  ``devices``, every card of its type by default, where an entry may
+  repeat: a virtual shard) and the consensus runs as
+  ``launch.consensus_opt.consensus_ppermute_window``: one rotation of the
+  shards' wire-dtype statistics per fired cross-shard offset of the window,
+  then each shard's rows reduced by ``consensus_fused_shard``.  The local
+  phase runs first on the session's device, as its own step; the state
+  stays resident there, and each window moves the shards' blocks out and
+  back;
 * delayed delivery (a ``{"kind": "delayed", ...}`` clock, ``max_delay >
   0``): the window's post-local, pre-merge posterior is written into slot
   ``round mod K`` of a ``[K, N, P]`` history ring (``K = max_delay + 1``,
@@ -63,13 +72,12 @@ the JAX engine pins one trace, the port counts one.
 Observability (``engine.obs``, attached by ``build_session`` when
 ``spec.obs.enabled``): each window runs in a ``gossip.window_build`` span
 (the host's fault draws and window lookup) and a ``gossip.window`` span
-whose ``impl`` is ``masked``, ``delayed`` or ``segments``, and after it the
-``gossip.windows`` counter and the ``gossip.jit_traces`` gauge
-(``n_traces``) are updated.  On the card each span synchronises before it
-reads the clock; nothing of it touches the window's tensors.
-
-Not here yet, and refused at construction: the sharded ``ppermute``
-execution (ROADMAP queue A, sharded windows).
+whose ``impl`` is ``masked``, ``delayed`` or ``segments``; a sharded window
+runs in a ``gossip.local_phase`` and a ``gossip.consensus`` span, both with
+``impl="ppermute"``.  After it the ``gossip.windows`` counter and the
+``gossip.jit_traces`` gauge (``n_traces``) are updated.  On the card each
+span synchronises before it reads the clock; nothing of it touches the
+window's tensors.
 """
 from __future__ import annotations
 
@@ -96,9 +104,8 @@ from repro_torch.core.numerics import canonical_wire_dtype, wire_dtype_name
 from repro_torch.core.simulated import init_network, network_local_steps, network_state_from_numpy
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.gossip.clocks import SparseClock, SparseWindow
+from repro_torch.launch.mesh import agent_mesh, local_devices
 from repro_torch.obs.trace import maybe_span
-
-_LATER_SHARDED = "arrives with ROADMAP queue A's sharded windows item"
 
 
 @dataclasses.dataclass
@@ -134,6 +141,13 @@ def _agent_select(active: torch.Tensor, new, old):
         return torch.where(active.reshape((-1,) + (1,) * (a.ndim - 1)), a, b, out=a)
 
     return tree_map(sel, new, old)
+
+
+def _largest_divisor_leq(n: int, cap: int) -> int:
+    for s in range(min(n, cap), 0, -1):
+        if n % s == 0:
+            return s
+    return 1
 
 
 def _signature(tree) -> tuple:
@@ -189,7 +203,10 @@ class GossipEngine:
     # with the clock's own window; the engine casts to the device itself
     wants_host_w = True
 
-    def __init__(self, spec, model, n_agents: int, device):
+    def __init__(self, spec, model, n_agents: int, device, devices=None):
+        """``devices``: the sharded execution's devices (default: every card
+        of ``device``'s type, ``launch.mesh.local_devices``); entries may
+        repeat."""
         from repro_torch.api.engines import build_optimizer, build_schedule
 
         inf = spec.inference
@@ -222,7 +239,7 @@ class GossipEngine:
             )
         # resident dtype of the [K, N, P] ring (bf16 halves it; rows decode to fp32)
         self.hist_dtype = canonical_wire_dtype(inf.history_dtype)
-        self._init_impl(inf.consensus_impl, n_agents)
+        self._init_impl(inf, n_agents, local_devices(device) if devices is None else devices)
         # agent-level fault model attached by build_clock from the clock
         # doc's "faults" entry; None = no churn or corruption
         self.faults = getattr(self.clock, "faults", None)
@@ -254,10 +271,12 @@ class GossipEngine:
         engine's retrace count."""
         return len(self._signatures)
 
-    def _init_impl(self, impl: str, n_agents: int) -> None:
-        """Pick the window execution and refuse what it cannot run."""
+    def _init_impl(self, inf, n_agents: int, devices) -> None:
+        """Pick the window execution, build the sharded execution's mesh, and
+        refuse what it cannot run."""
         from repro_torch.api.spec import SPARSE_DENSE_GUARD
 
+        impl = inf.consensus_impl
         sparse_clock = isinstance(self.clock, SparseClock)
         if impl == "auto":
             impl = "segments" if sparse_clock else "masked"
@@ -289,8 +308,26 @@ class GossipEngine:
                     f"N={n_agents} is above SPARSE_DENSE_GUARD={SPARSE_DENSE_GUARD} "
                     "(use consensus_impl='segments')"
                 )
+        self.mesh = None
         if impl == "ppermute":
-            raise NotImplementedError(f"the sharded ppermute execution {_LATER_SHARDED}")
+            if self.max_delay > 0:
+                raise ValueError(
+                    "consensus_impl='ppermute' implements instant delivery; a delayed clock "
+                    "runs the history path (drop the latency wrapper or use "
+                    "consensus_impl='masked')"
+                )
+            devices = list(devices)
+            shards = inf.consensus_shards
+            if shards is None:
+                shards = _largest_divisor_leq(n_agents, len(devices))
+            if shards > len(devices):
+                raise ValueError(
+                    f"consensus_shards={shards} exceeds the {len(devices)} local devices"
+                )
+            if n_agents % shards:
+                raise ValueError(f"consensus_shards={shards} must divide n_agents={n_agents}")
+            self.n_shards = shards
+            self.mesh = agent_mesh(devices, shards)
 
     # -- the window ----------------------------------------------------------
 
@@ -343,9 +380,11 @@ class GossipEngine:
         )
 
     def window_fn(self, state, batches, W, active, eps=None, generator=None):
+        """The local phase, then the masked consensus (the sharded execution
+        runs its consensus as a step of its own: ``_ppermute_consensus``)."""
         post, opt_state, step, active, losses = self.local_phase(
             state, batches, active, eps, generator)
-        if self.consensus_mode == "gaussian":
+        if self.consensus_mode == "gaussian" and self.mesh is None:
             post = consensus_flat_masked(post, W, active, wire_dtype=self.wire_dtype)
         elif self.consensus_mode == "mean_only":
             post = self._mean_only(post, W, active)
@@ -360,7 +399,7 @@ class GossipEngine:
         post, opt_state, step, active, losses = self.local_phase(
             state, batches, active, eps, generator, up)
         n_q = state.n_quarantined
-        if self.consensus_mode == "gaussian":
+        if self.consensus_mode == "gaussian" and self.mesh is None:
             c = corrupt[:, None]
             mean_src = torch.where(c, fill_mean[:, None], post.mean)
             rho_src = torch.where(c, fill_rho[:, None], post.rho)
@@ -521,17 +560,17 @@ class GossipEngine:
                 "fill_mean": np.asarray(fm), "fill_rho": np.asarray(fr)}
 
     def _window_for(self, r: int, W):
-        """The clock's own window ``r``: the delayed path needs its event
-        list, which the Session's W-tilde alone does not carry.  Windows are
-        pure functions of (seed, round), so this is the Session's stream;
-        ``W`` must be that window's w_eff in float64, so per-round W
-        overrides cannot run on this path."""
+        """The clock's own window ``r``: the delayed and sharded paths need
+        its event list, which the Session's W-tilde alone does not carry.
+        Windows are pure functions of (seed, round), so this is the
+        Session's stream; ``W`` must be that window's w_eff in float64, so
+        per-round W overrides cannot run on these paths."""
         win = self.clock.window(r)
         if not np.array_equal(np.asarray(W, np.float64), np.asarray(win.w_eff, np.float64)):
             raise ValueError(
-                "delayed gossip windows come from the spec clock; the W passed for "
-                f"window {r} does not match its stream (per-round w_schedule overrides "
-                "are unsupported on this path)"
+                "delayed and sharded gossip windows come from the spec clock; the W "
+                f"passed for window {r} does not match its stream (per-round w_schedule "
+                "overrides are unsupported on these paths)"
             )
         return win
 
@@ -587,8 +626,9 @@ class GossipEngine:
             # the dense view of an edge-native window (below the guard only):
             # the segments-vs-masked ladder runs on it
             spec_win, W = W, W.w_eff
+        sharded = self.mesh is not None and self.consensus_mode == "gaussian"
         with maybe_span(obs, "gossip.window_build", round=r):
-            win = self._window_for(r, W) if self.hist_slots else None
+            win = self._window_for(r, W) if (self.hist_slots or sharded) else None
             active = torch.as_tensor(
                 np.asarray(spec_win.active) if spec_win is not None
                 else self._host_active(r, W, win), device=self.device)
@@ -604,15 +644,56 @@ class GossipEngine:
             self._obs_after_window(obs)
             return out
         W = torch.as_tensor(W, dtype=torch.float32).to(self.device)
+        if faults is not None:
+            faults = {k: torch.as_tensor(a, device=self.device) for k, a in faults.items()}
+        if sharded:
+            # the local phase, then the sharded consensus: two steps, two spans
+            with maybe_span(obs, "gossip.local_phase", impl="ppermute", round=r):
+                if faults is None:
+                    state, losses = self.window_fn(state, batches, W, active, eps, generator)
+                else:
+                    state, losses = self.window_fn_guarded(state, batches, W, active, eps,
+                                                           generator, **faults)
+            with maybe_span(obs, "gossip.consensus", impl="ppermute", round=r):
+                state = self._ppermute_consensus(state, W, win, faults)
+            self._obs_after_window(obs)
+            return state, losses
         with maybe_span(obs, "gossip.window", impl="masked", round=r):
             if faults is None:
                 out = self.window_fn(state, batches, W, active, eps, generator)
             else:
-                out = self.window_fn_guarded(
-                    state, batches, W, active, eps, generator,
-                    **{k: torch.as_tensor(a, device=self.device) for k, a in faults.items()})
+                out = self.window_fn_guarded(state, batches, W, active, eps, generator,
+                                             **faults)
         self._obs_after_window(obs)
         return out
+
+    def _ppermute_consensus(self, state, W, win, faults) -> GossipState:
+        """The sharded consensus of a window whose local phase has run: the
+        strict window, the strict window with corrupted payloads on the wire,
+        or the quarantined one.  The activity is the clock's host-exact
+        ``win.active``."""
+        post = state.posterior
+        active = torch.as_tensor(np.asarray(win.active), device=self.device)
+        kw = dict(mode="ppermute", mesh=self.mesh, window=win, wire_dtype=self.wire_dtype)
+        if faults is None:
+            return dataclasses.replace(state,
+                                       posterior=consensus_flat_masked(post, W, active, **kw))
+        c = faults["corrupt"][:, None]
+        mean_src = torch.where(c, faults["fill_mean"][:, None], post.mean)
+        rho_src = torch.where(c, faults["fill_rho"][:, None], post.rho)
+        if self.quarantine:
+            post, valid_src = consensus_flat_masked_quarantined(
+                post, W, active, mean_src=mean_src, rho_src=rho_src, **kw)
+            return dataclasses.replace(
+                state, posterior=post,
+                n_quarantined=state.n_quarantined + (~valid_src).to(torch.int32))
+        # strict: the wire is trusted verbatim; non-merging agents keep their state
+        merged = consensus_flat_masked(dataclasses.replace(post, mean=mean_src, rho=rho_src),
+                                       W, active, **kw)
+        act = active[:, None]
+        return dataclasses.replace(state, posterior=dataclasses.replace(
+            post, mean=torch.where(act, merged.mean, post.mean),
+            rho=torch.where(act, merged.rho, post.rho)))
 
     def _obs_after_window(self, obs) -> None:
         """Registry bookkeeping after one window (host-side, pure observer)."""
@@ -675,6 +756,8 @@ class GossipEngine:
         }
         if self.max_delay:
             out["max_delay"] = self.max_delay
+        if self.mesh is not None:
+            out["consensus_shards"] = self.n_shards
         if self.wire_dtype != "f32":
             out["wire_dtype"] = self.wire_dtype
         if self.hist_slots and wire_dtype_name(self.hist_dtype) != "f32":

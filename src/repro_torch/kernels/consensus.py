@@ -43,6 +43,15 @@ synchronous round's and the gossip windows' paths).
   are the same every run.  CUDA source: ``csrc/consensus_segments.cu``
   ((row, tile) items, a row's terms staged in chunks and every load of a
   chunk issued before its arithmetic, idle rows copied by whole blocks).
+* ``consensus_shard_encode`` / ``consensus_fused_shard``: the two halves of
+  one shard of a sharded gossip window (``launch.consensus_opt``): encode a
+  shard's own rows into its ``[N, P]`` wire-dtype statistic buffers, then,
+  once the rotations have copied the other shards' rows in, reduce its rows
+  of W-tilde over them.  Active rows are bitwise ``consensus_fused_masked``'s
+  rows; no TPU kernel exists for it (the reference's shard body is XLA).
+  CUDA source: ``csrc/consensus_shard.cu``.  The plain versions run the
+  network's shapes, so that on the CPU they are bitwise
+  ``consensus_masked_plain``'s rows.
 * ``payload_validity_fused``: per agent, every wire-rounded ``prec`` and
   ``prec * mean`` lane finite, ``prec > 0`` and both within ``bound``.
   CUDA source: ``csrc/payload_validity.cu``, one launch planned by
@@ -66,6 +75,7 @@ from repro_torch.core.numerics import (
     canonical_wire_dtype,
     softplus,
     softplus_inv,
+    wire_cast_pair,
     wire_roundtrip,
 )
 from repro_torch.kernels import dispatch, launch_plan, stream_plan
@@ -492,6 +502,147 @@ def consensus_fused_segments(terms, x_mean, x_rho, h_mean=None, h_rho=None, *,
         return consensus_segments_plain(terms, x_mean, x_rho, h_mean, h_rho, wire_dtype,
                                         wp_first, block)
     return _segments_launch(terms, x_mean, x_rho, h_mean, h_rho, wire_dtype, wp_first)
+
+
+# -- eq. (6) for one shard of the agent axis ---------------------------------
+
+
+def _frame(block, row0: int, n: int) -> torch.Tensor:
+    """``block [rows, P]`` at rows ``row0`` of an ``[n, P]`` frame (zeros
+    elsewhere); the block itself when it is the whole network."""
+    if block.shape[0] == n:
+        return block
+    frame = torch.zeros((n,) + tuple(block.shape[1:]), dtype=block.dtype, device=block.device)
+    frame[row0:row0 + block.shape[0]] = block
+    return frame
+
+
+def consensus_shard_encode_plain(mean, rho, n: int, row0: int = 0, wire_dtype=None):
+    """The plain PyTorch version of ``consensus_shard_encode``: the rows'
+    ``(prec_x, pm_x)`` in the wire dtype.  The softplus runs on the rows
+    placed in an ``[n, P]`` frame: on the CPU a lane's exp and log1p take
+    the vector or the scalar path by its place in the buffer, so the rows
+    get the bits they get inside the whole network's buffer (what
+    ``consensus_network_plain`` computes)."""
+    rows = slice(row0, row0 + mean.shape[0])
+    prec = 1.0 / torch.square(softplus(_frame(rho, row0, n)))
+    prec_x, pm_x = wire_cast_pair(prec[rows], prec[rows] * mean,
+                                  canonical_wire_dtype(wire_dtype))
+    return prec_x, pm_x
+
+
+def consensus_shard_plain(W_rows, active, prec_x, pm_x, mean, rho, row0: int = 0):
+    """The plain PyTorch version of ``consensus_fused_shard``: bitwise
+    ``consensus_masked_plain``'s rows ``row0 ..`` where the other shards'
+    rows of the statistics are the ones it reads.  It runs the network's
+    shape, ``[N, N] @ [N, P]`` with the other shards' rows of W zero, and
+    the epilogue on ``[N, P]``: a row of a ``[rows, N]`` product may take
+    other bits from CPU BLAS than the same row of the ``[N, N]`` one, and a
+    lane's transcendental ops other bits by its place in the buffer."""
+    n_rows, n = W_rows.shape
+    rows = slice(row0, row0 + n_rows)
+    W = _frame(W_rows.to(torch.float32), row0, n)
+    new_prec = torch.matmul(W, prec_x.to(torch.float32))
+    new_pm = torch.matmul(W, pm_x.to(torch.float32))
+    new_mean = (new_pm / new_prec)[rows]
+    new_rho = softplus_inv(torch.rsqrt(new_prec))[rows]
+    if active is None:
+        return new_mean, new_rho
+    act = _as_mask(active, n_rows, mean.device)[:, None]
+    return torch.where(act, new_mean, mean), torch.where(act, new_rho, rho)
+
+
+def _check_shard(what, prec_x, pm_x, mean, rho, row0: int) -> tuple[int, int, int]:
+    """(rows, n, p) of a shard's call; raises on what the kernel does not take."""
+    _check_flat(what, mean, rho)
+    rows, p = mean.shape
+    n = prec_x.shape[0]
+    if (prec_x.dtype not in _WIRE_CODE or pm_x.dtype != prec_x.dtype
+            or prec_x.shape != (n, p) or pm_x.shape != (n, p)
+            or prec_x.device != mean.device or pm_x.device != mean.device
+            or not (prec_x.is_contiguous() and pm_x.is_contiguous())):
+        raise ValueError(f"{what}: prec_x/pm_x must be two contiguous [N, {p}] float32, bf16 "
+                         f"or f16 buffers on {mean.device}")
+    if not 0 <= row0 <= n - rows:
+        raise ValueError(f"{what}: rows {row0}..{row0 + rows} outside the {n} agents")
+    return rows, n, p
+
+
+def consensus_shard_encode(mean, rho, prec_x, pm_x, *, row0: int = 0):
+    """Encode a shard's own rows: ``mean``/``rho [rows, P]`` float32 become
+    ``(prec_x, pm_x)`` in the buffers' wire dtype (float32, bf16 or f16),
+    written into rows ``row0 .. row0 + rows`` of ``prec_x``/``pm_x [N,
+    P]``, the shard's statistic buffers.  The CUDA kernel on the card
+    (``csrc/consensus_shard.cu``), its plain version on the CPU."""
+    name = "consensus_shard_encode"
+    rows, n, p = _check_shard(name, prec_x, pm_x, mean, rho, row0)
+    out = (prec_x[row0:row0 + rows], pm_x[row0:row0 + rows])
+    if mean.device.type == "cpu":
+        for dst, src in zip(out, consensus_shard_encode_plain(mean, rho, n, row0,
+                                                              prec_x.dtype)):
+            dst.copy_(src)
+        return
+    if mean.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {mean.device}")
+    wire = _WIRE_CODE[prec_x.dtype]
+    with torch.cuda.device(mean.device):
+        lib = dispatch.library()
+        wave = dispatch.wave(mean.device, "consensus_shard", lib.consensus_shard_blocks_per_sm,
+                             0, wire)
+        grid = launch_plan._grid(-(-rows * p // launch_plan.GENERIC_TILE), wave)
+        err = lib.consensus_shard_encode_launch(
+            mean.data_ptr(), rho.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), rows * p,
+            wire, grid, _stream(mean.device),
+        )
+    dispatch.check_cuda(err, name)
+    dispatch.count_launch(name)
+
+
+def consensus_fused_shard(W_rows, active, prec_x, pm_x, mean, rho, *, row0: int = 0,
+                          out=None):
+    """Eq. (6) for one shard of a gossip window: ``W_rows [rows, N]`` its
+    rows of W-tilde (float32), ``active [rows]`` their activity (None: all
+    merge), ``prec_x``/``pm_x [N, P]`` the assembled wire statistics (rows
+    of shards no rotation brought are zeros), ``mean``/``rho [rows, P]``
+    its own rows, which are agents ``row0 ..``.  Returns the rows' new
+    (mean, rho), into ``out`` if given.  Active rows are bitwise
+    ``consensus_fused_masked``'s rows for the same statistics; idle rows
+    are (mean, rho) untouched.  The CUDA kernel on the card, its plain
+    version on the CPU."""
+    name = "consensus_fused_shard"
+    rows, n, p = _check_shard(name, prec_x, pm_x, mean, rho, row0)
+    if W_rows.shape != (rows, n) or W_rows.device != mean.device \
+            or W_rows.dtype != torch.float32:
+        raise ValueError(f"{name}: W_rows must be float32 [{rows}, {n}] on {mean.device}, "
+                         f"got {W_rows.dtype} {tuple(W_rows.shape)} on {W_rows.device}")
+    if mean.device.type == "cpu":
+        got = consensus_shard_plain(W_rows, active, prec_x, pm_x, mean, rho, row0)
+        if out is None:
+            return got
+        for dst, src in zip(out, got):
+            dst.copy_(src)
+        return out
+    if mean.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {mean.device}")
+    act = None if active is None else _as_mask(active, rows, mean.device)
+    if out is None:
+        out = (torch.empty_like(mean), torch.empty_like(rho))
+    _check_flat(name, mean, *out)
+    wire = _WIRE_CODE[prec_x.dtype]
+    W_rows = W_rows.contiguous()
+    with torch.cuda.device(mean.device):
+        lib = dispatch.library()
+        wave = dispatch.wave(mean.device, "consensus_shard", lib.consensus_shard_blocks_per_sm,
+                             1, wire)
+        grid = launch_plan._grid(-(-p // launch_plan.GENERIC_TILE), wave)
+        err = lib.consensus_shard_reduce_launch(
+            W_rows.data_ptr(), None if act is None else act.data_ptr(),
+            prec_x.data_ptr(), pm_x.data_ptr(), mean.data_ptr(), rho.data_ptr(),
+            out[0].data_ptr(), out[1].data_ptr(), rows, n, p, wire, grid, _stream(mean.device),
+        )
+    dispatch.check_cuda(err, name)
+    dispatch.count_launch(name)
+    return out
 
 
 # -- exchange-payload validity ----------------------------------------------

@@ -38,6 +38,7 @@ KERNELS = (
     "consensus_fused_network", "payload_validity_fused", "consensus_fused_masked",
     "consensus_fused_sparse", "consensus_fused_masked_sparse", "consensus_fused",
     "sample_and_kl_fused", "flash_attention", "consensus_fused_segments",
+    "consensus_shard_encode", "consensus_fused_shard",
 )
 _launches = dict.fromkeys(KERNELS, 0)
 _lib: ctypes.CDLL | None = None
@@ -186,6 +187,14 @@ def library() -> ctypes.CDLL:
             i32, i32, i32, i32, i32, ptr,
         ]
         lib.consensus_segments_launch.restype = i32
+        lib.consensus_shard_blocks_per_sm.argtypes = [i32, i32]
+        lib.consensus_shard_blocks_per_sm.restype = i32
+        lib.consensus_shard_encode_launch.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, ptr]
+        lib.consensus_shard_encode_launch.restype = i32
+        lib.consensus_shard_reduce_launch.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i64, i32, i32, ptr,
+        ]
+        lib.consensus_shard_reduce_launch.restype = i32
         _lib = lib
     return _lib
 

@@ -15,7 +15,7 @@ pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
     ROOT / "examples" / f"torch_{name}.py"
-    for name in ("quickstart", "linear_regression", "serve_batched")]
+    for name in ("quickstart", "linear_regression", "serve_batched", "async_gossip")]
 FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack", "ml_dtypes")
 
 

@@ -76,3 +76,19 @@ def test_torch_serve_batched_prints_the_reference_lines(capsys):
     counters = [x for x in got[dash:] if x.startswith(("gossip:", "serving:"))]
     assert len(counters) == 2 and counters == [
         x for x in want[dash:] if x.startswith(("gossip:", "serving:"))]
+
+
+def test_torch_async_gossip_prints_the_reference_lines(capsys):
+    ref = _module("async_gossip")
+    ref.SPEC = dataclasses.replace(ref.SPEC, run=dataclasses.replace(ref.SPEC.run, n_rounds=3,
+                                                                     eval_every=3))
+    want = _lines(capsys, ref.main)
+    out = {}
+    got = _lines(capsys, lambda: out.update(_module("torch_async_gossip").main(
+        ["--device", "cpu", "--rounds", "3"])))
+    assert [_template(x) for x in got] == [_template(x) for x in want]
+    # the sharded run: 4 virtual shards, bitwise the dense run
+    assert out == {"sharded_bitwise": True, "shards": 4}
+    sharded = next(x for x in got if x.startswith("Sharded windows"))
+    assert sharded.startswith("Sharded windows (4 shards over 1 devices")
+    assert sharded.endswith("bit-identical to the dense run: True.")

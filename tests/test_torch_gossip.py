@@ -257,14 +257,17 @@ def test_active_mask_survives_subresolution_weight():
 
 
 def test_later_executions_raise_not_implemented():
-    """Only the sharded ppermute execution is still refused: the delayed and
-    edge-native executions build (tests/test_torch_delayed.py,
-    tests/test_torch_segments.py)."""
+    """No gossip execution is refused any more: the delayed and edge-native
+    executions build (tests/test_torch_delayed.py,
+    tests/test_torch_segments.py), and the sharded ppermute one builds and
+    runs a window (tests/test_torch_sharded.py)."""
     delayed = {"kind": "delayed", "inner": {"kind": "poisson", "rate": 0.8},
                "latency": {"kind": "constant", "delay": 1}}
     assert tbuild(_spec(tspec, delayed), device="cpu").engine.hist_slots == 2
-    with pytest.raises(NotImplementedError, match="sharded"):
-        tbuild(_spec(tspec, UNRELIABLE, consensus_impl="ppermute"), device="cpu")
+    sharded = tbuild(_spec(tspec, UNRELIABLE, consensus_impl="ppermute"), device="cpu",
+                     devices=[torch.device("cpu")] * 4)
+    assert sharded.engine.n_shards == 4
+    assert np.isfinite(sharded.round()["loss"])
     sparse = tspec.ExperimentSpec(
         topology=tspec.TopologySpec.sparse("watts_strogatz", n=N, k=4, beta=0.2,
                                            clock={"kind": "poisson", "rate": 0.5}),

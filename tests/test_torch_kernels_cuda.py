@@ -19,7 +19,9 @@ attention: 2e-5 at f32, 2e-2 at bf16/f16 (the output is rounded to the
 input type), as tests/test_kernels.py holds the Pallas kernel.  The
 segments kernel (the delayed and edge-native windows): rtol/atol 1e-5 at
 f32 and one wire ulp otherwise against its plain version, and bitwise the
-same on a second launch (no atomics).
+same on a second launch (no atomics).  The shard kernels (the sharded
+windows): against their plain versions at the same tolerances, and every
+reduced row bitwise the masked kernel's row at both its instances.
 """
 import numpy as np
 import pytest
@@ -28,7 +30,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import graphs  # noqa: E402
 from repro_torch.core.flat import neighbor_tables  # noqa: E402
-from repro_torch.gossip.clocks import PoissonClock  # noqa: E402
+from repro_torch.gossip.clocks import PoissonClock, window_from_events  # noqa: E402
 from repro_torch.kernels import consensus as k  # noqa: E402
 from repro_torch.kernels import dispatch  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -830,3 +832,129 @@ def test_segments_row_order_does_not_change_the_bits(dev, n, p):
     with pytest.raises(ValueError, match="order"):  # the host's check
         k._segments_launch(dataclasses.replace(terms, order=wrong), x_m, x_r, h_m, h_r,
                            None, False)
+
+
+# -- the shard kernels of the sharded gossip windows (csrc/consensus_shard.cu) --
+
+_WIRE_DTYPE = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
+
+
+def _shard_stats(mean, rho, shards, wire, present=None):
+    """Every shard's rows encoded into one [2, N, P] buffer of the wire
+    dtype; rows of shards not in ``present`` left zero."""
+    n, p = mean.shape
+    per = n // shards
+    stats = torch.zeros((2, n, p), dtype=_WIRE_DTYPE[wire], device=mean.device)
+    for s in range(shards) if present is None else present:
+        rows = slice(s * per, (s + 1) * per)
+        k.consensus_shard_encode(mean[rows], rho[rows], stats[0], stats[1], row0=s * per)
+    return stats
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("n,shards", [(8, 4), (9, 3), (40, 5)])
+def test_shard_kernels_match_plain_and_the_masked_kernel_bitwise(dev, n, shards, wire):
+    """Encode then reduce every shard: each active row is bitwise the masked
+    kernel's row (its small instance at N = 8, 9 and its generic one at any
+    N), each idle row its input; against the plain versions at the
+    tolerance above.  Rows of shards left out, with their W entries zero,
+    change no bit of a row either."""
+    W, mean, rho = _inputs(n, 4099, n + 17, dev)
+    active = torch.arange(n, device=dev) % 3 != 1
+    per = n // shards
+    before = dispatch.launch_counts()
+    stats = _shard_stats(mean, rho, shards, wire)
+    masked = [k.consensus_fused_masked(W, active, mean, rho, wire_dtype=wire)]
+    if n <= 16:
+        masked.append(k._network_launch("consensus_fused_masked", W, active, mean, rho, wire,
+                                        instance=0))
+    for s in range(shards):
+        rows = slice(s * per, (s + 1) * per)
+        got = k.consensus_fused_shard(W[rows], active[rows], stats[0], stats[1], mean[rows],
+                                      rho[rows], row0=s * per)
+        plain_stats = [x.to(_WIRE_DTYPE[wire]) for x in k.consensus_shard_encode_plain(
+            mean, rho, n, 0, wire)]
+        want = k.consensus_shard_plain(W[rows], active[rows], *plain_stats, mean[rows],
+                                       rho[rows], row0=s * per)
+        torch.cuda.synchronize()
+        _assert_close(got, want, wire)
+        for ref in masked:
+            assert torch.equal(got[0], ref[0][rows]) and torch.equal(got[1], ref[1][rows])
+        # only this shard and the next present; W's entries for the rest zero
+        keep = {s, (s + 1) % shards}
+        cols = torch.tensor([j // per in keep for j in range(n)], device=dev)
+        W_part = torch.where(cols[None, :], W, 0.0)
+        part = k.consensus_fused_shard(W_part[rows], active[rows],
+                                       *_shard_stats(mean, rho, shards, wire, keep),
+                                       mean[rows], rho[rows], row0=s * per)
+        ref = k.consensus_fused_masked(W_part, active, mean, rho, wire_dtype=wire)
+        torch.cuda.synchronize()
+        assert torch.equal(part[0], ref[0][rows]) and torch.equal(part[1], ref[1][rows])
+    after = dispatch.launch_counts()
+    assert after["consensus_shard_encode"] - before["consensus_shard_encode"] >= shards
+    assert after["consensus_fused_shard"] - before["consensus_fused_shard"] == 2 * shards
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["f32", "bf16", "f16"])
+def test_shard_encode_matches_plain(dev, wire):
+    _, mean, rho = _inputs(6, 4099, 5, dev)
+    stats = _shard_stats(mean, rho, 3, wire)
+    want = k.consensus_shard_encode_plain(mean, rho, 6, 0, wire)
+    torch.cuda.synchronize()
+    for g, w in zip(stats, want):
+        assert g.dtype == _WIRE_DTYPE[wire]
+        _assert_close((g.float(),), (w.float(),), wire)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("shards", [2, 4, 8])
+def test_sharded_window_on_the_card_is_masked_bitwise(dev, shards, wire):
+    """The whole sharded window over virtual shards of one card is the
+    masked kernel's window bitwise, and a poisoned payload of a shard no
+    rotation brought reaches no row."""
+    from repro_torch.core.flat import FlatLayout, FlatPosterior, consensus_flat_masked
+    from repro_torch.launch.consensus_opt import consensus_ppermute_window
+    from repro_torch.launch.mesh import AgentMesh
+
+    _, mean, rho = _inputs(8, 4099, 9, dev)
+    layout = FlatLayout.for_pytree({"w": torch.zeros(4099)})
+    posts = FlatPosterior(mean, rho, layout)
+    mesh = AgentMesh((dev,) * shards)
+    clock = PoissonClock(graphs.bidirectional_ring_w(8), rate=0.7, seed=3)
+    for r in range(3):
+        win = clock.window(r)
+        out = consensus_ppermute_window(posts, win, mesh, wire_dtype=wire)
+        ref = consensus_flat_masked(posts, win.w_eff, win.active, wire_dtype=wire)
+        torch.cuda.synchronize()
+        assert torch.equal(out.mean, ref.mean) and torch.equal(out.rho, ref.rho), r
+    win = window_from_events(graphs.bidirectional_ring_w(8), [(0, 1)], e_max=2)  # no rotation
+    bad = mean.clone()
+    bad[7] = float("nan")
+    out = consensus_ppermute_window(FlatPosterior(bad, rho, layout), win, AgentMesh((dev,) * 4),
+                                    wire_dtype=wire)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.mean[0]).all() and torch.isnan(out.mean[7]).all()
+
+
+@pytest.mark.cuda
+def test_sharded_window_over_real_cards(dev):
+    """Across cards each rotation is a peer copy; the window is the masked
+    one bitwise (needs two cards)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards for a peer copy; this host has one")
+    from repro_torch.core.flat import FlatLayout, FlatPosterior, consensus_flat_masked
+    from repro_torch.launch.consensus_opt import consensus_ppermute_window
+    from repro_torch.launch.mesh import AgentMesh
+
+    cards = tuple(torch.device("cuda", i) for i in range(2))
+    _, mean, rho = _inputs(8, 4099, 11, dev)
+    posts = FlatPosterior(mean, rho, FlatLayout.for_pytree({"w": torch.zeros(4099)}))
+    win = PoissonClock(graphs.bidirectional_ring_w(8), rate=0.9, seed=5).window(0)
+    for wire in ("f32", "bf16"):
+        out = consensus_ppermute_window(posts, win, AgentMesh(cards), wire_dtype=wire)
+        ref = consensus_flat_masked(posts, win.w_eff, win.active, wire_dtype=wire)
+        torch.cuda.synchronize()
+        assert torch.equal(out.mean, ref.mean) and torch.equal(out.rho, ref.rho), wire

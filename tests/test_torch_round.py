@@ -239,8 +239,8 @@ def test_build_session_without_device_needs_a_gpu():
 
 
 def test_later_slices_raise_not_implemented():
-    """The launch engine's slice arrived: it builds; only the sharded
-    ppermute execution still raises (tests/test_torch_gossip.py)."""
+    """The launch engine's slice arrived: it builds, as the sharded ppermute
+    execution does (tests/test_torch_gossip.py, tests/test_torch_sharded.py)."""
     spec = _spec(tspec)
     launch = tbuild(dataclasses.replace(spec, run=tspec.RunSpec(engine="launch")), device="cpu")
     assert launch.engine.name == "launch" and type(launch.state).__name__ == "BayesTrainState"
