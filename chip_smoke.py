@@ -122,7 +122,31 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    ``window_ppermute`` bytes (equal; bf16 half of f32), and its 4.ladder
    rungs right after (``sharded==masked`` at f32 against 3.gossip's state
    and at bf16, ``sharded_quarantine0==sharded_strict`` over 9 shards,
-   ``obs_on==obs_off(sharded)``);
+   ``obs_on==obs_off(sharded)``).  The model zoo's dense serving path
+   (after ``3.obs_gossip``, once ``3.sparse`` has released its memory):
+   ``3.lm_qwen3_8b``, Qwen3-8B at full width and depth for A = 2 agents
+   and B = 2 prompts each, bf16 weights from ``init_params`` (agent i
+   from seed i): ``make_prefill_step`` of S = 4096 Zipf tokens into a
+   4,128-slot cache (first and warm; ``flash_attention`` 36 times a
+   prefill), 32 decode steps (tokens/s), the prefill of S + 1 against the
+   first decode step (``LM_BF16_ATOL`` / ``LM_BF16_RMS`` on bf16 logits;
+   a decode one position late must fail it), ``window_override`` 1024 on
+   a 1024-slot ring (prefill, 8 steps, the same check), 8 steps on an
+   int8 cache, agent 1's prefill against a forward of its weights alone
+   (agent 0's weights must fail it), the peak memory, the prefill's FLOP
+   bound and the decode step's byte bound, a profile of one prefill and
+   one decode step, layer 0's attention on the prefill's own q/k/v
+   through the kernel route against the plain version (``ATT_BF16_REL``
+   of |plain| plus of its row's rms; the plain version that drops up to
+   64 keys must fail it), and ``flash_attention`` at that shape ([4, 32,
+   4096, 128], causal and window 1024) beside SDPA; ``3.lm_repro100m``,
+   repro-100m (P = 163,597,056 an agent), A = 2: ``init_train_state``,
+   one ``make_consensus_step`` over ``LM_ZOO_W`` (``consensus_fused_network``
+   at N = 2, held against its plain version, timed against 16 N P bytes),
+   ``serve_params`` and prefill (S = 512) + 8 decode steps at bf16 (the
+   tensor-core kernel) and f32 (the SIMT kernel), each against the same
+   steps on the CPU (f32 1e-4, bf16 as above) and each agent's prefill
+   against its weights alone (the other agent's must fail it);
 4. card vs CPU: one more synchronous round and one more gossip window from
    the same state with the same injected batches and noise, the card through
    the kernels, the CPU through the plain versions, and likewise one more
@@ -192,13 +216,17 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    time by kernel (torch.profiler).
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one JSON
-line describing the kernels, and ``{"ok": true, "device": {...}}``.
+line describing the kernels (``flash_attention_lm``: the kernel's launches
+on the model zoo's path and its time at the Qwen3-8B prefill's shape;
+``consensus_fused_network_zoo``: eq. (6) on the zoo posterior), and
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -306,6 +334,35 @@ WIRES = ("f32", "bf16", "f16")
 N_BEYOND_GRID = 70_000  # agents (or attention heads) past a grid dimension's 65,535
 SRC = "src/repro_torch/kernels/csrc/"
 REF = "src/repro/kernels/consensus.py:"
+# the model zoo's dense serving path (3.lm_qwen3_8b, 3.lm_repro100m)
+LM_AGENTS, LM_BATCH = 2, 2  # agents, prompts an agent
+LM_S, LM_CAP = 4_096, 4_128  # Qwen3-8B prompt; cache capacity (S + 32)
+LM_DECODE, LM_WINDOW, LM_SHORT_DECODE = 32, 1_024, 8
+LM_SMALL_S = 512  # repro-100m prompt
+LM_ZOO_W = [[0.75, 0.25], [0.25, 0.75]]  # repro-100m's eq. (6): the merged agents differ
+# bf16 logits: decode vs prefill, card vs CPU, agent-stacked vs one agent.
+# Both sides round every matmul and attention output to bf16 (the
+# tensor-core kernel's P split keeps ~16 bits of P, the plain versions
+# fp32).  Held on the max abs difference and on its rms over the rms of
+# the logits (~0.88): measured 0.040-0.063 and 0.010-0.014 on the H100,
+# so about twice that.  The control, the other agent's weights, must fail
+# it (measured 3.1-5.4 and 0.83-1.42).  A decode one position late moves
+# the logits at this init no further than the noise (0.066, 0.016), so
+# layer 0's decode attention is held on its own (LAYER0_DECODE_*).
+LM_BF16_ATOL = 0.125
+LM_BF16_RMS = 0.03
+# the LM path's attention vs its plain version (layer 0's q/k/v, the
+# prefill's shape): one bf16 place of |plain| plus one of the rms of its
+# row over the head dim, so a row whose output is small (late in a long
+# causal sequence, ~0.02 here) is held to its own scale
+ATT_BF16_REL = 2.0 ** -7
+ATT_CONTROL_DROP = 64  # the control drops up to this many of the earliest keys
+# layer 0's attention block, decode of token S over the cache against the
+# no-cache block over S + 1 tokens (the kernel), bf16, max abs and rms
+# ratio: measured 0.0039 and 0.00094 on the H100; the control, the same
+# decode one position late, 0.0156 and 0.0184
+LAYER0_DECODE_ATOL, LAYER0_DECODE_RMS = 0.008, 0.005
+LM_F32_ATOL = 1e-4  # f32 logits, card (TF32 off) vs CPU: fp32 sums in another order
 
 
 def phase(tag: str, **fields) -> None:
@@ -795,6 +852,32 @@ def attention_errors(what, got, want, tol):
     if not bool(torch.all(err <= tol + tol * w.abs())):
         raise AssertionError(f"{what}: max err {float(err.max())} beyond {tol}")
     return float(err.max())
+
+
+def attention_scaled(what, got, want, rel=ATT_BF16_REL):
+    """An attention output ``[..., hd]`` against its plain version: (max
+    abs err, max err over its row's rms, rms of the plain output, max err
+    over the bound ``rel * |plain| + rel * rms(plain's row)``)."""
+    import torch
+
+    torch.cuda.synchronize()
+    g, w = got.float(), want.float()
+    if got.shape != want.shape or got.dtype != want.dtype or not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} vs {want.dtype} "
+                             f"{tuple(want.shape)}, or not finite")
+    err = (g - w).abs()
+    row = w.pow(2).mean(-1, keepdim=True).sqrt()
+    share = float((err / (rel * w.abs() + rel * row)).max())
+    return float(err.max()), float((err / row).max()), float(w.pow(2).mean().sqrt()), share
+
+
+def attention_scaled_errors(what, got, want, rel=ATT_BF16_REL):
+    """``attention_scaled``; raises beyond its bound."""
+    out = attention_scaled(what, got, want, rel)
+    if out[3] > 1.0:
+        raise AssertionError(f"{what}: max err {out[0]} ({out[1]} of its row's rms) beyond "
+                             f"{rel} |plain| + {rel} rms(row)")
+    return out
 
 
 def attention_ulps(got, want):
@@ -2966,6 +3049,516 @@ def profile_round(tag, session, rounds=5):
           top_host=[(e.key[:50], e.count, e.self_cpu_time_total / 1e3) for e in host])
 
 
+def lm_profile(fn, top=6):
+    """One call of ``fn`` under torch.profiler: wall ms, device ms summed
+    over its kernels, their number, and the ``top`` kernels by device time
+    (empty where the profiler sees no device event)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "device_kernels": sum(e.count for e in kernels),
+            "top": [(e.key[:60], e.count, e.self_device_time_total / 1e3)
+                    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]]}
+
+
+def lm_params(cfg, dev, n_agents, dtype):
+    """The serving weights of ``n_agents`` agents, agent ``i`` drawn by
+    ``init_params`` from seed ``i`` in ``dtype`` (one f32 leaf at a time),
+    stacked on a leading agent axis leaf by leaf: each agent's leaf is
+    freed as its stack is made, so no third copy of the model exists."""
+    import torch
+
+    from repro_torch.models import init_params
+
+    drawn = [init_params(cfg, torch.Generator(device=dev).manual_seed(i), device=dev,
+                         dtype=dtype) for i in range(n_agents)]
+
+    def stack(trees):
+        if isinstance(trees[0], dict):  # the dense configs' trees hold no lists
+            return {key: stack([t.pop(key) for t in trees]) for key in list(trees[0])}
+        out = torch.stack(trees)
+        trees.clear()
+        return out
+
+    return stack(drawn)
+
+
+def lm_tokens(cfg, n, dev, seed=0):
+    """``[A, B, n]`` Zipf tokens from the port's sampler (``n - 1`` tokens
+    and their shift, rejoined)."""
+    import torch
+
+    from repro_torch.data.pipeline import make_lm_batch_sampler
+
+    batch = make_lm_batch_sampler(cfg.vocab_size, LM_BATCH, n - 1, n_agents=LM_AGENTS,
+                                  device=dev)(torch.Generator(device=dev).manual_seed(seed), 0)
+    return torch.cat([batch["tokens"], batch["targets"][..., -1:]], dim=-1)
+
+
+def timed(fn):
+    """(result, device ms) of one call, from CUDA events."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def lm_decode(step, params, token, start, n, cache, tokens=None):
+    """``n`` decode steps from ``token [A, B, 1]`` at position ``start``,
+    greedy unless ``tokens [A, B, n]`` forces each step's input after the
+    first: (each step's logits, its inputs, each step's device ms from
+    CUDA events, the wall seconds of all, the cache)."""
+    import torch
+
+    logits, inputs, events = [], [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        inputs.append(token)
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        lg, cache = step(params, token, start + i, cache)
+        e.record()
+        events.append((s, e))
+        logits.append(lg)
+        token = (lg.argmax(-1) if tokens is None or i + 1 >= n
+                 else tokens[..., i + 1:i + 2].to(lg.device))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return logits, inputs, [s.elapsed_time(e) for s, e in events], wall, cache
+
+
+def lm_diff(what, got, want):
+    """(max abs difference, its rms over the rms of ``want``) of two logits
+    tensors; raises on a shape mismatch or a non-finite value."""
+    import torch
+
+    g, w = got.float().cpu(), want.float().cpu()
+    if g.shape != w.shape or not bool(torch.isfinite(g).all() and torch.isfinite(w).all()):
+        raise AssertionError(f"{what}: shapes {tuple(g.shape)} / {tuple(w.shape)}, or not finite")
+    d = g - w
+    return float(d.abs().max()), float(d.pow(2).mean().sqrt() / w.pow(2).mean().sqrt())
+
+
+def lm_check(what, got, want, atol, rms_tol=None):
+    """``lm_diff``; raises past ``atol`` on the max or ``rms_tol`` on the
+    relative rms."""
+    err, rms = lm_diff(what, got, want)
+    if err > atol or (rms_tol is not None and rms > rms_tol):
+        raise AssertionError(f"{what}: max abs err {err}, relative rms {rms}; "
+                             f"bounds {atol}, {rms_tol}")
+    return err, rms
+
+
+def lm_control(what, wrong, want, atol, rms_tol):
+    """A deliberately wrong result against the right one: ``lm_diff``;
+    raises unless ``lm_check`` at these bounds would refuse it."""
+    err, rms = lm_diff(what, wrong, want)
+    if err <= atol and rms <= rms_tol:
+        raise AssertionError(f"{what}: max abs {err}, relative rms {rms} within the bounds "
+                             f"{atol}, {rms_tol}: the check would not see this fault")
+    return err, rms
+
+
+def flash_names(fn):
+    """The flash-attention device kernels one call of ``fn`` runs (from a
+    CUDA graph of the call)."""
+    names = [w["name"] for w in captured_work(fn) if w["type"] == "kernel"]
+    return sorted({"flash_attention_tc_kernel" if "flash_attention_tc_kernel" in n
+                   else "flash_attention_kernel" for n in names if "flash_attention" in n})
+
+
+def tree_bytes(tree):
+    from repro_torch.core.tree import tree_leaves
+
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
+def prefill_flops(cfg, a, b, s, window=0):
+    """Operations of one prefill: the projections and MLP of every token,
+    attention over the pairs the mask leaves, the last position's logits."""
+    d, hd = cfg.d_model, cfg.hd
+    per_token = 2 * d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd + 2 * cfg.n_heads * hd * d \
+        + 3 * 2 * d * cfg.d_ff
+    attn = 4 * hd * cfg.n_heads * attention_pairs(s, s, True, window)
+    return a * b * (cfg.n_layers * (s * per_token + attn) + 2 * d * cfg.padded_vocab)
+
+
+def layer0_decode(cfg, params, layer0, toks, s, dev):
+    """Layer 0's attention block on the card: token ``s`` decoded over a
+    cache that a prefill of ``s`` tokens filled, against the last row of
+    the no-cache block over ``s + 1`` tokens (the kernel route, padded);
+    and the control, the same decode one position late.  Returns both
+    ``lm_diff`` readings; raises past ``LAYER0_DECODE_*``."""
+    import torch
+
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import attention as att
+    from repro_torch.models.modules import embed, rmsnorm
+
+    a, b = toks.shape[:2]
+    h = rmsnorm(layer0["norm1"], embed(params["embed"], toks[..., :s + 1], torch.bfloat16),
+                cfg.norm_eps)
+    block = functools.partial(att.attention_block, layer0["attn"], cfg=cfg, causal=True)
+    want = block(h, positions=torch.arange(s + 1, device=dev))[0][..., s:, :]
+    cache = att.init_kv_cache(cfg, b, s + 2, device=dev, lead=(a,))
+    block(h[..., :s, :], positions=torch.arange(s, device=dev), cache=cache)
+    late = tree_map(torch.clone, cache)
+    got = block(h[..., s:, :], positions=torch.tensor([s], device=dev), cache=cache)[0]
+    wrong = block(h[..., s:, :], positions=torch.tensor([s + 1], device=dev), cache=late)[0]
+    return (lm_check("3.lm_qwen3_8b layer 0 decode vs no-cache S+1", got, want,
+                     LAYER0_DECODE_ATOL, LAYER0_DECODE_RMS),
+            lm_control("3.lm_qwen3_8b layer 0 decode at S+1 (control)", wrong, want,
+                       LAYER0_DECODE_ATOL, LAYER0_DECODE_RMS))
+
+
+def run_lm_qwen3(dev, smi):
+    """Phase 3.lm_qwen3_8b: Qwen3-8B at full width and depth served for
+    A = 2 agents, B = 2 prompts each, bf16 weights (seed 0): prefill of
+    S = 4096 Zipf tokens into a cache of 4,128 slots (first and warm), 32
+    decode steps (the first on the real next token, then greedy), the
+    prefill of S + 1 against the first decode step; the same weights with
+    ``window_override`` 1024 on a ring cache of 1024 slots (prefill, 8
+    decode steps, the S + 1 check); 8 decode steps on an int8 cache.  The
+    agents carry different weights (seeds 0 and 1): agent 1's prefill is
+    held against a forward of its own weights alone, and the control
+    (agent 0's weights on agent 1's prompts) must fail that check.  Then
+    layer 0's decode attention (``layer0_decode``), its attention on the
+    prefill's own q/k/v through the kernel route against the plain
+    version, and
+    ``flash_attention`` timed at that shape (causal, and window 1024)
+    beside SDPA, after the model is freed.  Returns the kernel line's
+    ``flash_attention_lm`` row."""
+    import statistics
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps
+    from repro_torch.models import attention as att
+    from repro_torch.models import forward
+    from repro_torch.models.modules import embed, rmsnorm
+
+    cfg = get_config("qwen3-8b")
+    a, b, s = LM_AGENTS, LM_BATCH, LM_S
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm_params(cfg, dev, a, torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = tree_bytes(params)
+    emb_bytes = tree_bytes(params["embed"])
+    toks = lm_tokens(cfg, s + 1 + LM_DECODE, dev)  # [A, B, S + 33]
+    prompt = {"tokens": toks[..., :s]}
+    prefill, decode = steps.make_prefill_step(cfg), steps.make_decode_step(cfg)
+    cache = steps.make_agent_cache(cfg, a, b, LM_CAP, device=dev)
+    kv_bytes = tree_bytes(cache)
+    torch.cuda.synchronize()
+
+    dispatch.reset_launch_counts()
+    (logits, cache), first_ms = timed(lambda: prefill(params, prompt, cache))
+    first_counts = dispatch.launch_counts()
+    (logits_warm, cache), warm_ms = timed(lambda: prefill(params, prompt, cache))
+    dec, _, dec_ms, dec_wall, cache = lm_decode(decode, params, toks[..., s:s + 1], s,
+                                                LM_DECODE, cache)
+    full_cache = steps.make_agent_cache(cfg, a, b, LM_CAP, device=dev)
+    full, _ = prefill(params, {"tokens": toks[..., :s + 1]}, full_cache)  # S + 1: the pad
+    del full_cache
+    cont_err = lm_check("3.lm_qwen3_8b decode vs prefill S+1", dec[0], full, LM_BF16_ATOL,
+                        LM_BF16_RMS)
+
+    prefill_w = steps.make_prefill_step(cfg, LM_WINDOW)
+    decode_w = steps.make_decode_step(cfg, LM_WINDOW)
+    ring = steps.make_agent_cache(cfg, a, b, LM_WINDOW, device=dev)
+    (logits_w, ring), window_ms = timed(lambda: prefill_w(params, prompt, ring))
+    dec_w, _, dec_w_ms, _, ring = lm_decode(decode_w, params, toks[..., s:s + 1], s,
+                                            LM_SHORT_DECODE, ring)
+    ring2 = steps.make_agent_cache(cfg, a, b, LM_WINDOW, device=dev)
+    full_w, _ = prefill_w(params, {"tokens": toks[..., :s + 1]}, ring2)
+    del ring, ring2
+    cont_w_err = lm_check("3.lm_qwen3_8b windowed decode vs prefill S+1", dec_w[0], full_w,
+                          LM_BF16_ATOL, LM_BF16_RMS)
+
+    q8 = steps.make_agent_cache(cfg, a, b, LM_CAP, dtype=torch.int8, device=dev)
+    int8_bytes = tree_bytes(q8)
+    (logits_8, q8), int8_prefill_ms = timed(lambda: prefill(params, prompt, q8))
+    dec_8, _, dec_8_ms, _, q8 = lm_decode(decode, params, toks[..., s:s + 1], s,
+                                          LM_SHORT_DECODE, q8)
+    torch.cuda.synchronize()
+    counts = dispatch.launch_counts()
+    del q8
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_prefills = 6
+    if first_counts["flash_attention"] != cfg.n_layers or \
+            counts["flash_attention"] != n_prefills * cfg.n_layers:
+        raise AssertionError(f"3.lm_qwen3_8b: flash_attention launched {first_counts} in the "
+                             f"first prefill, {counts} in all; expected {cfg.n_layers} a prefill")
+    for name, out in [("prefill", logits), ("prefill_warm", logits_warm), ("window", logits_w),
+                      ("int8_prefill", logits_8)] + [("decode", x) for x in dec + dec_w + dec_8]:
+        if not bool(torch.isfinite(out).all()) or out.shape != (a, b, 1, cfg.padded_vocab):
+            raise AssertionError(f"3.lm_qwen3_8b {name}: {tuple(out.shape)} or not finite")
+    int8_gap = lm_diff("3.lm_qwen3_8b int8 vs bf16 cache", dec_8[0], dec[0])
+    # the agent axis: agent 1's prefill against its own weights alone, and
+    # (the control) agent 0's weights on agent 1's prompts
+    solo = [forward(tree_map(lambda x: x[i], params), cfg, prompt["tokens"][1],
+                    logits_tail=1)[0] for i in (1, 0)]
+    agent_err = lm_check("3.lm_qwen3_8b agent 1 stacked vs alone", logits_warm[1], solo[0],
+                         LM_BF16_ATOL, LM_BF16_RMS)
+    agent_ctrl = lm_control("3.lm_qwen3_8b agent 1 vs agent 0's weights (control)",
+                            solo[1], logits_warm[1], LM_BF16_ATOL, LM_BF16_RMS)
+    del solo
+    profiles = {"prefill": lm_profile(lambda: prefill(params, prompt, cache)),
+                "decode": lm_profile(lambda: decode(params, dec[-1].argmax(-1), s, cache))}
+
+    # layer 0's attention on the prefill's own q/k/v: the kernel route vs plain
+    layer0 = tree_map(lambda x: x[:, 0, 0], params["stacks"]["attn"])
+    decode0, decode0_ctrl = layer0_decode(cfg, params, layer0, toks, s, dev)
+    h = rmsnorm(layer0["norm1"], embed(params["embed"], prompt["tokens"], torch.bfloat16),
+                cfg.norm_eps)
+    q, k, v = att.attention_qkv(layer0["attn"], h, cfg, torch.arange(s, device=dev))
+    k, v = att._repeat_kv(k, cfg.n_heads), att._repeat_kv(v, cfg.n_heads)
+    del params, h, layer0, cache
+    torch.cuda.empty_cache()
+    route = functools.partial(att.kernel_attention, q, k, v, causal=True)
+    got = route()
+    qh, kh, vh = (t.reshape(a * b, s, cfg.n_heads, cfg.hd).transpose(1, 2).contiguous()
+                  for t in (q, k, v))  # [4, 32, 4096, 128]: the kernel's own input
+    del q, k, v
+    gh = got.reshape(a * b, s, cfg.n_heads, cfg.hd).transpose(1, 2).contiguous()
+    want = torch.cat([fa.flash_attention_plain(qh[i:i + 1], kh[i:i + 1], vh[i:i + 1],
+                                               causal=True) for i in range(a * b)])
+    layer0 = attention_scaled_errors("3.lm_qwen3_8b layer 0 attention", gh, want)
+    # the control: the plain version that drops up to ATT_CONTROL_DROP of
+    # the earliest keys of the last rows, held to the same bound
+    dropped = fa.flash_attention_plain(qh[:1], kh[:1], vh[:1], causal=True,
+                                       window=s - ATT_CONTROL_DROP)
+    layer0_ctrl = attention_scaled("control", dropped, want[:1])
+    if layer0_ctrl[3] <= 1.0:
+        raise AssertionError("3.lm_qwen3_8b: the layer 0 bound passes attention that drops "
+                             f"{ATT_CONTROL_DROP} keys: {layer0_ctrl}")
+    route_kernels = flash_names(route)
+    del got, gh, want, route, dropped
+    if route_kernels != ["flash_attention_tc_kernel"]:
+        raise AssertionError(f"3.lm_qwen3_8b: bf16 attention ran {route_kernels}")
+
+    # flash_attention at the prefill's shape, beside SDPA (the table only)
+    timing = {}
+    for window in (0, LM_WINDOW):
+        kern = functools.partial(fa.flash_attention, qh, kh, vh, causal=True, window=window)
+        plain = functools.partial(fa.flash_attention_plain, qh, kh, vh, causal=True,
+                                  window=window)
+        mask = fa.attention_mask(s, s, True, window, dev)
+        sdpa = (functools.partial(F.scaled_dot_product_attention, qh, kh, vh, attn_mask=mask)
+                if window else
+                functools.partial(F.scaled_dot_product_attention, qh, kh, vh, is_causal=True))
+        err, err_rms, want_rms, _ = attention_scaled_errors(
+            f"3.lm_qwen3_8b flash_attention window {window}", kern(), plain())
+        ops = 4 * cfg.hd * attention_pairs(s, s, True, window) * a * b * cfg.n_heads
+        nbytes = qh.element_size() * 4 * qh.numel()  # q, k, v in; out
+        t_ops, t_bytes = ops / BF16_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        timing[window] = {"max_abs_err": err, "max_err_over_row_rms": err_rms,
+                          "plain_rms": want_rms, "ms": cuda_ms(kern),
+                          "plain_ms": cuda_ms(plain, reps=3), "library_ms": cuda_ms(sdpa),
+                          "bound_ms": max(t_ops, t_bytes),
+                          "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                          "ops": ops, "bytes": nbytes}
+    del qh, kh, vh
+    torch.cuda.empty_cache()  # the plain versions' 8.6 GB score matrices
+
+    step_ms = statistics.median(dec_ms)
+    flops = prefill_flops(cfg, a, b, s)
+    kv_read = (kv_bytes // LM_CAP) * (s + LM_DECODE // 2 + 1)  # the median step's filled slots
+    decode_bytes = weight_bytes - emb_bytes + a * b * cfg.d_model * 2 + kv_read
+    phase("3.lm_qwen3_8b", nvidia_smi=smi, agents=a, batch_per_agent=b, prompt=s,
+          capacity=LM_CAP, n_params_per_agent=weight_bytes // (2 * a),
+          weight_bytes=weight_bytes, kv_cache_bytes=kv_bytes, int8_cache_bytes=int8_bytes,
+          init_s=init_s, prefill_first_ms=first_ms, prefill_warm_ms=warm_ms,
+          prefill_flop=flops, prefill_bound_ms=flops / BF16_FLOP_PER_S * 1e3,
+          prefill_bound_share=flops / BF16_FLOP_PER_S * 1e3 / warm_ms,
+          decode_steps=LM_DECODE, decode_ms_median=step_ms, decode_ms_min=min(dec_ms),
+          decode_ms_max=max(dec_ms), decode_wall_ms_per_step=dec_wall * 1e3 / LM_DECODE,
+          tokens_per_s=a * b / step_ms * 1e3, decode_bytes=decode_bytes,
+          decode_bound_ms=decode_bytes / HBM_BYTES_PER_S * 1e3,
+          decode_bound_share=decode_bytes / HBM_BYTES_PER_S * 1e3 / step_ms,
+          logits_rms=float(full.float().pow(2).mean().sqrt()),
+          atol=LM_BF16_ATOL, rms_tol=LM_BF16_RMS,
+          continuation_max_abs_err_rel_rms=cont_err,
+          layer0_decode_max_abs_err_rel_rms=decode0, layer0_late_decode_control=decode0_ctrl,
+          layer0_decode_bounds=(LAYER0_DECODE_ATOL, LAYER0_DECODE_RMS),
+          agent1_stacked_vs_alone=agent_err, agent0_weights_control=agent_ctrl,
+          window=LM_WINDOW, window_prefill_ms=window_ms,
+          window_decode_ms_median=statistics.median(dec_w_ms),
+          window_continuation_max_abs_err_rel_rms=cont_w_err,
+          int8_prefill_ms=int8_prefill_ms, int8_decode_ms_median=statistics.median(dec_8_ms),
+          int8_vs_bf16_first_decode_max_abs_rel_rms=int8_gap,
+          flash_attention_per_prefill=first_counts["flash_attention"],
+          layer0_attention=dict(zip(("max_abs_err", "max_err_over_row_rms", "plain_rms",
+                                     "share_of_bound"), layer0)),
+          layer0_drop_control=dict(zip(("max_abs_err", "max_err_over_row_rms", "plain_rms",
+                                        "share_of_bound"), layer0_ctrl)),
+          route_kernels=route_kernels,
+          flash_attention_at_prefill_shape={w: t for w, t in timing.items()},
+          max_memory_allocated=peak, launches=counts, profiles=profiles)
+    causal = timing[0]
+    row = {"name": "flash_attention_lm", "route": "cuda", "source": SRC + "flash_attention_tc.cu",
+           "replaces": "src/repro/kernels/flash_attention.py:94",
+           "launches": counts["flash_attention"], "max_abs_err": layer0[0],
+           "ms": causal["ms"], "plain_ms": causal["plain_ms"], "bound_ms": causal["bound_ms"],
+           "bound_by": causal["bound_by"], "library_ms": causal["library_ms"]}
+    return row
+
+
+def run_lm_repro100m(dev, smi):
+    """Phase 3.lm_repro100m: repro-100m at full width (P = 163,597,056 an
+    agent), A = 2: ``init_train_state`` -> a ``FlatPosterior [2, P]``
+    (agent 1's mean moved by seeded noise, as a local step would), one
+    ``make_consensus_step`` over ``LM_ZOO_W`` on the network kernel (held
+    against its plain version, timed against its 16 N P byte bound), so the
+    two agents' merged means differ; ``serve_params`` at bf16 and f32, and
+    at each a prefill of S = 512 and 8 decode steps for B = 2 prompts an
+    agent (bf16 on the tensor-core kernel, f32 on the SIMT kernel), each
+    held against the same steps on the CPU, and each agent's prefill
+    against a forward of its own weights alone on the card (the other
+    agent's weights, the control, must fail that check).  Returns the
+    ``consensus_fused_network_zoo`` row."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.kernels import consensus as kc
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import steps
+    from repro_torch.models import attention as att
+    from repro_torch.models import forward
+    from repro_torch.optim import adam
+
+    base = get_config("repro-100m")
+    a, b, s, n_dec = LM_AGENTS, LM_BATCH, LM_SMALL_S, LM_SHORT_DECODE
+    cpu = torch.device("cpu")
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = steps.init_train_state(base, a, adam(), torch.Generator(device=dev).manual_seed(0),
+                                   device=dev)
+    post = state.posterior
+    p = post.n_params()
+    post.mean[1] += 1e-2 * torch.randn(p, generator=torch.Generator(device=dev).manual_seed(1),
+                                       device=dev)
+    W = torch.as_tensor(LM_ZOO_W, dtype=torch.float32, device=dev)
+    merged = steps.make_consensus_step(base, W)(post)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    toks = lm_tokens(base, s + n_dec, dev, seed=1)
+    runs, route_kernels, served = {}, {}, {}
+    for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        cfg = dataclasses.replace(base, dtype=str(dt).removeprefix("torch."))
+        params = steps.serve_params(merged, dt)
+        out = {}
+        for on_card, device in ((True, dev), (False, cpu)):
+            pr = params if on_card else tree_map(lambda x: x.to(cpu), params)
+            tk = toks.to(device)
+            cache = steps.make_agent_cache(cfg, a, b, s + n_dec, dtype=dt, device=device)
+            if on_card:
+                (lg, cache), ms = timed(lambda: steps.make_prefill_step(cfg)(
+                    pr, {"tokens": tk[..., :s]}, cache))
+                dec, inputs, dec_ms, _, _ = lm_decode(steps.make_decode_step(cfg), pr,
+                                                      tk[..., s:s + 1], s, n_dec, cache)
+                forced = torch.cat(inputs, dim=-1).cpu()
+                out["card"] = (lg, dec, ms, dec_ms)
+            else:  # the card's greedy tokens, forced
+                lg, cache = steps.make_prefill_step(cfg)(pr, {"tokens": tk[..., :s]}, cache)
+                dec = []
+                for i in range(n_dec):
+                    step_lg, cache = steps.make_decode_step(cfg)(pr, forced[..., i:i + 1], s + i,
+                                                                 cache)
+                    dec.append(step_lg)
+                out["cpu"] = (lg, dec)
+        atol, rms_tol = (LM_F32_ATOL, None) if name == "f32" else (LM_BF16_ATOL, LM_BF16_RMS)
+        (lg, dec, ms, dec_ms), (lg_cpu, dec_cpu) = out["card"], out["cpu"]
+        errs = [lm_check(f"3.lm_repro100m {name} prefill, card vs CPU", lg, lg_cpu, atol,
+                         rms_tol)] + [
+            lm_check(f"3.lm_repro100m {name} decode {i}, card vs CPU", x, y, atol, rms_tol)
+            for i, (x, y) in enumerate(zip(dec, dec_cpu))]
+        runs[name] = {"prefill_ms": ms, "decode_ms": dec_ms,
+                      "max_abs_err": max(e[0] for e in errs),
+                      "max_rel_rms": max(e[1] for e in errs), "atol": atol, "rms_tol": rms_tol}
+        served[name] = (cfg, params, lg)
+        del params
+    torch.cuda.synchronize()
+    counts = dispatch.launch_counts()
+    for name, (cfg, params, lg) in served.items():
+        atol, rms_tol = runs[name]["atol"], runs[name]["rms_tol"]
+        solo, ctrl = [], []
+        for i in range(a):  # agent i's prefill vs its own weights alone; the other's
+            alone = [forward(tree_map(lambda x: x[j], params), cfg, toks[i, :, :s],
+                             logits_tail=1)[0] for j in (i, a - 1 - i)]
+            solo.append(lm_check(f"3.lm_repro100m {name} agent {i} stacked vs alone", lg[i],
+                                 alone[0], atol, rms_tol))
+            ctrl.append(lm_control(f"3.lm_repro100m {name} agent {i} vs the other's weights "
+                                   "(control)", alone[1], lg[i], atol,
+                                   math.inf if rms_tol is None else rms_tol))
+        runs[name].update(agents_stacked_vs_alone=solo, other_agent_control=ctrl)
+    del served
+    for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        q = torch.randn((a, b, s, base.n_heads, base.hd), device=dev).to(dt)
+        route_kernels[name] = flash_names(functools.partial(att.kernel_attention, q, q, q,
+                                                            causal=True))
+    expect = {"bf16": ["flash_attention_tc_kernel"], "f32": ["flash_attention_kernel"]}
+    if route_kernels != expect:
+        raise AssertionError(f"3.lm_repro100m: attention ran {route_kernels}, expected {expect}")
+    if counts["consensus_fused_network"] != 1 or counts["flash_attention"] != 2 * base.n_layers:
+        raise AssertionError(f"3.lm_repro100m: launches {counts}")
+
+    # the network kernel on the zoo posterior, against its plain version
+    network = functools.partial(kc.consensus_fused_network, W, post.mean, post.rho)
+    plain = functools.partial(kc.consensus_network_plain, W, post.mean, post.rho)
+    got, want = network(), plain()
+    eq6_err = 0.0
+    for g, w in zip(got, want):
+        err = (g - w).abs()
+        if not bool(torch.all(err <= F32_TOL + F32_TOL * w.abs())):
+            raise AssertionError(f"3.lm_repro100m consensus: max err {float(err.max())}")
+        eq6_err = max(eq6_err, float(err.max()))
+    for g, w in zip((merged.mean, merged.rho), got):
+        if not torch.equal(g, w):
+            raise AssertionError("3.lm_repro100m: make_consensus_step is not the kernel's output")
+    del got, want
+    nbytes, ops = 16 * a * p + 4 * a * a, 4 * a * a * p + 20 * a * p
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOP_PER_S * 1e3
+    row = {"name": "consensus_fused_network_zoo", "route": "cuda",
+           "source": SRC + "consensus_network.cu", "replaces": REF + "195",
+           "launches": counts["consensus_fused_network"], "max_abs_err": eq6_err,
+           "ms": cuda_ms(network), "plain_ms": event_ms(plain),  # ~15 passes over 1.3 GB
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None}
+    phase("3.lm_repro100m", nvidia_smi=smi, agents=a, n_params=p, init_s=init_s,
+          consensus_ms=row["ms"], consensus_bound_ms=row["bound_ms"],
+          consensus_bound_share=row["bound_ms"] / row["ms"], consensus_max_abs_err=eq6_err,
+          batch_per_agent=b, prompt=s, decode_steps=n_dec, runs=runs,
+          route_kernels=route_kernels, max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+          launches=counts)
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -3017,6 +3610,8 @@ def main() -> int:
     run_serve(dev, session, smi)  # after 3.sparse: its graphs stay out of that peak
     run_obs(dev, smi, slice_wall_ms=slice_run_s * 1e3 / 3)
     run_obs_gossip(dev, smi)
+    lm_row = run_lm_qwen3(dev, smi)
+    zoo_row = run_lm_repro100m(dev, smi)
     card_vs_cpu("4.parity", session, fig4_spec())
     card_vs_cpu("4.launch_parity", l_session, launch_spec())
     card_vs_cpu("4.gossip_parity", g_session, gossip_spec())
@@ -3051,7 +3646,7 @@ def main() -> int:
         "consensus_fused_shard": sh_counts["consensus_fused_shard"],
         "consensus_shard_encode": sh_counts["consensus_shard_encode"],
     }
-    rows = timings(dev, launches, errs)
+    rows = timings(dev, launches, errs) + [lm_row, zoo_row]
     profile_round("6.profile", session)
     profile_round("6.gossip_profile", g_session)
     profile_round("6.delayed_profile", d_session)

@@ -1,9 +1,12 @@
 """The production step functions (port of ``repro.launch``): the Bayes
 train state and the local and consensus steps that ``api.LaunchEngine``
-drives; the sharded consensus (``consensus_opt``) over the agent mesh
-(``mesh``); the cost model (``costmodel``).  The language-model branches,
-the sharding rules and the model zoo come with ROADMAP queue A item 10;
-this package imports without them."""
+drives; the model zoo's serving steps (``steps.init_train_state``,
+``serve_params``, ``make_prefill_step``, ``make_decode_step``,
+``make_agent_cache``); the sharded consensus (``consensus_opt``) over the
+agent mesh (``mesh``); the cost model (``costmodel``).  LM training, the
+sharding rules and the rest of item 10 come with ROADMAP queue A items
+10b-10f; this package imports without the model zoo, which the LM steps
+import when they are called."""
 from repro_torch.launch.steps import BayesTrainState, make_consensus_step, make_local_step
 
 __all__ = ["BayesTrainState", "make_consensus_step", "make_local_step"]

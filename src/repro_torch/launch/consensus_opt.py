@@ -1,6 +1,6 @@
 """Sharded consensus over an agent mesh (port of ``repro.launch.consensus_opt``
 but ``consensus_ppermute_pod``, which takes the LM mesh's shardings and
-comes with the model zoo, ROADMAP queue A item 10).
+comes with the sharding slice, ROADMAP queue A item 10f).
 
 One process drives every shard (single controller, as the reference: its
 ``shard_map`` programs run all shards from one process).  A shard is an

@@ -15,7 +15,7 @@ Every byte count and dict key is the reference's; the ``roofline_seconds``
 are those bytes over the card's constants in ``launch.mesh`` (H100 SXM5:
 ``HBM_BW`` = 3.35 TB/s, ``ICI_BW`` = NVLink's 450 GB/s a direction), not the
 TPU v5e's.  ``analytic_costs`` (the model-zoo FLOP/byte/collective model)
-arrives with the model zoo (ROADMAP queue A item 10).
+arrives with the sharding slice (ROADMAP queue A item 10f).
 """
 from __future__ import annotations
 

@@ -21,7 +21,7 @@ device, as the reference's own sharded tests run 8 virtual CPU devices
 process drives every shard (single controller, as the reference).
 
 The production mesh builders (``make_production_mesh``, ``mesh_n_agents``,
-``mesh_n_chips``) arrive with the model zoo (ROADMAP queue A, item 10).
+``mesh_n_chips``) arrive with the sharding slice (ROADMAP queue A item 10f).
 """
 from __future__ import annotations
 

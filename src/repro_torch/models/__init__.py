@@ -1,0 +1,26 @@
+"""The model zoo (port of ``repro.models``): the dense transformer block
+kinds ``attn`` and ``local_attn``, served with prefill attention on the
+``flash_attention`` kernels.  ``params_from_numpy`` / ``params_to_numpy``
+carry the reference's parameter trees across, leaf for leaf."""
+from repro_torch.models.transformer import (
+    decode_step,
+    forward,
+    init_cache,
+    init_params,
+    nll_loss,
+    params_from_numpy,
+    params_to_numpy,
+)
+from repro_torch.models import attention, modules
+
+__all__ = [
+    "decode_step",
+    "forward",
+    "init_cache",
+    "init_params",
+    "nll_loss",
+    "params_from_numpy",
+    "params_to_numpy",
+    "attention",
+    "modules",
+]

@@ -1,0 +1,297 @@
+"""Composable transformer assembly (port of ``repro.models.transformer``,
+the dense block kinds ``attn`` and ``local_attn``).
+
+An architecture is ``n_periods`` repetitions of ``cfg.pattern`` (+ a tail
+remainder).  Per-kind parameter stacks carry leaves ``[n_periods, c_kind,
+...]``; where the reference runs one ``lax.scan`` over periods, the port
+loops over the periods in Python and hands each block views of its stacks.
+Caches (``[n_periods, c_kind, B, capacity, kv, hd]``) are updated in place
+through the same views.
+
+Agent axis: a tree whose leaves carry one more leading axis ``A``
+(``launch.steps``' agent-stacked params and caches) runs all agents in one
+pass over ``tokens [A, B, S]``; matmuls take ``[A, rows, D] @ [A, D, F]``
+and attention folds A into its batch, so each kernel launches once for
+every agent.  A tree without it is one agent's.
+
+The other kinds (``moe``, ``mlstm``, ``slstm``, ``rglru``, ``enc_attn``,
+``dec_attn``) and the ``audio_stub`` / ``vision_stub`` frontends raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core.tree import tree_leaves, tree_map, tree_replace_leaves
+from repro_torch.models.attention import attention_block, attn_init, init_kv_cache
+from repro_torch.models.modules import (
+    embed,
+    embed_init,
+    matmul,
+    rmsnorm,
+    rmsnorm_init,
+    swiglu,
+    swiglu_init,
+    truncated_normal_init,
+    unembed,
+)
+
+PyTree = Any
+
+DENSE_KINDS = ("attn", "local_attn")
+LATER = {  # what the port does not have yet -> the ROADMAP item that brings it
+    "moe": "the MoE slice (ROADMAP queue A item 10b)",
+    "rglru": "the recurrent slice (ROADMAP queue A item 10c)",
+    "mlstm": "the recurrent slice (ROADMAP queue A item 10c)",
+    "slstm": "the recurrent slice (ROADMAP queue A item 10c)",
+    "enc_attn": "the enc-dec slice (ROADMAP queue A item 10d)",
+    "dec_attn": "the enc-dec slice (ROADMAP queue A item 10d)",
+    "audio_stub": "the enc-dec slice (ROADMAP queue A item 10d)",
+    "vision_stub": "the vision-stub slice (ROADMAP queue A item 10d)",
+}
+
+
+def _unported(what: str):
+    if what not in LATER:
+        raise ValueError(f"unknown block kind {what!r}")
+    raise NotImplementedError(f"{what!r} is not in the port yet: it comes with {LATER[what]}")
+
+
+def check_supported(cfg) -> None:
+    """Raise unless every block kind and the frontend of ``cfg`` are ported."""
+    for kind in cfg.pattern:
+        if kind not in DENSE_KINDS:
+            _unported(kind)
+    if cfg.frontend != "none":
+        _unported(cfg.frontend)
+    if cfg.is_encdec:
+        _unported("enc_attn")
+
+
+# ---------------------------------------------------------------------------
+# per-kind init / apply / cache
+# ---------------------------------------------------------------------------
+
+
+def block_init(generator, kind: str, cfg, *, dtype=torch.float32, device=None, lead=()):
+    if kind not in DENSE_KINDS:
+        _unported(kind)
+    kw = dict(dtype=dtype, device=device, lead=lead)
+    return {
+        "norm1": rmsnorm_init(cfg.d_model, **kw),
+        "attn": attn_init(generator, cfg, **kw),
+        "norm2": rmsnorm_init(cfg.d_model, **kw),
+        "mlp": swiglu_init(generator, cfg.d_model, cfg.d_ff, **kw),
+    }
+
+
+def block_cache_init(kind: str, cfg, batch: int, capacity: int, dtype=torch.bfloat16,
+                     device=None, lead=()):
+    """Decode-time cache for one layer of ``kind`` (``lead`` axes first)."""
+    if kind == "attn":
+        return init_kv_cache(cfg, batch, capacity, dtype, device, lead)
+    if kind == "local_attn":
+        cap = min(capacity, cfg.sliding_window or capacity)
+        return init_kv_cache(cfg, batch, cap, dtype, device, lead)
+    _unported(kind)
+
+
+def block_apply(kind: str, params, x, cfg, *, positions, cache=None,
+                window_override: int | None = None):
+    """Returns (x', cache, aux_loss)."""
+    if kind not in DENSE_KINDS:
+        _unported(kind)
+    window = cfg.sliding_window if kind == "local_attn" else 0
+    if window_override is not None:
+        window = window_override
+    h = rmsnorm(params["norm1"], x, cfg.norm_eps)
+    y, cache = attention_block(params["attn"], h, cfg, causal=True, window=window,
+                               positions=positions, cache=cache)
+    x = x + y
+    h2 = rmsnorm(params["norm2"], x, cfg.norm_eps)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + swiglu(params["mlp"], h2, x.dtype), cache, aux
+
+
+# ---------------------------------------------------------------------------
+# whole-model init
+# ---------------------------------------------------------------------------
+
+
+def init_params(cfg, generator: torch.Generator | None = None, *, device=None,
+                dtype=torch.float32) -> PyTree:
+    """Draw the model's parameters from ``generator`` on ``device`` (the
+    card unless ``device="cpu"``).  Leaves are drawn in float32 and cast to
+    ``dtype`` one at a time: ``dtype=torch.bfloat16`` gives
+    ``launch.steps.serve_params``' bf16 weights without a full f32 copy."""
+    from repro_torch.kernels.dispatch import resolve_device
+
+    cfg.validate()
+    check_supported(cfg)
+    dev = resolve_device(device)
+    kw = dict(dtype=dtype, device=dev)
+    params: dict = {"embed": embed_init(generator, cfg.padded_vocab, cfg.d_model, **kw)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {"w": truncated_normal_init(
+            generator, (cfg.d_model, cfg.padded_vocab), 1.0, dtype, dev)}
+    params["final_norm"] = rmsnorm_init(cfg.d_model, **kw)
+    params["stacks"] = {
+        kind: block_init(generator, kind, cfg, lead=(cfg.n_periods, c), **kw)
+        for kind, c in cfg.kind_counts().items() if cfg.n_periods * c
+    }
+    if cfg.tail:
+        params["tail"] = [block_init(generator, kind, cfg, **kw) for kind in cfg.tail]
+    return params
+
+
+def init_cache(cfg, batch: int, capacity: int, dtype=torch.bfloat16, device=None,
+               n_agents: int | None = None) -> PyTree:
+    """Stacked decode caches matching the layer loop's layout; with
+    ``n_agents`` every leaf gets a leading agent axis."""
+    from repro_torch.kernels.dispatch import resolve_device
+
+    check_supported(cfg)
+    dev = resolve_device(device)
+    agents = () if n_agents is None else (n_agents,)
+    cache: dict = {"stacks": {
+        kind: block_cache_init(kind, cfg, batch, capacity, dtype, dev, agents + (cfg.n_periods, c))
+        for kind, c in cfg.kind_counts().items() if cfg.n_periods
+    }}
+    if cfg.tail:
+        cache["tail"] = [block_cache_init(kind, cfg, batch, capacity, dtype, dev, agents)
+                         for kind in cfg.tail]
+    return cache
+
+
+def params_from_numpy(tree, device=None) -> PyTree:
+    """The reference's ``init_params`` tree as numpy arrays
+    (``jax.tree.map(np.asarray, params)``: dicts, lists, stacks
+    ``[n_periods, c, ...]``) -> the port's tree of tensors on ``device``,
+    leaf for leaf, bit for bit (bf16 leaves too).  ``device=None`` is the
+    card, as for every entry point of the port."""
+    from repro_torch.kernels.dispatch import resolve_device
+
+    dev = resolve_device(device)
+
+    def t(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":  # ml_dtypes' bf16: move the bits
+            return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16).to(dev)
+        return torch.from_numpy(a.copy()).to(dev)
+
+    return tree_replace_leaves(tree, [t(a) for a in tree_leaves(tree)])
+
+
+def params_to_numpy(params) -> PyTree:
+    """The inverse of ``params_from_numpy`` for float32 and integer leaves;
+    a bf16 leaf comes back widened to float32 (exact), since the port does
+    not use ml_dtypes."""
+
+    def n(x):
+        x = x.detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+
+    return tree_map(n, params)
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+
+def _index(tree, i, lead: int):
+    """Views of every leaf at index ``i`` of the axis after ``lead`` agent axes."""
+    return tree_map(lambda a: a[(slice(None),) * lead + (i,)], tree)
+
+
+def _apply_period(cfg, pattern, stacks_slice, x, positions, cache_slice,
+                  window_override=None, lead: int = 0):
+    """Apply one period's blocks.  ``stacks_slice`` / ``cache_slice`` leaves
+    are ``[*A, c_kind, ...]`` (``lead`` agent axes); returns (x, aux)."""
+    offsets: dict[str, int] = {}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for kind in pattern:
+        o = offsets.get(kind, 0)
+        offsets[kind] = o + 1
+        c = _index(cache_slice[kind], o, lead) if cache_slice is not None else None
+        x, _, a = block_apply(kind, _index(stacks_slice[kind], o, lead), x, cfg,
+                              positions=positions, cache=c, window_override=window_override)
+        aux = aux + a
+    return x, aux
+
+
+def forward(params: PyTree, cfg, tokens: torch.Tensor, *, positions=None, cache=None,
+            frames=None, patches=None, window_override: int | None = None,
+            logits_tail: int = 0):
+    """Returns (logits ``[*A, B, S, padded_vocab]`` fp32, cache, aux_loss).
+
+    ``tokens [*A, B, S]``; ``positions [S]`` absolute positions (default
+    ``0..S-1``).  ``window_override``: force a sliding window on ``attn`` /
+    ``local_attn`` kinds (the dense-arch long-context SWA variant).
+    ``logits_tail``: if > 0, unembed only the last ``logits_tail`` positions
+    (prefill returns next-token logits without materializing [S, V]).  A
+    ``cache`` is written in place and returned."""
+    check_supported(cfg)
+    if frames is not None or patches is not None:
+        _unported("audio_stub" if frames is not None else "vision_stub")
+    dt = getattr(torch, cfg.dtype)
+    lead = params["embed"]["emb"].ndim - 2  # 1 for an agent-stacked tree
+    x = embed(params["embed"], tokens, dt)
+    if positions is None:
+        positions = torch.arange(x.shape[-2], device=x.device)
+    positions = torch.as_tensor(positions, device=x.device).reshape(-1)
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    cache_stacks = cache["stacks"] if cache is not None else None
+    for p in range(cfg.n_periods):
+        x, a = _apply_period(
+            cfg, cfg.pattern, _index(params["stacks"], p, lead), x, positions,
+            _index(cache_stacks, p, lead) if cache is not None else None,
+            window_override, lead)
+        aux = aux + a
+    for i, kind in enumerate(cfg.tail):
+        c = cache["tail"][i] if cache is not None else None
+        x, _, a = block_apply(kind, params["tail"][i], x, cfg, positions=positions, cache=c,
+                              window_override=window_override)
+        aux = aux + a
+
+    if logits_tail:
+        x = x[..., -logits_tail:, :]
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if cfg.tie_embeddings:
+        logits = unembed(params["embed"], x, dt)
+    else:
+        logits = matmul(x, params["lm_head"]["w"].to(dt)).float()
+    return logits, cache, aux
+
+
+def nll_loss(params, cfg, batch) -> tuple[torch.Tensor, torch.Tensor]:
+    """Total next-token NLL (summed over tokens) + aux (0 for the dense
+    kinds).  ``batch``: dict(tokens, targets[, loss_mask])."""
+    logits, _, aux = forward(params, cfg, batch["tokens"], frames=batch.get("frames"),
+                             patches=batch.get("patches"))
+    targets = batch["targets"]
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    nll = logz - gold
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        nll = nll * mask
+    return torch.sum(nll), aux
+
+
+def decode_step(params: PyTree, cfg, token: torch.Tensor, position, cache: PyTree,
+                enc_out_frames=None, window_override: int | None = None):
+    """One-token autoregressive step against the cache: ``token [*A, B, 1]``
+    at absolute ``position`` (an int or a 0-d tensor).  Returns
+    (logits ``[*A, B, 1, V]``, cache)."""
+    if not isinstance(position, torch.Tensor):  # made on the card: no host copy to wait for
+        position = torch.full((1,), int(position), dtype=torch.long,
+                              device=params["embed"]["emb"].device)
+    logits, cache, _ = forward(params, cfg, token, positions=position.reshape(1),
+                               cache=cache, frames=enc_out_frames,
+                               window_override=window_override)
+    return logits, cache

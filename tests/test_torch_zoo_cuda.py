@@ -1,0 +1,130 @@
+"""The model zoo's serving path on an NVIDIA GPU: prefill attention through
+the ``flash_attention`` kernels (the kernel route) against its plain
+version, and the agent-folded steps against per-agent calls.  A CUDA kernel
+has no CPU mode, so every test here is marked ``cuda`` and skips without a
+card.  This file imports neither JAX nor the JAX package:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_zoo_cuda.py
+
+Tolerances: the route against the plain version at 2e-5 for f32 (the SIMT
+kernel) and 2e-2 for bf16 (the tensor-core kernel; the output is rounded to
+bf16), as ``tests/test_torch_kernels_cuda.py`` holds the kernel itself.
+Agent-folded against per-agent calls: f32 1e-4 (cuBLAS may pick another
+algorithm for another batch count), bf16 0.25 (8 bf16 ulps at |logits| < 8).
+The card against the CPU for a whole reduced model: f32 1e-4, bf16 0.25.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import models as tm  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.tree import tree_map  # noqa: E402
+from repro_torch.kernels import dispatch  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.launch import steps  # noqa: E402
+from repro_torch.models import attention as att  # noqa: E402
+
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+LOGIT_TOL = {torch.float32: 1e-4, torch.bfloat16: 0.25}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _cfg(arch, dtype):
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=2, d_model=512, n_heads=8,
+                               n_kv_heads=min(cfg.n_kv_heads, 2), head_dim=64, d_ff=1024,
+                               vocab_size=2048, dtype=str(dtype).removeprefix("torch."))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,window", [(512, 0), (600, 0), (1025, 128), (64, 16)])
+def test_kernel_route_against_the_plain_version(dev, dtype, s, window):
+    g = torch.Generator(device=dev).manual_seed(s)
+    q = torch.randn((2, 3, s, 8, 64), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((2, 3, s, 2, 64), generator=g, device=dev).to(dtype)
+            .repeat_interleave(4, dim=-2) for _ in range(2))
+    dispatch.reset_launch_counts()
+    got = att.kernel_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["flash_attention"] == 1
+    assert got.shape == q.shape and got.dtype == dtype
+    heads = [t.reshape(6, s, 8, 64).transpose(1, 2) for t in (q, k, v)]
+    want = fa.flash_attention_plain(*heads, causal=True, window=window).transpose(1, 2)
+    err = (got.reshape(6, s, 8, 64).float() - want.float()).abs()
+    assert bool(torch.all(err <= TOL[dtype] + TOL[dtype] * want.float().abs())), float(err.max())
+
+
+@pytest.mark.cuda
+def test_kernel_route_refuses_a_non_causal_pad_and_a_backward(dev):
+    q = torch.randn((1, 600, 2, 64), device=dev)
+    with pytest.raises(ValueError, match="causal"):
+        att.kernel_attention(q, q, q, causal=False)
+    qg = q.clone().requires_grad_()
+    with pytest.raises(NotImplementedError, match="item 10e"):
+        att.kernel_attention(qg, q, q, causal=True).sum().backward()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "granite-20b"])
+def test_agent_folded_steps_equal_per_agent_calls(dev, arch, dtype):
+    """One prefill and three decode steps for A = 3 agents in one pass (each
+    kernel launched once a layer) against each agent's own calls."""
+    cfg = _cfg(arch, dtype)
+    agents = [tm.init_params(cfg, torch.Generator(device=dev).manual_seed(a), device=dev,
+                             dtype=dtype) for a in range(3)]
+    stacked = tree_map(lambda *xs: torch.stack(xs), *agents)
+    s = 600
+    toks = torch.randint(0, cfg.vocab_size, (3, 2, s + 3), device=dev)
+    cache = steps.make_agent_cache(cfg, 3, 2, s + 3, dtype=dtype, device=dev)
+    dispatch.reset_launch_counts()
+    logits, cache = steps.make_prefill_step(cfg)(stacked, {"tokens": toks[..., :s]}, cache)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["flash_attention"] == cfg.n_layers
+    decoded = []
+    for t in range(s, s + 3):
+        lg, cache = steps.make_decode_step(cfg)(stacked, toks[..., t:t + 1], t, cache)
+        decoded.append(lg)
+    for a in range(3):
+        c1 = tm.init_cache(cfg, 2, s + 3, dtype=dtype, device=dev)
+        l1, c1, _ = tm.forward(agents[a], cfg, toks[a, :, :s], cache=c1, logits_tail=1)
+        torch.testing.assert_close(logits[a], l1, atol=LOGIT_TOL[dtype], rtol=0)
+        for i, t in enumerate(range(s, s + 3)):
+            l1, c1 = tm.decode_step(agents[a], cfg, toks[a, :, t:t + 1], t, c1)
+            torch.testing.assert_close(decoded[i][a], l1, atol=LOGIT_TOL[dtype], rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_card_against_the_cpu_and_decode_continuation(dev, dtype):
+    """A reduced Qwen3-8B prefill (S = 600: the pad) and two decode steps on
+    the card against the same steps on the CPU; decode at S against the
+    prefill of S + 1."""
+    cfg = _cfg("qwen3-8b", dtype)
+    params = tm.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+                            dtype=dtype)
+    cpu_params = tree_map(lambda x: x.cpu(), params)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 603)))
+    outs = {}
+    for device, p in ((dev, params), (torch.device("cpu"), cpu_params)):
+        cache = tm.init_cache(cfg, 2, 603, dtype=dtype, device=device)
+        lg, cache, _ = tm.forward(p, cfg, toks[:, :600].to(device), cache=cache, logits_tail=1)
+        d1, cache = tm.decode_step(p, cfg, toks[:, 600:601].to(device), 600, cache)
+        d2, cache = tm.decode_step(p, cfg, toks[:, 601:602].to(device), 601, cache)
+        outs[device.type] = [x.cpu() for x in (lg, d1, d2)]
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        torch.testing.assert_close(got, want, atol=LOGIT_TOL[dtype], rtol=0)
+    full, _, _ = tm.forward(params, cfg, toks[:, :601].to(dev), logits_tail=1)
+    torch.testing.assert_close(outs["cuda"][1], full.cpu(), atol=LOGIT_TOL[dtype], rtol=0)

@@ -1,0 +1,417 @@
+"""The port's model zoo (``repro_torch.models``, the dense kinds) against the
+JAX package's ``repro.models`` on the CPU, at ``reduced()`` sizes, with the
+reference's ``init_params`` weights carried across by ``params_from_numpy``.
+
+Tolerances.  float32: modules at atol 1e-6; attention and logits at 1e-4
+(the same fp32 arithmetic summed in another order; the port's prefill and
+no-cache attention run the ``flash_attention`` plain version, one block,
+where the reference runs ``chunked_attention`` over 512-key chunks).
+bfloat16 compute: logits within BF16_ATOL = 0.125, four bf16 ulps at the
+reduced models' logit scale (|logits| < 8, ulp 2^-5): both packages round
+every matmul and the attention output to bf16, and a rounding tie decided
+the other way moves a logit by an ulp (measured: at most 0.055).  The int8
+KV quantiser: codes equal, scales within one float32 ulp.  The mirrors of
+``tests/test_models.py`` keep its tolerances (5e-2 for decode against
+forward, 1e-5 for ``window_override`` against ``local_attn``).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro import models as jm  # noqa: E402
+from repro.configs import get_config as jget  # noqa: E402
+from repro.models import attention as ja  # noqa: E402
+from repro.models import modules as jmod  # noqa: E402
+from repro_torch import models as tm  # noqa: E402
+from repro_torch.configs import get_config as tget  # noqa: E402
+from repro_torch.models import attention as ta  # noqa: E402
+from repro_torch.models import modules as tmod  # noqa: E402
+
+DENSE = ["qwen3-8b", "mistral-nemo-12b", "deepseek-7b", "granite-20b", "repro-100m"]
+BF16_ATOL = 0.125
+F32_ATOL = 1e-4
+
+
+def _cfgs(arch, dtype="float32", **kw):
+    return (dataclasses.replace(jget(arch).reduced(), dtype=dtype, **kw),
+            dataclasses.replace(tget(arch).reduced(), dtype=dtype, **kw))
+
+
+def _params(jcfg, seed):
+    p = jm.init_params(jcfg, jax.random.key(seed))
+    return p, tm.params_from_numpy(jax.tree.map(np.asarray, p), device="cpu")
+
+
+def _toks(cfg, shape, seed):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, shape)
+
+
+def _close(got, want, atol, rtol=0.0):
+    got = got.detach().float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    np.testing.assert_allclose(got, np.asarray(want, np.float32), atol=atol, rtol=rtol)
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a).copy())
+
+
+# -- modules ------------------------------------------------------------------
+
+
+def test_modules_against_the_reference():
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(2, 5, 16)).astype(np.float32)
+    w = {"w_gate": rng.normal(size=(16, 24)).astype(np.float32) * 0.3,
+         "w_up": rng.normal(size=(16, 24)).astype(np.float32) * 0.3,
+         "w_down": rng.normal(size=(24, 16)).astype(np.float32) * 0.3}
+    scale = rng.normal(size=(16,)).astype(np.float32)
+    emb = rng.normal(size=(40, 16)).astype(np.float32)
+    toks = rng.integers(0, 40, (2, 5))
+    f32 = torch.float32
+    _close(tmod.rmsnorm({"scale": _t(scale)}, _t(x)),
+           jmod.rmsnorm({"scale": scale}, x), 1e-6)
+    _close(tmod.swiglu({k: _t(v) for k, v in w.items()}, _t(x), f32),
+           jmod.swiglu(w, x, jnp.float32), 1e-6)
+    _close(tmod.linear({"w": _t(w["w_up"])}, _t(x), f32),
+           jmod.linear({"w": w["w_up"]}, x, jnp.float32), 1e-6)
+    _close(tmod.embed({"emb": _t(emb)}, _t(toks), f32),
+           jmod.embed({"emb": emb}, toks, jnp.float32), 0)
+    _close(tmod.unembed({"emb": _t(emb)}, _t(x), f32),
+           jmod.unembed({"emb": emb}, x, jnp.float32), 1e-6)
+    q = rng.normal(size=(2, 7, 3, 8)).astype(np.float32)
+    pos = np.arange(3, 10)
+    _close(tmod.rope(_t(q), _t(pos), 1e4), jmod.rope(q, jnp.asarray(pos), 1e4), 1e-6)
+    logits = rng.normal(size=(2, 5, 40)).astype(np.float32)
+    _close(tmod.softmax_xent(_t(logits), _t(toks)),
+           jmod.softmax_xent(logits, jnp.asarray(toks)), 1e-4)
+
+
+def test_modules_broadcast_over_the_agent_axis():
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.normal(size=(3, 2, 5, 16)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(3, 16, 24)).astype(np.float32))
+    scale = torch.from_numpy(rng.normal(size=(3, 16)).astype(np.float32))
+    emb = torch.from_numpy(rng.normal(size=(3, 40, 16)).astype(np.float32))
+    toks = torch.from_numpy(rng.integers(0, 40, (3, 2, 5)))
+    for a in range(3):
+        torch.testing.assert_close(tmod.matmul(x, w)[a], x[a] @ w[a], atol=1e-6, rtol=0)
+        torch.testing.assert_close(tmod.rmsnorm({"scale": scale}, x)[a],
+                                   tmod.rmsnorm({"scale": scale[a]}, x[a]), atol=0, rtol=0)
+        torch.testing.assert_close(tmod.embed({"emb": emb}, toks, torch.float32)[a],
+                                   emb[a][toks[a]], atol=0, rtol=0)
+
+
+def test_truncated_normal_init():
+    g = torch.Generator().manual_seed(0)
+    w = tmod.truncated_normal_init(g, (256, 512), 1.0, lead=(2, 3))
+    assert w.shape == (2, 3, 256, 512) and w.dtype == torch.float32
+    std = 1.0 / 16.0  # scale / sqrt(fan_in = 256)
+    assert float(w.abs().max()) <= 2 * std
+    # a standard normal truncated to [-2, 2] has std 0.8796
+    assert abs(float(w.std()) / std - 0.8796) < 0.01
+    again = tmod.truncated_normal_init(torch.Generator().manual_seed(0), (256, 512), 1.0,
+                                       lead=(2, 3))
+    assert torch.equal(w, again)
+    bf = tmod.truncated_normal_init(torch.Generator().manual_seed(0), (256, 512), 1.0,
+                                    torch.bfloat16, lead=(2, 3))
+    assert torch.equal(bf, w.to(torch.bfloat16))
+
+
+# -- attention -------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", ["causal", "window", "offset_valid_positions", "pad", "gqa"])
+def test_chunked_attention(case):
+    """Against the reference; ``gqa``: the port reads 2 KV heads for 6 query
+    heads where the reference is given them repeated (``_repeat_kv``)."""
+    rng = np.random.default_rng(2)
+    b, sq, sk, h, hd = 2, 5, 37, 6, 8
+    if case in ("causal", "window", "pad"):
+        sq = sk
+    q = rng.normal(size=(b, sq, h, hd)).astype(np.float32)
+    k = rng.normal(size=(b, sk, 2 if case == "gqa" else h, hd)).astype(np.float32)
+    v = rng.normal(size=k.shape).astype(np.float32)
+    kw = dict(causal=True, chunk_size=16)
+    if case == "window":
+        kw["window"] = 6
+    if case == "pad":
+        kw["chunk_size"] = 512
+    if case in ("offset_valid_positions", "gqa"):
+        valid = rng.random((b, sk)) < 0.7
+        kpos = rng.permutation(sk)[None].repeat(b, 0) + 3
+        kw.update(q_offset=30, k_valid=valid, k_positions=kpos, window=12)
+    rk, rv = (np.repeat(t, h // t.shape[2], axis=2) for t in (k, v))
+    want = ja.chunked_attention(q, rk, rv, **{k_: (jnp.asarray(v_) if isinstance(v_, np.ndarray)
+                                                 else v_) for k_, v_ in kw.items()})
+    got = ta.chunked_attention(_t(q), _t(k), _t(v), **{
+        k_: (_t(v_) if isinstance(v_, np.ndarray) else v_) for k_, v_ in kw.items()})
+    _close(got, want, 1e-5)
+
+
+def test_int8_quantiser_codes_equal_scales_within_an_ulp():
+    x = np.random.default_rng(3).normal(size=(4, 9, 2, 16)).astype(np.float32) * 3
+    x[0, 0, 0] = 0.0  # an all-zero row: the 1e-8 floor
+    jq, js = ja._quantize_kv(jnp.asarray(x))
+    tq, ts = ta._quantize_kv(_t(x))
+    assert np.array_equal(tq.numpy(), np.asarray(jq))
+    js = np.asarray(js)
+    assert np.all(np.abs(ts.numpy() - js) <= np.spacing(js))
+    for tdt, jdt, rtol in ((torch.float32, jnp.float32, 2e-7), (torch.bfloat16, jnp.bfloat16,
+                                                                2.0 ** -8)):
+        back = ta._dequantize_kv(tq, ts, tdt)
+        assert back.dtype == tdt  # one ulp of the scale, then one rounding to the dtype
+        want = np.asarray(ja._dequantize_kv(jq, js, jdt)).astype(np.float32)
+        _close(back, want, 0, rtol)
+
+
+def _block_case(kv_dtype, cap, s, seed=4):
+    jcfg, tcfg = _cfgs("qwen3-8b")
+    p = ja.attn_init(jax.random.key(seed), jcfg)
+    tp = tm.params_from_numpy(jax.tree.map(np.asarray, p), device="cpu")
+    x = np.random.default_rng(seed).normal(size=(2, s, jcfg.d_model)).astype(np.float32)
+    jdt = {"f32": jnp.float32, "int8": jnp.int8}[kv_dtype]
+    tdt = {"f32": torch.float32, "int8": torch.int8}[kv_dtype]
+    return (jcfg, tcfg, p, tp, x, ja.init_kv_cache(jcfg, 2, cap, jdt),
+            ta.init_kv_cache(tcfg, 2, cap, tdt))
+
+
+def _close_cache(got, want, atol_f32=1e-5):
+    for name in want:
+        atol = 0 if name in ("pos", "k", "v") and want[name].dtype != jnp.float32 else atol_f32
+        _close(got[name].float(), np.asarray(want[name]).astype(np.float32), atol)
+
+
+@pytest.mark.parametrize("kv_dtype", ["f32", "int8"])
+@pytest.mark.parametrize("cap", [24, 8], ids=["full", "ring"])
+def test_attention_block_prefill_then_decode(kv_dtype, cap):
+    """Prefill into the cache (full, and a ring buffer with cap < S), then two
+    decode steps over it, against the reference branch for branch."""
+    s = 12
+    jcfg, tcfg, p, tp, x, jc, tc = _block_case(kv_dtype, cap, s + 2)
+    window = cap if cap < s else 0
+    y, jc = ja.attention_block(p, jnp.asarray(x[:, :s]), jcfg, window=window, cache=jc)
+    ty, tc = ta.attention_block(tp, _t(x[:, :s]), tcfg, window=window, cache=tc)
+    _close(ty, y, F32_ATOL)
+    _close_cache(tc, jc)
+    for t in (s, s + 1):
+        pos = jnp.asarray([t])
+        y, jc = ja.attention_block(p, jnp.asarray(x[:, t:t + 1]), jcfg, window=window,
+                                   positions=pos, cache=jc)
+        ty, tc = ta.attention_block(tp, _t(x[:, t:t + 1]), tcfg, window=window,
+                                    positions=torch.tensor([t]), cache=tc)
+        _close(ty, y, F32_ATOL)
+        _close_cache(tc, jc)
+
+
+@pytest.mark.parametrize("s", [20, 600])
+def test_attention_block_without_cache(s):
+    jcfg, tcfg, p, tp, x, _, _ = _block_case("f32", 1, s)
+    y, _ = ja.attention_block(p, jnp.asarray(x), jcfg, window=7)
+    ty, none = ta.attention_block(tp, _t(x), tcfg, window=7)
+    assert none is None
+    _close(ty, y, F32_ATOL)
+
+
+def test_kernel_route_pads_refuses_a_non_causal_pad_and_has_no_backward():
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, 600, 2, 8)).astype(np.float32))
+               for _ in range(3))
+    got = ta.kernel_attention(q, k, v, causal=True, window=100)
+    want = ta.chunked_attention(q, k, v, causal=True, window=100)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    assert ta._padded_len(600) == 1024 and ta._padded_len(512) == 512
+    assert ta._padded_len(300) == 300
+    with pytest.raises(ValueError, match="causal"):
+        ta.kernel_attention(q, k, v, causal=False)
+    ta.kernel_attention(q[:, :300], k[:, :300], v[:, :300], causal=False)  # no pad: fine
+    qg = q.clone().requires_grad_()
+    out = ta.kernel_attention(qg, k, v, causal=True)
+    with pytest.raises(NotImplementedError, match="item 10e"):
+        out.sum().backward()
+
+
+# -- the whole model ------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", DENSE)
+def test_forward_and_nll_against_the_reference(arch, dtype):
+    jcfg, tcfg = _cfgs(arch, dtype)
+    p, tp = _params(jcfg, 0)
+    toks = _toks(jcfg, (2, 33), 1)
+    atol = F32_ATOL if dtype == "float32" else BF16_ATOL
+    lj, _, aux = jm.forward(p, jcfg, jnp.asarray(toks))
+    lt, cache, taux = tm.forward(tp, tcfg, _t(toks))
+    assert cache is None and lt.dtype == torch.float32
+    assert lt.shape == (2, 33, jcfg.padded_vocab) and float(taux) == float(aux) == 0.0
+    _close(lt, lj, atol)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:],
+             "loss_mask": (np.arange(32) % 3 > 0).astype(np.float32)[None].repeat(2, 0)}
+    nj, _ = jm.nll_loss(p, jcfg, {k: jnp.asarray(v) for k, v in batch.items()})
+    nt, _ = tm.nll_loss(tp, tcfg, {k: _t(v) for k, v in batch.items()})
+    np.testing.assert_allclose(float(nt), float(nj), rtol=1e-5 if dtype == "float32" else 1e-2)
+
+
+@pytest.mark.parametrize("s", [600, 512, 40])
+def test_prefill_logits_tail_and_cache(s):
+    """A prefill of S tokens into a cache: the last position's logits and
+    the cache against the reference (S = 600 takes the kernel route's pad)."""
+    jcfg, tcfg = _cfgs("qwen3-8b")
+    p, tp = _params(jcfg, 2)
+    toks = _toks(jcfg, (1, s), 3)
+    jc = jm.init_cache(jcfg, 1, s + 4, jnp.float32)
+    tc = tm.init_cache(tcfg, 1, s + 4, torch.float32, device="cpu")
+    lj, jc, _ = jm.forward(p, jcfg, jnp.asarray(toks), cache=jc, logits_tail=1)
+    lt, tc, _ = tm.forward(tp, tcfg, _t(toks), cache=tc, logits_tail=1)
+    assert lt.shape == (1, 1, jcfg.padded_vocab)
+    _close(lt, lj, F32_ATOL)
+    _close_cache(tc["stacks"]["attn"], jc["stacks"]["attn"], F32_ATOL)
+
+
+def test_a_tail_of_blocks_against_the_reference():
+    jcfg, tcfg = _cfgs("deepseek-7b", n_layers=3, pattern=("attn", "local_attn"),
+                       sliding_window=5)
+    assert jcfg.tail == ("attn",)
+    p, tp = _params(jcfg, 4)
+    toks = _toks(jcfg, (2, 17), 5)
+    lj, _, _ = jm.forward(p, jcfg, jnp.asarray(toks))
+    lt, _, _ = tm.forward(tp, tcfg, _t(toks))
+    _close(lt, lj, F32_ATOL)
+
+
+def test_agent_stacked_forward_equals_per_agent_calls():
+    _, tcfg = _cfgs("granite-20b")
+    agents = [tm.init_params(tcfg, torch.Generator().manual_seed(a), device="cpu")
+              for a in range(3)]
+    from repro_torch.core.tree import tree_map
+    stacked = tree_map(lambda *xs: torch.stack(xs), *agents)
+    toks = _t(_toks(tcfg, (3, 2, 19), 6))
+    out, _, _ = tm.forward(stacked, tcfg, toks)
+    for a in range(3):
+        one, _, _ = tm.forward(agents[a], tcfg, toks[a])
+        torch.testing.assert_close(out[a], one, atol=1e-5, rtol=0)
+
+
+def test_params_round_trip_and_layout():
+    jcfg, tcfg = _cfgs("qwen3-8b")
+    p = jax.tree.map(np.asarray, jm.init_params(jcfg, jax.random.key(0)))
+    tp = tm.params_from_numpy(p, device="cpu")
+    back = tm.params_to_numpy(tp)
+    assert jax.tree.structure(back) == jax.tree.structure(p)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(p)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    mine = tm.init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
+    assert jax.tree.structure(tm.params_to_numpy(mine)) == jax.tree.structure(p)
+    for a, b in zip(jax.tree.leaves(tm.params_to_numpy(mine)), jax.tree.leaves(p)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+    bf = jax.tree.map(lambda x: np.asarray(jnp.asarray(x, jnp.bfloat16)), p)
+    tbf = tm.params_from_numpy(bf, device="cpu")
+    assert tbf["embed"]["emb"].dtype == torch.bfloat16
+    assert np.array_equal(tm.params_to_numpy(tbf)["embed"]["emb"],
+                          np.asarray(bf["embed"]["emb"]).astype(np.float32))
+
+
+def test_params_from_numpy_defaults_to_the_card(monkeypatch):
+    tree = {"w": np.ones((2, 3), np.float32)}
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tm.params_from_numpy(tree)
+    asked = []
+
+    def resolve(device=None):
+        asked.append(device)
+        return torch.device("cpu")
+
+    from repro_torch.kernels import dispatch
+    monkeypatch.setattr(dispatch, "resolve_device", resolve)
+    out = tm.params_from_numpy(tree)
+    assert asked == [None] and out["w"].device == torch.device("cpu")
+
+
+def test_bf16_init_is_the_f32_draw_cast():
+    _, tcfg = _cfgs("qwen3-8b")
+    f32 = tm.init_params(tcfg, torch.Generator().manual_seed(1), device="cpu")
+    bf = tm.init_params(tcfg, torch.Generator().manual_seed(1), device="cpu",
+                        dtype=torch.bfloat16)
+    from repro_torch.core.tree import tree_leaves
+    for a, b in zip(tree_leaves(f32), tree_leaves(bf)):
+        assert torch.equal(a.to(torch.bfloat16), b)
+
+
+# -- mirrors of tests/test_models.py, inside the port ------------------------------
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "granite-20b"])
+def test_decode_matches_forward(arch):
+    _, cfg = _cfgs(arch)
+    params = tm.init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
+    b, s = 2, 12
+    toks = _t(_toks(cfg, (b, s), 2))
+    full, _, _ = tm.forward(params, cfg, toks)
+    cache = tm.init_cache(cfg, b, capacity=s, dtype=torch.float32, device="cpu")
+    outs = []
+    for t in range(s):
+        lg, cache = tm.decode_step(params, cfg, toks[:, t:t + 1], t, cache)
+        outs.append(lg)
+    torch.testing.assert_close(torch.cat(outs, 1), full, atol=5e-2, rtol=5e-2)
+
+
+def test_prefill_then_decode_continuation():
+    _, cfg = _cfgs("qwen3-8b")
+    params = tm.init_params(cfg, torch.Generator().manual_seed(3), device="cpu")
+    b, s = 2, 10
+    toks = _t(_toks(cfg, (b, s + 2), 4))
+    full, _, _ = tm.forward(params, cfg, toks)
+    cache = tm.init_cache(cfg, b, capacity=s + 2, dtype=torch.float32, device="cpu")
+    _, cache, _ = tm.forward(params, cfg, toks[:, :s], cache=cache)
+    lg1, cache = tm.decode_step(params, cfg, toks[:, s:s + 1], torch.tensor(s), cache)
+    lg2, cache = tm.decode_step(params, cfg, toks[:, s + 1:s + 2], s + 1, cache)
+    torch.testing.assert_close(lg1[:, 0], full[:, s], atol=5e-2, rtol=5e-2)
+    torch.testing.assert_close(lg2[:, 0], full[:, s + 1], atol=5e-2, rtol=5e-2)
+
+
+def test_sliding_window_ring_buffer_decode():
+    _, base = _cfgs("qwen3-8b")
+    cfg = dataclasses.replace(base, sliding_window=8, pattern=("local_attn", "local_attn"))
+    cfg.validate()
+    params = tm.init_params(cfg, torch.Generator().manual_seed(5), device="cpu")
+    toks = _t(_toks(cfg, (1, 24), 6))
+    full, _, _ = tm.forward(params, cfg, toks)
+    cache = tm.init_cache(cfg, 1, capacity=8, dtype=torch.float32, device="cpu")
+    outs = []
+    for t in range(24):
+        lg, cache = tm.decode_step(params, cfg, toks[:, t:t + 1], t, cache)
+        outs.append(lg)
+    torch.testing.assert_close(torch.cat(outs, 1), full, atol=5e-2, rtol=5e-2)
+
+
+def test_window_override_matches_local_attn():
+    _, base = _cfgs("deepseek-7b")
+    params = tm.init_params(base, torch.Generator().manual_seed(7), device="cpu")
+    toks = _t(_toks(base, (2, 20), 8))
+    out_override, _, _ = tm.forward(params, base, toks, window_override=6)
+    local = dataclasses.replace(base, pattern=("local_attn", "local_attn"), sliding_window=6)
+    params_local = dict(params, stacks={"local_attn": params["stacks"]["attn"]})
+    out_local, _, _ = tm.forward(params_local, local, toks)
+    torch.testing.assert_close(out_override, out_local, atol=1e-5, rtol=1e-5)
+
+
+# -- what the port does not have yet ------------------------------------------------
+
+
+@pytest.mark.parametrize("arch,item", [
+    ("olmoe-1b-7b", "10b"), ("phi3.5-moe-42b-a6.6b", "10b"), ("xlstm-1.3b", "10c"),
+    ("recurrentgemma-9b", "10c"), ("whisper-tiny", "10d"), ("pixtral-12b", "10d")])
+def test_unported_kinds_raise(arch, item):
+    cfg = tget(arch).reduced()
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        tm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        tm.init_cache(cfg, 1, 8, device="cpu")
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        tm.forward({"embed": {"emb": torch.zeros(8, 4)}}, cfg, torch.zeros(1, 2, dtype=torch.long))
