@@ -146,7 +146,27 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    ``serve_params`` and prefill (S = 512) + 8 decode steps at bf16 (the
    tensor-core kernel) and f32 (the SIMT kernel), each against the same
    steps on the CPU (f32 1e-4, bf16 as above) and each agent's prefill
-   against its weights alone (the other agent's must fail it);
+   against its weights alone (the other agent's must fail it).  The MoE
+   and recurrent configs (``run_lm_new``): ``3.lm_olmoe``,
+   ``3.lm_recurrentgemma`` and ``3.lm_xlstm`` at full width and depth, A =
+   2 (seeds 0, 1), B = 2 prompts of S = 4096, bf16: prefill into a
+   4,128-slot cache (first and warm, each into a fresh cache), 8 decode
+   steps, the prefill's FLOP bound (bf16 GEMMs and the mLSTM's fp32 chunk
+   products) and the step's byte bound, peak memory, profiles; read, not
+   held, the whole model's decode after a prefill of S against the prefill
+   of S + 1 (OLMoE at capacity_factor E / k, rows routed apart not read)
+   and agent 1 stacked against alone; held, every layer on the same input
+   (``layer_checks``): its decode against its no-cache run and agent 1's
+   block alone against the stacked one (``LAYER_BF16_*``), with a decode
+   after the other row's prompt as the control; the MoE's layer 0 twice,
+   bit for bit; ``flash_attention`` (16 and 12 launches a prefill) at
+   [4, 16, 4096, 128] causal and [4, 16, 4096, 256] window 2048 against
+   its plain version (the 64-key drop as the control) and beside SDPA.
+   ``3.lm_zoo_reduced``: the four MoE and recurrent configs at
+   ``reduced()`` size (Phi-3.5-MoE runs only there), prefill and 4 decode
+   steps, card against CPU at f32 (``ZOO_F32_ATOL``) and bf16 (an MoE
+   config at capacity_factor E / k, the rows routed alike held), and the
+   card's ``moe_ffn`` twice, bit for bit;
 4. card vs CPU: one more synchronous round and one more gossip window from
    the same state with the same injected batches and noise, the card through
    the kernels, the CPU through the plain versions, and likewise one more
@@ -218,7 +238,9 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
 The last lines are the card's ``nvidia-smi`` name and power limit, one JSON
 line describing the kernels (``flash_attention_lm``: the kernel's launches
 on the model zoo's path and its time at the Qwen3-8B prefill's shape;
-``consensus_fused_network_zoo``: eq. (6) on the zoo posterior), and
+``consensus_fused_network_zoo``: eq. (6) on the zoo posterior;
+``flash_attention_olmoe`` / ``flash_attention_recurrentgemma``: its
+launches in those phases and its time at their prefills' shapes), and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -363,6 +385,20 @@ ATT_CONTROL_DROP = 64  # the control drops up to this many of the earliest keys
 # decode one position late, 0.0156 and 0.0184
 LAYER0_DECODE_ATOL, LAYER0_DECODE_RMS = 0.008, 0.005
 LM_F32_ATOL = 1e-4  # f32 logits, card (TF32 off) vs CPU: fp32 sums in another order
+# the MoE and recurrent configs at full width (3.lm_olmoe, 3.lm_recurrentgemma,
+# 3.lm_xlstm), and the four new configs at reduced() size, card vs CPU
+LM_NEW = (("3.lm_olmoe", "olmoe-1b-7b"), ("3.lm_recurrentgemma", "recurrentgemma-9b"),
+          ("3.lm_xlstm", "xlstm-1.3b"))
+LM_REDUCED = ("olmoe-1b-7b", "phi3.5-moe-42b-a6.6b", "recurrentgemma-9b", "xlstm-1.3b")
+LM_REDUCED_S, LM_REDUCED_DECODE = 64, 4
+ZOO_F32_ATOL = 1e-5  # reduced configs' f32 logits, card vs CPU
+# one block on the card, decode vs the no-cache run and agent 1 alone vs
+# stacked, on the same bf16 input (layer_checks): max abs and the
+# difference's rms over the rms of the block's output.  Measured on the H100
+# over the three models' 102 layers: at most 0.125 (one bf16 place at
+# |x| in [16, 32)) and 0.0036, so about twice that; the controls (a decode
+# after the other row's prompt) read 0.27-3.1 and 0.074-0.89
+LAYER_BF16_ATOL, LAYER_BF16_RMS = 0.25, 0.01
 
 
 def phase(tag: str, **fields) -> None:
@@ -3084,8 +3120,13 @@ def lm_params(cfg, dev, n_agents, dtype):
                          dtype=dtype) for i in range(n_agents)]
 
     def stack(trees):
-        if isinstance(trees[0], dict):  # the dense configs' trees hold no lists
+        if isinstance(trees[0], dict):
             return {key: stack([t.pop(key) for t in trees]) for key in list(trees[0])}
+        if isinstance(trees[0], list):  # RecurrentGemma's tail: element by element
+            out = [stack([t[i] for t in trees]) for i in range(len(trees[0]))]
+            for t in trees:
+                t.clear()
+            return out
         out = torch.stack(trees)
         trees.clear()
         return out
@@ -3189,13 +3230,46 @@ def tree_bytes(tree):
 
 
 def prefill_flops(cfg, a, b, s, window=0):
-    """Operations of one prefill: the projections and MLP of every token,
-    attention over the pairs the mask leaves, the last position's logits."""
-    d, hd = cfg.d_model, cfg.hd
-    per_token = 2 * d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd + 2 * cfg.n_heads * hd * d \
-        + 3 * 2 * d * cfg.d_ff
-    attn = 4 * hd * cfg.n_heads * attention_pairs(s, s, True, window)
-    return a * b * (cfg.n_layers * (s * per_token + attn) + 2 * d * cfg.padded_vocab)
+    """Operations of one prefill of ``a`` agents x ``b`` prompts of ``s``
+    tokens: (bf16 GEMM operations, fp32 operations).  bf16: every layer's
+    projections for every token (for ``moe`` the router, and every expert
+    over its ``cap`` slots, as the dispatch computes them), attention over
+    the pairs the mask leaves (4 hd a pair and head), the last position's
+    logits.  fp32: the mLSTM's chunk products (the causal half of each
+    chunk's pairs, and the two [c, hd] x [hd, hd] products a chunk and
+    head) and the sLSTM's recurrent products; the gates' elementwise work
+    is not counted."""
+    from repro_torch.models.moe import _capacity
+
+    d, hd, h, kv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    proj = 2 * d * (h + 2 * kv) * hd + 2 * h * hd * d
+    mlp = 3 * 2 * d * cfg.d_ff
+    n_tok = a * b * s
+    bf16 = f32 = 0
+    for kind in cfg.pattern * cfg.n_periods + cfg.tail:
+        if kind in ("attn", "local_attn", "moe"):
+            w = cfg.sliding_window if kind == "local_attn" else window
+            bf16 += n_tok * proj + 4 * hd * h * a * b * attention_pairs(s, s, True, w)
+            if kind == "moe":
+                cap = _capacity(b * s, cfg.n_experts, cfg.top_k, cfg.capacity_factor)
+                bf16 += n_tok * 2 * d * cfg.n_experts + a * 3 * 2 * d * cfg.d_ff * \
+                    cfg.n_experts * cap
+            else:
+                bf16 += n_tok * mlp
+        elif kind == "rglru":
+            bf16 += n_tok * (5 * 2 * d * d + mlp)
+        elif kind == "mlstm":
+            p, mh = 2 * d, cfg.n_heads
+            mhd = p // mh
+            bf16 += n_tok * (2 * 2 * d * p + 3 * 2 * p * p + 2 * 2 * p * mh + 2 * p * d)
+            c = min(256, s)
+            chunks = -(-s // c)
+            pairs = c * (c + 1) // 2
+            f32 += a * b * chunks * mh * (3 * 2 * pairs * mhd + 2 * 2 * c * mhd * mhd)
+        elif kind == "slstm":
+            bf16 += n_tok * 5 * 2 * d * d
+            f32 += n_tok * 2 * 4 * d * (d // cfg.n_heads)
+    return bf16 + a * b * 2 * d * cfg.padded_vocab, f32
 
 
 def layer0_decode(cfg, params, layer0, toks, s, dev):
@@ -3385,7 +3459,7 @@ def run_lm_qwen3(dev, smi):
     torch.cuda.empty_cache()  # the plain versions' 8.6 GB score matrices
 
     step_ms = statistics.median(dec_ms)
-    flops = prefill_flops(cfg, a, b, s)
+    flops = prefill_flops(cfg, a, b, s)[0]
     kv_read = (kv_bytes // LM_CAP) * (s + LM_DECODE // 2 + 1)  # the median step's filled slots
     decode_bytes = weight_bytes - emb_bytes + a * b * cfg.d_model * 2 + kv_read
     phase("3.lm_qwen3_8b", nvidia_smi=smi, agents=a, batch_per_agent=b, prompt=s,
@@ -3559,6 +3633,444 @@ def run_lm_repro100m(dev, smi):
     return row
 
 
+class RoutingRecord:
+    """While active, the chosen experts (``[A, T, k]``) of every
+    ``models.moe.route_topk`` call, in call order (a layer a call)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.calls, self._route = [], moe.route_topk
+
+        def route(logits, k):
+            out = self._route(logits, k)
+            self.calls.append(out[1])
+            return out
+
+        moe.route_topk = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.route_topk = self._route
+
+
+def rows_routed_alike(calls, other, b, n=None):
+    """``[A, B]`` bool on the host: every token of the row took the same
+    experts in both records at every layer.  With ``n``, ``other`` is a
+    prefill of ``n`` tokens and only its last token is held against
+    ``calls``' one token (a decode step)."""
+    import torch
+
+    agree = None
+    for x, y in zip(calls, other):
+        a, k = x.shape[0], x.shape[-1]
+        x, y = x.reshape(a, b, -1, k).cpu(), y.reshape(a, b, -1, k).cpu()
+        if n is not None:
+            y = y[:, :, n - 1:n]
+        same = (x.sort(-1).values == y.sort(-1).values).all(-1).all(-1)
+        agree = same if agree is None else agree & same
+    if len(calls) != len(other) or agree is None:
+        raise AssertionError(f"routing records of {len(calls)} and {len(other)} layers")
+    return agree
+
+
+def held_rows(what, got, want, agree):
+    """The logits of the (agent, row) pairs routed alike (``agree [A, B]``),
+    got's and want's, and their number; raises when none is.  An MoE token
+    whose router sits at a near-tie takes another expert on a one-ulp
+    change upstream (module docstring of tests/test_torch_zoo_models.py),
+    so only rows routed alike are compared."""
+    held = int(agree.sum())
+    if held == 0:
+        raise AssertionError(f"{what}: no (agent, row) routed alike")
+    mask = agree.to(got.device)
+    return got[mask], want.to(got.device)[mask], held
+
+
+def cache_bytes_split(cfg, cache):
+    """(KV cache bytes, recurrent state bytes) of a model cache."""
+    parts = list(cache["stacks"].items()) + list(zip(cfg.tail, cache.get("tail", [])))
+    kv = sum(tree_bytes(c) for kind, c in parts if kind in ("attn", "local_attn", "moe"))
+    return kv, tree_bytes(cache) - kv
+
+
+def model_layers(cfg, params):
+    """(layer index, kind, its params' views) for every layer in order:
+    the periods' blocks, then the tail."""
+    from repro_torch.core.tree import tree_map
+
+    out, lead = [], params["embed"]["emb"].ndim - 2
+    for p in range(cfg.n_periods):
+        offsets: dict[str, int] = {}
+        for kind in cfg.pattern:
+            o = offsets.get(kind, 0)
+            offsets[kind] = o + 1
+            out.append((len(out), kind, tree_map(
+                lambda t: t[(slice(None),) * lead + (p, o)], params["stacks"][kind])))
+    for kind, tail in zip(cfg.tail, params.get("tail", [])):
+        out.append((len(out), kind, tail))
+    return out
+
+
+def layer_checks(tag, cfg, chk, params, toks, s, dev):
+    """Every layer's block on the card, each on the same input: the
+    no-cache stacked run over S + 1 tokens layer by layer (a teacher-forced
+    stream, so no layer's difference reaches the next).  At each layer:
+    the decode of token S after a prefill of S into the block's own cache
+    against the no-cache run's row S (``LAYER_BF16_*``; an ``moe`` layer at
+    ``chk``'s capacity factor, nothing dropped, its rows routed apart not
+    held), and agent 1's block alone on agent 1's input against the stacked
+    run (``LAYER_BF16_*``).  The control, at the first layer of each kind:
+    the decode after a prefill of the other row's prompt, which must fail
+    the decode check.  Returns the largest readings and the controls."""
+    import torch
+
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.modules import embed
+
+    a, b = toks.shape[:2]
+    x = embed(params["embed"], toks[..., :s + 1], torch.bfloat16)
+    pos = torch.arange(s + 1, device=dev)
+    worst = {"decode": (0.0, 0.0), "alone": (0.0, 0.0)}
+    controls, rows_apart = {}, 0
+    for layer, kind, lp in model_layers(cfg, params):
+        c = chk if kind == "moe" else cfg
+        with RoutingRecord() as r_full:
+            full = tr.block_apply(kind, lp, x, c, positions=pos)[0]
+
+        def decode_after(prompt_rows):  # (the decode's output, its routing)
+            cache = tr.block_cache_init(kind, c, b, s + 2, torch.bfloat16, dev, lead=(a,))
+            tr.block_apply(kind, lp, prompt_rows, c, positions=pos[:s], cache=cache)
+            with RoutingRecord() as routes:
+                out = tr.block_apply(kind, lp, x[..., s:, :], c, positions=pos[s:],
+                                     cache=cache)[0]
+            return out, routes.calls
+
+        got, r_dec = decode_after(x[..., :s, :])
+        agree = (rows_routed_alike(r_dec, r_full.calls, b, s + 1) if kind == "moe"
+                 else torch.ones((a, b), dtype=torch.bool))
+        rows_apart += a * b - int(agree.sum())
+        want = full[..., s:, :]
+        what = f"{tag} layer {layer} ({kind}) decode vs no-cache S+1"
+        dec = lm_check(what, *held_rows(what, got, want, agree)[:2], LAYER_BF16_ATOL,
+                       LAYER_BF16_RMS)
+        alone = tr.block_apply(kind, tree_map(lambda t: t[1], lp), x[1], c, positions=pos)[0]
+        one = lm_check(f"{tag} layer {layer} ({kind}) agent 1 alone vs stacked", alone, full[1],
+                       LAYER_BF16_ATOL, LAYER_BF16_RMS)
+        if kind not in controls:
+            wrong = decode_after(x[..., :s, :].flip(-3))[0]  # the other row's prompt
+            controls[kind] = (layer, lm_control(
+                f"{tag} layer {layer} ({kind}) decode after the other row's prompt (control)",
+                wrong, want, LAYER_BF16_ATOL, LAYER_BF16_RMS))
+        worst = {"decode": tuple(map(max, worst["decode"], dec)),
+                 "alone": tuple(map(max, worst["alone"], one))}
+        x = full
+        del got, want, alone, full
+    return {"layers": len(model_layers(cfg, params)), "bounds": (LAYER_BF16_ATOL, LAYER_BF16_RMS),
+            "decode_max_abs_err_rel_rms": worst["decode"],
+            "agent1_alone_max_abs_err_rel_rms": worst["alone"],
+            "moe_rows_routed_apart": rows_apart, "controls": controls}
+
+
+def run_lm_new(dev, smi, tag, arch):
+    """Phases 3.lm_olmoe, 3.lm_recurrentgemma and 3.lm_xlstm: ``arch`` at
+    full width and depth for A = 2 agents (agent i from seed i), B = 2
+    prompts of S = 4096 Zipf tokens each, bf16 weights: a prefill into a
+    4,128-slot cache (first, and warm; each into a fresh cache, since a
+    recurrent cache holds the initial state), 8 decode steps, a profile of
+    a step (and of a prefill, with attention).  Read, not held: the whole
+    model's decode of token S after a prefill of S against the prefill of
+    S + 1 (an MoE config at capacity_factor E / k, so cap = T and nothing
+    drops; the (agent, row) pairs whose last token took other experts are
+    not read), and agent 1's prefill against its own weights alone.  At
+    random init one bf16 rounding taken the other way grows through the
+    xLSTM's 48 layers to O(1) in the logits (3.6 stacked against alone,
+    measured on the H100), so the checks are held layer by layer
+    (``layer_checks``).  The MoE's layer 0 twice on the prompt, bit for
+    bit; the peak memory, the prefill's FLOP bound and the decode step's
+    byte bound.  With attention layers: ``flash_attention`` launched once a
+    layer a prefill, the bf16 route's kernel, and the kernel at the first
+    attention layer's own q/k/v shape against its plain version (the plain
+    version dropping 64 keys must fail that bound) and beside SDPA.
+    Returns that kernel line row (None without attention)."""
+    import statistics
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps
+    from repro_torch.models import attention as att
+    from repro_torch.models import forward
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.modules import embed, rmsnorm
+
+    cfg = get_config(arch)
+    a, b, s, n_dec = LM_AGENTS, LM_BATCH, LM_S, LM_SHORT_DECODE
+    kinds = cfg.pattern * cfg.n_periods + cfg.tail
+    n_attn = sum(kind in ("attn", "local_attn", "moe") for kind in kinds)
+    is_moe = "moe" in cfg.pattern
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm_params(cfg, dev, a, torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes, emb_bytes = tree_bytes(params), tree_bytes(params["embed"])
+    toks = lm_tokens(cfg, s + 1 + n_dec, dev)  # [A, B, S + 9]
+    prompt = {"tokens": toks[..., :s]}
+    prefill, decode = steps.make_prefill_step(cfg), steps.make_decode_step(cfg)
+
+    def fresh(c=cfg):
+        return steps.make_agent_cache(c, a, b, LM_CAP, device=dev)
+
+    cache, warm_cache = fresh(), fresh()
+    kv_bytes, state_bytes = cache_bytes_split(cfg, cache)
+    torch.cuda.synchronize()
+
+    dispatch.reset_launch_counts()
+    (logits, cache), first_ms = timed(lambda: prefill(params, prompt, cache))
+    first_counts = dispatch.launch_counts()
+    (logits_warm, warm_cache), warm_ms = timed(lambda: prefill(params, prompt, warm_cache))
+    del cache
+    dec, _, dec_ms, dec_wall, warm_cache = lm_decode(decode, params, toks[..., s:s + 1], s,
+                                                     n_dec, warm_cache)
+    profiles = {"decode": lm_profile(lambda: decode(params, dec[-1].argmax(-1), s + n_dec,
+                                                    warm_cache))}
+    del warm_cache
+
+    # the whole model, read: decode of token S after a prefill of S against the
+    # prefill of S + 1, and agent 1's prefill against its own weights alone
+    chk = (dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k) if is_moe
+           else cfg)
+    prefill_c, decode_c = steps.make_prefill_step(chk), steps.make_decode_step(chk)
+    with RoutingRecord() as r_full:
+        full, _ = prefill_c(params, {"tokens": toks[..., :s + 1]}, fresh(chk))
+    c = fresh(chk)
+    prefill_c(params, prompt, c)
+    with RoutingRecord() as r_dec:
+        got, c = decode_c(params, toks[..., s:s + 1], s, c)
+    del c
+    agree = (rows_routed_alike(r_dec.calls, r_full.calls, b, s + 1) if is_moe
+             else torch.ones((a, b), dtype=torch.bool))
+    del r_full, r_dec
+    what = f"{tag} decode vs prefill S+1"
+    got, full_held, n_held = held_rows(what, got, full, agree)
+    whole_cont = lm_diff(what, got, full_held), n_held
+    solo = forward(tree_map(lambda x: x[1], params), cfg, prompt["tokens"][1], logits_tail=1)[0]
+    whole_agent = lm_diff(f"{tag} agent 1 stacked vs alone", logits_warm[1], solo)
+    logits_rms = float(full.float().pow(2).mean().sqrt())
+    del solo, got, full
+    torch.cuda.synchronize()
+    counts = dispatch.launch_counts()
+    n_prefills = 5  # first, warm, S + 1, S, and a one-agent forward
+    if first_counts["flash_attention"] != n_attn or \
+            counts["flash_attention"] != n_prefills * n_attn:
+        raise AssertionError(f"{tag}: flash_attention launched {first_counts} in the first "
+                             f"prefill, {counts} in all; expected {n_attn} a prefill")
+    for name, out in [("prefill", logits), ("prefill_warm", logits_warm)] + \
+            [("decode", x) for x in dec]:
+        if not bool(torch.isfinite(out).all()) or out.shape != (a, b, 1, cfg.padded_vocab):
+            raise AssertionError(f"{tag} {name}: {tuple(out.shape)} or not finite")
+    layers = layer_checks(tag, cfg, chk, params, toks, s, dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    moe_same_bits = None
+    if is_moe:  # the MoE of layer 0 twice on the prompt's normed embedding
+        layer0 = tree_map(lambda x: x[:, 0, 0], params["stacks"]["moe"])
+        h = rmsnorm(layer0["norm2"], embed(params["embed"], prompt["tokens"], torch.bfloat16),
+                    cfg.norm_eps)
+        y1, aux1 = moe_lib.moe_ffn(layer0["moe"], h, cfg)
+        y2, aux2 = moe_lib.moe_ffn(layer0["moe"], h, cfg)
+        moe_same_bits = same_bits(y1, y2) and same_bits(aux1, aux2)
+        if not moe_same_bits:
+            raise AssertionError(f"{tag}: two calls of moe_ffn gave other bits")
+        del layer0, h, y1, y2
+    if n_attn:
+        profiles["prefill"] = lm_profile(lambda: prefill(params, prompt, fresh()))
+
+    row, attention = None, {}
+    if n_attn:  # the first attention layer's q/k/v: the kernel route vs plain, then timings
+        kind = "moe" if is_moe else "local_attn"
+        window = cfg.sliding_window if kind == "local_attn" else 0
+        layer = tree_map(lambda x: x[:, 0, 0], params["stacks"][kind])
+        h = rmsnorm(layer["norm1"], embed(params["embed"], prompt["tokens"], torch.bfloat16),
+                    cfg.norm_eps)
+        q, k, v = att.attention_qkv(layer["attn"], h, cfg, torch.arange(s, device=dev))
+        k, v = att._repeat_kv(k, cfg.n_heads), att._repeat_kv(v, cfg.n_heads)
+        del params, h, layer
+        torch.cuda.empty_cache()
+        route = functools.partial(att.kernel_attention, q, k, v, causal=True, window=window)
+        route_kernels = flash_names(route)
+        if route_kernels != ["flash_attention_tc_kernel"]:
+            raise AssertionError(f"{tag}: bf16 attention ran {route_kernels}")
+        qh, kh, vh = (t.reshape(a * b, s, cfg.n_heads, cfg.hd).transpose(1, 2).contiguous()
+                      for t in (q, k, v))  # the kernel's own input
+        del q, k, v, route
+
+        def plain():
+            return torch.cat([fa.flash_attention_plain(qh[i:i + 1], kh[i:i + 1], vh[i:i + 1],
+                                                       causal=True, window=window)
+                              for i in range(a * b)])
+
+        kern = functools.partial(fa.flash_attention, qh, kh, vh, causal=True, window=window)
+        want = plain()
+        err = attention_scaled_errors(f"{tag} flash_attention", kern(), want)
+        drop = (window or s) - ATT_CONTROL_DROP
+        dropped = fa.flash_attention_plain(qh[:1], kh[:1], vh[:1], causal=True, window=drop)
+        ctrl = attention_scaled("control", dropped, want[:1])
+        if ctrl[3] <= 1.0:
+            raise AssertionError(f"{tag}: the attention bound passes a plain version that drops "
+                                 f"{ATT_CONTROL_DROP} keys: {ctrl}")
+        del want, dropped
+        mask = fa.attention_mask(s, s, True, window, dev)
+        sdpa = (functools.partial(F.scaled_dot_product_attention, qh, kh, vh, attn_mask=mask)
+                if window else
+                functools.partial(F.scaled_dot_product_attention, qh, kh, vh, is_causal=True))
+        ops = 4 * cfg.hd * attention_pairs(s, s, True, window) * a * b * cfg.n_heads
+        nbytes = qh.element_size() * 4 * qh.numel()  # q, k, v in; out
+        t_ops, t_bytes = ops / BF16_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        attention = {"shape": list(qh.shape), "window": window, "route_kernels": route_kernels,
+                     "max_abs_err": err[0], "max_err_over_row_rms": err[1], "plain_rms": err[2],
+                     "share_of_bound": err[3], "drop_control_share_of_bound": ctrl[3],
+                     "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, reps=3),
+                     "library_ms": cuda_ms(sdpa), "bound_ms": max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops >= t_bytes else "bytes", "ops": ops,
+                     "bytes": nbytes}
+        del qh, kh, vh, mask, kern, sdpa
+        torch.cuda.empty_cache()
+        row = {"name": "flash_attention_" + arch.split("-")[0], "route": "cuda",
+               "source": SRC + "flash_attention_tc.cu",
+               "replaces": "src/repro/kernels/flash_attention.py:94",
+               "launches": counts["flash_attention"], "max_abs_err": attention["max_abs_err"],
+               "ms": attention["ms"], "plain_ms": attention["plain_ms"],
+               "bound_ms": attention["bound_ms"], "bound_by": attention["bound_by"],
+               "library_ms": attention["library_ms"]}
+    else:
+        del params
+    torch.cuda.empty_cache()
+
+    step_ms = statistics.median(dec_ms)
+    bf16_ops, f32_ops = prefill_flops(cfg, a, b, s)
+    t_bf16, t_f32 = bf16_ops / BF16_FLOP_PER_S * 1e3, f32_ops / FP32_FLOP_PER_S * 1e3
+    t_w = weight_bytes / HBM_BYTES_PER_S * 1e3
+    prefill_bound = max(t_bf16, t_f32, t_w)
+    # a decode step reads every weight once (every expert's: the dispatch multiplies
+    # all E blocks), the embedding only where it is tied (the unembedding), the
+    # filled KV slots of the median step, and reads and writes every recurrent state
+    kv_read = (kv_bytes // LM_CAP) * min(LM_CAP, s + n_dec // 2 + 1)
+    if "local_attn" in cfg.pattern:
+        kv_read = kv_bytes  # its ring (2,048 slots) is full
+    decode_bytes = weight_bytes - (0 if cfg.tie_embeddings else emb_bytes) + kv_read + \
+        2 * state_bytes + a * b * cfg.d_model * 2
+    phase(tag, nvidia_smi=smi, agents=a, batch_per_agent=b, prompt=s, capacity=LM_CAP,
+          n_params_per_agent=weight_bytes // (2 * a), weight_bytes=weight_bytes,
+          kv_cache_bytes=kv_bytes, recurrent_state_bytes=state_bytes, init_s=init_s,
+          prefill_first_ms=first_ms, prefill_warm_ms=warm_ms, prefill_bf16_flop=bf16_ops,
+          prefill_f32_flop=f32_ops, prefill_bound_ms=prefill_bound,
+          prefill_bound_by=("bf16 operations" if prefill_bound == t_bf16 else
+                            "f32 operations" if prefill_bound == t_f32 else "bytes"),
+          prefill_bound_terms_ms={"bf16": t_bf16, "f32": t_f32, "weights": t_w},
+          prefill_bound_share=prefill_bound / warm_ms, decode_steps=n_dec,
+          decode_ms=dec_ms, decode_ms_median=step_ms,
+          decode_wall_ms_per_step=dec_wall * 1e3 / n_dec, tokens_per_s=a * b / step_ms * 1e3,
+          decode_bytes=decode_bytes, decode_bound_ms=decode_bytes / HBM_BYTES_PER_S * 1e3,
+          decode_bound_share=decode_bytes / HBM_BYTES_PER_S * 1e3 / step_ms,
+          logits_rms=logits_rms, check_capacity_factor=chk.capacity_factor,
+          whole_model_decode_vs_prefill_max_abs_rel_rms=whole_cont[0],
+          whole_model_rows_routed_alike=whole_cont[1], whole_model_rows=a * b,
+          whole_model_agent1_stacked_vs_alone=whole_agent, layers=layers,
+          moe_two_calls_same_bits=moe_same_bits,
+          flash_attention_per_prefill=first_counts["flash_attention"],
+          flash_attention=attention, max_memory_allocated=peak, launches=counts,
+          profiles=profiles)
+    return row
+
+
+def run_lm_reduced(dev, smi):
+    """Phase 3.lm_zoo_reduced: OLMoE-1B-7B, Phi-3.5-MoE (whose full width,
+    41.9 B parameters, does not fit one card), RecurrentGemma-9B and
+    xLSTM-1.3B at ``reduced()`` size, A = 2 agents (seeds 0 and 1), B = 2
+    prompts of 64 tokens: a prefill and 4 decode steps on the card against
+    the same steps on the CPU (the card's greedy tokens forced), at f32
+    (ZOO_F32_ATOL) and bf16 (LM_BF16_ATOL / LM_BF16_RMS).  An MoE config at
+    bf16 runs at capacity_factor E / k (nothing drops, so a token routed
+    apart moves no other token's slots) and holds the (agent, row) pairs
+    whose tokens took the same experts on both devices at every layer; the
+    pairs held are printed.  And the card's ``moe_ffn`` twice on one input,
+    bit for bit."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.launch import steps
+    from repro_torch.models import init_params
+    from repro_torch.models import moe as moe_lib
+
+    a, b, s, n_dec = LM_AGENTS, LM_BATCH, LM_REDUCED_S, LM_REDUCED_DECODE
+    cpu = torch.device("cpu")
+    out = {}
+    for arch in LM_REDUCED:
+        base = get_config(arch).reduced()
+        drawn = [init_params(base, torch.Generator().manual_seed(i), device=cpu)
+                 for i in range(a)]
+        f32 = tree_map(lambda *xs: torch.stack(xs), *drawn)
+        toks = torch.randint(0, base.vocab_size, (a, b, s + n_dec),
+                             generator=torch.Generator().manual_seed(2))
+        for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            cfg = dataclasses.replace(base, dtype=str(dt).removeprefix("torch."))
+            is_moe = "moe" in cfg.pattern
+            if is_moe and name == "bf16":
+                cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+            runs = {}
+            for device in (dev, cpu):
+                params = tree_map(lambda x: x.to(device=device, dtype=dt), f32)
+                cache = steps.make_agent_cache(cfg, a, b, s + n_dec, dtype=dt, device=device)
+                with RoutingRecord() as routes:
+                    lg, cache = steps.make_prefill_step(cfg)(
+                        params, {"tokens": toks[..., :s].to(device)}, cache)
+                    logits = [lg]
+                    for i in range(n_dec):
+                        tok = (logits[-1].argmax(-1) if device == dev
+                               else runs[dev][2][..., i:i + 1])
+                        step_lg, cache = steps.make_decode_step(cfg)(params, tok.to(device),
+                                                                     s + i, cache)
+                        logits.append(step_lg)
+                forced = torch.cat([x.argmax(-1).cpu() for x in logits[:-1]], dim=-1)
+                runs[device] = (logits, routes.calls, forced)
+            (card, r_card, _), (host, r_host, _) = runs[dev], runs[cpu]
+            agree = (rows_routed_alike(r_card, r_host, b) if is_moe
+                     else torch.ones((a, b), dtype=torch.bool))
+            atol, rms_tol = (ZOO_F32_ATOL, None) if name == "f32" else (LM_BF16_ATOL,
+                                                                      LM_BF16_RMS)
+            errs = []
+            for i, (x, y) in enumerate(zip(card, host)):
+                what = f"3.lm_zoo_reduced {arch} {name} step {i}, card vs CPU"
+                errs.append(lm_check(what, *held_rows(what, x, y, agree)[:2], atol, rms_tol))
+            out[f"{arch} {name}"] = {"max_abs_err": max(e[0] for e in errs),
+                                     "max_rel_rms": max(e[1] for e in errs), "atol": atol,
+                                     "rms_tol": rms_tol, "rows_held": int(agree.sum()),
+                                     "capacity_factor": cfg.capacity_factor}
+    # the card's MoE twice on one input (reduced OLMoE, real capacity: drops)
+    cfg = dataclasses.replace(get_config("olmoe-1b-7b").reduced(), dtype="bfloat16")
+    p = moe_lib.moe_init(torch.Generator(device=dev).manual_seed(0), cfg, device=dev,
+                         lead=(a,))
+    x = torch.randn((a, b, 256, cfg.d_model), generator=torch.Generator(device=dev).manual_seed(1),
+                    device=dev).to(torch.bfloat16) + 1.0
+    same = all(same_bits(u, w) for u, w in zip(moe_lib.moe_ffn(p, x, cfg),
+                                                moe_lib.moe_ffn(p, x, cfg)))
+    if not same:
+        raise AssertionError("3.lm_zoo_reduced: two calls of the card's moe_ffn gave other bits")
+    phase("3.lm_zoo_reduced", nvidia_smi=smi, agents=a, batch_per_agent=b, prompt=s,
+          decode_steps=n_dec, runs=out, moe_two_calls_same_bits=same)
+
+
 def main() -> int:
     import torch
 
@@ -3612,6 +4124,8 @@ def main() -> int:
     run_obs_gossip(dev, smi)
     lm_row = run_lm_qwen3(dev, smi)
     zoo_row = run_lm_repro100m(dev, smi)
+    new_rows = [run_lm_new(dev, smi, tag, arch) for tag, arch in LM_NEW]
+    run_lm_reduced(dev, smi)
     card_vs_cpu("4.parity", session, fig4_spec())
     card_vs_cpu("4.launch_parity", l_session, launch_spec())
     card_vs_cpu("4.gossip_parity", g_session, gossip_spec())
@@ -3646,7 +4160,7 @@ def main() -> int:
         "consensus_fused_shard": sh_counts["consensus_fused_shard"],
         "consensus_shard_encode": sh_counts["consensus_shard_encode"],
     }
-    rows = timings(dev, launches, errs) + [lm_row, zoo_row]
+    rows = timings(dev, launches, errs) + [lm_row, zoo_row] + [r for r in new_rows if r]
     profile_round("6.profile", session)
     profile_round("6.gossip_profile", g_session)
     profile_round("6.delayed_profile", d_session)

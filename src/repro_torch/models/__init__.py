@@ -1,6 +1,6 @@
-"""The model zoo (port of ``repro.models``): the dense transformer block
-kinds ``attn`` and ``local_attn``, served with prefill attention on the
-``flash_attention`` kernels.  ``params_from_numpy`` / ``params_to_numpy``
+"""The model zoo (port of ``repro.models``): the decoder block kinds
+``attn``, ``local_attn``, ``moe``, ``rglru``, ``mlstm`` and ``slstm``,
+served with prefill attention on the ``flash_attention`` kernels.  ``params_from_numpy`` / ``params_to_numpy``
 carry the reference's parameter trees across, leaf for leaf."""
 from repro_torch.models.transformer import (
     decode_step,
@@ -11,7 +11,7 @@ from repro_torch.models.transformer import (
     params_from_numpy,
     params_to_numpy,
 )
-from repro_torch.models import attention, modules
+from repro_torch.models import attention, modules, moe, rglru, xlstm
 
 __all__ = [
     "decode_step",
@@ -23,4 +23,7 @@ __all__ = [
     "params_to_numpy",
     "attention",
     "modules",
+    "moe",
+    "rglru",
+    "xlstm",
 ]

@@ -1,22 +1,27 @@
-"""Composable transformer assembly (port of ``repro.models.transformer``,
-the dense block kinds ``attn`` and ``local_attn``).
+"""Composable transformer assembly (port of ``repro.models.transformer``:
+the decoder block kinds ``attn``, ``local_attn``, ``moe``, ``rglru``,
+``mlstm`` and ``slstm``).
 
 An architecture is ``n_periods`` repetitions of ``cfg.pattern`` (+ a tail
 remainder).  Per-kind parameter stacks carry leaves ``[n_periods, c_kind,
 ...]``; where the reference runs one ``lax.scan`` over periods, the port
 loops over the periods in Python and hands each block views of its stacks.
-Caches (``[n_periods, c_kind, B, capacity, kv, hd]``) are updated in place
-through the same views.
+Caches (KV ``[n_periods, c_kind, B, capacity, kv, hd]``, recurrent states
+``[n_periods, c_kind, B, ...]``) are updated in place through the same
+views: attention writes its KV slots, a recurrent block copies its new
+state into the views it was handed.  Recurrent states stay fp32 whatever
+the KV dtype, as the reference's ``*_state_init`` make them.
 
 Agent axis: a tree whose leaves carry one more leading axis ``A``
 (``launch.steps``' agent-stacked params and caches) runs all agents in one
-pass over ``tokens [A, B, S]``; matmuls take ``[A, rows, D] @ [A, D, F]``
-and attention folds A into its batch, so each kernel launches once for
-every agent.  A tree without it is one agent's.
+pass over ``tokens [A, B, S]``; matmuls take ``[A, rows, D] @ [A, D, F]``,
+attention folds A into its batch (so each kernel launches once for every
+agent), and the MoE dispatch batches over A with each agent's own
+capacity.  A tree without it is one agent's.
 
-The other kinds (``moe``, ``mlstm``, ``slstm``, ``rglru``, ``enc_attn``,
-``dec_attn``) and the ``audio_stub`` / ``vision_stub`` frontends raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+The kinds ``enc_attn`` and ``dec_attn`` and the ``audio_stub`` /
+``vision_stub`` frontends raise ``NotImplementedError`` naming the ROADMAP
+item that brings them.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.tree import tree_leaves, tree_map, tree_replace_leaves
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.attention import attention_block, attn_init, init_kv_cache
 from repro_torch.models.modules import (
     embed,
@@ -38,15 +44,21 @@ from repro_torch.models.modules import (
     truncated_normal_init,
     unembed,
 )
+from repro_torch.models.rglru import rglru_block, rglru_init, rglru_state_init
+from repro_torch.models.xlstm import (
+    mlstm_block,
+    mlstm_init,
+    mlstm_state_init,
+    slstm_block,
+    slstm_init,
+    slstm_state_init,
+)
 
 PyTree = Any
 
-DENSE_KINDS = ("attn", "local_attn")
+ATTN_KINDS = ("attn", "local_attn", "moe")
+RECURRENT_KINDS = ("rglru", "mlstm", "slstm")
 LATER = {  # what the port does not have yet -> the ROADMAP item that brings it
-    "moe": "the MoE slice (ROADMAP queue A item 10b)",
-    "rglru": "the recurrent slice (ROADMAP queue A item 10c)",
-    "mlstm": "the recurrent slice (ROADMAP queue A item 10c)",
-    "slstm": "the recurrent slice (ROADMAP queue A item 10c)",
     "enc_attn": "the enc-dec slice (ROADMAP queue A item 10d)",
     "dec_attn": "the enc-dec slice (ROADMAP queue A item 10d)",
     "audio_stub": "the enc-dec slice (ROADMAP queue A item 10d)",
@@ -63,7 +75,7 @@ def _unported(what: str):
 def check_supported(cfg) -> None:
     """Raise unless every block kind and the frontend of ``cfg`` are ported."""
     for kind in cfg.pattern:
-        if kind not in DENSE_KINDS:
+        if kind not in ATTN_KINDS + RECURRENT_KINDS:
             _unported(kind)
     if cfg.frontend != "none":
         _unported(cfg.frontend)
@@ -77,43 +89,84 @@ def check_supported(cfg) -> None:
 
 
 def block_init(generator, kind: str, cfg, *, dtype=torch.float32, device=None, lead=()):
-    if kind not in DENSE_KINDS:
-        _unported(kind)
     kw = dict(dtype=dtype, device=device, lead=lead)
-    return {
-        "norm1": rmsnorm_init(cfg.d_model, **kw),
-        "attn": attn_init(generator, cfg, **kw),
-        "norm2": rmsnorm_init(cfg.d_model, **kw),
-        "mlp": swiglu_init(generator, cfg.d_model, cfg.d_ff, **kw),
-    }
+    if kind in ATTN_KINDS:
+        p = {
+            "norm1": rmsnorm_init(cfg.d_model, **kw),
+            "attn": attn_init(generator, cfg, **kw),
+            "norm2": rmsnorm_init(cfg.d_model, **kw),
+        }
+        if kind == "moe":
+            p["moe"] = moe_lib.moe_init(generator, cfg, **kw)
+        else:
+            p["mlp"] = swiglu_init(generator, cfg.d_model, cfg.d_ff, **kw)
+        return p
+    if kind == "mlstm":
+        return mlstm_init(generator, cfg, **kw)
+    if kind == "slstm":
+        return slstm_init(generator, cfg, **kw)
+    if kind == "rglru":
+        return {
+            "rec": rglru_init(generator, cfg, **kw),
+            "norm2": rmsnorm_init(cfg.d_model, **kw),
+            "mlp": swiglu_init(generator, cfg.d_model, cfg.d_ff, **kw),
+        }
+    _unported(kind)
 
 
 def block_cache_init(kind: str, cfg, batch: int, capacity: int, dtype=torch.bfloat16,
                      device=None, lead=()):
-    """Decode-time cache for one layer of ``kind`` (``lead`` axes first)."""
-    if kind == "attn":
+    """Decode-time cache for one layer of ``kind`` (``lead`` axes first).
+    ``dtype`` is the KV cache's; recurrent states are fp32."""
+    if kind in ("attn", "moe"):
         return init_kv_cache(cfg, batch, capacity, dtype, device, lead)
     if kind == "local_attn":
         cap = min(capacity, cfg.sliding_window or capacity)
         return init_kv_cache(cfg, batch, cap, dtype, device, lead)
+    if kind == "mlstm":
+        return mlstm_state_init(cfg, batch, device=device, lead=lead)
+    if kind == "slstm":
+        return slstm_state_init(cfg, batch, device=device, lead=lead)
+    if kind == "rglru":
+        return rglru_state_init(cfg, batch, device=device, lead=lead)
     _unported(kind)
 
 
 def block_apply(kind: str, params, x, cfg, *, positions, cache=None,
                 window_override: int | None = None):
-    """Returns (x', cache, aux_loss)."""
-    if kind not in DENSE_KINDS:
-        _unported(kind)
-    window = cfg.sliding_window if kind == "local_attn" else 0
-    if window_override is not None:
-        window = window_override
-    h = rmsnorm(params["norm1"], x, cfg.norm_eps)
-    y, cache = attention_block(params["attn"], h, cfg, causal=True, window=window,
-                               positions=positions, cache=cache)
-    x = x + y
-    h2 = rmsnorm(params["norm2"], x, cfg.norm_eps)
+    """Returns (x', cache, aux_loss): the cache written in place (a
+    recurrent kind without one returns its new state), aux the router's
+    loss ``[*A]`` for ``moe`` and a 0-d zero otherwise."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + swiglu(params["mlp"], h2, x.dtype), cache, aux
+    if kind in ATTN_KINDS:
+        window = cfg.sliding_window if kind == "local_attn" else 0
+        if window_override is not None and kind != "moe":
+            window = window_override
+        h = rmsnorm(params["norm1"], x, cfg.norm_eps)
+        y, cache = attention_block(params["attn"], h, cfg, causal=True, window=window,
+                                   positions=positions, cache=cache)
+        x = x + y
+        h2 = rmsnorm(params["norm2"], x, cfg.norm_eps)
+        if kind == "moe":
+            y2, aux = moe_lib.moe_ffn(params["moe"], h2, cfg)
+        else:
+            y2 = swiglu(params["mlp"], h2, x.dtype)
+        return x + y2, cache, aux
+    if kind == "mlstm":
+        y, new_state = mlstm_block(params, x, cfg, state=cache)
+    elif kind == "slstm":
+        y, new_state = slstm_block(params, x, cfg, state=cache)
+    elif kind == "rglru":
+        y, new_state = rglru_block(params["rec"], x, cfg, state=cache)
+        h2 = rmsnorm(params["norm2"], y, cfg.norm_eps)
+        y = y + swiglu(params["mlp"], h2, x.dtype)
+    else:
+        _unported(kind)
+    if cache is None:
+        return y, new_state, aux
+    for name, value in new_state.items():  # the layer loop keeps the views it handed out
+        cache[name].copy_(value)
+    return y, cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -230,10 +283,17 @@ def forward(params: PyTree, cfg, tokens: torch.Tensor, *, positions=None, cache=
 
     ``tokens [*A, B, S]``; ``positions [S]`` absolute positions (default
     ``0..S-1``).  ``window_override``: force a sliding window on ``attn`` /
-    ``local_attn`` kinds (the dense-arch long-context SWA variant).
-    ``logits_tail``: if > 0, unembed only the last ``logits_tail`` positions
-    (prefill returns next-token logits without materializing [S, V]).  A
-    ``cache`` is written in place and returned."""
+    ``local_attn`` kinds (the dense-arch long-context SWA variant; ``moe``
+    keeps full attention, as in the reference).  ``logits_tail``: if > 0,
+    unembed only the last ``logits_tail`` positions (prefill returns
+    next-token logits without materializing [S, V]).  A ``cache`` is
+    written in place and returned; its recurrent states are the initial
+    states (zero without a cache).
+
+    ``aux_loss`` is fp32 of shape ``[*A]``: for each agent the sum over its
+    ``moe`` layers of the router's load-balancing loss, each agent's equal
+    to the reference's scalar for that agent's model alone (0-d for a tree
+    without an agent axis; zeros without ``moe`` layers)."""
     check_supported(cfg)
     if frames is not None or patches is not None:
         _unported("audio_stub" if frames is not None else "vision_stub")
@@ -244,7 +304,7 @@ def forward(params: PyTree, cfg, tokens: torch.Tensor, *, positions=None, cache=
         positions = torch.arange(x.shape[-2], device=x.device)
     positions = torch.as_tensor(positions, device=x.device).reshape(-1)
 
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = torch.zeros(tuple(tokens.shape[:lead]), dtype=torch.float32, device=x.device)
     cache_stacks = cache["stacks"] if cache is not None else None
     for p in range(cfg.n_periods):
         x, a = _apply_period(
@@ -269,8 +329,9 @@ def forward(params: PyTree, cfg, tokens: torch.Tensor, *, positions=None, cache=
 
 
 def nll_loss(params, cfg, batch) -> tuple[torch.Tensor, torch.Tensor]:
-    """Total next-token NLL (summed over tokens) + aux (0 for the dense
-    kinds).  ``batch``: dict(tokens, targets[, loss_mask])."""
+    """Total next-token NLL (summed over tokens) + aux (the router's loss,
+    ``forward``'s; 0 without ``moe`` layers).  ``batch``: dict(tokens,
+    targets[, loss_mask])."""
     logits, _, aux = forward(params, cfg, batch["tokens"], frames=batch.get("frames"),
                              patches=batch.get("patches"))
     targets = batch["targets"]

@@ -1,6 +1,8 @@
-"""The port's model zoo (``repro_torch.models``, the dense kinds) against the
-JAX package's ``repro.models`` on the CPU, at ``reduced()`` sizes, with the
-reference's ``init_params`` weights carried across by ``params_from_numpy``.
+"""The port's model zoo (``repro_torch.models``) against the JAX package's
+``repro.models`` on the CPU, at ``reduced()`` sizes, with the reference's
+``init_params`` weights carried across by ``params_from_numpy``: the dense
+kinds, and the MoE (OLMoE-1B-7B, Phi-3.5-MoE) and recurrent
+(RecurrentGemma-9B, xLSTM-1.3B) configs.
 
 Tolerances.  float32: modules at atol 1e-6; attention and logits at 1e-4
 (the same fp32 arithmetic summed in another order; the port's prefill and
@@ -13,6 +15,20 @@ the other way moves a logit by an ulp (measured: at most 0.055).  The int8
 KV quantiser: codes equal, scales within one float32 ulp.  The mirrors of
 ``tests/test_models.py`` keep its tolerances (5e-2 for decode against
 forward, 1e-5 for ``window_override`` against ``local_attn``).
+
+The MoE configs at bf16.  Routing is discrete: a router logit one bf16
+place from a tie goes either way on a one-ulp change upstream, the token
+then takes another expert (its logits move by ~1), and the capacity slots
+of every later token of that agent shift with it.  The reference does not
+agree with itself there (its jitted and eager forwards differ by up to
+1.85 in a logit on these configs), so the bf16 MoE forward is held where
+the routing is the same: both packages' top-k choices are read at every
+layer (the reference run eagerly), every choice that differs must sit at a
+near-tie of the reference's router logits (within 2^-5 of max(1,
+|logit|), four bf16 places), and every token that no difference reaches
+(its own kept experts at each layer, and a causal path from a differing
+token through a later attention layer) is held to BF16_ATOL, with the NLL
+over those tokens at rtol 1e-2; at least half the tokens must be held.
 """
 import dataclasses
 
@@ -27,12 +43,17 @@ from repro import models as jm  # noqa: E402
 from repro.configs import get_config as jget  # noqa: E402
 from repro.models import attention as ja  # noqa: E402
 from repro.models import modules as jmod  # noqa: E402
+from repro.models import moe as jmoe  # noqa: E402
 from repro_torch import models as tm  # noqa: E402
 from repro_torch.configs import get_config as tget  # noqa: E402
 from repro_torch.models import attention as ta  # noqa: E402
 from repro_torch.models import modules as tmod  # noqa: E402
+from repro_torch.models import moe as tmoe  # noqa: E402
 
 DENSE = ["qwen3-8b", "mistral-nemo-12b", "deepseek-7b", "granite-20b", "repro-100m"]
+MOE = ["olmoe-1b-7b", "phi3.5-moe-42b-a6.6b"]
+RECURRENT = ["recurrentgemma-9b", "xlstm-1.3b"]
+NEW = MOE + RECURRENT
 BF16_ATOL = 0.125
 F32_ATOL = 1e-4
 
@@ -239,7 +260,7 @@ def test_kernel_route_pads_refuses_a_non_causal_pad_and_has_no_backward():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + RECURRENT)
 def test_forward_and_nll_against_the_reference(arch, dtype):
     jcfg, tcfg = _cfgs(arch, dtype)
     p, tp = _params(jcfg, 0)
@@ -343,10 +364,168 @@ def test_bf16_init_is_the_f32_draw_cast():
         assert torch.equal(a.to(torch.bfloat16), b)
 
 
+# -- the MoE and recurrent configs -------------------------------------------------
+
+
+def _record_routing(monkeypatch, module):
+    """Each ``route_topk`` call's (router logits fp32, chosen experts) while
+    ``module``'s is patched."""
+    calls, orig = [], module.route_topk
+
+    def route(logits, k):
+        out = orig(logits, k)
+        calls.append((_close_np(logits), np.asarray(out[1]).reshape(-1, k)))
+        return out
+
+    monkeypatch.setattr(module, "route_topk", route)
+    return calls
+
+
+def _close_np(x):
+    return x.detach().float().numpy() if isinstance(x, torch.Tensor) else np.asarray(
+        x, np.float32)
+
+
+def _kept(idx, cap, n_experts):
+    """[T, k] chosen experts -> [T, k] kept (the token-major slot count)."""
+    flat = idx.reshape(-1)
+    seen = np.zeros(n_experts, int)
+    keep = np.zeros(flat.shape, bool)
+    for j, e in enumerate(flat):
+        keep[j] = seen[e] < cap
+        seen[e] += 1
+    return keep.reshape(idx.shape)
+
+
+def _routing_held_tokens(cfg, ref_calls, port_calls, b, s):
+    """[b, s] mask of the tokens no routing difference reaches (see the
+    module docstring); raises where a difference is not a near-tie."""
+    cap = tmoe._capacity(b * s, cfg.n_experts, cfg.top_k, cfg.capacity_factor)
+    reached = np.zeros((b, s), bool)
+    assert len(ref_calls) == len(port_calls) == cfg.n_layers
+    for layer, ((lj, ij), (_, it)) in enumerate(zip(ref_calls, port_calls)):
+        kj, kt = _kept(ij, cap, cfg.n_experts), _kept(it, cap, cfg.n_experts)
+        upstream = reached.copy()  # reached through an earlier layer
+        for tok in range(b * s):
+            row, pos = divmod(tok, s)
+            chosen_j, chosen_t = set(ij[tok].tolist()), set(it[tok].tolist())
+            if chosen_j != chosen_t and not upstream[row, pos]:
+                for e_ref in chosen_j - chosen_t:
+                    for e_port in chosen_t - chosen_j:
+                        gap = abs(lj[tok, e_ref] - lj[tok, e_port])
+                        assert gap <= 2.0 ** -5 * max(1.0, abs(lj[tok, e_ref])), (
+                            f"layer {layer}, token {tok}: experts {e_ref} / {e_port}, "
+                            f"reference logits {lj[tok]}")
+            if set(ij[tok][kj[tok]].tolist()) != set(it[tok][kt[tok]].tolist()):
+                reached[row, pos] = True
+        if layer + 1 < cfg.n_layers:  # a later attention layer carries it along the row
+            reached |= np.maximum.accumulate(reached, axis=1)
+    return ~reached
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_forward_and_nll_against_the_reference(arch, dtype, monkeypatch):
+    jcfg, tcfg = _cfgs(arch, dtype)
+    p, tp = _params(jcfg, 0)
+    toks = _toks(jcfg, (2, 33), 1)
+    lt, cache, taux = tm.forward(tp, tcfg, _t(toks))
+    assert cache is None and lt.shape == (2, 33, jcfg.padded_vocab) and taux.shape == ()
+    if dtype == "float32":
+        lj, _, aux = jm.forward(p, jcfg, jnp.asarray(toks))
+        _close(lt, lj, F32_ATOL)
+        np.testing.assert_allclose(float(taux), float(aux), atol=1e-5, rtol=0)
+        held = np.ones((2, 33), bool)
+    else:
+        ref_calls = _record_routing(monkeypatch, jmoe)
+        port_calls = _record_routing(monkeypatch, tmoe)
+        with jax.disable_jit():
+            lj, _, aux = jm.forward(p, jcfg, jnp.asarray(toks))
+        tm.forward(tp, tcfg, _t(toks))
+        held = _routing_held_tokens(jcfg, ref_calls, port_calls, 2, 33)
+        assert held.sum() >= held.size // 2, held.sum()
+        np.testing.assert_allclose(_close_np(lt)[held], np.asarray(lj)[held], atol=BF16_ATOL,
+                                   rtol=0)
+        monkeypatch.undo()
+    assert float(taux) > 0
+    mask = held[:, :-1].astype(np.float32)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:], "loss_mask": mask}
+    with jax.disable_jit():
+        nj, _ = jm.nll_loss(p, jcfg, {k: jnp.asarray(v) for k, v in batch.items()})
+    nt, _ = tm.nll_loss(tp, tcfg, {k: _t(v) for k, v in batch.items()})
+    np.testing.assert_allclose(float(nt), float(nj), rtol=1e-5 if dtype == "float32" else 1e-2)
+
+
+@pytest.mark.parametrize("arch", NEW)
+def test_agent_stacked_new_kinds_equal_per_agent_calls(arch):
+    """Three agents with their own weights in one pass: logits and, for the
+    MoE configs, one router loss per agent, each its own forward's."""
+    _, tcfg = _cfgs(arch)
+    agents = [tm.init_params(tcfg, torch.Generator().manual_seed(a), device="cpu")
+              for a in range(3)]
+    from repro_torch.core.tree import tree_map
+    stacked = tree_map(lambda *xs: torch.stack(xs), *agents)
+    toks = _t(_toks(tcfg, (3, 2, 19), 6))
+    out, _, aux = tm.forward(stacked, tcfg, toks)
+    assert aux.shape == (3,)
+    for a in range(3):
+        one, _, one_aux = tm.forward(agents[a], tcfg, toks[a])
+        torch.testing.assert_close(out[a], one, atol=1e-5, rtol=0)
+        torch.testing.assert_close(aux[a], one_aux, atol=1e-6, rtol=0)
+    assert (float(aux.min()) > 0) == (arch in MOE)
+
+
+@pytest.mark.parametrize("arch", NEW)
+def test_new_kinds_params_round_trip_and_layout(arch):
+    """The MoE and recurrent leaves (``router``, ``w_*`` [E, ...], ``lam_raw``,
+    ``conv_*``, ``r_*`` [H, hd, hd], ``out_norm``) cross leaf for leaf; the
+    port's own draw has the reference's tree."""
+    jcfg, tcfg = _cfgs(arch)
+    p = jax.tree.map(np.asarray, jm.init_params(jcfg, jax.random.key(0)))
+    back = tm.params_to_numpy(tm.params_from_numpy(p, device="cpu"))
+    assert jax.tree.structure(back) == jax.tree.structure(p)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(p)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    mine = tm.params_to_numpy(tm.init_params(tcfg, torch.Generator().manual_seed(0),
+                                             device="cpu"))
+    assert jax.tree.structure(mine) == jax.tree.structure(p)
+    for a, b in zip(jax.tree.leaves(mine), jax.tree.leaves(p)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+
+
+def test_a_recurrent_tail_against_the_reference():
+    """RecurrentGemma's layout cut to 5 layers: one period of (rglru, rglru,
+    local_attn) and a tail list (rglru, rglru), as the full config's 12
+    periods and tail: forward, a prefill into the cache (the tail's states
+    written in place) and two decode steps, against the reference."""
+    jcfg, tcfg = _cfgs("recurrentgemma-9b", n_layers=5,
+                       pattern=("rglru", "rglru", "local_attn"))
+    assert jcfg.tail == ("rglru", "rglru")
+    p, tp = _params(jcfg, 7)
+    assert isinstance(tp["tail"], list) and len(tp["tail"]) == 2
+    toks = _toks(jcfg, (2, 14), 8)
+    lj, _, _ = jm.forward(p, jcfg, jnp.asarray(toks))
+    lt, _, _ = tm.forward(tp, tcfg, _t(toks))
+    _close(lt, lj, F32_ATOL)
+    jc = jm.init_cache(jcfg, 2, 16, jnp.float32)
+    tc = tm.init_cache(tcfg, 2, 16, torch.float32, device="cpu")
+    lj, jc, _ = jm.forward(p, jcfg, jnp.asarray(toks[:, :12]), cache=jc, logits_tail=1)
+    lt, tc, _ = tm.forward(tp, tcfg, _t(toks[:, :12]), cache=tc, logits_tail=1)
+    _close(lt, lj, F32_ATOL)
+    for t in (12, 13):
+        lj, jc = jm.decode_step(p, jcfg, jnp.asarray(toks[:, t:t + 1]), jnp.asarray(t), jc)
+        lt, tc = tm.decode_step(tp, tcfg, _t(toks[:, t:t + 1]), t, tc)
+        _close(lt, lj, F32_ATOL)
+    for i in range(2):
+        for name in ("h", "conv"):
+            _close(tc["tail"][i][name], np.asarray(jc["tail"][i][name], np.float32), 1e-5)
+    _close(tc["stacks"]["rglru"]["h"], np.asarray(jc["stacks"]["rglru"]["h"]), 1e-5)
+
+
 # -- mirrors of tests/test_models.py, inside the port ------------------------------
 
 
-@pytest.mark.parametrize("arch", ["qwen3-8b", "granite-20b"])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "granite-20b", "xlstm-1.3b", "recurrentgemma-9b"])
 def test_decode_matches_forward(arch):
     _, cfg = _cfgs(arch)
     params = tm.init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
@@ -404,9 +583,7 @@ def test_window_override_matches_local_attn():
 # -- what the port does not have yet ------------------------------------------------
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("olmoe-1b-7b", "10b"), ("phi3.5-moe-42b-a6.6b", "10b"), ("xlstm-1.3b", "10c"),
-    ("recurrentgemma-9b", "10c"), ("whisper-tiny", "10d"), ("pixtral-12b", "10d")])
+@pytest.mark.parametrize("arch,item", [("whisper-tiny", "10d"), ("pixtral-12b", "10d")])
 def test_unported_kinds_raise(arch, item):
     cfg = tget(arch).reduced()
     with pytest.raises(NotImplementedError, match=f"item {item}"):

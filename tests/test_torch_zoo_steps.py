@@ -3,7 +3,11 @@ synthetic token sampler against the JAX package on the CPU, at ``reduced()``
 sizes, weights carried across by ``models.params_from_numpy``.
 
 The port runs A agents as a leading axis in one pass where the reference
-``jax.vmap``s ``forward``; A = 3 agents with distinct weights here.
+``jax.vmap``s ``forward``; A = 3 agents with distinct weights here.  The
+MoE configs run over agents at float32 only: at bf16 their routing is
+held token by token in tests/test_torch_zoo_models.py (a near-tie of the
+router goes either way on a one-ulp change, and the reference does not
+agree with itself there).
 Tolerances: float32 logits atol 1e-4 (fp32 sums in another order); bf16
 compute BF16_ATOL = 0.125 (four bf16 ulps at the reduced models' logit
 scale, |logits| < 8); eq. (6) on the zoo posterior rtol/atol 1e-6; the
@@ -59,7 +63,8 @@ def _close(got, want, atol):
                                rtol=0)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-8b", "granite-20b", "repro-100m"])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "granite-20b", "repro-100m", "olmoe-1b-7b",
+                                  "recurrentgemma-9b", "xlstm-1.3b"])
 def test_init_train_state_layout_equals_the_reference(arch):
     jcfg, tcfg = _cfgs(arch)
     jstate = js.init_train_state(jax.random.key(0), jcfg, 2, jadam(), init_sigma=0.02)
@@ -138,6 +143,84 @@ def test_prefill_and_decode_over_agents_against_the_reference(arch, s, dtype):
                                   np.asarray(jcache["stacks"]["attn"]["pos"]))
     _close(tcache["stacks"]["attn"]["k"], np.asarray(jcache["stacks"]["attn"]["k"],
                                                      np.float32), atol)
+
+
+_RECURRENT_STATE = {"rglru": ("h", "conv"), "mlstm": ("C", "n", "m"), "slstm": ("c", "n", "h", "m")}
+
+
+@pytest.mark.parametrize("arch,dtype", [("olmoe-1b-7b", "float32"),
+                                        ("phi3.5-moe-42b-a6.6b", "float32"),
+                                        ("recurrentgemma-9b", "float32"),
+                                        ("recurrentgemma-9b", "bfloat16"),
+                                        ("xlstm-1.3b", "float32"), ("xlstm-1.3b", "bfloat16")])
+def test_prefill_and_decode_new_kinds_over_agents(arch, dtype):
+    """make_prefill_step then three make_decode_step calls for A = 3 agents
+    against the reference's vmapped steps, for the MoE and recurrent
+    configs: logits each step, and the caches after (the KV slots, and the
+    recurrent states, fp32 whatever the KV dtype)."""
+    jcfg, tcfg = _cfgs(arch, dtype)
+    jp, tp = _agent_params(jcfg)
+    s, b = 21, 2
+    cap = s + 3
+    kv = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+    jcache = js.make_agent_cache(jcfg, A, b, cap, kv[dtype][0])
+    tcache = ts.make_agent_cache(tcfg, A, b, cap, kv[dtype][1], device="cpu")
+    toks = np.random.default_rng(4).integers(0, jcfg.vocab_size, (A, b, s + 3))
+    atol = F32_ATOL if dtype == "float32" else BF16_ATOL
+    lj, jcache = js.make_prefill_step(jcfg)(jp, {"tokens": jnp.asarray(toks[..., :s])}, jcache)
+    lt, tcache = ts.make_prefill_step(tcfg)(tp, {"tokens": torch.from_numpy(toks[..., :s])},
+                                            tcache)
+    _close(lt, lj, atol)
+    for t in range(s, s + 3):
+        lj, jcache = js.make_decode_step(jcfg)(jp, jnp.asarray(toks[..., t:t + 1]),
+                                               jnp.asarray(t), jcache)
+        lt, tcache = ts.make_decode_step(tcfg)(tp, torch.from_numpy(toks[..., t:t + 1]), t,
+                                               tcache)
+        _close(lt, lj, atol)
+    for kind, names in _RECURRENT_STATE.items():
+        if kind not in tcache["stacks"]:
+            continue
+        for name in names:
+            got = tcache["stacks"][kind][name]
+            assert got.dtype == torch.float32, (kind, name)
+            if dtype == "float32":
+                want = np.asarray(jcache["stacks"][kind][name], np.float32)
+                np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+    for kind in ("moe", "local_attn"):
+        if kind in tcache["stacks"]:
+            np.testing.assert_array_equal(tcache["stacks"][kind]["pos"].numpy(),
+                                          np.asarray(jcache["stacks"][kind]["pos"]))
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-1.3b"])
+def test_decode_writes_the_recurrent_state_in_place(arch):
+    """A decode step writes each recurrent state into the cache's own
+    tensors (the layer loop drops what a block returns): after the step the
+    states differ from before, the tensors are the same objects, and a
+    second step from them equals the reference's."""
+    jcfg, tcfg = _cfgs(arch)
+    jp, tp = _agent_params(jcfg)
+    toks = np.random.default_rng(5).integers(0, jcfg.vocab_size, (A, 2, 10))
+    tcache = ts.make_agent_cache(tcfg, A, 2, 12, torch.float32, device="cpu")
+    jcache = js.make_agent_cache(jcfg, A, 2, 12, jnp.float32)
+    _, tcache = ts.make_prefill_step(tcfg)(tp, {"tokens": torch.from_numpy(toks[..., :8])},
+                                           tcache)
+    _, jcache = js.make_prefill_step(jcfg)(jp, {"tokens": jnp.asarray(toks[..., :8])}, jcache)
+    leaves = {(kind, name): tcache["stacks"][kind][name] for kind, names in
+              _RECURRENT_STATE.items() if kind in tcache["stacks"] for name in names}
+    before = {key: leaf.clone() for key, leaf in leaves.items()}
+    for t in (8, 9):
+        lt, out = ts.make_decode_step(tcfg)(tp, torch.from_numpy(toks[..., t:t + 1]), t, tcache)
+        lj, jcache = js.make_decode_step(jcfg)(jp, jnp.asarray(toks[..., t:t + 1]),
+                                               jnp.asarray(t), jcache)
+        assert out is tcache
+        _close(lt, lj, F32_ATOL)
+    for (kind, name), leaf in leaves.items():
+        assert tcache["stacks"][kind][name] is leaf
+        if name != "m":  # the stabiliser may stay put
+            assert not torch.equal(leaf, before[kind, name]), (kind, name)
+        np.testing.assert_allclose(leaf.numpy(), np.asarray(jcache["stacks"][kind][name]),
+                                   atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("kv", ["f32", "int8"])
