@@ -387,18 +387,33 @@ LAYER0_DECODE_ATOL, LAYER0_DECODE_RMS = 0.008, 0.005
 LM_F32_ATOL = 1e-4  # f32 logits, card (TF32 off) vs CPU: fp32 sums in another order
 # the MoE and recurrent configs at full width (3.lm_olmoe, 3.lm_recurrentgemma,
 # 3.lm_xlstm), and the four new configs at reduced() size, card vs CPU
-LM_NEW = (("3.lm_olmoe", "olmoe-1b-7b"), ("3.lm_recurrentgemma", "recurrentgemma-9b"),
-          ("3.lm_xlstm", "xlstm-1.3b"))
+# (tag, config, whole-model checks held): the xLSTM's are read, not held
+# (run_lm_new)
+LM_NEW = (("3.lm_olmoe", "olmoe-1b-7b", True),
+          ("3.lm_recurrentgemma", "recurrentgemma-9b", True),
+          ("3.lm_xlstm", "xlstm-1.3b", False))
 LM_REDUCED = ("olmoe-1b-7b", "phi3.5-moe-42b-a6.6b", "recurrentgemma-9b", "xlstm-1.3b")
 LM_REDUCED_S, LM_REDUCED_DECODE = 64, 4
 ZOO_F32_ATOL = 1e-5  # reduced configs' f32 logits, card vs CPU
+# OLMoE's and RecurrentGemma's whole model at full width, bf16: decode vs the
+# prefill of S + 1 and agent 1 stacked vs alone, max abs and rms ratio as
+# LM_BF16_*.  Measured on the H100: decode 0.031 / 0.0076 (OLMoE's rows
+# routed alike) and 0.133-0.152 / 0.021 (RecurrentGemma, whose 2,048-slot
+# ring and 26 recurrent layers keep more bf16 roundings than Qwen3-8B's
+# cache), stacked vs alone bitwise; so about twice that.  The controls read
+# 2.4-6.4 / 0.60-1.01 (a decode after the other row's prompt) and 6.0-8.4 /
+# 1.41-1.42 (agent 0's weights).
+WHOLE_BF16_ATOL, WHOLE_BF16_RMS = 0.3, 0.05
 # one block on the card, decode vs the no-cache run and agent 1 alone vs
-# stacked, on the same bf16 input (layer_checks): max abs and the
-# difference's rms over the rms of the block's output.  Measured on the H100
-# over the three models' 102 layers: at most 0.125 (one bf16 place at
-# |x| in [16, 32)) and 0.0036, so about twice that; the controls (a decode
-# after the other row's prompt) read 0.27-3.1 and 0.074-0.89
-LAYER_BF16_ATOL, LAYER_BF16_RMS = 0.25, 0.01
+# stacked, on the same bf16 input (layer_checks), held on the block's own
+# contribution (its output less its input, in fp32): max abs, and the
+# difference's rms over that contribution's rms, so the residual stream
+# (|x| up to 16-32 in deep layers) does not dilute it.  Measured on the H100
+# over the three models' 102 layers: at most 0.125 (one bf16 place of the
+# output at |x| in [16, 32)) and 0.0088, so about twice that; the controls
+# (a decode after the other row's prompt, at each kind's first and last
+# layer) read 0.27-3.3 and 0.17-0.93.
+LAYER_BF16_ATOL, LAYER_BF16_RMS = 0.25, 0.02
 
 
 def phase(tag: str, **fields) -> None:
@@ -3272,6 +3287,107 @@ def prefill_flops(cfg, a, b, s, window=0):
     return bf16 + a * b * 2 * d * cfg.padded_vocab, f32
 
 
+def serving_reading(cfg, a, b, s, sizes, warm_ms, dec_ms, dec_wall):
+    """A served phase's prefill and decode times against their bounds.
+    ``sizes``: (weight, embedding, KV cache, recurrent state) bytes.  The
+    prefill: its operations (``prefill_flops``, bf16 at the bf16 peak, fp32
+    at the fp32 peak) or its weights read once, whichever takes longer.  A
+    decode step reads every weight once (every expert's: the dispatch
+    multiplies all E blocks), the embedding only where it is tied (as the
+    unembedding), the KV slots the median step finds filled (a local
+    attention ring: all of it), and reads and writes every recurrent
+    state."""
+    import statistics
+
+    weights, emb, kv, states = sizes
+    n_dec = len(dec_ms)
+    step_ms = statistics.median(dec_ms)
+    bf16_ops, f32_ops = prefill_flops(cfg, a, b, s)
+    t_bf16, t_f32 = bf16_ops / BF16_FLOP_PER_S * 1e3, f32_ops / FP32_FLOP_PER_S * 1e3
+    t_w = weights / HBM_BYTES_PER_S * 1e3
+    prefill_bound = max(t_bf16, t_f32, t_w)
+    kv_read = kv if "local_attn" in cfg.pattern else \
+        (kv // LM_CAP) * min(LM_CAP, s + n_dec // 2 + 1)
+    decode_bytes = weights - (0 if cfg.tie_embeddings else emb) + kv_read + 2 * states + \
+        a * b * cfg.d_model * 2
+    decode_bound = decode_bytes / HBM_BYTES_PER_S * 1e3
+    return dict(prefill_warm_ms=warm_ms, prefill_bf16_flop=bf16_ops, prefill_f32_flop=f32_ops,
+                prefill_bound_ms=prefill_bound,
+                prefill_bound_by=("bf16 operations" if prefill_bound == t_bf16 else
+                                  "f32 operations" if prefill_bound == t_f32 else "bytes"),
+                prefill_bound_terms_ms={"bf16": t_bf16, "f32": t_f32, "weights": t_w},
+                prefill_bound_share=prefill_bound / warm_ms, decode_steps=n_dec,
+                decode_ms=dec_ms, decode_ms_median=step_ms, decode_ms_min=min(dec_ms),
+                decode_ms_max=max(dec_ms), decode_wall_ms_per_step=dec_wall * 1e3 / n_dec,
+                tokens_per_s=a * b / step_ms * 1e3, decode_bytes=decode_bytes,
+                decode_bound_ms=decode_bound, decode_bound_share=decode_bound / step_ms)
+
+
+def attention_kernel_row(tag, name, cfg, q, k, v, window, launches):
+    """The model's attention route on a prefill's own q/k/v (``[A, B, S,
+    H, hd]``, bf16, K/V repeated to every head), causal with ``window``:
+    it must run the tensor-core kernel, and its output is held against the
+    plain version a row at a time (``ATT_BF16_REL``); the control, the
+    plain version dropping ``ATT_CONTROL_DROP`` of the earliest keys, must
+    fail that bound.  Then ``flash_attention`` on the same input in its own
+    layout, timed beside the plain version and SDPA (with the mask under a
+    window), and its bound: 4 hd operations an unmasked pair and head at
+    the bf16 peak, or q, k, v read and the output written.  Returns (the
+    phase's reading, the kernel line's row named ``name``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention as att
+
+    a, b, s, h, hd = q.shape
+    route = functools.partial(att.kernel_attention, q, k, v, causal=True, window=window)
+    route_kernels = flash_names(route)
+    if route_kernels != ["flash_attention_tc_kernel"]:
+        raise AssertionError(f"{tag}: bf16 attention ran {route_kernels}")
+
+    def heads_first(t):  # [A, B, S, H, hd] -> [A B, H, S, hd]: the kernel's own layout
+        return t.reshape(a * b, s, h, hd).transpose(1, 2).contiguous()
+
+    got = heads_first(route())
+    qh, kh, vh = (heads_first(t) for t in (q, k, v))
+
+    def plain():  # a row at a time: one row's fp32 scores
+        return torch.cat([fa.flash_attention_plain(qh[i:i + 1], kh[i:i + 1], vh[i:i + 1],
+                                                   causal=True, window=window)
+                          for i in range(a * b)])
+
+    want = plain()
+    err = attention_scaled_errors(f"{tag} attention, window {window}", got, want)
+    dropped = fa.flash_attention_plain(qh[:1], kh[:1], vh[:1], causal=True,
+                                       window=(window or s) - ATT_CONTROL_DROP)
+    ctrl = attention_scaled("control", dropped, want[:1])
+    if ctrl[3] <= 1.0:
+        raise AssertionError(f"{tag}: the attention bound passes a plain version that drops "
+                             f"{ATT_CONTROL_DROP} keys: {ctrl}")
+    del got, want, dropped
+    kern = functools.partial(fa.flash_attention, qh, kh, vh, causal=True, window=window)
+    mask = fa.attention_mask(s, s, True, window, q.device) if window else None
+    sdpa = functools.partial(F.scaled_dot_product_attention, qh, kh, vh, attn_mask=mask,
+                             is_causal=not window)
+    ops = 4 * hd * attention_pairs(s, s, True, window) * a * b * h
+    nbytes = qh.element_size() * 4 * qh.numel()  # q, k, v in; out
+    t_ops, t_bytes = ops / BF16_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    reading = {"shape": list(qh.shape), "window": window, "route_kernels": route_kernels,
+               **dict(zip(("max_abs_err", "max_err_over_row_rms", "plain_rms",
+                           "share_of_bound"), err)),
+               "drop_control_share_of_bound": ctrl[3], "ms": cuda_ms(kern),
+               "plain_ms": cuda_ms(plain, reps=3), "library_ms": cuda_ms(sdpa),
+               "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes", "ops": ops,
+               "bytes": nbytes}
+    row = {"name": name, "route": "cuda", "source": SRC + "flash_attention_tc.cu",
+           "replaces": "src/repro/kernels/flash_attention.py:94", "launches": launches,
+           **{key: reading[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms")}}
+    return reading, row
+
+
 def layer0_decode(cfg, params, layer0, toks, s, dev):
     """Layer 0's attention block on the card: token ``s`` decoded over a
     cache that a prefill of ``s`` tokens filled, against the last row of
@@ -3311,21 +3427,17 @@ def run_lm_qwen3(dev, smi):
     agents carry different weights (seeds 0 and 1): agent 1's prefill is
     held against a forward of its own weights alone, and the control
     (agent 0's weights on agent 1's prompts) must fail that check.  Then
-    layer 0's decode attention (``layer0_decode``), its attention on the
-    prefill's own q/k/v through the kernel route against the plain
-    version, and
-    ``flash_attention`` timed at that shape (causal, and window 1024)
-    beside SDPA, after the model is freed.  Returns the kernel line's
-    ``flash_attention_lm`` row."""
+    layer 0's decode attention (``layer0_decode``), and its attention on
+    the prefill's own q/k/v, causal and window 1024, after the model is
+    freed (``attention_kernel_row``).  Returns the kernel line's
+    ``flash_attention_lm`` row, with the first prefill's launches."""
     import statistics
 
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.configs import get_config
     from repro_torch.core.tree import tree_map
     from repro_torch.kernels import dispatch
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import steps
     from repro_torch.models import attention as att
     from repro_torch.models import forward
@@ -3403,7 +3515,8 @@ def run_lm_qwen3(dev, smi):
     profiles = {"prefill": lm_profile(lambda: prefill(params, prompt, cache)),
                 "decode": lm_profile(lambda: decode(params, dec[-1].argmax(-1), s, cache))}
 
-    # layer 0's attention on the prefill's own q/k/v: the kernel route vs plain
+    # layer 0's attention on the prefill's own q/k/v: the kernel route vs
+    # plain, timed beside SDPA (causal, and window 1024) after the model is freed
     layer0 = tree_map(lambda x: x[:, 0, 0], params["stacks"]["attn"])
     decode0, decode0_ctrl = layer0_decode(cfg, params, layer0, toks, s, dev)
     h = rmsnorm(layer0["norm1"], embed(params["embed"], prompt["tokens"], torch.bfloat16),
@@ -3412,67 +3525,20 @@ def run_lm_qwen3(dev, smi):
     k, v = att._repeat_kv(k, cfg.n_heads), att._repeat_kv(v, cfg.n_heads)
     del params, h, layer0, cache
     torch.cuda.empty_cache()
-    route = functools.partial(att.kernel_attention, q, k, v, causal=True)
-    got = route()
-    qh, kh, vh = (t.reshape(a * b, s, cfg.n_heads, cfg.hd).transpose(1, 2).contiguous()
-                  for t in (q, k, v))  # [4, 32, 4096, 128]: the kernel's own input
+    attention, rows = {}, {}
+    for window in (0, LM_WINDOW):  # [4, 32, 4096, 128]
+        attention[window], rows[window] = attention_kernel_row(
+            "3.lm_qwen3_8b", "flash_attention_lm", cfg, q, k, v, window,
+            first_counts["flash_attention"])
     del q, k, v
-    gh = got.reshape(a * b, s, cfg.n_heads, cfg.hd).transpose(1, 2).contiguous()
-    want = torch.cat([fa.flash_attention_plain(qh[i:i + 1], kh[i:i + 1], vh[i:i + 1],
-                                               causal=True) for i in range(a * b)])
-    layer0 = attention_scaled_errors("3.lm_qwen3_8b layer 0 attention", gh, want)
-    # the control: the plain version that drops up to ATT_CONTROL_DROP of
-    # the earliest keys of the last rows, held to the same bound
-    dropped = fa.flash_attention_plain(qh[:1], kh[:1], vh[:1], causal=True,
-                                       window=s - ATT_CONTROL_DROP)
-    layer0_ctrl = attention_scaled("control", dropped, want[:1])
-    if layer0_ctrl[3] <= 1.0:
-        raise AssertionError("3.lm_qwen3_8b: the layer 0 bound passes attention that drops "
-                             f"{ATT_CONTROL_DROP} keys: {layer0_ctrl}")
-    route_kernels = flash_names(route)
-    del got, gh, want, route, dropped
-    if route_kernels != ["flash_attention_tc_kernel"]:
-        raise AssertionError(f"3.lm_qwen3_8b: bf16 attention ran {route_kernels}")
+    torch.cuda.empty_cache()  # the plain versions' 2.1 GB score matrices
 
-    # flash_attention at the prefill's shape, beside SDPA (the table only)
-    timing = {}
-    for window in (0, LM_WINDOW):
-        kern = functools.partial(fa.flash_attention, qh, kh, vh, causal=True, window=window)
-        plain = functools.partial(fa.flash_attention_plain, qh, kh, vh, causal=True,
-                                  window=window)
-        mask = fa.attention_mask(s, s, True, window, dev)
-        sdpa = (functools.partial(F.scaled_dot_product_attention, qh, kh, vh, attn_mask=mask)
-                if window else
-                functools.partial(F.scaled_dot_product_attention, qh, kh, vh, is_causal=True))
-        err, err_rms, want_rms, _ = attention_scaled_errors(
-            f"3.lm_qwen3_8b flash_attention window {window}", kern(), plain())
-        ops = 4 * cfg.hd * attention_pairs(s, s, True, window) * a * b * cfg.n_heads
-        nbytes = qh.element_size() * 4 * qh.numel()  # q, k, v in; out
-        t_ops, t_bytes = ops / BF16_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-        timing[window] = {"max_abs_err": err, "max_err_over_row_rms": err_rms,
-                          "plain_rms": want_rms, "ms": cuda_ms(kern),
-                          "plain_ms": cuda_ms(plain, reps=3), "library_ms": cuda_ms(sdpa),
-                          "bound_ms": max(t_ops, t_bytes),
-                          "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                          "ops": ops, "bytes": nbytes}
-    del qh, kh, vh
-    torch.cuda.empty_cache()  # the plain versions' 8.6 GB score matrices
-
-    step_ms = statistics.median(dec_ms)
-    flops = prefill_flops(cfg, a, b, s)[0]
-    kv_read = (kv_bytes // LM_CAP) * (s + LM_DECODE // 2 + 1)  # the median step's filled slots
-    decode_bytes = weight_bytes - emb_bytes + a * b * cfg.d_model * 2 + kv_read
     phase("3.lm_qwen3_8b", nvidia_smi=smi, agents=a, batch_per_agent=b, prompt=s,
           capacity=LM_CAP, n_params_per_agent=weight_bytes // (2 * a),
           weight_bytes=weight_bytes, kv_cache_bytes=kv_bytes, int8_cache_bytes=int8_bytes,
-          init_s=init_s, prefill_first_ms=first_ms, prefill_warm_ms=warm_ms,
-          prefill_flop=flops, prefill_bound_ms=flops / BF16_FLOP_PER_S * 1e3,
-          prefill_bound_share=flops / BF16_FLOP_PER_S * 1e3 / warm_ms,
-          decode_steps=LM_DECODE, decode_ms_median=step_ms, decode_ms_min=min(dec_ms),
-          decode_ms_max=max(dec_ms), decode_wall_ms_per_step=dec_wall * 1e3 / LM_DECODE,
-          tokens_per_s=a * b / step_ms * 1e3, decode_bytes=decode_bytes,
-          decode_bound_ms=decode_bytes / HBM_BYTES_PER_S * 1e3,
-          decode_bound_share=decode_bytes / HBM_BYTES_PER_S * 1e3 / step_ms,
+          init_s=init_s, prefill_first_ms=first_ms,
+          **serving_reading(cfg, a, b, s, (weight_bytes, emb_bytes, kv_bytes, 0), warm_ms,
+                            dec_ms, dec_wall),
           logits_rms=float(full.float().pow(2).mean().sqrt()),
           atol=LM_BF16_ATOL, rms_tol=LM_BF16_RMS,
           continuation_max_abs_err_rel_rms=cont_err,
@@ -3485,20 +3551,9 @@ def run_lm_qwen3(dev, smi):
           int8_prefill_ms=int8_prefill_ms, int8_decode_ms_median=statistics.median(dec_8_ms),
           int8_vs_bf16_first_decode_max_abs_rel_rms=int8_gap,
           flash_attention_per_prefill=first_counts["flash_attention"],
-          layer0_attention=dict(zip(("max_abs_err", "max_err_over_row_rms", "plain_rms",
-                                     "share_of_bound"), layer0)),
-          layer0_drop_control=dict(zip(("max_abs_err", "max_err_over_row_rms", "plain_rms",
-                                        "share_of_bound"), layer0_ctrl)),
-          route_kernels=route_kernels,
-          flash_attention_at_prefill_shape={w: t for w, t in timing.items()},
-          max_memory_allocated=peak, launches=counts, profiles=profiles)
-    causal = timing[0]
-    row = {"name": "flash_attention_lm", "route": "cuda", "source": SRC + "flash_attention_tc.cu",
-           "replaces": "src/repro/kernels/flash_attention.py:94",
-           "launches": counts["flash_attention"], "max_abs_err": layer0[0],
-           "ms": causal["ms"], "plain_ms": causal["plain_ms"], "bound_ms": causal["bound_ms"],
-           "bound_by": causal["bound_by"], "library_ms": causal["library_ms"]}
-    return row
+          layer0_attention=attention, max_memory_allocated=peak, launches=counts,
+          profiles=profiles)
+    return rows[0]
 
 
 def run_lm_repro100m(dev, smi):
@@ -3661,8 +3716,6 @@ def rows_routed_alike(calls, other, b, n=None):
     experts in both records at every layer.  With ``n``, ``other`` is a
     prefill of ``n`` tokens and only its last token is held against
     ``calls``' one token (a decode step)."""
-    import torch
-
     agree = None
     for x, y in zip(calls, other):
         a, k = x.shape[0], x.shape[-1]
@@ -3719,24 +3772,36 @@ def layer_checks(tag, cfg, chk, params, toks, s, dev):
     no-cache stacked run over S + 1 tokens layer by layer (a teacher-forced
     stream, so no layer's difference reaches the next).  At each layer:
     the decode of token S after a prefill of S into the block's own cache
-    against the no-cache run's row S (``LAYER_BF16_*``; an ``moe`` layer at
-    ``chk``'s capacity factor, nothing dropped, its rows routed apart not
-    held), and agent 1's block alone on agent 1's input against the stacked
-    run (``LAYER_BF16_*``).  The control, at the first layer of each kind:
-    the decode after a prefill of the other row's prompt, which must fail
-    the decode check.  Returns the largest readings and the controls."""
+    against the no-cache run's row S (an ``moe`` layer at ``chk``'s
+    capacity factor, nothing dropped, its rows routed apart not held), and
+    agent 1's block alone on agent 1's input against the stacked run; both
+    on the block's contribution (``LAYER_BF16_*``).  The control, at the
+    first and the last layer of each kind: the decode after a prefill of
+    the other row's prompt, which must fail the decode check.  Returns the
+    largest readings and the controls."""
     import torch
 
     from repro_torch.core.tree import tree_map
     from repro_torch.models import transformer as tr
     from repro_torch.models.modules import embed
 
+    def check(what, got, want, x, agree=None):  # on got - x and want - x, in fp32
+        g, w = got.float() - x.float(), want.float() - x.float()
+        if agree is not None:
+            g, w = held_rows(what, g, w, agree)[:2]
+        return lm_check(what, g, w, LAYER_BF16_ATOL, LAYER_BF16_RMS)
+
     a, b = toks.shape[:2]
     x = embed(params["embed"], toks[..., :s + 1], torch.bfloat16)
     pos = torch.arange(s + 1, device=dev)
     worst = {"decode": (0.0, 0.0), "alone": (0.0, 0.0)}
     controls, rows_apart = {}, 0
-    for layer, kind, lp in model_layers(cfg, params):
+    layers = model_layers(cfg, params)
+    first, last = {}, {}
+    for layer, kind, _ in layers:
+        first.setdefault(kind, layer)
+        last[kind] = layer
+    for layer, kind, lp in layers:
         c = chk if kind == "moe" else cfg
         with RoutingRecord() as r_full:
             full = tr.block_apply(kind, lp, x, c, positions=pos)[0]
@@ -3753,58 +3818,56 @@ def layer_checks(tag, cfg, chk, params, toks, s, dev):
         agree = (rows_routed_alike(r_dec, r_full.calls, b, s + 1) if kind == "moe"
                  else torch.ones((a, b), dtype=torch.bool))
         rows_apart += a * b - int(agree.sum())
-        want = full[..., s:, :]
-        what = f"{tag} layer {layer} ({kind}) decode vs no-cache S+1"
-        dec = lm_check(what, *held_rows(what, got, want, agree)[:2], LAYER_BF16_ATOL,
-                       LAYER_BF16_RMS)
+        want, x_s = full[..., s:, :], x[..., s:, :]
+        dec = check(f"{tag} layer {layer} ({kind}) decode vs no-cache S+1", got, want, x_s,
+                    agree)
         alone = tr.block_apply(kind, tree_map(lambda t: t[1], lp), x[1], c, positions=pos)[0]
-        one = lm_check(f"{tag} layer {layer} ({kind}) agent 1 alone vs stacked", alone, full[1],
-                       LAYER_BF16_ATOL, LAYER_BF16_RMS)
-        if kind not in controls:
+        one = check(f"{tag} layer {layer} ({kind}) agent 1 alone vs stacked", alone, full[1],
+                    x[1])
+        if layer in (first[kind], last[kind]):
             wrong = decode_after(x[..., :s, :].flip(-3))[0]  # the other row's prompt
-            controls[kind] = (layer, lm_control(
-                f"{tag} layer {layer} ({kind}) decode after the other row's prompt (control)",
-                wrong, want, LAYER_BF16_ATOL, LAYER_BF16_RMS))
+            what = f"{tag} layer {layer} ({kind}) decode after the other row's prompt (control)"
+            controls[f"{kind} layer {layer}"] = lm_control(
+                what, wrong.float() - x_s.float(), want.float() - x_s.float(),
+                LAYER_BF16_ATOL, LAYER_BF16_RMS)
         worst = {"decode": tuple(map(max, worst["decode"], dec)),
                  "alone": tuple(map(max, worst["alone"], one))}
         x = full
         del got, want, alone, full
-    return {"layers": len(model_layers(cfg, params)), "bounds": (LAYER_BF16_ATOL, LAYER_BF16_RMS),
+    return {"layers": len(layers), "bounds": (LAYER_BF16_ATOL, LAYER_BF16_RMS),
             "decode_max_abs_err_rel_rms": worst["decode"],
             "agent1_alone_max_abs_err_rel_rms": worst["alone"],
             "moe_rows_routed_apart": rows_apart, "controls": controls}
 
 
-def run_lm_new(dev, smi, tag, arch):
+def run_lm_new(dev, smi, tag, arch, held):
     """Phases 3.lm_olmoe, 3.lm_recurrentgemma and 3.lm_xlstm: ``arch`` at
     full width and depth for A = 2 agents (agent i from seed i), B = 2
     prompts of S = 4096 Zipf tokens each, bf16 weights: a prefill into a
     4,128-slot cache (first, and warm; each into a fresh cache, since a
     recurrent cache holds the initial state), 8 decode steps, a profile of
-    a step (and of a prefill, with attention).  Read, not held: the whole
-    model's decode of token S after a prefill of S against the prefill of
-    S + 1 (an MoE config at capacity_factor E / k, so cap = T and nothing
-    drops; the (agent, row) pairs whose last token took other experts are
-    not read), and agent 1's prefill against its own weights alone.  At
-    random init one bf16 rounding taken the other way grows through the
-    xLSTM's 48 layers to O(1) in the logits (3.6 stacked against alone,
-    measured on the H100), so the checks are held layer by layer
-    (``layer_checks``).  The MoE's layer 0 twice on the prompt, bit for
-    bit; the peak memory, the prefill's FLOP bound and the decode step's
-    byte bound.  With attention layers: ``flash_attention`` launched once a
-    layer a prefill, the bf16 route's kernel, and the kernel at the first
-    attention layer's own q/k/v shape against its plain version (the plain
-    version dropping 64 keys must fail that bound) and beside SDPA.
-    Returns that kernel line row (None without attention)."""
-    import statistics
-
+    a step (and of a prefill, with attention).  The whole model: the
+    decode of token S after a prefill of S against the prefill of S + 1
+    (an MoE config at capacity_factor E / k, so cap = T and nothing drops;
+    the (agent, row) pairs whose last token took other experts are not
+    compared), and agent 1's prefill against its own weights alone.  With
+    ``held``, both within ``WHOLE_BF16_*``, and the controls must fail
+    them: the decode after a prefill of the other row's prompt, and agent
+    0's weights on agent 1's prompt.  Without (the xLSTM), both are read:
+    at random init one bf16 rounding taken the other way grows through its
+    48 layers to O(1) in the logits (3.6 stacked against alone, measured
+    on the H100).  Every model is held layer by layer (``layer_checks``).
+    The MoE's layer 0 twice on the prompt, bit for bit; the peak memory,
+    the prefill's and the decode step's bounds (``serving_reading``).
+    With attention layers: ``flash_attention`` launched once a layer a
+    prefill, and the first attention layer's q/k/v through
+    ``attention_kernel_row``.  Returns that kernel line row, with the first
+    prefill's launches (None without attention)."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.configs import get_config
     from repro_torch.core.tree import tree_map
     from repro_torch.kernels import dispatch
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import steps
     from repro_torch.models import attention as att
     from repro_torch.models import forward
@@ -3845,31 +3908,56 @@ def run_lm_new(dev, smi, tag, arch):
                                                     warm_cache))}
     del warm_cache
 
-    # the whole model, read: decode of token S after a prefill of S against the
+    # the whole model: decode of token S after a prefill of S against the
     # prefill of S + 1, and agent 1's prefill against its own weights alone
     chk = (dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k) if is_moe
            else cfg)
     prefill_c, decode_c = steps.make_prefill_step(chk), steps.make_decode_step(chk)
+
+    def decode_after(rows):  # token S's logits after a prefill of ``rows``, its routing
+        c = fresh(chk)
+        prefill_c(params, {"tokens": rows}, c)
+        with RoutingRecord() as routes:
+            out = decode_c(params, toks[..., s:s + 1], s, c)[0]
+        return out, routes.calls
+
     with RoutingRecord() as r_full:
         full, _ = prefill_c(params, {"tokens": toks[..., :s + 1]}, fresh(chk))
-    c = fresh(chk)
-    prefill_c(params, prompt, c)
-    with RoutingRecord() as r_dec:
-        got, c = decode_c(params, toks[..., s:s + 1], s, c)
-    del c
-    agree = (rows_routed_alike(r_dec.calls, r_full.calls, b, s + 1) if is_moe
+    got, r_dec = decode_after(prompt["tokens"])
+    agree = (rows_routed_alike(r_dec, r_full.calls, b, s + 1) if is_moe
              else torch.ones((a, b), dtype=torch.bool))
     del r_full, r_dec
     what = f"{tag} decode vs prefill S+1"
-    got, full_held, n_held = held_rows(what, got, full, agree)
-    whole_cont = lm_diff(what, got, full_held), n_held
+    held_got, held_full, n_held = held_rows(what, got, full, agree)
     solo = forward(tree_map(lambda x: x[1], params), cfg, prompt["tokens"][1], logits_tail=1)[0]
-    whole_agent = lm_diff(f"{tag} agent 1 stacked vs alone", logits_warm[1], solo)
+    whole = {"held": held, "bounds": (WHOLE_BF16_ATOL, WHOLE_BF16_RMS) if held else None,
+             "rows_routed_alike": n_held, "rows": a * b}
+    if held:
+        whole["decode_vs_prefill"] = lm_check(what, held_got, held_full, WHOLE_BF16_ATOL,
+                                              WHOLE_BF16_RMS)
+        whole["agent1_stacked_vs_alone"] = lm_check(f"{tag} agent 1 stacked vs alone",
+                                                    logits_warm[1], solo, WHOLE_BF16_ATOL,
+                                                    WHOLE_BF16_RMS)
+        wrong = decode_after(prompt["tokens"].flip(1))[0]  # the other row's prompt
+        whole["decode_control"] = lm_control(
+            f"{tag} decode after the other row's prompt (control)",
+            held_rows(what, wrong, full, agree)[0], held_full, WHOLE_BF16_ATOL, WHOLE_BF16_RMS)
+        other = forward(tree_map(lambda x: x[0], params), cfg, prompt["tokens"][1],
+                        logits_tail=1)[0]
+        whole["agent_control"] = lm_control(f"{tag} agent 1 vs agent 0's weights (control)",
+                                            other, logits_warm[1], WHOLE_BF16_ATOL,
+                                            WHOLE_BF16_RMS)
+        del wrong, other
+    else:
+        whole["decode_vs_prefill"] = lm_diff(what, held_got, held_full)
+        whole["agent1_stacked_vs_alone"] = lm_diff(f"{tag} agent 1 stacked vs alone",
+                                                   logits_warm[1], solo)
     logits_rms = float(full.float().pow(2).mean().sqrt())
-    del solo, got, full
+    del solo, got, full, held_got, held_full
     torch.cuda.synchronize()
     counts = dispatch.launch_counts()
-    n_prefills = 5  # first, warm, S + 1, S, and a one-agent forward
+    # first, warm, S + 1, S, a one-agent forward; held: the control's prefill and forward
+    n_prefills = 7 if held else 5
     if first_counts["flash_attention"] != n_attn or \
             counts["flash_attention"] != n_prefills * n_attn:
         raise AssertionError(f"{tag}: flash_attention launched {first_counts} in the first "
@@ -3896,7 +3984,7 @@ def run_lm_new(dev, smi, tag, arch):
         profiles["prefill"] = lm_profile(lambda: prefill(params, prompt, fresh()))
 
     row, attention = None, {}
-    if n_attn:  # the first attention layer's q/k/v: the kernel route vs plain, then timings
+    if n_attn:  # the first attention layer's q/k/v, after the model is freed
         kind = "moe" if is_moe else "local_attn"
         window = cfg.sliding_window if kind == "local_attn" else 0
         layer = tree_map(lambda x: x[:, 0, 0], params["stacks"][kind])
@@ -3906,87 +3994,21 @@ def run_lm_new(dev, smi, tag, arch):
         k, v = att._repeat_kv(k, cfg.n_heads), att._repeat_kv(v, cfg.n_heads)
         del params, h, layer
         torch.cuda.empty_cache()
-        route = functools.partial(att.kernel_attention, q, k, v, causal=True, window=window)
-        route_kernels = flash_names(route)
-        if route_kernels != ["flash_attention_tc_kernel"]:
-            raise AssertionError(f"{tag}: bf16 attention ran {route_kernels}")
-        qh, kh, vh = (t.reshape(a * b, s, cfg.n_heads, cfg.hd).transpose(1, 2).contiguous()
-                      for t in (q, k, v))  # the kernel's own input
-        del q, k, v, route
-
-        def plain():
-            return torch.cat([fa.flash_attention_plain(qh[i:i + 1], kh[i:i + 1], vh[i:i + 1],
-                                                       causal=True, window=window)
-                              for i in range(a * b)])
-
-        kern = functools.partial(fa.flash_attention, qh, kh, vh, causal=True, window=window)
-        want = plain()
-        err = attention_scaled_errors(f"{tag} flash_attention", kern(), want)
-        drop = (window or s) - ATT_CONTROL_DROP
-        dropped = fa.flash_attention_plain(qh[:1], kh[:1], vh[:1], causal=True, window=drop)
-        ctrl = attention_scaled("control", dropped, want[:1])
-        if ctrl[3] <= 1.0:
-            raise AssertionError(f"{tag}: the attention bound passes a plain version that drops "
-                                 f"{ATT_CONTROL_DROP} keys: {ctrl}")
-        del want, dropped
-        mask = fa.attention_mask(s, s, True, window, dev)
-        sdpa = (functools.partial(F.scaled_dot_product_attention, qh, kh, vh, attn_mask=mask)
-                if window else
-                functools.partial(F.scaled_dot_product_attention, qh, kh, vh, is_causal=True))
-        ops = 4 * cfg.hd * attention_pairs(s, s, True, window) * a * b * cfg.n_heads
-        nbytes = qh.element_size() * 4 * qh.numel()  # q, k, v in; out
-        t_ops, t_bytes = ops / BF16_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-        attention = {"shape": list(qh.shape), "window": window, "route_kernels": route_kernels,
-                     "max_abs_err": err[0], "max_err_over_row_rms": err[1], "plain_rms": err[2],
-                     "share_of_bound": err[3], "drop_control_share_of_bound": ctrl[3],
-                     "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, reps=3),
-                     "library_ms": cuda_ms(sdpa), "bound_ms": max(t_ops, t_bytes),
-                     "bound_by": "operations" if t_ops >= t_bytes else "bytes", "ops": ops,
-                     "bytes": nbytes}
-        del qh, kh, vh, mask, kern, sdpa
-        torch.cuda.empty_cache()
-        row = {"name": "flash_attention_" + arch.split("-")[0], "route": "cuda",
-               "source": SRC + "flash_attention_tc.cu",
-               "replaces": "src/repro/kernels/flash_attention.py:94",
-               "launches": counts["flash_attention"], "max_abs_err": attention["max_abs_err"],
-               "ms": attention["ms"], "plain_ms": attention["plain_ms"],
-               "bound_ms": attention["bound_ms"], "bound_by": attention["bound_by"],
-               "library_ms": attention["library_ms"]}
+        attention, row = attention_kernel_row(tag, "flash_attention_" + arch.split("-")[0], cfg,
+                                              q, k, v, window, first_counts["flash_attention"])
+        del q, k, v
     else:
         del params
     torch.cuda.empty_cache()
 
-    step_ms = statistics.median(dec_ms)
-    bf16_ops, f32_ops = prefill_flops(cfg, a, b, s)
-    t_bf16, t_f32 = bf16_ops / BF16_FLOP_PER_S * 1e3, f32_ops / FP32_FLOP_PER_S * 1e3
-    t_w = weight_bytes / HBM_BYTES_PER_S * 1e3
-    prefill_bound = max(t_bf16, t_f32, t_w)
-    # a decode step reads every weight once (every expert's: the dispatch multiplies
-    # all E blocks), the embedding only where it is tied (the unembedding), the
-    # filled KV slots of the median step, and reads and writes every recurrent state
-    kv_read = (kv_bytes // LM_CAP) * min(LM_CAP, s + n_dec // 2 + 1)
-    if "local_attn" in cfg.pattern:
-        kv_read = kv_bytes  # its ring (2,048 slots) is full
-    decode_bytes = weight_bytes - (0 if cfg.tie_embeddings else emb_bytes) + kv_read + \
-        2 * state_bytes + a * b * cfg.d_model * 2
     phase(tag, nvidia_smi=smi, agents=a, batch_per_agent=b, prompt=s, capacity=LM_CAP,
           n_params_per_agent=weight_bytes // (2 * a), weight_bytes=weight_bytes,
           kv_cache_bytes=kv_bytes, recurrent_state_bytes=state_bytes, init_s=init_s,
-          prefill_first_ms=first_ms, prefill_warm_ms=warm_ms, prefill_bf16_flop=bf16_ops,
-          prefill_f32_flop=f32_ops, prefill_bound_ms=prefill_bound,
-          prefill_bound_by=("bf16 operations" if prefill_bound == t_bf16 else
-                            "f32 operations" if prefill_bound == t_f32 else "bytes"),
-          prefill_bound_terms_ms={"bf16": t_bf16, "f32": t_f32, "weights": t_w},
-          prefill_bound_share=prefill_bound / warm_ms, decode_steps=n_dec,
-          decode_ms=dec_ms, decode_ms_median=step_ms,
-          decode_wall_ms_per_step=dec_wall * 1e3 / n_dec, tokens_per_s=a * b / step_ms * 1e3,
-          decode_bytes=decode_bytes, decode_bound_ms=decode_bytes / HBM_BYTES_PER_S * 1e3,
-          decode_bound_share=decode_bytes / HBM_BYTES_PER_S * 1e3 / step_ms,
+          prefill_first_ms=first_ms,
+          **serving_reading(cfg, a, b, s, (weight_bytes, emb_bytes, kv_bytes, state_bytes),
+                            warm_ms, dec_ms, dec_wall),
           logits_rms=logits_rms, check_capacity_factor=chk.capacity_factor,
-          whole_model_decode_vs_prefill_max_abs_rel_rms=whole_cont[0],
-          whole_model_rows_routed_alike=whole_cont[1], whole_model_rows=a * b,
-          whole_model_agent1_stacked_vs_alone=whole_agent, layers=layers,
-          moe_two_calls_same_bits=moe_same_bits,
+          whole_model=whole, layers=layers, moe_two_calls_same_bits=moe_same_bits,
           flash_attention_per_prefill=first_counts["flash_attention"],
           flash_attention=attention, max_memory_allocated=peak, launches=counts,
           profiles=profiles)
@@ -4124,7 +4146,7 @@ def main() -> int:
     run_obs_gossip(dev, smi)
     lm_row = run_lm_qwen3(dev, smi)
     zoo_row = run_lm_repro100m(dev, smi)
-    new_rows = [run_lm_new(dev, smi, tag, arch) for tag, arch in LM_NEW]
+    new_rows = [run_lm_new(dev, smi, *new) for new in LM_NEW]
     run_lm_reduced(dev, smi)
     card_vs_cpu("4.parity", session, fig4_spec())
     card_vs_cpu("4.launch_parity", l_session, launch_spec())
