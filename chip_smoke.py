@@ -166,7 +166,18 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    ``reduced()`` size (Phi-3.5-MoE runs only there), prefill and 4 decode
    steps, card against CPU at f32 (``ZOO_F32_ATOL``) and bf16 (an MoE
    config at capacity_factor E / k, the rows routed alike held), and the
-   card's ``moe_ffn`` twice, bit for bit;
+   card's ``moe_ffn`` twice, bit for bit.  ``3.lm_train``: LM training at
+   repro-100m's full width (A = 2 on complete_w(2), Adam, batch 8 of S =
+   256 Zipf tokens an agent, u = 4, lr 1e-3 decaying 0.99 a round,
+   kl_scale 1e-4, bf16 compute): ``launch.train``'s ``main`` for 3 rounds
+   (``consensus_fused_network`` once a round, ``flash_attention`` never),
+   3 round steps, one u = 4 round and a ``bayesian=False`` step (KL 0),
+   each timed; profiles of a round and a local step; 10 round steps on one
+   batch (the loss must fall); peak memory; the step against
+   ``analytic_costs``' bound; and one u = 2 round of repro-100m, OLMoE,
+   RecurrentGemma and xLSTM at ``reduced()`` size and f32, card against CPU
+   (``train_parity``), each with a control (the agents' tokens swapped) that
+   must fail;
 4. card vs CPU: one more synchronous round and one more gossip window from
    the same state with the same injected batches and noise, the card through
    the kernels, the CPU through the plain versions, and likewise one more
@@ -240,8 +251,10 @@ line describing the kernels (``flash_attention_lm``: the kernel's launches
 on the model zoo's path and its time at the Qwen3-8B prefill's shape;
 ``consensus_fused_network_zoo``: eq. (6) on the zoo posterior;
 ``flash_attention_olmoe`` / ``flash_attention_recurrentgemma``: its
-launches in those phases and its time at their prefills' shapes), and
-``{"ok": true, "device": {...}}``.
+launches in those phases and its time at their prefills' shapes;
+``consensus_fused_network_train``: eq. (6) on the trained posterior, its
+launches in ``launch.train``'s 3 rounds), and ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -414,6 +427,18 @@ WHOLE_BF16_ATOL, WHOLE_BF16_RMS = 0.3, 0.05
 # (a decode after the other row's prompt, at each kind's first and last
 # layer) read 0.27-3.3 and 0.17-0.93.
 LAYER_BF16_ATOL, LAYER_BF16_RMS = 0.25, 0.02
+# LM training (3.lm_train): repro-100m at full width and launch/train.py's
+# defaults: A = 2 agents on complete_w(2), Adam, batch 8 an agent of S = 256
+# Zipf tokens, u = 4 local steps a round, lr 1e-3 decaying 0.99 a round,
+# kl_scale 1e-4
+TRAIN_ARCH = "repro-100m"
+TRAIN_AGENTS, TRAIN_BATCH, TRAIN_S, TRAIN_U = 2, 8, 256, 4
+TRAIN_LR, TRAIN_LR_DECAY, TRAIN_KL = 1e-3, 0.99, 1e-4
+TRAIN_ROUNDS, TRAIN_ROUND_STEPS, TRAIN_FIXED_STEPS = 3, 3, 10
+# one u > 1 round card against CPU at reduced() size, f32 (TF32 off), each
+# config with a control (the agents' tokens swapped on the card)
+TRAIN_REDUCED = ("repro-100m", "olmoe-1b-7b", "recurrentgemma-9b", "xlstm-1.3b")
+TRAIN_REDUCED_B, TRAIN_REDUCED_S, TRAIN_REDUCED_U = 2, 32, 2
 
 
 def phase(tag: str, **fields) -> None:
@@ -1552,6 +1577,47 @@ def parity_errors(tag, diffs, noise, W, exempt_atol):
                 exempt_lanes=int(exempt.sum()), lanes=exempt.numel(), exempt_share=share,
                 exempt_share_max=EXEMPT_SHARE_MAX, exempt_max_abs_err=exempt_errs,
                 exempt_atol=exempt_atol, failures=failures)
+
+
+def train_parity(got, want, noise, exempt_atol):
+    """Hold a training round's state ``got`` against ``want`` (each with
+    ``posterior`` and ``opt_state.mu`` / ``.nu``, all of ``mean`` and
+    ``rho`` fields, on the CPU): Adam's moments within PARITY_ATOL on every
+    lane; the posterior within PARITY_ATOL except on Adam's noise lanes
+    ``noise`` (``adam_noise_lanes`` after each of the round's steps,
+    or-ed), each held to ``exempt_atol``; at most EXEMPT_SHARE_MAX of the
+    lanes beyond PARITY_ATOL.  Unlike ``parity_errors``, the share counts
+    the lanes the exemption is used on: at q == prior the KL's gradient on
+    an embedding row no token reached is rounding noise on both sides
+    (3e-14 against 0), a noise lane by its moments that moves the posterior
+    by ~1e-9.  Returns the fields, with what failed under ``failures``."""
+    import torch
+
+    failures, errs, beyond = [], {}, torch.zeros_like(noise)
+    for field in ("mean", "rho"):
+        d = (getattr(got.posterior, field) - getattr(want.posterior, field)).abs()
+        over = d > PARITY_ATOL
+        errs[field] = float(d.masked_fill(noise, 0.0).max())
+        errs[f"{field}_noise_lanes"] = float(d.masked_fill(~noise, 0.0).max())
+        if bool((over & ~noise).any()):
+            failures.append(f"{field}: {errs[field]} beyond PARITY_ATOL off the noise lanes")
+        if errs[f"{field}_noise_lanes"] > exempt_atol:
+            failures.append(f"{field}: a noise lane beyond {exempt_atol}")
+        beyond |= over
+    for m in ("mu", "nu"):
+        for field in ("mean", "rho"):
+            d = (getattr(getattr(got.opt_state, m), field)
+                 - getattr(getattr(want.opt_state, m), field)).abs()
+            errs[f"adam_{m}_{field}"] = float(d.max())
+            if errs[f"adam_{m}_{field}"] > PARITY_ATOL:
+                failures.append(f"adam {m}.{field}: {errs[f'adam_{m}_{field}']}")
+    share = float(beyond.float().mean())
+    if share > EXEMPT_SHARE_MAX:
+        failures.append(f"{share:.4%} of the lanes beyond PARITY_ATOL, more than "
+                        f"{EXEMPT_SHARE_MAX:.2%}")
+    return dict(max_abs_err=errs, atol=PARITY_ATOL, exempt_atol=exempt_atol,
+                noise_lanes=int(noise.sum()), lanes_beyond=int(beyond.sum()),
+                lanes=beyond.numel(), share_beyond=share, failures=failures)
 
 
 def card_vs_cpu(tag, session, spec, cpu_devices=None):
@@ -4093,6 +4159,248 @@ def run_lm_reduced(dev, smi):
           decode_steps=n_dec, runs=out, moe_two_calls_same_bits=same)
 
 
+def train_round(cfg, state, batches, eps, device):
+    """``launch.train``'s u > 1 round on ``device`` from ``state`` (on the
+    CPU): eq. (6) over complete_w(A), then a local step on each of
+    ``batches`` with its draws ``eps [A, P]`` (CPU tensors).  Returns the
+    state after each step and the steps' losses, on the CPU."""
+    import torch
+
+    from repro_torch.core.graphs import complete_w
+    from repro_torch.launch import steps
+    from repro_torch.optim import adam
+    from repro_torch.optim.schedules import exponential_decay
+
+    W = torch.as_tensor(complete_w(state.posterior.mean.shape[0]), dtype=torch.float32,
+                        device=device)
+    local = steps.make_local_step(cfg, adam(), exponential_decay(TRAIN_LR, TRAIN_LR_DECAY),
+                                  kl_scale=TRAIN_KL, remat=False)
+    st = state.to(device)
+    prior = steps.make_consensus_step(cfg, W)(st.posterior)
+    st = steps.BayesTrainState(posterior=prior, opt_state=st.opt_state, step=st.step)
+    states, losses = [], []
+    for batch, e in zip(batches, eps):
+        st, loss = local(st, prior, {k: v.to(device) for k, v in batch.items()},
+                         eps=e.to(device))
+        states.append(st.to("cpu"))
+        losses.append(float(loss))
+    return states, losses
+
+
+def train_card_vs_cpu(dev):
+    """One u = TRAIN_REDUCED_U round of each TRAIN_REDUCED config at
+    ``reduced()`` size and f32 on the card (the eq. (6) kernel) and on the
+    CPU (its plain version) from one state (agent 1's mean moved by seeded
+    noise), with the same tokens and draws, held by ``train_parity``; the
+    control, the card's round on the agents' tokens swapped, must fail it."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_lm_batch_sampler
+    from repro_torch.launch import steps
+    from repro_torch.optim import adam
+
+    a, u = TRAIN_AGENTS, TRAIN_REDUCED_U
+    out = {}
+    for arch in TRAIN_REDUCED:
+        cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+        g = torch.Generator().manual_seed(0)
+        state = steps.init_train_state(cfg, a, adam(), g, device="cpu")
+        state.posterior.mean[1] += 1e-2 * torch.randn(state.posterior.mean.shape[1], generator=g)
+        sampler = make_lm_batch_sampler(cfg.vocab_size, TRAIN_REDUCED_B, TRAIN_REDUCED_S,
+                                        n_agents=a, device="cpu")
+        batches = [sampler(g, i) for i in range(u)]
+        eps = [torch.randn(state.posterior.mean.shape, generator=g) for _ in range(u)]
+        card, card_losses = train_round(cfg, state, batches, eps, dev)
+        cpu, cpu_losses = train_round(cfg, state, batches, eps, torch.device("cpu"))
+        noise = functools.reduce(torch.logical_or, [adam_noise_lanes(x, y)
+                                                    for x, y in zip(card, cpu)])
+        fields = train_parity(card[-1], cpu[-1], noise, 2 * u * TRAIN_LR)
+        loss_err = max(abs(x - y) for x, y in zip(card_losses, cpu_losses))
+        if loss_err > PARITY_ATOL:
+            fields["failures"].append(f"losses {loss_err} apart")
+        if fields["failures"]:
+            raise AssertionError(f"3.lm_train {arch} card vs CPU: {fields}")
+        swapped = [{k: v.flip(0) for k, v in batch.items()} for batch in batches]
+        wrong, _ = train_round(cfg, state, swapped, eps, dev)
+        control = train_parity(wrong[-1], cpu[-1], noise, 2 * u * TRAIN_LR)
+        if not control["failures"]:
+            raise AssertionError(f"3.lm_train {arch}: the other agent's tokens pass the check")
+        out[arch] = dict(fields, loss_max_abs_err=loss_err,
+                         control_lanes_beyond=control["lanes_beyond"],
+                         control_max_abs_err=control["max_abs_err"])
+    return out
+
+
+def run_lm_train(dev, smi):
+    """Phase 3.lm_train: LM training at repro-100m's full width (P =
+    163,597,056 an agent, bf16 compute, f32 posterior and Adam state),
+    A = 2 on complete_w(2), launch/train.py's defaults.  ``launch.train``'s
+    ``main`` for 3 rounds (eq. (6), then 4 local steps each): a finite loss
+    each round, ``consensus_fused_network`` once a round, ``flash_attention``
+    never (training differentiates ``chunked_attention``).  Then the steps
+    themselves, each timed (CUDA events; wall on the host clock around a
+    synchronised call): 3 round steps (u = 1), one u = 4 round (the
+    consensus and its local steps), a ``bayesian=False`` step (KL exactly
+    0), a profile of a round step and of a local step (device ms, kernels,
+    busy share), 10 round steps on one batch (the loss must fall), the peak
+    memory, each against ``launch.costmodel.analytic_costs``' bound over one
+    card's peaks; the network kernel on the trained posterior against its
+    plain version; and ``train_card_vs_cpu``.  Returns the
+    ``consensus_fused_network_train`` row of the kernel line."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.graphs import complete_w
+    from repro_torch.data.pipeline import make_lm_batch_sampler
+    from repro_torch.kernels import consensus as kc
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import steps, train
+    from repro_torch.launch.costmodel import analytic_costs
+    from repro_torch.launch.dryrun import count_active_params, count_params, param_shapes
+    from repro_torch.optim import adam
+    from repro_torch.optim.schedules import exponential_decay
+
+    cfg = get_config(TRAIN_ARCH)
+    a, b, s, u = TRAIN_AGENTS, TRAIN_BATCH, TRAIN_S, TRAIN_U
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # launch/train.py's main, its defaults: 3 rounds of eq. (6) + 4 local steps
+    printed = io.StringIO()
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        main_losses = train.main(["--arch", TRAIN_ARCH, "--rounds", str(TRAIN_ROUNDS),
+                                  "--device", str(dev)])
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    main_counts = dispatch.launch_counts()
+    if (main_counts["consensus_fused_network"] != TRAIN_ROUNDS
+            or main_counts["flash_attention"] != 0
+            or not all(math.isfinite(x) for x in main_losses)):
+        raise AssertionError(f"3.lm_train launch.train: losses {main_losses}, launches "
+                             f"{main_counts}")
+
+    W = torch.as_tensor(complete_w(a), dtype=torch.float32, device=dev)
+    opt = adam()
+    sched = exponential_decay(TRAIN_LR, TRAIN_LR_DECAY ** (1.0 / u))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = steps.init_train_state(cfg, a, opt, gen, device=dev)
+    p = state.posterior.n_params()
+    sampler = make_lm_batch_sampler(cfg.vocab_size, b, s, n_agents=a, device=dev)
+    round_step = steps.make_train_round_step(cfg, W, opt=opt, lr_schedule=sched,
+                                             kl_scale=TRAIN_KL, remat=False)
+    local_step = steps.make_local_step(cfg, opt, sched, kl_scale=TRAIN_KL, remat=False)
+    consensus = steps.make_consensus_step(cfg, W)
+
+    def timed_wall(fn):  # (result, device ms, wall ms) of one synchronised call
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out, ms = timed(fn)
+        return out, ms, (time.perf_counter() - t) * 1e3
+
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    rounds = []
+    for r in range(TRAIN_ROUND_STEPS):
+        batch = sampler(gen, r)
+        (state, metrics), ms, wall = timed_wall(
+            lambda st=state, bt=batch: round_step(st, bt, generator=gen))
+        rounds.append({"device_ms": ms, "wall_ms": wall, "loss": float(metrics["loss"]),
+                       "nll": metrics["nll"].tolist(), "kl": metrics["kl"].tolist()})
+    prior, c_ms, c_wall = timed_wall(lambda: consensus(state.posterior))
+    state = steps.BayesTrainState(posterior=prior, opt_state=state.opt_state, step=state.step)
+    locals_ = []
+    for i in range(u):
+        batch = sampler(gen, TRAIN_ROUND_STEPS + i)
+        (state, loss), ms, wall = timed_wall(
+            lambda st=state, bt=batch: local_step(st, prior, bt, generator=gen))
+        locals_.append({"device_ms": ms, "wall_ms": wall, "loss": float(loss)})
+    del prior
+    det_step = steps.make_train_round_step(cfg, W, opt=opt, lr_schedule=sched,
+                                           kl_scale=TRAIN_KL, remat=False, bayesian=False)
+    _, det = det_step(state, sampler(gen, 99))
+    torch.cuda.synchronize()
+    step_counts = dispatch.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [x["loss"] for x in rounds + locals_] + [float(det["loss"])]
+    if (step_counts["consensus_fused_network"] != TRAIN_ROUND_STEPS + 2
+            or step_counts["flash_attention"] != 0 or not all(map(math.isfinite, losses))
+            or torch.count_nonzero(det["kl"]) != 0):
+        raise AssertionError(f"3.lm_train steps: losses {losses}, launches {step_counts}, "
+                             f"deterministic KL {det['kl'].tolist()}")
+
+    batch = sampler(gen, 100)
+    profiles = {"round_step": lm_profile(lambda: round_step(state, batch, generator=gen)),
+                "local_step": lm_profile(lambda: local_step(state, state.posterior, batch,
+                                                            generator=gen))}
+    fixed = []
+    st = state
+    for _ in range(TRAIN_FIXED_STEPS):  # one batch: the loss must fall
+        st, metrics = round_step(st, batch, generator=gen)
+        fixed.append(float(metrics["loss"]))
+    del st
+    if not (all(map(math.isfinite, fixed)) and fixed[-1] < fixed[0]):
+        raise AssertionError(f"3.lm_train: 10 steps on one batch, losses {fixed}")
+
+    # the network kernel on the trained posterior, against its plain version
+    post = state.posterior
+    network = functools.partial(kc.consensus_fused_network, W, post.mean, post.rho)
+    plain = functools.partial(kc.consensus_network_plain, W, post.mean, post.rho)
+    eq6_err = 0.0
+    for g, w in zip(network(), plain()):
+        err = (g - w).abs()
+        if not bool(torch.all(err <= F32_TOL + F32_TOL * w.abs())):
+            raise AssertionError(f"3.lm_train consensus: max err {float(err.max())}")
+        eq6_err = max(eq6_err, float(err.max()))
+    nbytes, ops = 16 * a * p + 4 * a * a, 4 * a * a * p + 20 * a * p
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOP_PER_S * 1e3
+    row = {"name": "consensus_fused_network_train", "route": "cuda",
+           "source": SRC + "consensus_network.cu", "replaces": REF + "195",
+           "launches": main_counts["consensus_fused_network"], "max_abs_err": eq6_err,
+           "ms": cuda_ms(network), "plain_ms": event_ms(plain), "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None}
+    del post, state, network, plain
+
+    shapes = param_shapes(cfg)
+    costs = analytic_costs(cfg, mode="train", batch_global=a * b, seq_len=s, n_agents=a,
+                           data_shards=1, model_shards=1,
+                           n_matmul_params=count_active_params(shapes, cfg),
+                           n_total_params=count_params(shapes))
+    bound = {"flops": costs["flops_global"], "hbm_bytes": costs["hbm_bytes_global"],
+             "compute_ms": costs["flops_global"] / BF16_FLOP_PER_S * 1e3,
+             "memory_ms": costs["hbm_bytes_global"] / HBM_BYTES_PER_S * 1e3}
+    bound["ms"] = max(bound["compute_ms"], bound["memory_ms"])
+    med = sorted(x["device_ms"] for x in rounds)[len(rounds) // 2]
+    local_med = sorted(x["device_ms"] for x in locals_)[len(locals_) // 2]
+    torch.cuda.empty_cache()
+    parity = train_card_vs_cpu(dev)
+    # busy: the profiled device time over the event-timed step (the profiler's
+    # own wall carries its start-up)
+    busy = {"round_step": profiles["round_step"]["device_ms"] / med,
+            "local_step": profiles["local_step"]["device_ms"] / local_med}
+    phase("3.lm_train", nvidia_smi=smi, arch=TRAIN_ARCH, agents=a, batch_per_agent=b, seq=s,
+          local_steps=u, n_params_per_agent=p, launch_train_s=main_s,
+          launch_train_losses=main_losses, launch_train_lines=printed.getvalue().splitlines(),
+          launch_train_launches=main_counts, round_steps=rounds,
+          round_u4={"consensus_device_ms": c_ms, "consensus_wall_ms": c_wall,
+                    "local_steps": locals_,
+                    "device_ms": c_ms + sum(x["device_ms"] for x in locals_),
+                    "wall_ms": c_wall + sum(x["wall_ms"] for x in locals_)},
+          deterministic={"loss": float(det["loss"]), "kl": det["kl"].tolist()},
+          step_launches=step_counts, fixed_batch_losses=fixed, profiles=profiles, busy=busy,
+          max_memory_allocated=peak, bound=bound,
+          round_step_device_ms_median=med, local_step_device_ms_median=local_med,
+          round_step_bound_share=bound["ms"] / med, local_step_bound_share=bound["ms"] / local_med,
+          consensus_ms=row["ms"], consensus_max_abs_err=eq6_err, card_vs_cpu=parity)
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -4148,6 +4456,7 @@ def main() -> int:
     zoo_row = run_lm_repro100m(dev, smi)
     new_rows = [run_lm_new(dev, smi, *new) for new in LM_NEW]
     run_lm_reduced(dev, smi)
+    train_row = run_lm_train(dev, smi)
     card_vs_cpu("4.parity", session, fig4_spec())
     card_vs_cpu("4.launch_parity", l_session, launch_spec())
     card_vs_cpu("4.gossip_parity", g_session, gossip_spec())
@@ -4182,7 +4491,8 @@ def main() -> int:
         "consensus_fused_shard": sh_counts["consensus_fused_shard"],
         "consensus_shard_encode": sh_counts["consensus_shard_encode"],
     }
-    rows = timings(dev, launches, errs) + [lm_row, zoo_row] + [r for r in new_rows if r]
+    rows = timings(dev, launches, errs) + [lm_row, zoo_row] + [r for r in new_rows if r] + [
+        train_row]
     profile_round("6.profile", session)
     profile_round("6.gossip_profile", g_session)
     profile_round("6.delayed_profile", d_session)

@@ -1,12 +1,20 @@
 """The production step functions (port of ``repro.launch``): the Bayes
-train state and the local and consensus steps that ``api.LaunchEngine``
-drives; the model zoo's serving steps (``steps.init_train_state``,
-``serve_params``, ``make_prefill_step``, ``make_decode_step``,
-``make_agent_cache``); the sharded consensus (``consensus_opt``) over the
-agent mesh (``mesh``); the cost model (``costmodel``).  LM training, the
-sharding rules and the rest of item 10 come with ROADMAP queue A items
-10b-10f; this package imports without the model zoo, which the LM steps
+train state, the train round (eq. (6) + one Bayes-by-Backprop step on the
+LM objective), the local and consensus steps that ``api.LaunchEngine`` and
+``launch.train`` drive; the model zoo's serving steps
+(``steps.init_train_state``, ``serve_params``, ``make_prefill_step``,
+``make_decode_step``, ``make_agent_cache``); the sharded consensus
+(``consensus_opt``) over the agent mesh (``mesh``); the cost model
+(``costmodel``) and the parameter counts (``dryrun``).  The entry points
+``launch.train`` and ``launch.serve`` are submodules this package does not
+import.  The sharding rules and the rest of item 10 come with ROADMAP queue
+A item 10f; this package imports without the model zoo, which the LM steps
 import when they are called."""
-from repro_torch.launch.steps import BayesTrainState, make_consensus_step, make_local_step
+from repro_torch.launch.steps import (
+    BayesTrainState,
+    make_consensus_step,
+    make_local_step,
+    make_train_round_step,
+)
 
-__all__ = ["BayesTrainState", "make_consensus_step", "make_local_step"]
+__all__ = ["BayesTrainState", "make_consensus_step", "make_local_step", "make_train_round_step"]

@@ -11,17 +11,24 @@ Three memory-bound models, each a pure function of plain numbers:
 * ``serve_roofline`` — the serving tier's snapshot residency, publish and
   per-batch apply bytes.
 
-Every byte count and dict key is the reference's; the ``roofline_seconds``
-are those bytes over the card's constants in ``launch.mesh`` (H100 SXM5:
-``HBM_BW`` = 3.35 TB/s, ``ICI_BW`` = NVLink's 450 GB/s a direction), not the
-TPU v5e's.  ``analytic_costs`` (the model-zoo FLOP/byte/collective model)
-arrives with the sharding slice (ROADMAP queue A item 10f).
+and the model zoo's FLOP, HBM-byte and collective-byte model of one train,
+prefill or decode step, ``analytic_costs`` (with ``_layer_kind_counts``).
+
+Every count and dict key is the reference's; the ``roofline_seconds`` are
+those counts over the card's constants in ``launch.mesh`` (H100 SXM5:
+``HBM_BW`` = 3.35 TB/s, ``PEAK_FLOPS_BF16`` = 989 TFLOP/s, ``ICI_BW`` =
+NVLink's 450 GB/s a direction), not the TPU v5e's.  ``analytic_costs``
+divides by the reference's ``chips = agents x data x model shards`` (2 for
+two agents); on one card that holds every agent, read ``flops_global`` and
+``hbm_bytes_global`` over one card's peaks instead.
 """
 from __future__ import annotations
 
 from typing import Any
 
-from repro_torch.launch.mesh import HBM_BW, ICI_BW
+from repro_torch.launch.mesh import HBM_BW, ICI_BW, PEAK_FLOPS_BF16
+
+ATTN_KINDS = ("attn", "local_attn", "moe", "dec_attn")
 
 
 def _wire_bytes_per_el(wire_dtype: str) -> int:
@@ -408,3 +415,146 @@ def serve_roofline(
         },
     }
     return out
+
+
+def _layer_kind_counts(cfg) -> dict[str, int]:
+    counts: dict[str, int] = {}
+    for k in cfg.pattern:
+        counts[k] = counts.get(k, 0) + cfg.n_periods
+    for k in cfg.tail:
+        counts[k] = counts.get(k, 0) + 1
+    return counts
+
+
+def analytic_costs(
+    cfg,
+    *,
+    mode: str,  # train | prefill | decode
+    batch_global: int,
+    seq_len: int,
+    n_agents: int,
+    data_shards: int,
+    model_shards: int,
+    n_matmul_params: int,  # matmul-active params per agent (dryrun.count_active_params)
+    n_total_params: int,  # all params per agent
+    window: int | None = None,
+    chunk_size: int = 512,
+    kv_bytes: float = 2.0,  # bf16 cache; 1.0 + per-head scales for int8
+) -> dict[str, Any]:
+    """One step's global FLOPs, HBM bytes and collective bytes, with the
+    roofline's three terms; the reference's coefficients, term for term
+    (fwd+bwd = 6 N D for ``train``, the causal half of attention, ~14
+    fp32 passes of the posterior, its gradient and Adam's state a step)."""
+    a = n_agents
+    b = batch_global  # total across agents
+    s = seq_len
+    hd = cfg.hd
+    h = cfg.n_heads
+    d = cfg.d_model
+    f = 6.0 if mode == "train" else 2.0  # fwd+bwd vs fwd-only multiplier
+    counts = _layer_kind_counts(cfg)
+    kv_len = s  # cache length for decode
+    tokens = b * (1 if mode == "decode" else s)
+
+    # ---------------- FLOPs ----------------
+    flops = f * n_matmul_params * tokens  # dense matmul term (2ND fwd, 4ND bwd)
+    # attention: 4*B*Sq*Skv_eff*H*hd per layer fwd (scores + PV), f/2 scales bwd
+    for kind, n_l in counts.items():
+        if kind not in ATTN_KINDS and kind not in ("mlstm", "slstm"):
+            continue
+        if kind in ATTN_KINDS:
+            if mode == "decode":
+                skv = min(kv_len, window) if window else kv_len
+                attn = 4.0 * b * 1 * skv * h * hd
+            else:
+                w_eff = cfg.sliding_window if kind == "local_attn" else (window or 0)
+                skv_sum = (s * min(w_eff, s)) if w_eff else (s * s * 0.5)  # causal half
+                attn = 4.0 * b * skv_sum * h * hd
+            flops += (f / 2.0) * attn * n_l
+            if kind == "dec_attn" and cfg.is_encdec:
+                sq = 1 if mode == "decode" else s
+                flops += (f / 2.0) * 4.0 * b * sq * cfg.encoder_seq * h * hd * n_l
+        elif kind == "mlstm":
+            p = 2 * d
+            dk = p // cfg.n_heads
+            c = 1 if mode == "decode" else min(chunk_size // 2, s)
+            # intra-chunk masked attention (~c keys/query) + state update (dk*dk outer)
+            per_tok = 4.0 * c * cfg.n_heads * dk + 4.0 * cfg.n_heads * dk * dk
+            flops += (f / 2.0) * per_tok * tokens * n_l
+        elif kind == "slstm":
+            hd_s = d // cfg.n_heads
+            flops += (f / 2.0) * 8.0 * d * hd_s * tokens * n_l  # 4 block-diag matvecs
+    if cfg.is_encdec and mode != "decode":
+        # encoder self-attention (bidirectional, no causal half)
+        flops += (f / 2.0) * 4.0 * b * cfg.encoder_seq**2 * h * hd * cfg.encoder_layers
+
+    # ---------------- HBM bytes ----------------
+    param_bytes_bf16 = n_total_params * 2
+    if mode == "train":
+        # posterior (mu,rho fp32) + grads + Adam (4 fp32) read/write ~= 14 passes
+        state = 14.0 * n_total_params * 4 * a
+        weights = 3.0 * param_bytes_bf16 * a  # theta sample read fwd + 2x bwd
+        # activations: ~8 d-wide tensors/layer/token bf16, ~2.5x for bwd+remat
+        act = 2.5 * cfg.n_layers * tokens * 8.0 * d * 2
+        hbm = state + weights + act
+    elif mode == "prefill":
+        weights = param_bytes_bf16 * a
+        act = cfg.n_layers * tokens * 8.0 * d * 2
+        kv_write = 2.0 * cfg.n_layers * tokens * cfg.n_kv_heads * hd * kv_bytes
+        hbm = weights + act + kv_write
+    else:  # decode
+        weights = param_bytes_bf16 * a
+        skv = min(kv_len, window) if window else kv_len
+        n_attn = sum(n for k, n in counts.items() if k in ATTN_KINDS)
+        kv_read = 2.0 * n_attn * b * skv * cfg.n_kv_heads * hd * kv_bytes
+        # recurrent state read/write
+        rec = 0.0
+        if "mlstm" in counts:
+            p = 2 * d
+            rec += 2.0 * counts["mlstm"] * b * cfg.n_heads * (p // cfg.n_heads) ** 2 * 4
+        if "rglru" in counts:
+            rec += 2.0 * counts["rglru"] * b * d * 4
+        if "slstm" in counts:
+            rec += 2.0 * counts["slstm"] * b * d * 4
+        hbm = weights + kv_read + rec + tokens * 8.0 * d * 2 * cfg.n_layers
+
+    # ---------------- collective bytes ----------------
+    dsh, msh = data_shards, model_shards
+    coll = 0.0
+    # GLOBAL collective bytes (summed over devices).  Ring collectives: an
+    # all-gather/reduce-scatter of a tensor of TOTAL size T over g
+    # participants moves T*(g-1)/g per participant -> T*(g-1) global; an
+    # all-reduce moves ~2x that.
+    # TP activation all-reduces: ~2 per layer; per TP group the tensor is
+    # [tokens/dsh, d] bf16 -> global = 2ops * 2x * tokens*d*2B * (m-1)
+    if msh > 1:
+        coll += (f / 2.0) * 2.0 * 2.0 * cfg.n_layers * tokens * d * 2 * (msh - 1)
+    if mode == "train":
+        # FSDP param all-gather (1 fwd + 2 bwd passes) + grad reduce-scatter
+        # over the data axis
+        if dsh > 1:
+            per_agent = 3.0 * param_bytes_bf16 * (dsh - 1)  # AG: 1 fwd + 2 bwd
+            per_agent += n_total_params * 4 * (dsh - 1)  # grad reduce-scatter fp32
+            coll += per_agent * a
+        # consensus (eq. 6): exchange (prec, prec*mu) fp32 across agents
+        if a > 1:
+            coll += 2.0 * 2.0 * n_total_params * 4 * (a - 1) / a * a
+        # MoE all-to-all: k copies of each token's d-vector there and back
+        if cfg.n_experts:
+            coll += 2.0 * tokens * cfg.top_k * d * 2
+    elif cfg.n_experts:
+        coll += 2.0 * tokens * cfg.top_k * d * 2
+
+    chips = a * dsh * msh if a > 1 else dsh * msh
+    t_compute = flops / (chips * PEAK_FLOPS_BF16)
+    t_memory = hbm / (chips * HBM_BW)
+    t_coll = coll / (chips * ICI_BW)
+    terms = {"compute": t_compute, "memory": t_memory, "collective": t_coll}
+    return {
+        "flops_global": flops,
+        "hbm_bytes_global": hbm,
+        "collective_bytes_global": coll,
+        "roofline_seconds": terms,
+        "dominant": max(terms, key=terms.get),
+        "chips": chips,
+    }

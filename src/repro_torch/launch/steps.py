@@ -1,21 +1,26 @@
-"""Production step functions (port of ``repro.launch.steps``): one local
-Bayes-by-Backprop step against an explicit prior (the ``nll_fn`` branch),
-the standalone eq. (6) consensus, over a ``BayesTrainState`` whose
-posterior is a ``FlatPosterior`` end to end; and, over the model zoo's
-dense configs, ``init_train_state``, ``serve_params`` and the prefill and
-decode steps for A agents at once.
+"""Production step functions (port of ``repro.launch.steps``) over a
+``BayesTrainState`` whose posterior is a ``FlatPosterior`` end to end: one
+train round of the paper's rule (``make_train_round_step``: eq. (6), then
+one Bayes-by-Backprop step from that prior on the language-model
+objective), one local step against an explicit prior (the LM objective, or
+a per-agent ``nll_fn``), the standalone eq. (6) consensus; and, over the
+model zoo, ``init_train_state``, ``serve_params`` and the prefill and decode
+steps for A agents at once.
 
-Agent axis: the reference ``jax.vmap``s the prefill and decode steps over
-agents.  The flash-attention kernels launch through raw pointers, which
+Agent axis: the reference ``jax.vmap``s its steps over agents.  The
+flash-attention kernels launch through raw pointers, which
 ``torch.func.vmap`` cannot trace, so the port carries the agents as the
 leading axis of every params and cache leaf and of the tokens, and runs
 them in one pass (``models.transformer``): each kernel launches once per
-step for all agents.
+step for all agents.  A training step runs its autograd over agent blocks
+(``vi.bayes_by_backprop.agent_blocks``: at most 1 GiB of ``[b, P]``
+float32 a buffer, so repro-100m's two agents run one at a time), each
+block's gradient that of its share of the mean over all A agents.
 
-The language-model objective of the local step (``nll_fn=None``) and
-``make_train_round_step`` come with the LM training slice (ROADMAP queue A
-item 10e); ``make_local_step`` refuses them.  ``launch`` imports the model
-zoo only inside the LM functions.
+Noise seam: the LM steps take ``eps [A, P]``, one standard-normal draw an
+agent (the reference's ``post_a.sample(key_a)``), or draw it from
+``generator``.  ``launch`` imports the model zoo only inside the LM
+functions.
 """
 from __future__ import annotations
 
@@ -25,11 +30,11 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.core.flat import FlatPosterior, make_flat_nll
-from repro_torch.core.posterior import consensus_all_agents
+from repro_torch.core.posterior import consensus_all_agents, kl_gaussian
 from repro_torch.core.tree import tree_map
 from repro_torch.optim import Optimizer
 from repro_torch.optim.schedules import Schedule
-from repro_torch.vi.bayes_by_backprop import vi_step
+from repro_torch.vi.bayes_by_backprop import blocked_update, vi_step
 
 PyTree = Any
 
@@ -48,25 +53,164 @@ class BayesTrainState:
         return tree_map(lambda x: x.to(device, copy=True), self)
 
 
+def _flat(posterior) -> FlatPosterior:
+    if not isinstance(posterior, FlatPosterior):
+        raise TypeError("the port's LM steps run on the flat posterior (init_train_state's "
+                        "default, flat=True)")
+    return posterior
+
+
+def _lm_grad_fn(cfg, n_agents: int, kl_scale: float, bayesian: bool, remat: bool):
+    """``blocked_update``'s ``grad_fn`` for the language-model objective
+    (reference ``launch/steps.py:158-172``): per agent
+    ``(nll + router_aux_weight aux ntok) / ntok + kl_scale KL(q || prior) /
+    ntok`` on ``theta = mean + softplus(rho) eps`` (the mean and KL = 0 when
+    not ``bayesian``), the prior held fixed; the gradient is that of the
+    mean over all ``n_agents`` agents.  Metrics: (loss, nll / ntok, KL)."""
+    from repro_torch.models import nll_loss
+
+    def grad_fn(block: FlatPosterior, prior: FlatPosterior, batch: dict, eps):
+        mean = block.mean.detach().requires_grad_(True)
+        rho = block.rho.detach().requires_grad_(bayesian)
+        q = FlatPosterior(mean, rho, block.layout)
+        ntok = float(batch["targets"][0].numel())
+        with torch.enable_grad():
+            if bayesian:
+                theta = q.sample(eps)
+                kl = kl_gaussian(q, tree_map(torch.Tensor.detach, prior))
+            else:
+                theta = mean
+                kl = torch.zeros(mean.shape[0], dtype=torch.float32, device=mean.device)
+            nll, aux = nll_loss(block.layout.unflatten(theta), cfg, batch, remat=remat)
+            loss = (nll + cfg.router_aux_weight * aux * ntok) / ntok + kl_scale * kl / ntok
+            grads = torch.autograd.grad(loss.sum() / n_agents, (mean, rho) if bayesian else mean)
+        if not bayesian:
+            grads = (grads[0], torch.zeros_like(rho))
+        return ((loss.detach(), (nll / ntok).detach(), kl.detach()),
+                FlatPosterior(grads[0], grads[1], block.layout))
+
+    return grad_fn
+
+
+def _draw(post: FlatPosterior, eps, generator, bayesian: bool):
+    if not bayesian:
+        return None
+    if eps is None:
+        eps = torch.randn(post.mean.shape, generator=generator, device=post.mean.device)
+    return eps
+
+
+def make_train_round_step(cfg, W, opt: Optimizer | None = None,
+                          lr_schedule: Schedule | None = None, kl_scale: float = 1e-4,
+                          remat: bool = True, bayesian: bool = True,
+                          consensus_impl: str = "einsum", consensus_wire_dtype=None,
+                          mesh=None, posterior_shardings=None):
+    """One communication round of the paper's rule as one step:
+
+        step_fn(state, batch, eps=None, generator=None)
+            -> (state', {"loss": 0-d, "nll": [A], "kl": [A]})
+
+    1. eq. (6) over the agent axis -> the prior (``consensus_impl``:
+       ``"einsum"`` is ``core.posterior.consensus_all_agents``, the network
+       kernel on the card, or ``launch.consensus_opt.consensus_einsum_flat``
+       when ``consensus_wire_dtype`` is set; ``"ppermute"`` is
+       ``consensus_ppermute_ring_flat`` over ``mesh``'s axis, wire bf16
+       unless ``consensus_wire_dtype`` says otherwise; ``"none"`` keeps the
+       posterior);
+    2. one Bayes-by-Backprop step from that prior on the LM objective
+       (``_lm_grad_fn``; the KL is against the prior itself, so 0), Adam on
+       the prior.  ``nll`` is each agent's per token, ``loss`` the mean.
+
+    ``bayesian=False`` is the deterministic baseline (decentralized
+    FedAvg): the NLL at the posterior mean, KL = 0 and a zero gradient in
+    rho, so from equal rho eq. (6) averages the means with W's weights.
+    ``batch``: ``{"tokens", "targets"}`` ``[A, B, S]``; ``eps [A, P]``.
+    ``posterior_shardings`` is the reference's sharding tree; the port's
+    ``AgentMesh`` has one axis, which the ring takes."""
+    from repro_torch.optim import adam
+    from repro_torch.optim.schedules import exponential_decay
+
+    if consensus_impl not in ("einsum", "ppermute", "none"):
+        raise ValueError(f"unknown consensus_impl {consensus_impl!r}")
+    opt = opt or adam()
+    lr_schedule = lr_schedule or exponential_decay(1e-3, 0.9999)
+    if not isinstance(W, torch.Tensor):
+        W = torch.as_tensor(W, dtype=torch.float32)
+    n_agents = W.shape[0]
+    grad_fn = _lm_grad_fn(cfg, n_agents, kl_scale, bayesian, remat)
+
+    def consensus(post):
+        if consensus_impl == "none":
+            return post
+        if consensus_impl == "ppermute":
+            if not isinstance(post, FlatPosterior):
+                raise NotImplementedError(
+                    "the leaf-wise consensus_ppermute_pod comes with the sharding slice "
+                    "(ROADMAP queue A item 10f); a flat posterior takes the ring")
+            if mesh is None:
+                raise ValueError("consensus_impl='ppermute' needs the agent mesh")
+            from repro_torch.launch.consensus_opt import consensus_ppermute_ring_flat
+
+            return consensus_ppermute_ring_flat(
+                post, mesh, mesh.axis, wire_dtype=consensus_wire_dtype or torch.bfloat16, W=W)
+        post = _flat(post)
+        if consensus_wire_dtype is not None:
+            from repro_torch.launch.consensus_opt import consensus_einsum_flat
+
+            return consensus_einsum_flat(post, W, wire_dtype=consensus_wire_dtype)
+        return consensus_all_agents(post, W)
+
+    def step_fn(state: BayesTrainState, batch: dict, eps: torch.Tensor | None = None,
+                generator: torch.Generator | None = None):
+        prior = _flat(consensus(state.posterior))
+        new_post, opt_state, (losses, nll, kl) = blocked_update(
+            prior, prior, opt, state.opt_state, grad_fn, batch,
+            _draw(prior, eps, generator, bayesian), lr_schedule(state.step), state.step)
+        return (BayesTrainState(posterior=new_post, opt_state=opt_state, step=state.step + 1),
+                {"loss": losses.mean(), "nll": nll, "kl": kl})
+
+    return step_fn
+
+
 def make_local_step(cfg, opt: Optimizer, lr_schedule: Schedule, kl_scale: float = 1e-4,
-                    *, nll_fn: Callable[[PyTree, Any], torch.Tensor] | None = None,
+                    remat: bool = True, *,
+                    nll_fn: Callable[[PyTree, Any], torch.Tensor] | None = None,
                     n_mc_samples: int = 1):
-    """One local VI step against an explicit prior:
+    """One local VI step against an explicit prior (u > 1 rounds in
+    ``launch.train``):
 
-        step_fn(state, prior, batch, eps=None, generator=None) -> (state', loss [A])
+        step_fn(state, prior, batch, eps=None, generator=None) -> (state', loss)
 
-    The loss is each agent's free energy ``kl_scale * KL(q||prior) +
-    E_q[nll]`` (eq. 5, ``vi.free_energy`` over ``n_mc_samples`` samples);
-    the gradient is that of their sum, so each agent's is its own.  The
-    optimizer takes the scalar ``state.step`` and the learning rate
-    ``lr_schedule(state.step)``.  ``eps [A, S, P]`` injects the noise, else
-    it is drawn from ``generator``.  ``nll_fn(params, batch) -> [A]`` takes
-    the parameter dict; the flat theta crosses to it at the model-apply
-    boundary."""
-    if cfg is not None or nll_fn is None:
-        raise NotImplementedError(
-            "the language-model objective of make_local_step comes with the LM training slice "
-            "(ROADMAP queue A item 10e); pass cfg=None and an nll_fn")
+    Default (``nll_fn=None``): the language-model objective on ``cfg``,
+    ``make_train_round_step``'s against ``prior`` (per token, the gradient
+    that of the mean over agents); ``loss`` is that mean, ``eps [A, P]``.
+
+    ``nll_fn`` (the ``api.LaunchEngine`` path; ``cfg`` unused): each
+    agent's free energy ``kl_scale * KL(q||prior) + E_q[nll]`` (eq. 5,
+    ``vi.free_energy`` over ``n_mc_samples`` samples); the gradient is that
+    of their sum, so each agent's is its own; ``loss [A]``,
+    ``eps [A, S, P]``.  ``nll_fn(params, batch) -> [A]`` takes the
+    parameter dict; the flat theta crosses to it at the model-apply
+    boundary.
+
+    Either way the optimizer takes the scalar ``state.step`` and the
+    learning rate ``lr_schedule(state.step)``, and the noise is drawn from
+    ``generator`` without ``eps``."""
+    if nll_fn is None:
+        if cfg is None:
+            raise ValueError("make_local_step needs a model config or an nll_fn")
+
+        def lm_step(state: BayesTrainState, prior: FlatPosterior, batch: dict,
+                    eps: torch.Tensor | None = None, generator: torch.Generator | None = None):
+            post = _flat(state.posterior)
+            grad_fn = _lm_grad_fn(cfg, post.mean.shape[0], kl_scale, True, remat)
+            new_post, opt_state, (losses, _, _) = blocked_update(
+                post, _flat(prior), opt, state.opt_state, grad_fn, batch,
+                _draw(post, eps, generator, True), lr_schedule(state.step), state.step)
+            return (BayesTrainState(posterior=new_post, opt_state=opt_state,
+                                    step=state.step + 1), losses.mean())
+
+        return lm_step
 
     def step_fn(state: BayesTrainState, prior: FlatPosterior, batch: dict,
                 eps: torch.Tensor | None = None, generator: torch.Generator | None = None):

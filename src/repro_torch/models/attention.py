@@ -10,10 +10,16 @@ Pallas kernel as the same contract.  ``kernel_attention`` moves the
 ``[B, S, H, hd]`` layout to the kernel's contiguous ``[B, H, S, hd]``, pads
 S > 512 at the end to a multiple of 512 (the kernel's tile check), and
 drops the padded rows: under a causal mask every pad key lies after every
-real query, so it changes no real row; a non-causal pad is refused.  The
-kernel is launched through raw pointers, so the route is an
-``autograd.Function`` whose backward raises: a recorded forward would
-otherwise give attention no gradient.
+real query, so it changes no real row; a non-causal pad is refused.
+
+Training.  The reference trains through its plain ``chunked_attention``
+(``nll_loss`` -> ``forward`` never reaches the Pallas kernel, which has no
+backward).  So does the port: where autograd records the no-cache forward
+(a loss being differentiated), ``attention_block`` takes
+``chunked_attention``, whose plain PyTorch ops autograd differentiates.
+The kernel is launched through raw pointers, so its route is an
+``autograd.Function`` whose backward raises: a kernel forward recorded
+under autograd would otherwise give attention no gradient.
 
 Decode (S = 1 over the cache) needs ``q_offset``, ``k_valid`` and
 ``k_positions``, which the kernel does not take: it stays the plain
@@ -176,8 +182,9 @@ class _KernelAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         raise NotImplementedError(
-            "attention's backward comes with the LM training slice (ROADMAP queue A item 10e): "
-            "the flash_attention kernels have a forward only")
+            "flash_attention has no backward (nor has the Pallas kernel it ports): training "
+            "differentiates chunked_attention, as the reference does; attention_block takes it "
+            "wherever autograd records the forward")
 
 
 def kernel_attention(q, k, v, *, causal: bool, window: int = 0):
@@ -299,7 +306,9 @@ def attention_block(params, x, cfg, *, causal: bool = True, window: int = 0, pos
 
     Three branches: prefill into a cache (S > 1: write the cache, attend
     over the fresh k/v on the kernel), decode (S = 1: append to the cache,
-    attend over it with ``chunked_attention``), and no cache (the kernel).
+    attend over it with ``chunked_attention``), and no cache (the kernel;
+    ``chunked_attention`` over the unrepeated KV heads where autograd
+    records the forward, as the reference trains).
     Cross-attention and the rope-free kinds come with the enc-dec slice
     (ROADMAP queue A item 10d)."""
     s = x.shape[-2]
@@ -316,6 +325,9 @@ def attention_block(params, x, cfg, *, causal: bool = True, window: int = 0, pos
             q, k_deq, v_deq, causal=causal, window=window, q_offset=positions[0],
             k_valid=cache["pos"] >= 0, k_positions=cache["pos"],
             chunk_size=k_deq.shape[-3])
+    elif cache is None and torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad):
+        out = chunked_attention(q, k, v, causal=causal, window=window)
     else:
         if cache is not None:
             _prefill_cache(cache, k, v, positions)

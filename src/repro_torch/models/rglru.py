@@ -85,6 +85,15 @@ def rglru_scan(x, r, i, lam_raw, h0):
     a_all = torch.cat([torch.zeros_like(a[..., :1, :]), a], dim=-2)
     b_all = torch.cat([h0[..., None, :].float(), gated], dim=-2)
     n, off = a_all.shape[-2], 1
+    if torch.is_grad_enabled() and (a_all.requires_grad or b_all.requires_grad):
+        while off < n:  # the same passes, joined by ``cat``: ``out=`` records no gradient
+            b_all = torch.cat([b_all[..., :off, :], torch.addcmul(
+                b_all[..., off:, :], a_all[..., off:, :], b_all[..., :-off, :])], dim=-2)
+            if 2 * off < n:
+                a_all = torch.cat([a_all[..., :off, :],
+                                   a_all[..., off:, :] * a_all[..., :-off, :]], dim=-2)
+            off *= 2
+        return b_all[..., 1:, :], b_all[..., -1, :]
     while off < n:  # each pass writes a new buffer: its head copied, its tail combined
         b_new = torch.empty_like(b_all)
         b_new[..., :off, :] = b_all[..., :off, :]

@@ -29,6 +29,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core.tree import tree_leaves, tree_map, tree_replace_leaves
 from repro_torch.models import moe as moe_lib
@@ -278,7 +279,7 @@ def _apply_period(cfg, pattern, stacks_slice, x, positions, cache_slice,
 
 def forward(params: PyTree, cfg, tokens: torch.Tensor, *, positions=None, cache=None,
             frames=None, patches=None, window_override: int | None = None,
-            logits_tail: int = 0):
+            logits_tail: int = 0, remat: bool = False):
     """Returns (logits ``[*A, B, S, padded_vocab]`` fp32, cache, aux_loss).
 
     ``tokens [*A, B, S]``; ``positions [S]`` absolute positions (default
@@ -293,7 +294,13 @@ def forward(params: PyTree, cfg, tokens: torch.Tensor, *, positions=None, cache=
     ``aux_loss`` is fp32 of shape ``[*A]``: for each agent the sum over its
     ``moe`` layers of the router's load-balancing loss, each agent's equal
     to the reference's scalar for that agent's model alone (0-d for a tree
-    without an agent axis; zeros without ``moe`` layers)."""
+    without an agent axis; zeros without ``moe`` layers).
+
+    ``remat``: where autograd records the forward (no cache), each period
+    runs under ``torch.utils.checkpoint`` (non-reentrant): its activations
+    are recomputed in the backward pass instead of kept, as the reference
+    ``jax.checkpoint``s its scan body.  The same ops run twice, so the
+    values and gradients are the same bits."""
     check_supported(cfg)
     if frames is not None or patches is not None:
         _unported("audio_stub" if frames is not None else "vision_stub")
@@ -306,11 +313,15 @@ def forward(params: PyTree, cfg, tokens: torch.Tensor, *, positions=None, cache=
 
     aux = torch.zeros(tuple(tokens.shape[:lead]), dtype=torch.float32, device=x.device)
     cache_stacks = cache["stacks"] if cache is not None else None
+    remat = remat and cache is None and torch.is_grad_enabled()
     for p in range(cfg.n_periods):
-        x, a = _apply_period(
-            cfg, cfg.pattern, _index(params["stacks"], p, lead), x, positions,
-            _index(cache_stacks, p, lead) if cache is not None else None,
-            window_override, lead)
+        args = (cfg, cfg.pattern, _index(params["stacks"], p, lead), x, positions,
+                _index(cache_stacks, p, lead) if cache is not None else None,
+                window_override, lead)
+        if remat:
+            x, a = torch.utils.checkpoint.checkpoint(_apply_period, *args, use_reentrant=False)
+        else:
+            x, a = _apply_period(*args)
         aux = aux + a
     for i, kind in enumerate(cfg.tail):
         c = cache["tail"][i] if cache is not None else None
@@ -328,12 +339,13 @@ def forward(params: PyTree, cfg, tokens: torch.Tensor, *, positions=None, cache=
     return logits, cache, aux
 
 
-def nll_loss(params, cfg, batch) -> tuple[torch.Tensor, torch.Tensor]:
+def nll_loss(params, cfg, batch, remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Total next-token NLL (summed over tokens) + aux (the router's loss,
-    ``forward``'s; 0 without ``moe`` layers).  ``batch``: dict(tokens,
-    targets[, loss_mask])."""
+    ``forward``'s; 0 without ``moe`` layers), each ``[*A]``: one value an
+    agent of an agent-stacked tree (0-d for one model's).  ``batch``:
+    dict(tokens, targets[, loss_mask]), ``[*A, B, S]``."""
     logits, _, aux = forward(params, cfg, batch["tokens"], frames=batch.get("frames"),
-                             patches=batch.get("patches"))
+                             patches=batch.get("patches"), remat=remat)
     targets = batch["targets"]
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
@@ -341,7 +353,8 @@ def nll_loss(params, cfg, batch) -> tuple[torch.Tensor, torch.Tensor]:
     mask = batch.get("loss_mask")
     if mask is not None:
         nll = nll * mask
-    return torch.sum(nll), aux
+    lead = params["embed"]["emb"].ndim - 2
+    return torch.sum(nll.reshape(tuple(nll.shape[:lead]) + (-1,)), dim=-1), aux
 
 
 def decode_step(params: PyTree, cfg, token: torch.Tensor, position, cache: PyTree,

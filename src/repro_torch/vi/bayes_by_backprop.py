@@ -73,25 +73,27 @@ def free_energy_and_grad(post: FlatPosterior, prior: FlatPosterior, nll_fn: NllF
     return value.detach(), FlatPosterior(g_mean, g_rho, post.layout)
 
 
-def vi_step(post: FlatPosterior, prior: FlatPosterior, opt: Optimizer, opt_state: Any,
-            nll_fn: NllFn, batch: dict, lr: torch.Tensor, step: torch.Tensor,
-            eps: torch.Tensor, kl_scale: float = 1.0, out=None):
-    """One Bayes-by-Backprop step on every agent (``batch``: dict of
-    ``[N, ...]`` tensors, ``eps [N, S, P]``), run over ``agent_blocks``.
-    ``step`` is the per-agent counter ``[N]`` or one scalar for all.  Every
-    block's new rows go into ``out`` (a ``(posterior, opt_state)`` pair,
-    which may be ``post`` and ``opt_state`` themselves: a block's rows are
-    read before they are written), else into new buffers.  Returns
-    (post', opt_state', loss [N])."""
+def blocked_update(post: FlatPosterior, prior: FlatPosterior, opt: Optimizer, opt_state: Any,
+                   grad_fn, batch: dict, eps: torch.Tensor | None, lr: torch.Tensor,
+                   step: torch.Tensor, out=None):
+    """The agent-block loop of one local step, over ``agent_blocks``: for
+    each block, ``grad_fn(block, block_prior, block_batch, block_eps) ->
+    (metrics, grads)`` (a tuple of ``[b]`` tensors, and a ``FlatPosterior``
+    of the block's gradients), the optimizer's update and its new rows.
+    ``step`` is the per-agent counter ``[N]`` or one scalar for all.  The
+    new rows go into ``out`` (a ``(posterior, opt_state)`` pair, which may
+    be ``post`` and ``opt_state`` themselves: a block's rows are read before
+    they are written), else into new buffers.  Returns (post', opt_state',
+    the metrics, each ``[N]``)."""
     n, p = post.mean.shape
     if out is None:
         out = (tree_map(torch.empty_like, post), tree_map(torch.empty_like, opt_state))
-    losses = []
+    metrics = []
     for rows in agent_blocks(n, p):
         block = tree_map(lambda x: x[rows], post)
-        loss, grads = free_energy_and_grad(
-            block, tree_map(lambda x: x[rows], prior), nll_fn,
-            {k: v[rows] for k, v in batch.items()}, eps[rows], kl_scale)
+        values, grads = grad_fn(block, tree_map(lambda x: x[rows], prior),
+                                {k: v[rows] for k, v in batch.items()},
+                                None if eps is None else eps[rows])
         updates, new_opt = opt.update(grads, tree_map(lambda x: x[rows], opt_state),
                                       step[rows] if step.ndim else step, lr)
         del grads  # [b, P] each: not held into the next block's forward
@@ -99,8 +101,26 @@ def vi_step(post: FlatPosterior, prior: FlatPosterior, opt: Optimizer, opt_state
         del updates
         for dst, src in zip(tree_leaves(out), tree_leaves((new, new_opt))):
             dst[rows].copy_(src)
-        losses.append(loss)
-    return out[0], out[1], torch.cat(losses)
+        metrics.append(values)
+    return out[0], out[1], tuple(torch.cat(m) for m in zip(*metrics))
+
+
+def vi_step(post: FlatPosterior, prior: FlatPosterior, opt: Optimizer, opt_state: Any,
+            nll_fn: NllFn, batch: dict, lr: torch.Tensor, step: torch.Tensor,
+            eps: torch.Tensor, kl_scale: float = 1.0, out=None):
+    """One Bayes-by-Backprop step on every agent (``batch``: dict of
+    ``[N, ...]`` tensors, ``eps [N, S, P]``), run over ``agent_blocks``
+    (``blocked_update``; ``out`` as there).  Returns (post', opt_state',
+    loss [N])."""
+
+    def grad_fn(block, block_prior, block_batch, block_eps):
+        loss, grads = free_energy_and_grad(block, block_prior, nll_fn, block_batch, block_eps,
+                                           kl_scale)
+        return (loss,), grads
+
+    post, opt_state, (loss,) = blocked_update(post, prior, opt, opt_state, grad_fn, batch, eps,
+                                              lr, step, out)
+    return post, opt_state, loss
 
 
 def local_vi_steps(post: FlatPosterior, prior: FlatPosterior, opt: Optimizer,

@@ -9,7 +9,11 @@ against the JAX package's, on the CPU.
   ``HBM_BW`` (or ``ICI_BW`` for the interconnect terms): the H100 SXM5's
   3.35 TB/s and NVLink's 450 GB/s a direction, not the v5e's;
 * the contracts of tests/test_gossip.py:493-559 and
-  tests/test_wire_dtype.py:372 hold on the port.
+  tests/test_wire_dtype.py:372 hold on the port;
+* ``analytic_costs`` (train, prefill, decode) gives the reference's FLOPs,
+  HBM bytes and collective bytes exactly, and ``dryrun.count_params`` /
+  ``count_active_params`` on the ``meta`` device the reference's counts of
+  its ``jax.eval_shape`` tree, for every decoder-only config.
 """
 import itertools
 
@@ -58,7 +62,7 @@ def test_the_cards_constants():
     assert mesh.HBM_BW == 3.35e12
     assert mesh.PEAK_FLOPS_BF16 == 989e12
     assert mesh.ICI_BW == 450e9
-    assert not hasattr(tcm, "analytic_costs")  # with the model zoo
+    assert tcm.PEAK_FLOPS_BF16 == mesh.PEAK_FLOPS_BF16  # analytic_costs' compute term
 
 
 @pytest.mark.parametrize("n,p", [(1, 5), (9, 199_210), (16, 1 << 14), (4_200, 199_210)])
@@ -195,3 +199,68 @@ def test_the_slice_bounds_chip_smoke_prints():
     # the hand-written bound adds W's 4 N^2 bytes: within 0.1%
     hand = 16 * 9 * 199_210 + 4 * 9 * 9
     assert abs(hand - rec["hbm_bytes"]["flat_fused"]) / hand < 1e-3
+
+
+# -- the model zoo's step model (analytic_costs) and parameter counts ---------------
+
+DECODER_ONLY = ["olmoe-1b-7b", "phi3.5-moe-42b-a6.6b", "qwen3-8b", "granite-20b", "xlstm-1.3b",
+                "recurrentgemma-9b", "mistral-nemo-12b", "deepseek-7b", "repro-100m"]
+
+
+def _counts(arch, reduced=False):
+    """(total, matmul-active) params an agent in each package."""
+    import jax
+
+    from repro.configs import get_config as jget
+    from repro.launch import dryrun as jdry
+    from repro.models import init_params as jinit
+    from repro_torch.configs import get_config as tget
+    from repro_torch.launch import dryrun as tdry
+
+    jcfg, tcfg = jget(arch), tget(arch)
+    if reduced:
+        jcfg, tcfg = jcfg.reduced(), tcfg.reduced()
+    jshape = jax.eval_shape(lambda: jinit(jcfg, jax.random.key(0)))
+    tshape = tdry.param_shapes(tcfg)
+    assert {x.device.type for x in jax.tree.leaves(tshape)} == {"meta"}
+    got = (tdry.count_params(tshape), tdry.count_active_params(tshape, tcfg))
+    assert got == (jdry.count_params(jshape), jdry.count_active_params(jshape, jcfg))
+    return jcfg, tcfg, got
+
+
+@pytest.mark.parametrize("arch", DECODER_ONLY)
+def test_param_counts_and_analytic_costs_equal_the_reference(arch):
+    _, _, small = _counts(arch, reduced=True)
+    jcfg, tcfg, (n_total, n_active) = _counts(arch)
+    assert small[0] < n_total
+    cases = itertools.product(
+        ("train", "prefill", "decode"),
+        ((2, 2, 1, 1), (1, 1, 1, 1), (4, 2, 2, 4)),  # (agents, batch an agent, data, model)
+        ((256, None, 2.0), (4096, 1024, 1.0)))  # (seq, window, kv bytes)
+    for mode, (a, b, dsh, msh), (s, window, kv_bytes) in cases:
+        kw = dict(mode=mode, batch_global=a * b, seq_len=s, n_agents=a, data_shards=dsh,
+                  model_shards=msh, n_matmul_params=n_active, n_total_params=n_total,
+                  window=window, kv_bytes=kv_bytes)
+        got, want = tcm.analytic_costs(tcfg, **kw), jcm.analytic_costs(jcfg, **kw)
+        assert set(got) == set(want)
+        for k in ("flops_global", "hbm_bytes_global", "collective_bytes_global", "chips"):
+            assert got[k] == want[k], (mode, k)
+        chips = got["chips"]
+        assert got["roofline_seconds"] == {
+            "compute": got["flops_global"] / (chips * mesh.PEAK_FLOPS_BF16),
+            "memory": got["hbm_bytes_global"] / (chips * mesh.HBM_BW),
+            "collective": got["collective_bytes_global"] / (chips * mesh.ICI_BW)}
+        assert got["dominant"] == max(got["roofline_seconds"], key=got["roofline_seconds"].get)
+
+
+def test_repro100m_train_step_bound():
+    """The bound chip_smoke.py's 3.lm_train reads: repro-100m, A = 2, batch
+    8 an agent, S = 256, over one card's peaks."""
+    _, tcfg, (n_total, n_active) = _counts("repro-100m")
+    assert (n_total, n_active) == (163_597_056, 138_431_232)
+    rec = tcm.analytic_costs(tcfg, mode="train", batch_global=16, seq_len=256, n_agents=2,
+                             data_shards=1, model_shards=1, n_matmul_params=n_active,
+                             n_total_params=n_total)
+    assert rec["chips"] == 2  # the reference's count: agents x shards
+    assert abs(rec["flops_global"] / mesh.PEAK_FLOPS_BF16 - 3.4986e-3) < 1e-7
+    assert abs(rec["hbm_bytes_global"] / mesh.HBM_BW - 6.5063e-3) < 1e-7

@@ -7,11 +7,12 @@ host value (the serving counts, SLO verdicts, snapshot provenance, and the
 dashboard's gossip and serving counters)."""
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
 import dataclasses  # noqa: E402
 import importlib.util  # noqa: E402
 import re  # noqa: E402
+import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
@@ -92,3 +93,28 @@ def test_torch_async_gossip_prints_the_reference_lines(capsys):
     sharded = next(x for x in got if x.startswith("Sharded windows"))
     assert sharded.startswith("Sharded windows (4 shards over 1 devices")
     assert sharded.endswith("bit-identical to the dense run: True.")
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for the port's many small ops: under the suite's
+    parallel workers, spinning thread pools slow them by 10-200x."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_torch_train_decentralized_lm_prints_the_reference_lines(monkeypatch, capsys, one_torch_thread):
+    """Both examples at the reduced repro-100m-cpu config, 2 rounds of one
+    row of 16 tokens an agent: the same lines; the model line whole (the
+    parameter count an agent, the agents, W)."""
+    argv = ["--rounds", "2", "--batch", "1", "--seq", "16"]
+    monkeypatch.setattr(sys, "argv", ["train_decentralized_lm"] + argv)
+    want = _lines(capsys, _module("train_decentralized_lm").main)
+    final = {}
+    got = _lines(capsys, lambda: final.update(nll=_module("torch_train_decentralized_lm").main(
+        argv + ["--device", "cpu"])))
+    assert [_template(x) for x in got] == [_template(x) for x in want]
+    assert got[0] == want[0] == "model repro-100m-cpu: 6,293,760 params/agent, 2 agents, W=complete"
+    assert 0 < final["nll"] < 12

@@ -155,10 +155,13 @@ def test_adam_scalar_step_equals_per_agent_step():
 
 
 def test_make_local_step_refuses_the_language_model_objective():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make_local_step(object(), adam(), exponential_decay(1e-3, 1.0), nll_fn=None)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    """The LM objective is ported (tests/test_torch_zoo_train.py): the step
+    needs a model config or an ``nll_fn``, and with an ``nll_fn`` the config
+    is not read, as in the reference."""
+    with pytest.raises(ValueError, match="config or an nll_fn"):
         make_local_step(None, adam(), exponential_decay(1e-3, 1.0))
+    assert callable(make_local_step(object(), adam(), exponential_decay(1e-3, 1.0),
+                                    nll_fn=lambda params, batch: None))
 
 
 def test_launch_package_imports_without_a_model_zoo():
@@ -170,7 +173,8 @@ def test_launch_package_imports_without_a_model_zoo():
                          check=True, cwd=ROOT, env={"PYTHONPATH": str(ROOT / "src")},
                          timeout=120)
     assert out.stdout.strip() == (
-        "['BayesTrainState', 'make_consensus_step', 'make_local_step'] []")
+        "['BayesTrainState', 'make_consensus_step', 'make_local_step', "
+        "'make_train_round_step'] []")
 
 
 # -- against the JAX package ------------------------------------------------------

@@ -15,9 +15,17 @@ The card against the CPU for a whole reduced model: f32 1e-4, bf16 0.25.
 The recurrent states a reduced RecurrentGemma or xLSTM wrote into its
 cache over a prefill and four decode steps, card against CPU: f32 1e-4
 (their logits, and the MoE configs', are held card against CPU by
-``chip_smoke.py``'s phase 3.lm_zoo_reduced).
+``chip_smoke.py``'s phase 3.lm_zoo_reduced).  One f32 training round
+(``launch.train``'s u > 1 form: eq. (6) on the kernel, then two local
+steps) of each served kind at ``reduced()`` size, card against CPU: by
+``chip_smoke.py``'s ``train_parity`` (1e-4, Adam's noise lanes within
+2 u lr, at most 1% of the lanes beyond 1e-4), and the round on the agents'
+tokens swapped must fail it.
 """
 import dataclasses
+import functools
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -76,7 +84,7 @@ def test_kernel_route_refuses_a_non_causal_pad_and_a_backward(dev):
     with pytest.raises(ValueError, match="causal"):
         att.kernel_attention(q, q, q, causal=False)
     qg = q.clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="item 10e"):
+    with pytest.raises(NotImplementedError, match="no backward"):
         att.kernel_attention(qg, q, q, causal=True).sum().backward()
 
 
@@ -163,3 +171,35 @@ def test_recurrent_states_card_against_the_cpu(dev, arch):
         assert got.keys() == want.keys()
         for name in want:
             torch.testing.assert_close(got[name].cpu(), want[name], atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["repro-100m", "olmoe-1b-7b", "recurrentgemma-9b",
+                                  "xlstm-1.3b"])
+def test_training_round_card_against_the_cpu(dev, arch):
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as cs
+
+    from repro_torch.data.pipeline import make_lm_batch_sampler
+    from repro_torch.optim import adam
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    g = torch.Generator().manual_seed(0)
+    state = steps.init_train_state(cfg, 2, adam(), g, device="cpu")
+    state.posterior.mean[1] += 1e-2 * torch.randn(state.posterior.mean.shape[1], generator=g)
+    sampler = make_lm_batch_sampler(cfg.vocab_size, 2, 32, n_agents=2, device="cpu")
+    batches = [sampler(g, i) for i in range(2)]
+    eps = [torch.randn(state.posterior.mean.shape, generator=g) for _ in range(2)]
+    dispatch.reset_launch_counts()
+    card, card_losses = cs.train_round(cfg, state, batches, eps, dev)
+    assert dispatch.launch_counts()["consensus_fused_network"] == 1
+    assert dispatch.launch_counts()["flash_attention"] == 0
+    cpu, cpu_losses = cs.train_round(cfg, state, batches, eps, torch.device("cpu"))
+    noise = functools.reduce(torch.logical_or,
+                             [cs.adam_noise_lanes(x, y) for x, y in zip(card, cpu)])
+    fields = cs.train_parity(card[-1], cpu[-1], noise, 2 * 2 * cs.TRAIN_LR)
+    assert not fields["failures"], fields
+    np.testing.assert_allclose(card_losses, cpu_losses, atol=1e-4, rtol=0)
+    swapped = [{k: v.flip(0) for k, v in batch.items()} for batch in batches]
+    wrong, _ = cs.train_round(cfg, state, swapped, eps, dev)
+    assert cs.train_parity(wrong[-1], cpu[-1], noise, 2 * 2 * cs.TRAIN_LR)["failures"]

@@ -298,3 +298,79 @@ def test_init_matches_the_reference_tree(kind):
         lam = np.exp(-4 * np.log1p(np.exp(mine["lam_raw"].astype(np.float64))))
         assert lam.min() >= 0.9 - 1e-6 and lam.max() <= 0.999 + 1e-6
         assert abs(lam.mean() - 0.9495) < 0.01
+
+
+# -- the xLSTM's whole model (ROADMAP C.5) ------------------------------------------
+
+XLSTM_DEEP = dict(n_layers=48, pattern=("mlstm",) * 7 + ("slstm",), dtype="float32")
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for the port's many small ops: under the suite's
+    parallel workers, spinning thread pools slow them by 10-200x."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _xlstm_outputs(fwd, params, toks):
+    """The whole model's logits over ``toks [B, S]`` and the decode of one
+    more token after a prefill of the first S - 1: ``[B, S + 1, V]``."""
+    full, prefill_decode = fwd(params, toks)
+    return np.concatenate([np.asarray(full), np.asarray(prefill_decode)], axis=1)
+
+
+def test_xlstm_whole_model_within_the_references_one_ulp_spread(one_torch_thread):
+    """The 48-layer xLSTM (the 7 mLSTM + 1 sLSTM pattern) at ``reduced()``
+    width, B = 2, S = 40, float32: the port's logits (a forward over S
+    tokens, and a decode after a prefill of S - 1) against the reference's
+    within twice the reference's own spread when every weight moves one ulp
+    (each up or down by a seeded draw), measured here (ROADMAP C.5 read
+    1.25e-3 at 48 layers: deep recurrences amplify a rounding).  Controls
+    that must fail it: another prompt, another seed's weights."""
+    jcfg = jget("xlstm-1.3b").reduced(**XLSTM_DEEP)
+    tcfg = tget("xlstm-1.3b").reduced(**XLSTM_DEEP)
+    b, s = 2, 40
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, jcfg.vocab_size, (b, s))
+    other = rng.integers(0, jcfg.vocab_size, (b, s))
+
+    from repro import models as jmodels
+
+    def jfwd(p, t):
+        full = jmodels.forward(p, jcfg, t)[0]
+        cache = jmodels.init_cache(jcfg, b, s, jnp.float32)
+        _, cache, _ = jmodels.forward(p, jcfg, t[:, :-1], cache=cache, logits_tail=1)
+        return full, jmodels.decode_step(p, jcfg, t[:, -1:], jnp.asarray(s - 1), cache)[0]
+
+    jfwd = jax.jit(jfwd)
+
+    def tfwd(p, t):
+        t = torch.from_numpy(t)
+        with torch.no_grad():
+            full = tm.forward(p, tcfg, t)[0]
+            cache = tm.init_cache(tcfg, b, s, torch.float32, device="cpu")
+            tm.forward(p, tcfg, t[:, :-1], cache=cache, logits_tail=1)
+            return full, tm.decode_step(p, tcfg, t[:, -1:], s - 1, cache)[0]
+
+    jp = jmodels.init_params(jcfg, jax.random.key(0))
+    want = _xlstm_outputs(jfwd, jp, jnp.asarray(toks))
+    nudge = np.random.default_rng(1)
+
+    def one_ulp(a):
+        a = np.asarray(a)
+        up = nudge.random(a.shape) < 0.5
+        return jnp.asarray(np.nextafter(a, np.where(up, np.inf, -np.inf).astype(a.dtype)))
+
+    spread = np.abs(_xlstm_outputs(jfwd, jax.tree.map(one_ulp, jp), jnp.asarray(toks))
+                    - want).max()
+    bound = 2 * spread
+    tp = tm.params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    err = np.abs(_xlstm_outputs(tfwd, tp, toks) - want).max()
+    assert 0 < spread < 1e-2 and err <= bound, (err, spread)
+    assert np.abs(_xlstm_outputs(tfwd, tp, other) - want).max() > bound
+    tp1 = tm.params_from_numpy(jax.tree.map(np.asarray, jmodels.init_params(
+        jcfg, jax.random.key(1))), device="cpu")
+    assert np.abs(_xlstm_outputs(tfwd, tp1, toks) - want).max() > bound
