@@ -162,11 +162,11 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    bit for bit; ``flash_attention`` (16 and 12 launches a prefill) at
    [4, 16, 4096, 128] causal and [4, 16, 4096, 256] window 2048 against
    its plain version (the 64-key drop as the control) and beside SDPA.
-   ``3.lm_zoo_reduced``: the four MoE and recurrent configs at
-   ``reduced()`` size (Phi-3.5-MoE runs only there), prefill and 4 decode
-   steps, card against CPU at f32 (``ZOO_F32_ATOL``) and bf16 (an MoE
-   config at capacity_factor E / k, the rows routed alike held), and the
-   card's ``moe_ffn`` twice, bit for bit.  ``3.lm_train``: LM training at
+   ``3.lm_zoo_reduced``: the four MoE and recurrent configs, Whisper-tiny
+   and Pixtral-12B at ``reduced()`` size (Phi-3.5-MoE runs only there),
+   prefill and 4 decode steps, card against CPU at f32 (``ZOO_F32_ATOL``)
+   and bf16 (an MoE config at capacity_factor E / k, the rows routed alike
+   held), and the card's ``moe_ffn`` twice, bit for bit.  ``3.lm_train``: LM training at
    repro-100m's full width (A = 2 on complete_w(2), Adam, batch 8 of S =
    256 Zipf tokens an agent, u = 4, lr 1e-3 decaying 0.99 a round,
    kl_scale 1e-4, bf16 compute): ``launch.train``'s ``main`` for 3 rounds
@@ -177,7 +177,33 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    ``analytic_costs``' bound; and one u = 2 round of repro-100m, OLMoE,
    RecurrentGemma and xLSTM at ``reduced()`` size and f32, card against CPU
    (``train_parity``), each with a control (the agents' tokens swapped) that
-   must fail;
+   must fail.  The enc-dec and VLM configs (``run_lm_new``, after
+   ``3.lm_train``): ``3.lm_whisper``, Whisper-tiny at full width and depth
+   (4 + 4 layers), A = 2 (seeds 0, 1), 8 clips an agent of 1,500 frames
+   (normal x 0.1) with prompts of 224 Zipf tokens into 256-slot caches, 32
+   decode steps each re-running the encoder (the reference's contract):
+   held with controls, the decode against the prefill of S + 1 (control: a
+   decode after half the prompt; the other row's prompt is read, since the
+   rows' inputs are alike at this init), agent 1 stacked against alone
+   (control: agent 0's weights), every encoder layer stacked against alone
+   (control: agent 0's block) and every decoder layer by ``layer_checks``
+   with its cross-attention; ``flash_attention`` 12 times a prefill and 4
+   a decode step, held against its plain version at the encoder's [16, 6,
+   1500, 64] (non-causal), the cross-attention's [16, 6, 224, 64] over
+   1,500 keys and the decoder's causal [16, 6, 224, 64], each beside SDPA;
+   the decode bound with and without the encoder re-run, and the encoder's
+   own time (``models.transformer.encode``) over the median decode step.
+   ``3.lm_whisper_train``: one round step and one u = 4 round of
+   Whisper-tiny at full width (A = 2 on complete_w(2), 8 clips of 1,500
+   frames and 224 tokens an agent, Adam, bf16 compute): finite losses, the
+   loss falling over 10 round steps on one batch, ``consensus_fused_network``
+   once a consensus, ``flash_attention`` never, a profile, peak memory.
+   ``3.lm_pixtral``: Pixtral-12B at full width and depth (40 layers, GQA
+   32 / 8, hd 128), A = 2 x 2 prompts of 256 patches (normal x 0.1) and
+   3,840 Zipf tokens (S = 4,096) into 4,128-slot caches, 32 decode steps,
+   starting with next to nothing allocated (printed): the whole-model and
+   per-layer checks with their controls, ``flash_attention`` 40 times a
+   prefill at [4, 32, 4096, 128];
 4. card vs CPU: one more synchronous round and one more gossip window from
    the same state with the same injected batches and noise, the card through
    the kernels, the CPU through the plain versions, and likewise one more
@@ -250,8 +276,10 @@ The last lines are the card's ``nvidia-smi`` name and power limit, one JSON
 line describing the kernels (``flash_attention_lm``: the kernel's launches
 on the model zoo's path and its time at the Qwen3-8B prefill's shape;
 ``consensus_fused_network_zoo``: eq. (6) on the zoo posterior;
-``flash_attention_olmoe`` / ``flash_attention_recurrentgemma``: its
-launches in those phases and its time at their prefills' shapes;
+``flash_attention_olmoe`` / ``flash_attention_recurrentgemma`` /
+``flash_attention_whisper_enc`` / ``_xattn`` / ``_dec`` /
+``flash_attention_pixtral``: its launches in those phases' first prefill
+and its time at their prefills' shapes;
 ``consensus_fused_network_train``: eq. (6) on the trained posterior, its
 launches in ``launch.train``'s 3 rounds), and ``{"ok": true, "device":
 {...}}``.
@@ -405,7 +433,8 @@ LM_F32_ATOL = 1e-4  # f32 logits, card (TF32 off) vs CPU: fp32 sums in another o
 LM_NEW = (("3.lm_olmoe", "olmoe-1b-7b", True),
           ("3.lm_recurrentgemma", "recurrentgemma-9b", True),
           ("3.lm_xlstm", "xlstm-1.3b", False))
-LM_REDUCED = ("olmoe-1b-7b", "phi3.5-moe-42b-a6.6b", "recurrentgemma-9b", "xlstm-1.3b")
+LM_REDUCED = ("olmoe-1b-7b", "phi3.5-moe-42b-a6.6b", "recurrentgemma-9b", "xlstm-1.3b",
+              "whisper-tiny", "pixtral-12b")
 LM_REDUCED_S, LM_REDUCED_DECODE = 64, 4
 ZOO_F32_ATOL = 1e-5  # reduced configs' f32 logits, card vs CPU
 # OLMoE's and RecurrentGemma's whole model at full width, bf16: decode vs the
@@ -427,6 +456,31 @@ WHOLE_BF16_ATOL, WHOLE_BF16_RMS = 0.3, 0.05
 # (a decode after the other row's prompt, at each kind's first and last
 # layer) read 0.27-3.3 and 0.17-0.93.
 LAYER_BF16_ATOL, LAYER_BF16_RMS = 0.25, 0.02
+# the enc-dec and VLM configs at full width (3.lm_whisper, 3.lm_pixtral):
+# Whisper-tiny, A = 2 agents x 8 clips of 1,500 frames with prompts of 224
+# Zipf tokens (half its 448-token text context) into 256-slot caches;
+# Pixtral-12B, A = 2 x 2 prompts of 256 patches + 3,840 Zipf tokens (S =
+# 4,096) into LM_CAP slots; 32 decode steps each; frames and patches
+# normal x 0.1 from a seed
+WHISPER_BATCH, WHISPER_TEXT, WHISPER_CAP = 8, 224, 256
+# Whisper-tiny's whole model at full width, bf16, as WHOLE_BF16_*: the
+# decode against the prefill of S + 1 and agent 1 stacked against alone
+# read 0.0234 / 0.0042 and 0 on the H100, so about twice that (to the next
+# bf16 place of |logits| < 4); the controls read 0.785 / 0.184 (half the
+# prompt) and 5.34 / 1.42 (agent 0's weights), 12x or more beyond.
+# Pixtral-12B keeps WHOLE_BF16_* (read 0.064 / 0.015; controls 4.84 / 1.16
+# and 5.80 / 1.41).
+ENCDEC_BF16_ATOL, ENCDEC_BF16_RMS = 0.0625, 0.01
+# The enc-dec controls: Whisper's decoder input is its token embedding (std
+# 0.02 at init) plus a sinusoid of amplitude 1, the same in every row, so
+# two rows' prompts (and clips) give nearly the same decode at random init
+# (measured on the CPU at full width: 0.036 / 0.0077 whole model, <= 0.014
+# rms ratio a layer).  The other row's prompt is read there, and the decode
+# after a prefill of only the prompt's first half (a cache that lost half
+# its keys; 0.14-0.25 rms ratio a layer) is the control that must fail.
+PIXTRAL_BATCH, PIXTRAL_TEXT = 2, 3_840
+FRONT_DECODE = 32
+FRONT_SCALE = 0.1
 # LM training (3.lm_train): repro-100m at full width and launch/train.py's
 # defaults: A = 2 agents on complete_w(2), Adam, batch 8 an agent of S = 256
 # Zipf tokens, u = 4 local steps a round, lr 1e-3 decaying 0.99 a round,
@@ -3215,16 +3269,50 @@ def lm_params(cfg, dev, n_agents, dtype):
     return stack(drawn)
 
 
-def lm_tokens(cfg, n, dev, seed=0):
+def lm_tokens(cfg, n, dev, seed=0, b=LM_BATCH):
     """``[A, B, n]`` Zipf tokens from the port's sampler (``n - 1`` tokens
     and their shift, rejoined)."""
     import torch
 
     from repro_torch.data.pipeline import make_lm_batch_sampler
 
-    batch = make_lm_batch_sampler(cfg.vocab_size, LM_BATCH, n - 1, n_agents=LM_AGENTS,
+    batch = make_lm_batch_sampler(cfg.vocab_size, b, n - 1, n_agents=LM_AGENTS,
                                   device=dev)(torch.Generator(device=dev).manual_seed(seed), 0)
     return torch.cat([batch["tokens"], batch["targets"][..., -1:]], dim=-1)
+
+
+def lm_front(cfg, b, dev, seed=3, a=LM_AGENTS):
+    """An enc-dec or VLM config's stub inputs for ``a`` agents x ``b`` rows,
+    normal x FRONT_SCALE from a seed, fp32: ``{"frames": [A, B, F, D]}``
+    or ``{"patches": [A, B, P, D]}`` (``{}`` for a text-only config)."""
+    import torch
+
+    n = (cfg.encoder_seq if cfg.is_encdec else
+         cfg.n_patches if cfg.frontend == "vision_stub" else 0)
+    if not n:
+        return {}
+    x = torch.randn((a, b, n, cfg.d_model), generator=torch.Generator(device=dev).manual_seed(
+        seed), device=dev) * FRONT_SCALE
+    return {"frames" if cfg.is_encdec else "patches": x}
+
+
+def lm_input(cfg, params, tokens, front):
+    """The first block's input ``[A, B, S, D]`` (bf16) as ``forward`` builds
+    it: the projected patches before the token embeddings, and for an
+    enc-dec config the sinusoid at positions 0..S-1."""
+    import torch
+
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.modules import embed, matmul
+
+    bf16 = torch.bfloat16
+    x = embed(params["embed"], tokens, bf16)
+    if "patches" in front:
+        x = torch.cat([matmul(front["patches"].to(bf16), params["patch_proj"]["w"].to(bf16)), x],
+                      dim=-2)
+    if cfg.is_encdec:
+        x = x + tr._sinusoidal(torch.arange(x.shape[-2], device=x.device), cfg.d_model).to(bf16)
+    return x
 
 
 def timed(fn):
@@ -3310,16 +3398,33 @@ def tree_bytes(tree):
     return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
 
 
+def encoder_flops(cfg, a, b):
+    """bf16 GEMM operations of an enc-dec config's encoder over ``a`` agents
+    x ``b`` clips of ``encoder_seq`` frames (every layer's projections and
+    MLP for every frame, non-causal attention over F^2 pairs), and of each
+    ``dec_attn`` layer's cross K/V projections of its output: the work a
+    prefill does once and the reference's decode step redoes every step."""
+    d, hd, h, kv, f = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.encoder_seq
+    if not cfg.is_encdec:
+        return 0
+    proj = 2 * d * (h + 2 * kv) * hd + 2 * h * hd * d
+    layer = a * b * f * (proj + 3 * 2 * d * cfg.d_ff) + 4 * hd * h * a * b * f * f
+    n_dec = (cfg.pattern * cfg.n_periods + cfg.tail).count("dec_attn")
+    return cfg.encoder_layers * layer + n_dec * a * b * f * 2 * d * 2 * kv * hd
+
+
 def prefill_flops(cfg, a, b, s, window=0):
     """Operations of one prefill of ``a`` agents x ``b`` prompts of ``s``
-    tokens: (bf16 GEMM operations, fp32 operations).  bf16: every layer's
-    projections for every token (for ``moe`` the router, and every expert
-    over its ``cap`` slots, as the dispatch computes them), attention over
-    the pairs the mask leaves (4 hd a pair and head), the last position's
-    logits.  fp32: the mLSTM's chunk products (the causal half of each
-    chunk's pairs, and the two [c, hd] x [hd, hd] products a chunk and
-    head) and the sLSTM's recurrent products; the gates' elementwise work
-    is not counted."""
+    positions (a VLM's patches included): (bf16 GEMM operations, fp32
+    operations).  bf16: every layer's projections for every position (for
+    ``moe`` the router, and every expert over its ``cap`` slots, as the
+    dispatch computes them), attention over the pairs the mask leaves (4 hd
+    a pair and head), for ``dec_attn`` also the cross-attention (its q and
+    output projections, and S x F pairs), the encoder (``encoder_flops``),
+    the patch projection, the last position's logits.  fp32: the mLSTM's
+    chunk products (the causal half of each chunk's pairs, and the two
+    [c, hd] x [hd, hd] products a chunk and head) and the sLSTM's recurrent
+    products; the gates' elementwise work is not counted."""
     from repro_torch.models.moe import _capacity
 
     d, hd, h, kv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
@@ -3328,7 +3433,7 @@ def prefill_flops(cfg, a, b, s, window=0):
     n_tok = a * b * s
     bf16 = f32 = 0
     for kind in cfg.pattern * cfg.n_periods + cfg.tail:
-        if kind in ("attn", "local_attn", "moe"):
+        if kind in ("attn", "local_attn", "moe", "dec_attn"):
             w = cfg.sliding_window if kind == "local_attn" else window
             bf16 += n_tok * proj + 4 * hd * h * a * b * attention_pairs(s, s, True, w)
             if kind == "moe":
@@ -3337,6 +3442,8 @@ def prefill_flops(cfg, a, b, s, window=0):
                     cfg.n_experts * cap
             else:
                 bf16 += n_tok * mlp
+            if kind == "dec_attn":
+                bf16 += n_tok * 2 * 2 * d * h * hd + 4 * hd * h * a * b * s * cfg.encoder_seq
         elif kind == "rglru":
             bf16 += n_tok * (5 * 2 * d * d + mlp)
         elif kind == "mlstm":
@@ -3350,10 +3457,13 @@ def prefill_flops(cfg, a, b, s, window=0):
         elif kind == "slstm":
             bf16 += n_tok * 5 * 2 * d * d
             f32 += n_tok * 2 * 4 * d * (d // cfg.n_heads)
-    return bf16 + a * b * 2 * d * cfg.padded_vocab, f32
+    if cfg.frontend == "vision_stub":
+        bf16 += a * b * cfg.n_patches * 2 * d * d
+    return bf16 + encoder_flops(cfg, a, b) + a * b * 2 * d * cfg.padded_vocab, f32
 
 
-def serving_reading(cfg, a, b, s, sizes, warm_ms, dec_ms, dec_wall):
+def serving_reading(cfg, a, b, s, sizes, warm_ms, dec_ms, dec_wall, cap=LM_CAP,
+                    encoder_bytes=0):
     """A served phase's prefill and decode times against their bounds.
     ``sizes``: (weight, embedding, KV cache, recurrent state) bytes.  The
     prefill: its operations (``prefill_flops``, bf16 at the bf16 peak, fp32
@@ -3362,7 +3472,12 @@ def serving_reading(cfg, a, b, s, sizes, warm_ms, dec_ms, dec_wall):
     multiplies all E blocks), the embedding only where it is tied (as the
     unembedding), the KV slots the median step finds filled (a local
     attention ring: all of it), and reads and writes every recurrent
-    state."""
+    state.  An enc-dec config's step re-runs the encoder over the frames
+    (the reference's contract): the bound with the re-run adds the frames'
+    bytes and takes the longer of those bytes and ``encoder_flops`` at the
+    bf16 peak; the bound without it (were the cross K/V cached) reads
+    neither the encoder's weights nor the cross K/V projections
+    (``encoder_bytes``) but each ``dec_attn`` layer's cached cross K/V."""
     import statistics
 
     weights, emb, kv, states = sizes
@@ -3373,10 +3488,23 @@ def serving_reading(cfg, a, b, s, sizes, warm_ms, dec_ms, dec_wall):
     t_w = weights / HBM_BYTES_PER_S * 1e3
     prefill_bound = max(t_bf16, t_f32, t_w)
     kv_read = kv if "local_attn" in cfg.pattern else \
-        (kv // LM_CAP) * min(LM_CAP, s + n_dec // 2 + 1)
+        (kv // cap) * min(cap, s + n_dec // 2 + 1)
     decode_bytes = weights - (0 if cfg.tie_embeddings else emb) + kv_read + 2 * states + \
         a * b * cfg.d_model * 2
+    out = {}
+    if cfg.is_encdec:
+        n_x = (cfg.pattern * cfg.n_periods + cfg.tail).count("dec_attn")
+        cross_kv = n_x * a * b * cfg.encoder_seq * 2 * cfg.n_kv_heads * cfg.hd * 2
+        no_rerun = decode_bytes - encoder_bytes + cross_kv
+        decode_bytes += a * b * cfg.encoder_seq * cfg.d_model * 4  # the fp32 frames
+        rerun_ops = encoder_flops(cfg, a, b)
+        out = {"decode_bytes_without_rerun": no_rerun,
+               "decode_bound_ms_without_rerun": no_rerun / HBM_BYTES_PER_S * 1e3,
+               "decode_rerun_flop": rerun_ops}
     decode_bound = decode_bytes / HBM_BYTES_PER_S * 1e3
+    if cfg.is_encdec:
+        decode_bound = max(decode_bound, out["decode_rerun_flop"] / BF16_FLOP_PER_S * 1e3)
+        out["decode_bound_share_without_rerun"] = out["decode_bound_ms_without_rerun"] / step_ms
     return dict(prefill_warm_ms=warm_ms, prefill_bf16_flop=bf16_ops, prefill_f32_flop=f32_ops,
                 prefill_bound_ms=prefill_bound,
                 prefill_bound_by=("bf16 operations" if prefill_bound == t_bf16 else
@@ -3386,16 +3514,18 @@ def serving_reading(cfg, a, b, s, sizes, warm_ms, dec_ms, dec_wall):
                 decode_ms=dec_ms, decode_ms_median=step_ms, decode_ms_min=min(dec_ms),
                 decode_ms_max=max(dec_ms), decode_wall_ms_per_step=dec_wall * 1e3 / n_dec,
                 tokens_per_s=a * b / step_ms * 1e3, decode_bytes=decode_bytes,
-                decode_bound_ms=decode_bound, decode_bound_share=decode_bound / step_ms)
+                decode_bound_ms=decode_bound, decode_bound_share=decode_bound / step_ms, **out)
 
 
-def attention_kernel_row(tag, name, cfg, q, k, v, window, launches):
+def attention_kernel_row(tag, name, cfg, q, k, v, window, launches, causal=True):
     """The model's attention route on a prefill's own q/k/v (``[A, B, S,
-    H, hd]``, bf16, K/V repeated to every head), causal with ``window``:
-    it must run the tensor-core kernel, and its output is held against the
-    plain version a row at a time (``ATT_BF16_REL``); the control, the
-    plain version dropping ``ATT_CONTROL_DROP`` of the earliest keys, must
-    fail that bound.  Then ``flash_attention`` on the same input in its own
+    H, hd]`` and ``[A, B, Sk, H, hd]``, bf16, K/V repeated to every head):
+    causal with ``window`` (``kernel_attention``), or non-causal over Sk
+    keys (``kernel_attention_full``: an encoder, a cross-attention).  It
+    must run the tensor-core kernel, and its output is held against the
+    plain version a row at a time (``ATT_BF16_REL``); the control, the plain
+    version dropping ``ATT_CONTROL_DROP`` of the earliest keys, must fail
+    that bound.  Then ``flash_attention`` on the same input in its own
     layout, timed beside the plain version and SDPA (with the mask under a
     window), and its bound: 4 hd operations an unmasked pair and head at
     the bf16 peak, or q, k, v read and the output written.  Returns (the
@@ -3407,43 +3537,52 @@ def attention_kernel_row(tag, name, cfg, q, k, v, window, launches):
     from repro_torch.models import attention as att
 
     a, b, s, h, hd = q.shape
-    route = functools.partial(att.kernel_attention, q, k, v, causal=True, window=window)
+    sk = k.shape[2]
+    route = (functools.partial(att.kernel_attention, q, k, v, causal=True, window=window)
+             if causal else functools.partial(att.kernel_attention_full, q, k, v))
     route_kernels = flash_names(route)
     if route_kernels != ["flash_attention_tc_kernel"]:
         raise AssertionError(f"{tag}: bf16 attention ran {route_kernels}")
 
     def heads_first(t):  # [A, B, S, H, hd] -> [A B, H, S, hd]: the kernel's own layout
-        return t.reshape(a * b, s, h, hd).transpose(1, 2).contiguous()
+        return t.reshape(a * b, t.shape[2], h, hd).transpose(1, 2).contiguous()
 
     got = heads_first(route())
     qh, kh, vh = (heads_first(t) for t in (q, k, v))
 
     def plain():  # a row at a time: one row's fp32 scores
         return torch.cat([fa.flash_attention_plain(qh[i:i + 1], kh[i:i + 1], vh[i:i + 1],
-                                                   causal=True, window=window)
+                                                   causal=causal, window=window)
                           for i in range(a * b)])
 
     want = plain()
     err = attention_scaled_errors(f"{tag} attention, window {window}", got, want)
-    dropped = fa.flash_attention_plain(qh[:1], kh[:1], vh[:1], causal=True,
-                                       window=(window or s) - ATT_CONTROL_DROP)
+    if causal:
+        dropped = fa.flash_attention_plain(qh[:1], kh[:1], vh[:1], causal=True,
+                                           window=(window or s) - ATT_CONTROL_DROP)
+    else:
+        drop = min(ATT_CONTROL_DROP, sk // 2)
+        dropped = fa.flash_attention_plain(qh[:1], kh[:1, :, drop:], vh[:1, :, drop:],
+                                           causal=False)
     ctrl = attention_scaled("control", dropped, want[:1])
     if ctrl[3] <= 1.0:
         raise AssertionError(f"{tag}: the attention bound passes a plain version that drops "
                              f"{ATT_CONTROL_DROP} keys: {ctrl}")
     del got, want, dropped
-    kern = functools.partial(fa.flash_attention, qh, kh, vh, causal=True, window=window)
-    mask = fa.attention_mask(s, s, True, window, q.device) if window else None
+    kern = functools.partial(fa.flash_attention, qh, kh, vh, causal=causal, window=window,
+                             block_q=s, block_k=sk)
+    mask = fa.attention_mask(s, sk, True, window, q.device) if window else None
     sdpa = functools.partial(F.scaled_dot_product_attention, qh, kh, vh, attn_mask=mask,
-                             is_causal=not window)
-    ops = 4 * hd * attention_pairs(s, s, True, window) * a * b * h
-    nbytes = qh.element_size() * 4 * qh.numel()  # q, k, v in; out
+                             is_causal=causal and not window)
+    ops = 4 * hd * attention_pairs(s, sk, causal, window) * a * b * h
+    nbytes = qh.element_size() * 2 * (qh.numel() + kh.numel())  # q, k, v in; out
     t_ops, t_bytes = ops / BF16_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    reading = {"shape": list(qh.shape), "window": window, "route_kernels": route_kernels,
+    reading = {"shape": list(qh.shape), "sk": sk, "causal": causal, "window": window,
+               "route_kernels": route_kernels,
                **dict(zip(("max_abs_err", "max_err_over_row_rms", "plain_rms",
                            "share_of_bound"), err)),
                "drop_control_share_of_bound": ctrl[3], "ms": cuda_ms(kern),
-               "plain_ms": cuda_ms(plain, reps=3), "library_ms": cuda_ms(sdpa),
+               "plain_ms": event_ms(plain), "library_ms": cuda_ms(sdpa),
                "bound_ms": max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes", "ops": ops,
                "bytes": nbytes}
@@ -3811,7 +3950,8 @@ def held_rows(what, got, want, agree):
 def cache_bytes_split(cfg, cache):
     """(KV cache bytes, recurrent state bytes) of a model cache."""
     parts = list(cache["stacks"].items()) + list(zip(cfg.tail, cache.get("tail", [])))
-    kv = sum(tree_bytes(c) for kind, c in parts if kind in ("attn", "local_attn", "moe"))
+    kv = sum(tree_bytes(c) for kind, c in parts
+             if kind in ("attn", "local_attn", "moe", "dec_attn"))
     return kv, tree_bytes(cache) - kv
 
 
@@ -3833,23 +3973,26 @@ def model_layers(cfg, params):
     return out
 
 
-def layer_checks(tag, cfg, chk, params, toks, s, dev):
+def layer_checks(tag, cfg, chk, params, x, s, dev, enc_out=None):
     """Every layer's block on the card, each on the same input: the
-    no-cache stacked run over S + 1 tokens layer by layer (a teacher-forced
-    stream, so no layer's difference reaches the next).  At each layer:
-    the decode of token S after a prefill of S into the block's own cache
-    against the no-cache run's row S (an ``moe`` layer at ``chk``'s
-    capacity factor, nothing dropped, its rows routed apart not held), and
-    agent 1's block alone on agent 1's input against the stacked run; both
-    on the block's contribution (``LAYER_BF16_*``).  The control, at the
-    first and the last layer of each kind: the decode after a prefill of
-    the other row's prompt, which must fail the decode check.  Returns the
-    largest readings and the controls."""
+    no-cache stacked run over S + 1 positions layer by layer from ``x [A,
+    B, S + 1, D]`` (``lm_input``: a teacher-forced stream, so no layer's
+    difference reaches the next).  At each layer: the decode of position S
+    after a prefill of S into the block's own cache against the no-cache
+    run's row S (an ``moe`` layer at ``chk``'s capacity factor, nothing
+    dropped, its rows routed apart not held; a ``dec_attn`` layer
+    cross-attends ``enc_out [A, B, F, D]`` in both, so its contribution
+    includes the cross-attention), and agent 1's block alone on agent 1's
+    input against the stacked run; both on the block's contribution
+    (``LAYER_BF16_*``).  The control, at the first and the last layer of
+    each kind: the decode after a prefill of the other row's prompt, which
+    must fail the decode check (``dec_attn``: after a prefill of the first
+    half of the prompt, the other row's read: the enc-dec controls' comment).
+    Returns the largest readings and the controls."""
     import torch
 
     from repro_torch.core.tree import tree_map
     from repro_torch.models import transformer as tr
-    from repro_torch.models.modules import embed
 
     def check(what, got, want, x, agree=None):  # on got - x and want - x, in fp32
         g, w = got.float() - x.float(), want.float() - x.float()
@@ -3857,11 +4000,10 @@ def layer_checks(tag, cfg, chk, params, toks, s, dev):
             g, w = held_rows(what, g, w, agree)[:2]
         return lm_check(what, g, w, LAYER_BF16_ATOL, LAYER_BF16_RMS)
 
-    a, b = toks.shape[:2]
-    x = embed(params["embed"], toks[..., :s + 1], torch.bfloat16)
+    a, b = x.shape[:2]
     pos = torch.arange(s + 1, device=dev)
     worst = {"decode": (0.0, 0.0), "alone": (0.0, 0.0)}
-    controls, rows_apart = {}, 0
+    controls, readings, rows_apart = {}, {}, 0
     layers = model_layers(cfg, params)
     first, last = {}, {}
     for layer, kind, _ in layers:
@@ -3870,14 +4012,15 @@ def layer_checks(tag, cfg, chk, params, toks, s, dev):
     for layer, kind, lp in layers:
         c = chk if kind == "moe" else cfg
         with RoutingRecord() as r_full:
-            full = tr.block_apply(kind, lp, x, c, positions=pos)[0]
+            full = tr.block_apply(kind, lp, x, c, positions=pos, enc_out=enc_out)[0]
 
         def decode_after(prompt_rows):  # (the decode's output, its routing)
             cache = tr.block_cache_init(kind, c, b, s + 2, torch.bfloat16, dev, lead=(a,))
-            tr.block_apply(kind, lp, prompt_rows, c, positions=pos[:s], cache=cache)
+            tr.block_apply(kind, lp, prompt_rows, c, positions=pos[:prompt_rows.shape[-2]],
+                           cache=cache, enc_out=enc_out)
             with RoutingRecord() as routes:
                 out = tr.block_apply(kind, lp, x[..., s:, :], c, positions=pos[s:],
-                                     cache=cache)[0]
+                                     cache=cache, enc_out=enc_out)[0]
             return out, routes.calls
 
         got, r_dec = decode_after(x[..., :s, :])
@@ -3887,12 +4030,18 @@ def layer_checks(tag, cfg, chk, params, toks, s, dev):
         want, x_s = full[..., s:, :], x[..., s:, :]
         dec = check(f"{tag} layer {layer} ({kind}) decode vs no-cache S+1", got, want, x_s,
                     agree)
-        alone = tr.block_apply(kind, tree_map(lambda t: t[1], lp), x[1], c, positions=pos)[0]
+        alone = tr.block_apply(kind, tree_map(lambda t: t[1], lp), x[1], c, positions=pos,
+                               enc_out=None if enc_out is None else enc_out[1])[0]
         one = check(f"{tag} layer {layer} ({kind}) agent 1 alone vs stacked", alone, full[1],
                     x[1])
         if layer in (first[kind], last[kind]):
             wrong = decode_after(x[..., :s, :].flip(-3))[0]  # the other row's prompt
             what = f"{tag} layer {layer} ({kind}) decode after the other row's prompt (control)"
+            if kind == "dec_attn":  # read: the rows' inputs are alike (the enc-dec controls)
+                readings[f"{kind} layer {layer}, the other row's prompt"] = lm_diff(
+                    what, wrong.float() - x_s.float(), want.float() - x_s.float())
+                wrong = decode_after(x[..., :s // 2, :])[0]
+                what = f"{tag} layer {layer} ({kind}) decode after half the prompt (control)"
             controls[f"{kind} layer {layer}"] = lm_control(
                 what, wrong.float() - x_s.float(), want.float() - x_s.float(),
                 LAYER_BF16_ATOL, LAYER_BF16_RMS)
@@ -3903,116 +4052,194 @@ def layer_checks(tag, cfg, chk, params, toks, s, dev):
     return {"layers": len(layers), "bounds": (LAYER_BF16_ATOL, LAYER_BF16_RMS),
             "decode_max_abs_err_rel_rms": worst["decode"],
             "agent1_alone_max_abs_err_rel_rms": worst["alone"],
-            "moe_rows_routed_apart": rows_apart, "controls": controls}
+            "moe_rows_routed_apart": rows_apart, "controls": controls,
+            "controls_read": readings}
 
 
-def run_lm_new(dev, smi, tag, arch, held):
-    """Phases 3.lm_olmoe, 3.lm_recurrentgemma and 3.lm_xlstm: ``arch`` at
-    full width and depth for A = 2 agents (agent i from seed i), B = 2
-    prompts of S = 4096 Zipf tokens each, bf16 weights: a prefill into a
-    4,128-slot cache (first, and warm; each into a fresh cache, since a
-    recurrent cache holds the initial state), 8 decode steps, a profile of
-    a step (and of a prefill, with attention).  The whole model: the
-    decode of token S after a prefill of S against the prefill of S + 1
+def encoder_checks(tag, cfg, params, frames, dev):
+    """An enc-dec config's encoder on the card, layer by layer from the
+    stacked input ``frames + sinusoid`` (bf16): agent 1's block alone on
+    agent 1's input against the stacked run, on the block's contribution
+    (``LAYER_BF16_*``); the control, at the first and the last layer, agent
+    0's block on agent 1's input, must fail it.  Returns (the stacked
+    encoder's output after ``enc_norm``, its input and the readings)."""
+    import torch
+
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.modules import rmsnorm
+
+    fpos = torch.arange(frames.shape[-2], device=dev)
+    ex0 = ex = frames.to(torch.bfloat16) + \
+        tr._sinusoidal(fpos, cfg.d_model).to(torch.bfloat16)
+    worst, controls = (0.0, 0.0), {}
+    for layer in range(cfg.encoder_layers):
+        lp = tree_map(lambda t: t[:, layer, 0], params["enc_stack"])
+        full = tr.block_apply("enc_attn", lp, ex, cfg, positions=fpos)[0]
+        alone = tr.block_apply("enc_attn", tree_map(lambda t: t[1], lp), ex[1], cfg,
+                               positions=fpos)[0]
+        one = lm_check(f"{tag} encoder layer {layer} agent 1 alone vs stacked",
+                       alone.float() - ex[1].float(), full[1].float() - ex[1].float(),
+                       LAYER_BF16_ATOL, LAYER_BF16_RMS)
+        worst = tuple(map(max, worst, one))
+        if layer in (0, cfg.encoder_layers - 1):
+            wrong = tr.block_apply("enc_attn", tree_map(lambda t: t[0], lp), ex[1], cfg,
+                                   positions=fpos)[0]
+            controls[f"encoder layer {layer}"] = lm_control(
+                f"{tag} encoder layer {layer}, agent 0's block on agent 1's input (control)",
+                wrong.float() - ex[1].float(), full[1].float() - ex[1].float(),
+                LAYER_BF16_ATOL, LAYER_BF16_RMS)
+        ex = full
+        del alone, full
+    enc_out = rmsnorm(params["enc_norm"], ex, cfg.norm_eps)
+    return enc_out, ex0, {"layers": cfg.encoder_layers,
+                          "agent1_alone_max_abs_err_rel_rms": worst, "controls": controls}
+
+
+def run_lm_new(dev, smi, tag, arch, held, b=LM_BATCH, n_text=LM_S, cap=LM_CAP,
+               n_dec=LM_SHORT_DECODE):
+    """Phases 3.lm_olmoe, 3.lm_recurrentgemma, 3.lm_xlstm, 3.lm_whisper and
+    3.lm_pixtral: ``arch`` at full width and depth for A = 2 agents (agent
+    i from seed i), ``b`` prompts of ``n_text`` Zipf tokens each (S
+    positions: a VLM's patches first), bf16 weights; an enc-dec config's
+    frames and a VLM's patches from ``lm_front``, carried per agent: a
+    prefill into a ``cap``-slot cache (first, and warm; each into a fresh
+    cache, since a recurrent cache holds the initial state), ``n_dec``
+    decode steps (Whisper's re-run its encoder over the frames), a profile
+    of a step (and of a prefill, with attention).  The whole model: the
+    decode of position S after a prefill of S against the prefill of S + 1
     (an MoE config at capacity_factor E / k, so cap = T and nothing drops;
     the (agent, row) pairs whose last token took other experts are not
     compared), and agent 1's prefill against its own weights alone.  With
-    ``held``, both within ``WHOLE_BF16_*``, and the controls must fail
+    ``held``, both within ``WHOLE_BF16_*`` (an enc-dec config:
+    ``ENCDEC_BF16_*``), and the controls must fail
     them: the decode after a prefill of the other row's prompt, and agent
     0's weights on agent 1's prompt.  Without (the xLSTM), both are read:
     at random init one bf16 rounding taken the other way grows through its
     48 layers to O(1) in the logits (3.6 stacked against alone, measured
-    on the H100).  Every model is held layer by layer (``layer_checks``).
-    The MoE's layer 0 twice on the prompt, bit for bit; the peak memory,
-    the prefill's and the decode step's bounds (``serving_reading``).
-    With attention layers: ``flash_attention`` launched once a layer a
-    prefill, and the first attention layer's q/k/v through
-    ``attention_kernel_row``.  Returns that kernel line row, with the first
-    prefill's launches (None without attention)."""
+    on the H100).  Every model is held layer by layer (``layer_checks``; an
+    enc-dec config's encoder by ``encoder_checks`` first, whose output the
+    decoder layers cross-attend).  The MoE's layer 0 twice on the prompt,
+    bit for bit; the peak memory, the prefill's and the decode step's
+    bounds (``serving_reading``).  With attention layers: ``flash_attention``
+    launched once a layer a prefill (three times a Whisper layer pair: the
+    encoder's, the decoder's and the cross-attention), and the first
+    attention layer's q/k/v through ``attention_kernel_row`` (Whisper: its
+    encoder, cross and decoder attention).  Returns those kernel line rows,
+    each with its launches in the first prefill."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.core.tree import tree_map
-    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import dispatch, ops
     from repro_torch.launch import steps
     from repro_torch.models import attention as att
     from repro_torch.models import forward
     from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as tr
     from repro_torch.models.modules import embed, rmsnorm
 
     cfg = get_config(arch)
-    a, b, s, n_dec = LM_AGENTS, LM_BATCH, LM_S, LM_SHORT_DECODE
+    a = LM_AGENTS
     kinds = cfg.pattern * cfg.n_periods + cfg.tail
-    n_attn = sum(kind in ("attn", "local_attn", "moe") for kind in kinds)
+    n_attn = sum(kind in ("attn", "local_attn", "moe", "dec_attn") for kind in kinds) + \
+        kinds.count("dec_attn") + cfg.encoder_layers
     is_moe = "moe" in cfg.pattern
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    allocated_at_start = torch.cuda.memory_allocated(dev)
     t0 = time.perf_counter()
     params = lm_params(cfg, dev, a, torch.bfloat16)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     weight_bytes, emb_bytes = tree_bytes(params), tree_bytes(params["embed"])
-    toks = lm_tokens(cfg, s + 1 + n_dec, dev)  # [A, B, S + 9]
-    prompt = {"tokens": toks[..., :s]}
-    prefill, decode = steps.make_prefill_step(cfg), steps.make_decode_step(cfg)
+    encoder_bytes = tree_bytes([params.get("enc_stack"), params.get("enc_norm")] + [
+        params["stacks"]["dec_attn"]["xattn"][w] for w in ("wk", "wv")
+        if "dec_attn" in params["stacks"]])
+    toks = lm_tokens(cfg, n_text + 1 + n_dec, dev, b=b)  # [A, B, n_text + 1 + n_dec]
+    front = lm_front(cfg, b, dev)
+    frames = front.get("frames")
+    s = n_text + (cfg.n_patches if "patches" in front else 0)  # the prompt's positions
+    prompt = {"tokens": toks[..., :n_text], **front}
+    prefill = steps.make_prefill_step(cfg)
+    decode = functools.partial(steps.make_decode_step(cfg), frames=frames)
 
     def fresh(c=cfg):
-        return steps.make_agent_cache(c, a, b, LM_CAP, device=dev)
+        return steps.make_agent_cache(c, a, b, cap, device=dev)
 
     cache, warm_cache = fresh(), fresh()
     kv_bytes, state_bytes = cache_bytes_split(cfg, cache)
     torch.cuda.synchronize()
 
+    calls = []  # (causal, q shape, k shape) of each ops.attention call in the first prefill
+    attention_op = ops.attention
+
+    def recorded(q, k, v, **kw):
+        calls.append((kw.get("causal", True), tuple(q.shape), tuple(k.shape)))
+        return attention_op(q, k, v, **kw)
+
+    ops.attention = recorded
     dispatch.reset_launch_counts()
-    (logits, cache), first_ms = timed(lambda: prefill(params, prompt, cache))
-    first_counts = dispatch.launch_counts()
+    try:
+        (logits, cache), first_ms = timed(lambda: prefill(params, prompt, cache))
+        first_counts = dispatch.launch_counts()
+    finally:
+        ops.attention = attention_op
     (logits_warm, warm_cache), warm_ms = timed(lambda: prefill(params, prompt, warm_cache))
     del cache
-    dec, _, dec_ms, dec_wall, warm_cache = lm_decode(decode, params, toks[..., s:s + 1], s,
-                                                     n_dec, warm_cache)
+    dec, _, dec_ms, dec_wall, warm_cache = lm_decode(decode, params,
+                                                     toks[..., n_text:n_text + 1], s, n_dec,
+                                                     warm_cache)
     profiles = {"decode": lm_profile(lambda: decode(params, dec[-1].argmax(-1), s + n_dec,
                                                     warm_cache))}
     del warm_cache
 
-    # the whole model: decode of token S after a prefill of S against the
+    # the whole model: decode of position S after a prefill of S against the
     # prefill of S + 1, and agent 1's prefill against its own weights alone
     chk = (dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k) if is_moe
            else cfg)
     prefill_c, decode_c = steps.make_prefill_step(chk), steps.make_decode_step(chk)
 
-    def decode_after(rows):  # token S's logits after a prefill of ``rows``, its routing
+    def decode_after(rows, fr=front):  # position S's logits after a prefill of ``rows``
         c = fresh(chk)
-        prefill_c(params, {"tokens": rows}, c)
+        prefill_c(params, {"tokens": rows, **fr}, c)
         with RoutingRecord() as routes:
-            out = decode_c(params, toks[..., s:s + 1], s, c)[0]
+            out = decode_c(params, toks[..., n_text:n_text + 1], s, c, fr.get("frames"))[0]
         return out, routes.calls
 
+    def agent(i, j):  # agent i's weights on agent j's prompt, alone
+        return forward(tree_map(lambda x: x[i], params), cfg, prompt["tokens"][j],
+                       logits_tail=1, **{k: v[j] for k, v in front.items()})[0]
+
     with RoutingRecord() as r_full:
-        full, _ = prefill_c(params, {"tokens": toks[..., :s + 1]}, fresh(chk))
+        full, _ = prefill_c(params, {"tokens": toks[..., :n_text + 1], **front}, fresh(chk))
     got, r_dec = decode_after(prompt["tokens"])
     agree = (rows_routed_alike(r_dec, r_full.calls, b, s + 1) if is_moe
              else torch.ones((a, b), dtype=torch.bool))
     del r_full, r_dec
     what = f"{tag} decode vs prefill S+1"
     held_got, held_full, n_held = held_rows(what, got, full, agree)
-    solo = forward(tree_map(lambda x: x[1], params), cfg, prompt["tokens"][1], logits_tail=1)[0]
-    whole = {"held": held, "bounds": (WHOLE_BF16_ATOL, WHOLE_BF16_RMS) if held else None,
+    solo = agent(1, 1)
+    bounds = (ENCDEC_BF16_ATOL, ENCDEC_BF16_RMS) if cfg.is_encdec else (WHOLE_BF16_ATOL,
+                                                                         WHOLE_BF16_RMS)
+    whole = {"held": held, "bounds": bounds if held else None,
              "rows_routed_alike": n_held, "rows": a * b}
     if held:
-        whole["decode_vs_prefill"] = lm_check(what, held_got, held_full, WHOLE_BF16_ATOL,
-                                              WHOLE_BF16_RMS)
+        whole["decode_vs_prefill"] = lm_check(what, held_got, held_full, *bounds)
         whole["agent1_stacked_vs_alone"] = lm_check(f"{tag} agent 1 stacked vs alone",
-                                                    logits_warm[1], solo, WHOLE_BF16_ATOL,
-                                                    WHOLE_BF16_RMS)
-        wrong = decode_after(prompt["tokens"].flip(1))[0]  # the other row's prompt
-        whole["decode_control"] = lm_control(
-            f"{tag} decode after the other row's prompt (control)",
-            held_rows(what, wrong, full, agree)[0], held_full, WHOLE_BF16_ATOL, WHOLE_BF16_RMS)
-        other = forward(tree_map(lambda x: x[0], params), cfg, prompt["tokens"][1],
-                        logits_tail=1)[0]
+                                                    logits_warm[1], solo, *bounds)
+        # the other row's prompt (and frames or patches)
+        wrong = decode_after(prompt["tokens"].flip(1), {k: v.flip(1) for k, v in front.items()})[0]
+        ctrl = f"{tag} decode after the other row's prompt (control)"
+        if cfg.is_encdec:  # read: the rows' inputs are alike (the enc-dec controls)
+            whole["decode_other_row_read"] = lm_diff(ctrl, wrong, full)
+            wrong = decode_after(prompt["tokens"][..., :n_text // 2])[0]
+            ctrl = f"{tag} decode after half the prompt (control)"
+        whole["decode_control"] = lm_control(ctrl, held_rows(what, wrong, full, agree)[0],
+                                             held_full, *bounds)
+        other = agent(0, 1)
         whole["agent_control"] = lm_control(f"{tag} agent 1 vs agent 0's weights (control)",
-                                            other, logits_warm[1], WHOLE_BF16_ATOL,
-                                            WHOLE_BF16_RMS)
+                                            other, logits_warm[1], *bounds)
         del wrong, other
     else:
         whole["decode_vs_prefill"] = lm_diff(what, held_got, held_full)
@@ -4022,17 +4249,28 @@ def run_lm_new(dev, smi, tag, arch, held):
     del solo, got, full, held_got, held_full
     torch.cuda.synchronize()
     counts = dispatch.launch_counts()
-    # first, warm, S + 1, S, a one-agent forward; held: the control's prefill and forward
-    n_prefills = 7 if held else 5
-    if first_counts["flash_attention"] != n_attn or \
-            counts["flash_attention"] != n_prefills * n_attn:
+    # prefills: first, warm, S + 1, S, a one-agent forward; held: the control's
+    # prefill and forward.  Decode steps (an encoder's launches each): the
+    # timed ones, the profiled one, the one after S; held: the control's
+    n_prefills, n_steps = (7, n_dec + 3) if held else (5, n_dec + 2)
+    if held and cfg.is_encdec:  # the half-prompt control's prefill and step
+        n_prefills, n_steps = n_prefills + 1, n_steps + 1
+    want = n_prefills * n_attn + n_steps * cfg.encoder_layers
+    if first_counts["flash_attention"] != n_attn or len(calls) != n_attn or \
+            counts["flash_attention"] != want:
         raise AssertionError(f"{tag}: flash_attention launched {first_counts} in the first "
-                             f"prefill, {counts} in all; expected {n_attn} a prefill")
+                             f"prefill ({len(calls)} calls), {counts} in all; expected "
+                             f"{n_attn} a prefill, {want} in all")
     for name, out in [("prefill", logits), ("prefill_warm", logits_warm)] + \
             [("decode", x) for x in dec]:
         if not bool(torch.isfinite(out).all()) or out.shape != (a, b, 1, cfg.padded_vocab):
             raise AssertionError(f"{tag} {name}: {tuple(out.shape)} or not finite")
-    layers = layer_checks(tag, cfg, chk, params, toks, s, dev)
+    enc_out, encoder, encoder_ms = None, None, None
+    if frames is not None:  # the share of a decode step its encoder re-run takes
+        encoder_ms = event_ms(lambda: tr.encode(params, cfg, frames))
+        enc_out, ex0, encoder = encoder_checks(tag, cfg, params, frames, dev)
+    x = lm_input(cfg, params, toks[..., :n_text + 1], front)
+    layers = layer_checks(tag, cfg, chk, params, x, s, dev, enc_out)
     peak = torch.cuda.max_memory_allocated(dev)
 
     moe_same_bits = None
@@ -4049,43 +4287,72 @@ def run_lm_new(dev, smi, tag, arch, held):
     if n_attn:
         profiles["prefill"] = lm_profile(lambda: prefill(params, prompt, fresh()))
 
-    row, attention = None, {}
+    rows, attention = [], {}
     if n_attn:  # the first attention layer's q/k/v, after the model is freed
-        kind = "moe" if is_moe else "local_attn"
+        kind = next(k for k in ("moe", "dec_attn", "attn", "local_attn") if k in cfg.pattern)
         window = cfg.sliding_window if kind == "local_attn" else 0
+        rope = kind != "dec_attn"
+        pos = torch.arange(s, device=dev)
         layer = tree_map(lambda x: x[:, 0, 0], params["stacks"][kind])
-        h = rmsnorm(layer["norm1"], embed(params["embed"], prompt["tokens"], torch.bfloat16),
-                    cfg.norm_eps)
-        q, k, v = att.attention_qkv(layer["attn"], h, cfg, torch.arange(s, device=dev))
-        k, v = att._repeat_kv(k, cfg.n_heads), att._repeat_kv(v, cfg.n_heads)
-        del params, h, layer
+        x = x[..., :s, :]
+        h = rmsnorm(layer["norm1"], x, cfg.norm_eps)
+        qkv = {"": att.attention_qkv(layer["attn"], h, cfg, pos, use_rope=rope) + (True,)}
+        if kind == "dec_attn":  # the encoder's layer 0, and the cross-attention
+            enc0 = tree_map(lambda t: t[:, 0, 0], params["enc_stack"])
+            he = rmsnorm(enc0["norm1"], ex0, cfg.norm_eps)
+            qkv = {"_enc": att.attention_qkv(enc0["attn"], he, cfg, None, use_rope=False) +
+                   (False,)}
+            x1 = x + att.attention_block(layer["attn"], h, cfg, positions=pos,
+                                         use_rope=False)[0]
+            hx = rmsnorm(layer["norm_x"], x1, cfg.norm_eps)
+            qkv["_xattn"] = att.attention_qkv(layer["xattn"], hx, cfg, pos, cross_x=enc_out,
+                                              use_rope=False) + (False,)
+            qkv["_dec"] = att.attention_qkv(layer["attn"], h, cfg, pos, use_rope=False) + (True,)
+            del enc0, he, x1, hx, ex0, enc_out
+        del params, h, layer, x
         torch.cuda.empty_cache()
-        attention, row = attention_kernel_row(tag, "flash_attention_" + arch.split("-")[0], cfg,
-                                              q, k, v, window, first_counts["flash_attention"])
-        del q, k, v
+        for suffix, (q, k, v, causal) in qkv.items():
+            k, v = att._repeat_kv(k, cfg.n_heads), att._repeat_kv(v, cfg.n_heads)
+            launches = sum(c == (causal, (a * b, cfg.n_heads, q.shape[2], cfg.hd),
+                                 (a * b, cfg.n_heads, k.shape[2], cfg.hd)) for c in calls)
+            attention[suffix or "attn"], row = attention_kernel_row(
+                tag + suffix, "flash_attention_" + arch.split("-")[0] + suffix, cfg, q, k, v,
+                window, launches, causal)
+            rows.append(row)
+            del q, k, v
+        if sum(row["launches"] for row in rows) != (n_attn if kind == "dec_attn"
+                                                    else first_counts["flash_attention"]):
+            raise AssertionError(f"{tag}: the rows' launches {[r['launches'] for r in rows]} "
+                                 f"do not split the prefill's {n_attn}")
+        del qkv
     else:
         del params
     torch.cuda.empty_cache()
 
-    phase(tag, nvidia_smi=smi, agents=a, batch_per_agent=b, prompt=s, capacity=LM_CAP,
+    phase(tag, nvidia_smi=smi, agents=a, batch_per_agent=b, prompt=s, text=n_text,
+          capacity=cap, memory_allocated_at_start=allocated_at_start,
           n_params_per_agent=weight_bytes // (2 * a), weight_bytes=weight_bytes,
           kv_cache_bytes=kv_bytes, recurrent_state_bytes=state_bytes, init_s=init_s,
           prefill_first_ms=first_ms,
           **serving_reading(cfg, a, b, s, (weight_bytes, emb_bytes, kv_bytes, state_bytes),
-                            warm_ms, dec_ms, dec_wall),
+                            warm_ms, dec_ms, dec_wall, cap, encoder_bytes),
           logits_rms=logits_rms, check_capacity_factor=chk.capacity_factor,
-          whole_model=whole, layers=layers, moe_two_calls_same_bits=moe_same_bits,
+          encoder_ms=encoder_ms, encoder_share_of_decode_step=encoder_ms and
+          encoder_ms / sorted(dec_ms)[len(dec_ms) // 2],
+          whole_model=whole, encoder=encoder, layers=layers,
+          moe_two_calls_same_bits=moe_same_bits,
           flash_attention_per_prefill=first_counts["flash_attention"],
           flash_attention=attention, max_memory_allocated=peak, launches=counts,
           profiles=profiles)
-    return row
+    return rows
 
 
 def run_lm_reduced(dev, smi):
     """Phase 3.lm_zoo_reduced: OLMoE-1B-7B, Phi-3.5-MoE (whose full width,
-    41.9 B parameters, does not fit one card), RecurrentGemma-9B and
-    xLSTM-1.3B at ``reduced()`` size, A = 2 agents (seeds 0 and 1), B = 2
-    prompts of 64 tokens: a prefill and 4 decode steps on the card against
+    41.9 B parameters, does not fit one card), RecurrentGemma-9B,
+    xLSTM-1.3B, Whisper-tiny (16 frames) and Pixtral-12B (16 patches) at
+    ``reduced()`` size, A = 2 agents (seeds 0 and 1), B = 2 prompts of 64
+    tokens: a prefill and 4 decode steps on the card against
     the same steps on the CPU (the card's greedy tokens forced), at f32
     (ZOO_F32_ATOL) and bf16 (LM_BF16_ATOL / LM_BF16_RMS).  An MoE config at
     bf16 runs at capacity_factor E / k (nothing drops, so a token routed
@@ -4111,6 +4378,8 @@ def run_lm_reduced(dev, smi):
         f32 = tree_map(lambda *xs: torch.stack(xs), *drawn)
         toks = torch.randint(0, base.vocab_size, (a, b, s + n_dec),
                              generator=torch.Generator().manual_seed(2))
+        front = lm_front(base, b, cpu)
+        start = s + (base.n_patches if "patches" in front else 0)  # the first decode position
         for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
             cfg = dataclasses.replace(base, dtype=str(dt).removeprefix("torch."))
             is_moe = "moe" in cfg.pattern
@@ -4119,16 +4388,17 @@ def run_lm_reduced(dev, smi):
             runs = {}
             for device in (dev, cpu):
                 params = tree_map(lambda x: x.to(device=device, dtype=dt), f32)
-                cache = steps.make_agent_cache(cfg, a, b, s + n_dec, dtype=dt, device=device)
+                fr = {k: v.to(device) for k, v in front.items()}
+                cache = steps.make_agent_cache(cfg, a, b, start + n_dec, dtype=dt, device=device)
                 with RoutingRecord() as routes:
                     lg, cache = steps.make_prefill_step(cfg)(
-                        params, {"tokens": toks[..., :s].to(device)}, cache)
+                        params, {"tokens": toks[..., :s].to(device), **fr}, cache)
                     logits = [lg]
                     for i in range(n_dec):
                         tok = (logits[-1].argmax(-1) if device == dev
                                else runs[dev][2][..., i:i + 1])
-                        step_lg, cache = steps.make_decode_step(cfg)(params, tok.to(device),
-                                                                     s + i, cache)
+                        step_lg, cache = steps.make_decode_step(cfg)(
+                            params, tok.to(device), start + i, cache, fr.get("frames"))
                         logits.append(step_lg)
                 forced = torch.cat([x.argmax(-1).cpu() for x in logits[:-1]], dim=-1)
                 runs[device] = (logits, routes.calls, forced)
@@ -4401,6 +4671,99 @@ def run_lm_train(dev, smi):
     return row
 
 
+def run_lm_whisper_train(dev, smi):
+    """Phase 3.lm_whisper_train: Whisper-tiny trained at full width (P =
+    61,153,536 an agent, bf16 compute, f32 posterior and Adam state), A = 2
+    on complete_w(2), WHISPER_BATCH clips an agent of 1,500 frames (normal
+    x 0.1) and WHISPER_TEXT Zipf tokens, Adam at TRAIN_LR decaying
+    TRAIN_LR_DECAY a round, kl_scale TRAIN_KL: one round step (u = 1), one
+    u = 4 round (``make_consensus_step`` and 4 ``make_local_step`` steps),
+    each timed (CUDA events; wall on the host clock around a synchronised
+    call); a profile of a round step (device ms, kernels, busy share); 10
+    round steps on one batch (the loss must fall); ``consensus_fused_network``
+    once a consensus, ``flash_attention`` never (training differentiates
+    ``chunked_attention``); every loss finite; the peak memory."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.graphs import complete_w
+    from repro_torch.data.pipeline import make_lm_batch_sampler
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import steps
+    from repro_torch.optim import adam
+    from repro_torch.optim.schedules import exponential_decay
+
+    cfg = get_config("whisper-tiny")
+    a, b, s, u = TRAIN_AGENTS, WHISPER_BATCH, WHISPER_TEXT, TRAIN_U
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    W = torch.as_tensor(complete_w(a), dtype=torch.float32, device=dev)
+    opt = adam()
+    sched = exponential_decay(TRAIN_LR, TRAIN_LR_DECAY ** (1.0 / u))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = steps.init_train_state(cfg, a, opt, gen, device=dev)
+    p = state.posterior.n_params()
+    sampler = make_lm_batch_sampler(cfg.vocab_size, b, s, n_agents=a, device=dev)
+
+    def batch(r):
+        return {**sampler(gen, r), **lm_front(cfg, b, dev, seed=100 + r)}
+
+    round_step = steps.make_train_round_step(cfg, W, opt=opt, lr_schedule=sched,
+                                             kl_scale=TRAIN_KL, remat=False)
+    local_step = steps.make_local_step(cfg, opt, sched, kl_scale=TRAIN_KL, remat=False)
+    consensus = steps.make_consensus_step(cfg, W)
+
+    def timed_wall(fn):  # (result, device ms, wall ms) of one synchronised call
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out, ms = timed(fn)
+        return out, ms, (time.perf_counter() - t) * 1e3
+
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    bt = batch(0)
+    (state, first), round_ms, round_wall = timed_wall(lambda: round_step(state, bt,
+                                                                         generator=gen))
+    losses = [float(first["loss"])]
+    prior, c_ms, c_wall = timed_wall(lambda: consensus(state.posterior))
+    state = steps.BayesTrainState(posterior=prior, opt_state=state.opt_state, step=state.step)
+    locals_ = []
+    for i in range(u):
+        bt = batch(1 + i)
+        (state, loss), ms, wall = timed_wall(
+            lambda st=state, bt=bt: local_step(st, prior, bt, generator=gen))
+        locals_.append({"device_ms": ms, "wall_ms": wall, "loss": float(loss)})
+    del prior
+    bt = batch(99)
+    fixed, st = [], state
+    for _ in range(TRAIN_FIXED_STEPS):  # one batch: the loss must fall
+        st, metrics = round_step(st, bt, generator=gen)
+        fixed.append(float(metrics["loss"]))
+    del st
+    torch.cuda.synchronize()
+    counts = dispatch.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses += [x["loss"] for x in locals_]
+    if (counts["consensus_fused_network"] != 2 + TRAIN_FIXED_STEPS
+            or counts["flash_attention"] != 0 or not all(map(math.isfinite, losses + fixed))):
+        raise AssertionError(f"3.lm_whisper_train: losses {losses}, launches {counts}")
+    if not fixed[-1] < fixed[0]:
+        raise AssertionError(f"3.lm_whisper_train: 10 steps on one batch, losses {fixed}")
+    profile = lm_profile(lambda: round_step(state, bt, generator=gen))
+    del state
+    torch.cuda.empty_cache()
+    phase("3.lm_whisper_train", nvidia_smi=smi, agents=a, batch_per_agent=b, text=s,
+          frames=cfg.encoder_seq, local_steps=u, n_params_per_agent=p,
+          round_step={"device_ms": round_ms, "wall_ms": round_wall, "loss": losses[0],
+                      "nll": first["nll"].tolist(), "kl": first["kl"].tolist()},
+          round_u4={"consensus_device_ms": c_ms, "consensus_wall_ms": c_wall,
+                    "local_steps": locals_,
+                    "device_ms": c_ms + sum(x["device_ms"] for x in locals_),
+                    "wall_ms": c_wall + sum(x["wall_ms"] for x in locals_)},
+          fixed_batch_losses=fixed, launches=counts, profile=profile,
+          busy=profile["device_ms"] / round_ms, max_memory_allocated=peak)
+
+
 def main() -> int:
     import torch
 
@@ -4454,9 +4817,14 @@ def main() -> int:
     run_obs_gossip(dev, smi)
     lm_row = run_lm_qwen3(dev, smi)
     zoo_row = run_lm_repro100m(dev, smi)
-    new_rows = [run_lm_new(dev, smi, *new) for new in LM_NEW]
+    new_rows = [row for new in LM_NEW for row in run_lm_new(dev, smi, *new)]
     run_lm_reduced(dev, smi)
     train_row = run_lm_train(dev, smi)
+    new_rows += run_lm_new(dev, smi, "3.lm_whisper", "whisper-tiny", True, WHISPER_BATCH,
+                           WHISPER_TEXT, WHISPER_CAP, FRONT_DECODE)
+    run_lm_whisper_train(dev, smi)
+    new_rows += run_lm_new(dev, smi, "3.lm_pixtral", "pixtral-12b", True, PIXTRAL_BATCH,
+                           PIXTRAL_TEXT, LM_CAP, FRONT_DECODE)
     card_vs_cpu("4.parity", session, fig4_spec())
     card_vs_cpu("4.launch_parity", l_session, launch_spec())
     card_vs_cpu("4.gossip_parity", g_session, gossip_spec())
@@ -4491,8 +4859,7 @@ def main() -> int:
         "consensus_fused_shard": sh_counts["consensus_fused_shard"],
         "consensus_shard_encode": sh_counts["consensus_shard_encode"],
     }
-    rows = timings(dev, launches, errs) + [lm_row, zoo_row] + [r for r in new_rows if r] + [
-        train_row]
+    rows = timings(dev, launches, errs) + [lm_row, zoo_row] + new_rows + [train_row]
     profile_round("6.profile", session)
     profile_round("6.gossip_profile", g_session)
     profile_round("6.delayed_profile", d_session)

@@ -124,7 +124,9 @@ def make_train_round_step(cfg, W, opt: Optimizer | None = None,
     ``bayesian=False`` is the deterministic baseline (decentralized
     FedAvg): the NLL at the posterior mean, KL = 0 and a zero gradient in
     rho, so from equal rho eq. (6) averages the means with W's weights.
-    ``batch``: ``{"tokens", "targets"}`` ``[A, B, S]``; ``eps [A, P]``.
+    ``batch``: ``{"tokens", "targets"}`` ``[A, B, S]`` (and ``"frames"`` /
+    ``"patches"`` ``[A, B, F or P, D]`` for an enc-dec or VLM config; a
+    VLM's targets may cover the patches); ``eps [A, P]``.
     ``posterior_shardings`` is the reference's sharding tree; the port's
     ``AgentMesh`` has one axis, which the ring takes."""
     from repro_torch.optim import adam
@@ -278,9 +280,10 @@ def serve_params(posterior, dtype=torch.bfloat16) -> PyTree:
 
 
 def make_prefill_step(cfg, window_override: int | None = None):
-    """``(params [A, ...], batch {"tokens": [A, B, S]}, cache [A, ...]) ->
-    (next-token logits [A, B, 1, V], cache)``; the cache is written in
-    place."""
+    """``(params [A, ...], batch {"tokens": [A, B, S][, "frames": [A, B, F,
+    D], "patches": [A, B, P, D]]}, cache [A, ...]) -> (next-token logits
+    [A, B, 1, V], cache)``; the cache is written in place (a VLM's slots
+    hold the patches first)."""
     from repro_torch.models import forward
 
     def step_fn(params: PyTree, batch: dict, cache: PyTree):
@@ -293,9 +296,11 @@ def make_prefill_step(cfg, window_override: int | None = None):
 
 
 def make_decode_step(cfg, window_override: int | None = None):
-    """``(params [A, ...], token [A, B, 1], position, cache) -> (logits
-    [A, B, 1, V], cache)``; ``position`` is one absolute position for every
-    agent (an int or a 0-d tensor)."""
+    """``(params [A, ...], token [A, B, 1], position, cache, frames=None) ->
+    (logits [A, B, 1, V], cache)``; ``position`` is one absolute position for
+    every agent (an int or a 0-d tensor), counting a VLM's patches; an
+    enc-dec config takes each agent's ``frames [A, B, F, D]`` and re-runs its
+    encoder over them."""
     from repro_torch.models import decode_step
 
     def step_fn(params: PyTree, token: torch.Tensor, position, cache: PyTree, frames=None):

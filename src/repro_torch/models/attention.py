@@ -1,31 +1,40 @@
-"""GQA attention with RoPE, optional qk-norm, sliding windows and KV caches
-(port of ``repro.models.attention``).
+"""GQA attention with RoPE, optional qk-norm, sliding windows, KV caches and
+cross-attention (port of ``repro.models.attention``).
 
-Prefill and the no-cache forward run attention on the hand-written
-``flash_attention`` kernels through ``kernels.ops.attention``
-(``kernel_attention``): on the card the tensor-core kernel for bf16/f16 and
-the SIMT kernel for f32, on the CPU their plain version.  The reference
-calls its pure-JAX ``chunked_attention`` there; its docstring names the
-Pallas kernel as the same contract.  ``kernel_attention`` moves the
-``[B, S, H, hd]`` layout to the kernel's contiguous ``[B, H, S, hd]``, pads
-S > 512 at the end to a multiple of 512 (the kernel's tile check), and
-drops the padded rows: under a causal mask every pad key lies after every
-real query, so it changes no real row; a non-causal pad is refused.
+Routes, by what the call has (the reference runs its pure-JAX
+``chunked_attention`` on every one; its docstring names the Pallas kernel
+as the same contract):
 
-Training.  The reference trains through its plain ``chunked_attention``
-(``nll_loss`` -> ``forward`` never reaches the Pallas kernel, which has no
-backward).  So does the port: where autograd records the no-cache forward
-(a loss being differentiated), ``attention_block`` takes
-``chunked_attention``, whose plain PyTorch ops autograd differentiates.
-The kernel is launched through raw pointers, so its route is an
-``autograd.Function`` whose backward raises: a kernel forward recorded
-under autograd would otherwise give attention no gradient.
-
-Decode (S = 1 over the cache) needs ``q_offset``, ``k_valid`` and
-``k_positions``, which the kernel does not take: it stays the plain
-``chunked_attention`` in PyTorch, as in the reference, outside any kernel
-(over the unrepeated KV heads, in one chunk).  A decode-attention kernel is
-not a port item (the TPU side has none).
+* Prefill into a cache (S > 1) and the causal no-cache forward: the
+  hand-written ``flash_attention`` kernels through ``kernels.ops.attention``
+  (``kernel_attention``): on the card the tensor-core kernel for bf16/f16
+  and the SIMT kernel for f32, on the CPU their plain version.
+  ``kernel_attention`` moves the ``[B, S, H, hd]`` layout to the kernel's
+  contiguous ``[B, H, S, hd]``, pads S > 512 at the end to a multiple of
+  512 (the kernel's tile check), and drops the padded rows: under a causal
+  mask every pad key lies after every real query, so it changes no real
+  row; a non-causal pad is refused.
+* The non-causal no-cache forward of S > 1 queries (an encoder's
+  self-attention, cross-attention over the encoder's output, Sq and Sk
+  free): ``kernel_attention_full``, the same kernels with ``block_q = Sq``
+  and ``block_k = Sk``, so the TPU-style divisibility check passes any
+  lengths and nothing is padded.  The CUDA kernels tile by their own
+  ``TC_TILES`` and mask a ragged Sk tail themselves.
+* Decode (S = 1): self-attention over the cache needs ``q_offset``,
+  ``k_valid`` and ``k_positions``, which the kernel does not take, and a
+  decode step's cross-attention has one query row a head: both stay the
+  plain ``chunked_attention`` in PyTorch, as in the reference, outside any
+  kernel (over the unrepeated KV heads, in one chunk).  A decode-attention
+  kernel is not a port item (the TPU side has none).
+* Training.  The reference trains through its plain ``chunked_attention``
+  (``nll_loss`` -> ``forward`` never reaches the Pallas kernel, which has
+  no backward).  So does the port: where autograd records the no-cache
+  forward (a loss being differentiated), ``attention_block`` takes
+  ``chunked_attention`` for every kind, whose plain PyTorch ops autograd
+  differentiates.  The kernel is launched through raw pointers, so its
+  route is an ``autograd.Function`` whose backward raises: a kernel
+  forward recorded under autograd would otherwise give attention no
+  gradient.
 
 Caches hold ``[*A, B, capacity, kv, hd]`` (a ring buffer when capacity <
 context) with absolute positions ``[*A, B, capacity]`` (-1 = empty), or
@@ -158,9 +167,9 @@ def _padded_len(s: int) -> int:
     return -(-s // KERNEL_BLOCK) * KERNEL_BLOCK
 
 
-def _kernel_attention(q, k, v, causal, window):
+def _kernel_attention(q, k, v, causal, window, full):
     lead, (s, h, hd) = tuple(q.shape[:-3]), tuple(q.shape[-3:])
-    pad = _padded_len(s) - s
+    pad = 0 if full else _padded_len(s) - s
     if pad and not causal:
         raise ValueError(f"kernel_attention: S = {s} needs a pad to {s + pad}, which only a "
                          "causal mask leaves out of the real rows")
@@ -169,15 +178,16 @@ def _kernel_attention(q, k, v, causal, window):
         t = _fold(t, 3).transpose(1, 2)
         return F.pad(t, (0, 0, 0, pad)) if pad else t.contiguous()
 
+    blocks = dict(block_q=s, block_k=k.shape[-3]) if full else {}
     out = ops.attention(heads_first(q), heads_first(k), heads_first(v), causal=causal,
-                        window=window)
+                        window=window, **blocks)
     return out[:, :, :s].transpose(1, 2).reshape(lead + (s, h, hd))
 
 
 class _KernelAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        return _kernel_attention(q, k, v, causal, window)
+    def forward(ctx, q, k, v, causal, window, full):
+        return _kernel_attention(q, k, v, causal, window, full)
 
     @staticmethod
     def backward(ctx, *grads):
@@ -191,7 +201,15 @@ def kernel_attention(q, k, v, *, causal: bool, window: int = 0):
     """Attention of ``q [*B, S, H, hd]`` over ``k, v [*B, S, H, hd]``
     (queries and keys at positions 0..S-1) on ``flash_attention``; returns
     ``[*B, S, H, hd]`` in ``q.dtype``."""
-    return _KernelAttention.apply(q, k, v, bool(causal), int(window))
+    return _KernelAttention.apply(q, k, v, bool(causal), int(window), False)
+
+
+def kernel_attention_full(q, k, v):
+    """Non-causal attention of ``q [*B, Sq, H, hd]`` over ``k, v [*B, Sk,
+    H, hd]`` (every query sees every key; Sq and Sk free) on
+    ``flash_attention``, unpadded; returns ``[*B, Sq, H, hd]`` in
+    ``q.dtype``."""
+    return _KernelAttention.apply(q, k, v, False, 0, True)
 
 
 def init_kv_cache(cfg, batch: int, capacity: int, dtype=torch.bfloat16, device=None, lead=()):
@@ -287,34 +305,41 @@ def _prefill_cache(cache, k, v, positions):
                     tail_pos.to(pos.dtype).expand(pos.shape[:-1] + (cap,)).contiguous())
 
 
-def attention_qkv(params, x, cfg, positions):
-    """q ``[..., S, H, hd]`` and k, v ``[..., S, kv, hd]`` of ``x [..., S, D]``
-    after the qk-norm and RoPE."""
+def attention_qkv(params, x, cfg, positions, cross_x=None, use_rope: bool = True):
+    """q ``[..., S, H, hd]`` of ``x [..., S, D]`` and k, v ``[..., Sk, kv,
+    hd]`` of ``cross_x`` (``x`` without it) after the qk-norm, and RoPE at
+    ``positions`` unless ``use_rope`` is off or ``cross_x`` is given."""
     hd, dt = cfg.hd, x.dtype
+    kv_src = x if cross_x is None else cross_x
     q = _split_heads(matmul(x, params["wq"].to(dt)), cfg.n_heads, hd)
-    k = _split_heads(matmul(x, params["wk"].to(dt)), cfg.n_kv_heads, hd)
-    v = _split_heads(matmul(x, params["wv"].to(dt)), cfg.n_kv_heads, hd)
+    k = _split_heads(matmul(kv_src, params["wk"].to(dt)), cfg.n_kv_heads, hd)
+    v = _split_heads(matmul(kv_src, params["wv"].to(dt)), cfg.n_kv_heads, hd)
     if "q_norm" in params:
         q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
-    return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
+    if use_rope and cross_x is None:
+        q, k = rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta)
+    return q, k, v
 
 
 def attention_block(params, x, cfg, *, causal: bool = True, window: int = 0, positions=None,
-                    cache: dict | None = None):
+                    cache: dict | None = None, cross_x=None, use_rope: bool = True):
     """``x [*A, B, S, D]`` -> (y ``[*A, B, S, D]``, the cache or None).
+    ``cross_x [*A, B, Sk, D]``: attend over it (cross-attention: no RoPE,
+    no mask, no cache) instead of over ``x``.  ``use_rope=False``: no
+    rotary embedding (the enc-dec kinds).
 
-    Three branches: prefill into a cache (S > 1: write the cache, attend
-    over the fresh k/v on the kernel), decode (S = 1: append to the cache,
-    attend over it with ``chunked_attention``), and no cache (the kernel;
-    ``chunked_attention`` over the unrepeated KV heads where autograd
-    records the forward, as the reference trains).
-    Cross-attention and the rope-free kinds come with the enc-dec slice
-    (ROADMAP queue A item 10d)."""
+    Branches (the module docstring's routes): decode (a cache and S = 1:
+    append to the cache, attend over it with ``chunked_attention``); no
+    cache where autograd records the forward (``chunked_attention``); no
+    cache, non-causal (``kernel_attention_full``; a decode step's one query
+    row, ``chunked_attention`` in one chunk); else prefill into a cache or
+    the causal no-cache forward (``kernel_attention``)."""
     s = x.shape[-2]
     if positions is None:
         positions = torch.arange(s, device=x.device)
-    q, k, v = attention_qkv(params, x, cfg, positions)
+    q, k, v = attention_qkv(params, x, cfg, positions, cross_x, use_rope)
+    causal = causal and cross_x is None
 
     if cache is not None and s == 1:
         # one query row a head: the whole cache is one chunk (chunking saves no
@@ -328,6 +353,12 @@ def attention_block(params, x, cfg, *, causal: bool = True, window: int = 0, pos
     elif cache is None and torch.is_grad_enabled() and (
             q.requires_grad or k.requires_grad or v.requires_grad):
         out = chunked_attention(q, k, v, causal=causal, window=window)
+    elif cache is None and not causal:
+        if s == 1:
+            out = chunked_attention(q, k, v, causal=False, chunk_size=k.shape[-3])
+        else:
+            out = kernel_attention_full(q, _repeat_kv(k, cfg.n_heads),
+                                        _repeat_kv(v, cfg.n_heads))
     else:
         if cache is not None:
             _prefill_cache(cache, k, v, positions)

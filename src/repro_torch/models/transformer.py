@@ -1,6 +1,7 @@
 """Composable transformer assembly (port of ``repro.models.transformer``:
-the decoder block kinds ``attn``, ``local_attn``, ``moe``, ``rglru``,
-``mlstm`` and ``slstm``).
+the block kinds ``attn``, ``local_attn``, ``moe``, ``rglru``, ``mlstm``,
+``slstm``, ``enc_attn`` and ``dec_attn``, and the ``audio_stub`` /
+``vision_stub`` frontends).
 
 An architecture is ``n_periods`` repetitions of ``cfg.pattern`` (+ a tail
 remainder).  Per-kind parameter stacks carry leaves ``[n_periods, c_kind,
@@ -19,9 +20,14 @@ attention folds A into its batch (so each kernel launches once for every
 agent), and the MoE dispatch batches over A with each agent's own
 capacity.  A tree without it is one agent's.
 
-The kinds ``enc_attn`` and ``dec_attn`` and the ``audio_stub`` /
-``vision_stub`` frontends raise ``NotImplementedError`` naming the ROADMAP
-item that brings them.
+Encoder-decoder (Whisper): ``enc_stack`` leaves ``[encoder_layers, 1,
+...]`` run as ``encoder_layers`` periods of one ``enc_attn`` block
+(non-causal, no RoPE) over ``frames [*A, B, F, D]`` plus a sinusoid, then
+``enc_norm``; each ``dec_attn`` block adds causal self-attention without
+RoPE over its KV cache and cross-attention over that encoder output.  A
+decode step runs the whole encoder again, as the reference's does.  The
+vision stub (Pixtral) prepends ``patches [*A, B, P, D] @ patch_proj.w`` to
+the token embeddings; positions count the patches.
 """
 from __future__ import annotations
 
@@ -57,31 +63,7 @@ from repro_torch.models.xlstm import (
 
 PyTree = Any
 
-ATTN_KINDS = ("attn", "local_attn", "moe")
-RECURRENT_KINDS = ("rglru", "mlstm", "slstm")
-LATER = {  # what the port does not have yet -> the ROADMAP item that brings it
-    "enc_attn": "the enc-dec slice (ROADMAP queue A item 10d)",
-    "dec_attn": "the enc-dec slice (ROADMAP queue A item 10d)",
-    "audio_stub": "the enc-dec slice (ROADMAP queue A item 10d)",
-    "vision_stub": "the vision-stub slice (ROADMAP queue A item 10d)",
-}
-
-
-def _unported(what: str):
-    if what not in LATER:
-        raise ValueError(f"unknown block kind {what!r}")
-    raise NotImplementedError(f"{what!r} is not in the port yet: it comes with {LATER[what]}")
-
-
-def check_supported(cfg) -> None:
-    """Raise unless every block kind and the frontend of ``cfg`` are ported."""
-    for kind in cfg.pattern:
-        if kind not in ATTN_KINDS + RECURRENT_KINDS:
-            _unported(kind)
-    if cfg.frontend != "none":
-        _unported(cfg.frontend)
-    if cfg.is_encdec:
-        _unported("enc_attn")
+ATTN_KINDS = ("attn", "local_attn", "moe", "enc_attn", "dec_attn")
 
 
 # ---------------------------------------------------------------------------
@@ -101,6 +83,9 @@ def block_init(generator, kind: str, cfg, *, dtype=torch.float32, device=None, l
             p["moe"] = moe_lib.moe_init(generator, cfg, **kw)
         else:
             p["mlp"] = swiglu_init(generator, cfg.d_model, cfg.d_ff, **kw)
+        if kind == "dec_attn":
+            p["norm_x"] = rmsnorm_init(cfg.d_model, **kw)
+            p["xattn"] = attn_init(generator, cfg, cross=True, **kw)
         return p
     if kind == "mlstm":
         return mlstm_init(generator, cfg, **kw)
@@ -112,14 +97,14 @@ def block_init(generator, kind: str, cfg, *, dtype=torch.float32, device=None, l
             "norm2": rmsnorm_init(cfg.d_model, **kw),
             "mlp": swiglu_init(generator, cfg.d_model, cfg.d_ff, **kw),
         }
-    _unported(kind)
+    raise ValueError(f"unknown block kind {kind!r}")
 
 
 def block_cache_init(kind: str, cfg, batch: int, capacity: int, dtype=torch.bfloat16,
                      device=None, lead=()):
     """Decode-time cache for one layer of ``kind`` (``lead`` axes first).
     ``dtype`` is the KV cache's; recurrent states are fp32."""
-    if kind in ("attn", "moe"):
+    if kind in ("attn", "moe", "dec_attn"):
         return init_kv_cache(cfg, batch, capacity, dtype, device, lead)
     if kind == "local_attn":
         cap = min(capacity, cfg.sliding_window or capacity)
@@ -130,23 +115,30 @@ def block_cache_init(kind: str, cfg, batch: int, capacity: int, dtype=torch.bflo
         return slstm_state_init(cfg, batch, device=device, lead=lead)
     if kind == "rglru":
         return rglru_state_init(cfg, batch, device=device, lead=lead)
-    _unported(kind)
+    raise ValueError(kind)
 
 
-def block_apply(kind: str, params, x, cfg, *, positions, cache=None,
+def block_apply(kind: str, params, x, cfg, *, positions, cache=None, enc_out=None,
                 window_override: int | None = None):
     """Returns (x', cache, aux_loss): the cache written in place (a
     recurrent kind without one returns its new state), aux the router's
-    loss ``[*A]`` for ``moe`` and a 0-d zero otherwise."""
+    loss ``[*A]`` for ``moe`` and a 0-d zero otherwise.  ``enc_out``: the
+    encoder's output ``[*A, B, F, D]``, which ``dec_attn`` cross-attends."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind in ATTN_KINDS:
         window = cfg.sliding_window if kind == "local_attn" else 0
-        if window_override is not None and kind != "moe":
+        if window_override is not None and kind in ("attn", "local_attn"):
             window = window_override
         h = rmsnorm(params["norm1"], x, cfg.norm_eps)
-        y, cache = attention_block(params["attn"], h, cfg, causal=True, window=window,
-                                   positions=positions, cache=cache)
+        y, cache = attention_block(params["attn"], h, cfg, causal=kind != "enc_attn",
+                                   window=window, positions=positions, cache=cache,
+                                   use_rope=kind not in ("enc_attn", "dec_attn"))
         x = x + y
+        if kind == "dec_attn":
+            hx = rmsnorm(params["norm_x"], x, cfg.norm_eps)
+            yx, _ = attention_block(params["xattn"], hx, cfg, causal=False, positions=positions,
+                                    cross_x=enc_out, use_rope=False)
+            x = x + yx
         h2 = rmsnorm(params["norm2"], x, cfg.norm_eps)
         if kind == "moe":
             y2, aux = moe_lib.moe_ffn(params["moe"], h2, cfg)
@@ -162,7 +154,7 @@ def block_apply(kind: str, params, x, cfg, *, positions, cache=None,
         h2 = rmsnorm(params["norm2"], y, cfg.norm_eps)
         y = y + swiglu(params["mlp"], h2, x.dtype)
     else:
-        _unported(kind)
+        raise ValueError(kind)
     if cache is None:
         return y, new_state, aux
     for name, value in new_state.items():  # the layer loop keeps the views it handed out
@@ -184,7 +176,6 @@ def init_params(cfg, generator: torch.Generator | None = None, *, device=None,
     from repro_torch.kernels.dispatch import resolve_device
 
     cfg.validate()
-    check_supported(cfg)
     dev = resolve_device(device)
     kw = dict(dtype=dtype, device=dev)
     params: dict = {"embed": embed_init(generator, cfg.padded_vocab, cfg.d_model, **kw)}
@@ -198,6 +189,13 @@ def init_params(cfg, generator: torch.Generator | None = None, *, device=None,
     }
     if cfg.tail:
         params["tail"] = [block_init(generator, kind, cfg, **kw) for kind in cfg.tail]
+    if cfg.is_encdec:
+        params["enc_stack"] = block_init(generator, "enc_attn", cfg,
+                                         lead=(cfg.encoder_layers, 1), **kw)
+        params["enc_norm"] = rmsnorm_init(cfg.d_model, **kw)
+    if cfg.frontend == "vision_stub":
+        params["patch_proj"] = {"w": truncated_normal_init(
+            generator, (cfg.d_model, cfg.d_model), 1.0, dtype, dev)}
     return params
 
 
@@ -207,7 +205,6 @@ def init_cache(cfg, batch: int, capacity: int, dtype=torch.bfloat16, device=None
     ``n_agents`` every leaf gets a leading agent axis."""
     from repro_torch.kernels.dispatch import resolve_device
 
-    check_supported(cfg)
     dev = resolve_device(device)
     agents = () if n_agents is None else (n_agents,)
     cache: dict = {"stacks": {
@@ -261,7 +258,18 @@ def _index(tree, i, lead: int):
     return tree_map(lambda a: a[(slice(None),) * lead + (i,)], tree)
 
 
-def _apply_period(cfg, pattern, stacks_slice, x, positions, cache_slice,
+def _sinusoidal(positions, d_model: int) -> torch.Tensor:
+    """``[S, d_model]`` fp32 sinusoid (sin half, then cos half) of
+    ``positions [S]``, in the reference's order of fp32 operations."""
+    half = d_model // 2
+    log_base = torch.log(torch.tensor(10000.0, device=positions.device))  # fp32, as jnp.log
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32, device=positions.device)
+                      * log_base / half)
+    ang = positions[:, None].float() * freqs[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _apply_period(cfg, pattern, stacks_slice, x, positions, cache_slice, enc_out=None,
                   window_override=None, lead: int = 0):
     """Apply one period's blocks.  ``stacks_slice`` / ``cache_slice`` leaves
     are ``[*A, c_kind, ...]`` (``lead`` agent axes); returns (x, aux)."""
@@ -272,9 +280,43 @@ def _apply_period(cfg, pattern, stacks_slice, x, positions, cache_slice,
         offsets[kind] = o + 1
         c = _index(cache_slice[kind], o, lead) if cache_slice is not None else None
         x, _, a = block_apply(kind, _index(stacks_slice[kind], o, lead), x, cfg,
-                              positions=positions, cache=c, window_override=window_override)
+                              positions=positions, cache=c, enc_out=enc_out,
+                              window_override=window_override)
         aux = aux + a
     return x, aux
+
+
+def _periods(cfg, pattern, stacks, n_periods, x, positions, cache_stacks, enc_out,
+             window_override, lead, remat):
+    """The layer loop: ``n_periods`` periods of ``pattern`` over ``stacks``
+    (leaves ``[*A, n_periods, c_kind, ...]``), each under
+    ``torch.utils.checkpoint`` with ``remat``.  Returns (x, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p in range(n_periods):
+        args = (cfg, pattern, _index(stacks, p, lead), x, positions,
+                _index(cache_stacks, p, lead) if cache_stacks is not None else None,
+                enc_out, window_override, lead)
+        if remat:
+            x, a = torch.utils.checkpoint.checkpoint(_apply_period, *args, use_reentrant=False)
+        else:
+            x, a = _apply_period(*args)
+        aux = aux + a
+    return x, aux
+
+
+def encode(params: PyTree, cfg, frames: torch.Tensor, remat: bool = False) -> torch.Tensor:
+    """The encoder of an enc-dec config: ``frames [*A, B, F, D]`` plus the
+    sinusoid at 0..F-1, ``encoder_layers`` non-causal ``enc_attn`` blocks
+    (``enc_stack``), then ``enc_norm``; ``[*A, B, F, D]`` in the compute
+    dtype.  ``remat`` as ``forward``'s."""
+    dt = getattr(torch, cfg.dtype)
+    lead = params["embed"]["emb"].ndim - 2
+    fpos = torch.arange(frames.shape[-2], device=frames.device)
+    ex = frames.to(dt) + _sinusoidal(fpos, cfg.d_model).to(dt)
+    ex, _ = _periods(cfg, ("enc_attn",), {"enc_attn": params["enc_stack"]}, cfg.encoder_layers,
+                     ex, fpos, None, None, None, lead,
+                     remat and torch.is_grad_enabled())
+    return rmsnorm(params["enc_norm"], ex, cfg.norm_eps)
 
 
 def forward(params: PyTree, cfg, tokens: torch.Tensor, *, positions=None, cache=None,
@@ -282,14 +324,18 @@ def forward(params: PyTree, cfg, tokens: torch.Tensor, *, positions=None, cache=
             logits_tail: int = 0, remat: bool = False):
     """Returns (logits ``[*A, B, S, padded_vocab]`` fp32, cache, aux_loss).
 
-    ``tokens [*A, B, S]``; ``positions [S]`` absolute positions (default
-    ``0..S-1``).  ``window_override``: force a sliding window on ``attn`` /
-    ``local_attn`` kinds (the dense-arch long-context SWA variant; ``moe``
-    keeps full attention, as in the reference).  ``logits_tail``: if > 0,
-    unembed only the last ``logits_tail`` positions (prefill returns
-    next-token logits without materializing [S, V]).  A ``cache`` is
-    written in place and returned; its recurrent states are the initial
-    states (zero without a cache).
+    ``tokens [*A, B, S_text]``; ``positions [S]`` absolute positions
+    (default ``0..S-1``, S counting the patches).  ``frames [*A, B, F, D]``:
+    the audio stub's frame embeddings, which an enc-dec config needs (the
+    encoder runs over them on every call).  ``patches [*A, B, P, D]``: the
+    vision stub's patch embeddings, projected and prepended to the tokens'
+    (logits cover ``[patches; text]``).  ``window_override``: force a
+    sliding window on ``attn`` / ``local_attn`` kinds (the dense-arch
+    long-context SWA variant; ``moe`` keeps full attention, as in the
+    reference).  ``logits_tail``: if > 0, unembed only the last
+    ``logits_tail`` positions (prefill returns next-token logits without
+    materializing [S, V]).  A ``cache`` is written in place and returned;
+    its recurrent states are the initial states (zero without a cache).
 
     ``aux_loss`` is fp32 of shape ``[*A]``: for each agent the sum over its
     ``moe`` layers of the router's load-balancing loss, each agent's equal
@@ -297,36 +343,36 @@ def forward(params: PyTree, cfg, tokens: torch.Tensor, *, positions=None, cache=
     without an agent axis; zeros without ``moe`` layers).
 
     ``remat``: where autograd records the forward (no cache), each period
-    runs under ``torch.utils.checkpoint`` (non-reentrant): its activations
-    are recomputed in the backward pass instead of kept, as the reference
-    ``jax.checkpoint``s its scan body.  The same ops run twice, so the
-    values and gradients are the same bits."""
-    check_supported(cfg)
-    if frames is not None or patches is not None:
-        _unported("audio_stub" if frames is not None else "vision_stub")
+    (the encoder's too) runs under ``torch.utils.checkpoint``
+    (non-reentrant): its activations are recomputed in the backward pass
+    instead of kept, as the reference ``jax.checkpoint``s its scan body.
+    The same ops run twice, so the values and gradients are the same
+    bits."""
     dt = getattr(torch, cfg.dtype)
     lead = params["embed"]["emb"].ndim - 2  # 1 for an agent-stacked tree
     x = embed(params["embed"], tokens, dt)
+    if cfg.frontend == "vision_stub" and patches is not None:
+        x = torch.cat([matmul(patches.to(dt), params["patch_proj"]["w"].to(dt)), x], dim=-2)
     if positions is None:
         positions = torch.arange(x.shape[-2], device=x.device)
     positions = torch.as_tensor(positions, device=x.device).reshape(-1)
-
-    aux = torch.zeros(tuple(tokens.shape[:lead]), dtype=torch.float32, device=x.device)
-    cache_stacks = cache["stacks"] if cache is not None else None
     remat = remat and cache is None and torch.is_grad_enabled()
-    for p in range(cfg.n_periods):
-        args = (cfg, cfg.pattern, _index(params["stacks"], p, lead), x, positions,
-                _index(cache_stacks, p, lead) if cache is not None else None,
-                window_override, lead)
-        if remat:
-            x, a = torch.utils.checkpoint.checkpoint(_apply_period, *args, use_reentrant=False)
-        else:
-            x, a = _apply_period(*args)
-        aux = aux + a
+
+    enc_out = None
+    if cfg.is_encdec:
+        if frames is None:
+            raise ValueError(f"{cfg.name}: an enc-dec model needs frame embeddings")
+        enc_out = encode(params, cfg, frames, remat)
+        x = x + _sinusoidal(positions, cfg.d_model).to(dt)
+
+    x, a = _periods(cfg, cfg.pattern, params["stacks"], cfg.n_periods, x, positions,
+                    cache["stacks"] if cache is not None else None, enc_out, window_override,
+                    lead, remat)
+    aux = torch.zeros(tuple(tokens.shape[:lead]), dtype=torch.float32, device=x.device) + a
     for i, kind in enumerate(cfg.tail):
         c = cache["tail"][i] if cache is not None else None
         x, _, a = block_apply(kind, params["tail"][i], x, cfg, positions=positions, cache=c,
-                              window_override=window_override)
+                              enc_out=enc_out, window_override=window_override)
         aux = aux + a
 
     if logits_tail:
@@ -343,10 +389,14 @@ def nll_loss(params, cfg, batch, remat: bool = False) -> tuple[torch.Tensor, tor
     """Total next-token NLL (summed over tokens) + aux (the router's loss,
     ``forward``'s; 0 without ``moe`` layers), each ``[*A]``: one value an
     agent of an agent-stacked tree (0-d for one model's).  ``batch``:
-    dict(tokens, targets[, loss_mask]), ``[*A, B, S]``."""
+    dict(tokens, targets[, loss_mask, frames, patches]), ``[*A, B, S]``.
+    Where the targets are shorter than the logits (a VLM's logits cover
+    ``[patches; text]``), only the logits' text tail is scored."""
     logits, _, aux = forward(params, cfg, batch["tokens"], frames=batch.get("frames"),
                              patches=batch.get("patches"), remat=remat)
     targets = batch["targets"]
+    if logits.shape[-2] != targets.shape[-1]:
+        logits = logits[..., logits.shape[-2] - targets.shape[-1]:, :]
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
     nll = logz - gold
@@ -360,8 +410,10 @@ def nll_loss(params, cfg, batch, remat: bool = False) -> tuple[torch.Tensor, tor
 def decode_step(params: PyTree, cfg, token: torch.Tensor, position, cache: PyTree,
                 enc_out_frames=None, window_override: int | None = None):
     """One-token autoregressive step against the cache: ``token [*A, B, 1]``
-    at absolute ``position`` (an int or a 0-d tensor).  Returns
-    (logits ``[*A, B, 1, V]``, cache)."""
+    at absolute ``position`` (an int or a 0-d tensor).  An enc-dec config
+    takes ``enc_out_frames [*A, B, F, D]`` and runs its whole encoder over
+    them again, as the reference's step does.  Returns (logits
+    ``[*A, B, 1, V]``, cache)."""
     if not isinstance(position, torch.Tensor):  # made on the card: no host copy to wait for
         position = torch.full((1,), int(position), dtype=torch.long,
                               device=params["embed"]["emb"].device)

@@ -203,8 +203,9 @@ def test_the_slice_bounds_chip_smoke_prints():
 
 # -- the model zoo's step model (analytic_costs) and parameter counts ---------------
 
-DECODER_ONLY = ["olmoe-1b-7b", "phi3.5-moe-42b-a6.6b", "qwen3-8b", "granite-20b", "xlstm-1.3b",
-                "recurrentgemma-9b", "mistral-nemo-12b", "deepseek-7b", "repro-100m"]
+ZOO = ["olmoe-1b-7b", "phi3.5-moe-42b-a6.6b", "qwen3-8b", "granite-20b", "xlstm-1.3b",
+       "recurrentgemma-9b", "mistral-nemo-12b", "deepseek-7b", "repro-100m", "whisper-tiny",
+       "pixtral-12b"]
 
 
 def _counts(arch, reduced=False):
@@ -228,7 +229,7 @@ def _counts(arch, reduced=False):
     return jcfg, tcfg, got
 
 
-@pytest.mark.parametrize("arch", DECODER_ONLY)
+@pytest.mark.parametrize("arch", ZOO)
 def test_param_counts_and_analytic_costs_equal_the_reference(arch):
     _, _, small = _counts(arch, reduced=True)
     jcfg, tcfg, (n_total, n_active) = _counts(arch)

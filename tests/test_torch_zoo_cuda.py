@@ -11,7 +11,9 @@ kernel) and 2e-2 for bf16 (the tensor-core kernel; the output is rounded to
 bf16), as ``tests/test_torch_kernels_cuda.py`` holds the kernel itself.
 Agent-folded against per-agent calls: f32 1e-4 (cuBLAS may pick another
 algorithm for another batch count), bf16 0.25 (8 bf16 ulps at |logits| < 8).
-The card against the CPU for a whole reduced model: f32 1e-4, bf16 0.25.
+The card against the CPU for a whole reduced model (a Whisper's prefill and
+decode steps among them): f32 1e-4, bf16 0.25.  The non-causal route of an
+encoder or a cross-attention, at a ragged Sk, as the causal one.
 The recurrent states a reduced RecurrentGemma or xLSTM wrote into its
 cache over a prefill and four decode steps, card against CPU: f32 1e-4
 (their logits, and the MoE configs', are held card against CPU by
@@ -86,6 +88,71 @@ def test_kernel_route_refuses_a_non_causal_pad_and_a_backward(dev):
     qg = q.clone().requires_grad_()
     with pytest.raises(NotImplementedError, match="no backward"):
         att.kernel_attention(qg, q, q, causal=True).sum().backward()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk", [(300, 300), (96, 300), (1, 300)],
+                         ids=["encoder", "cross", "cross_decode"])
+def test_full_route_against_the_plain_version(dev, dtype, sq, sk):
+    """The encoder's and cross-attention's non-causal route
+    (``kernel_attention_full``, block_q = Sq, block_k = Sk, nothing padded)
+    at Sk = 300, a ragged key tile, and a ragged query tile at Sq = 96, and
+    ``attention_block``'s cross-attention of one query row (a decode step:
+    the plain ``chunked_attention``, no launch)."""
+    g = torch.Generator(device=dev).manual_seed(sq + sk)
+    q = torch.randn((2, 3, sq, 4, 64), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((2, 3, sk, 4, 64), generator=g, device=dev).to(dtype) for _ in range(2))
+    heads = [t.reshape(6, t.shape[2], 4, 64).transpose(1, 2) for t in (q, k, v)]
+    want = fa.flash_attention_plain(*heads, causal=False).transpose(1, 2)
+    dispatch.reset_launch_counts()
+    if sq > 1:
+        got = att.kernel_attention_full(q, k, v)
+    else:
+        got = att.chunked_attention(q, k, v, causal=False, chunk_size=sk)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["flash_attention"] == (sq > 1)
+    assert got.shape == q.shape and got.dtype == dtype
+    err = (got.reshape(6, sq, 4, 64).float() - want.float()).abs()
+    assert bool(torch.all(err <= TOL[dtype] + TOL[dtype] * want.float().abs())), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_whisper_prefill_and_decode_card_against_the_cpu(dev, dtype):
+    """A reduced Whisper (2 + 2 layers, d 256, 300 frames: the encoder's and
+    the cross-attention's keys a ragged tile) for A = 2 agents: a prefill of
+    40 tokens and two decode steps, each re-running the encoder, on the card
+    against the CPU; 6 kernel launches a prefill (the encoder's, the
+    decoder's and the cross-attention, two layers each), 2 a decode step."""
+    cfg = dataclasses.replace(get_config("whisper-tiny").reduced(), encoder_seq=300,
+                              dtype=str(dtype).removeprefix("torch."))
+    agents = [tm.init_params(cfg, torch.Generator().manual_seed(a), device="cpu")
+              for a in range(2)]
+    params = tree_map(lambda *xs: torch.stack(xs).to(dtype), *agents)
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 2, 42)))
+    frames = torch.from_numpy((rng.normal(size=(2, 2, 300, cfg.d_model)) * 0.1)
+                              .astype(np.float32))
+    outs = {}
+    for device in (dev, torch.device("cpu")):
+        p = tree_map(lambda x: x.to(device), params)
+        fr = frames.to(device)
+        cache = steps.make_agent_cache(cfg, 2, 2, 42, dtype=dtype, device=device)
+        dispatch.reset_launch_counts()
+        lg, cache = steps.make_prefill_step(cfg)(p, {"tokens": toks[..., :40].to(device),
+                                                     "frames": fr}, cache)
+        got = [lg]
+        for t in (40, 41):
+            lg, cache = steps.make_decode_step(cfg)(p, toks[..., t:t + 1].to(device), t, cache,
+                                                    fr)
+            got.append(lg)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            assert dispatch.launch_counts()["flash_attention"] == 6 + 2 * 2
+        outs[device.type] = [x.cpu() for x in got]
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        torch.testing.assert_close(got, want, atol=LOGIT_TOL[dtype], rtol=0)
 
 
 @pytest.mark.cuda

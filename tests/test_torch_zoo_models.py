@@ -578,17 +578,3 @@ def test_window_override_matches_local_attn():
     params_local = dict(params, stacks={"local_attn": params["stacks"]["attn"]})
     out_local, _, _ = tm.forward(params_local, local, toks)
     torch.testing.assert_close(out_override, out_local, atol=1e-5, rtol=1e-5)
-
-
-# -- what the port does not have yet ------------------------------------------------
-
-
-@pytest.mark.parametrize("arch,item", [("whisper-tiny", "10d"), ("pixtral-12b", "10d")])
-def test_unported_kinds_raise(arch, item):
-    cfg = tget(arch).reduced()
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        tm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        tm.init_cache(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        tm.forward({"embed": {"emb": torch.zeros(8, 4)}}, cfg, torch.zeros(1, 2, dtype=torch.long))

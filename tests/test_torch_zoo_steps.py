@@ -270,12 +270,6 @@ def test_agent_folded_prefill_equals_per_agent_calls():
                                    atol=1e-5, rtol=0)
 
 
-def test_lm_objective_and_frontends_still_raise():
-    _, tcfg = _cfgs("qwen3-8b")
-    with pytest.raises(NotImplementedError, match="item 10d"):
-        ts.make_prefill_step(tcfg)({}, {"tokens": None, "frames": torch.zeros(1)}, None)
-
-
 # -- the synthetic token sampler ------------------------------------------------------
 
 
