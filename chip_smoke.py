@@ -203,7 +203,27 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    3,840 Zipf tokens (S = 4,096) into 4,128-slot caches, 32 decode steps,
    starting with next to nothing allocated (printed): the whole-model and
    per-layer checks with their controls, ``flash_attention`` 40 times a
-   prefill at [4, 32, 4096, 128];
+   prefill at [4, 32, 4096, 128].  ``3.lm_train_pod``: the LM mesh's pod
+   axis at repro-100m's full width, A = 2 on LM_ZOO_W, 3.lm_train's
+   batch and optimiser, a flat and a pytree state (``init_train_state(flat=
+   False)``) of one seed on a (2, 1, 1) ``("pod", "data", "model")`` mesh
+   of virtual shards: ``consensus_ppermute_pod`` at the bf16 wire bitwise
+   ``consensus_ppermute_ring_flat``, leaf by leaf (control: W's rows
+   swapped), its rotated bytes 2 A P 2 B; one ppermute round step of each
+   form from one ``eps``, the pytree's within 1e-4 (``train_parity``) of
+   the flat one; 3 round steps of each form timed (device and wall ms,
+   kernels a step, peak memory) beside the step's bound; the trained
+   pytree posterior's prefill (S = 512, ``flash_attention`` once a layer)
+   bitwise its flat form's; over two real cards where the host has them,
+   the pod consensus bitwise the virtual run.  ``3.moe_ep``: the
+   expert-parallel MoE layer at full width (OLMoE-1B-7B over a (1, 8)
+   ``("data", "model")`` mesh, Phi-3.5-MoE over (1, 4), 16,384 bf16
+   tokens, ``moe_init`` weights at seed 0 in bf16): at capacity factor 16
+   against ``moe_ffn`` (``LAYER_BF16_*``; control: top-(k - 1) routing),
+   two calls the same bits, and at 1.25 the drop share, the all-to-all
+   bytes a shard against (m - 1) cap D 2 B, and ms a call beside
+   ``moe_ffn``'s; over real cards, where more than one, bitwise the virtual
+   run;
 4. card vs CPU: one more synchronous round and one more gossip window from
    the same state with the same injected batches and noise, the card through
    the kernels, the CPU through the plain versions, and likewise one more
@@ -281,8 +301,9 @@ on the model zoo's path and its time at the Qwen3-8B prefill's shape;
 ``flash_attention_pixtral``: its launches in those phases' first prefill
 and its time at their prefills' shapes;
 ``consensus_fused_network_train``: eq. (6) on the trained posterior, its
-launches in ``launch.train``'s 3 rounds), and ``{"ok": true, "device":
-{...}}``.
+launches in ``launch.train``'s 3 rounds; ``flash_attention_train_pod``:
+its launches in 3.lm_train_pod's two prefills and its time at their
+shape), and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -493,6 +514,10 @@ TRAIN_ROUNDS, TRAIN_ROUND_STEPS, TRAIN_FIXED_STEPS = 3, 3, 10
 # config with a control (the agents' tokens swapped on the card)
 TRAIN_REDUCED = ("repro-100m", "olmoe-1b-7b", "recurrentgemma-9b", "xlstm-1.3b")
 TRAIN_REDUCED_B, TRAIN_REDUCED_S, TRAIN_REDUCED_U = 2, 32, 2
+# the expert-parallel MoE layer (3.moe_ep): 3.lm_olmoe's 16,384 tokens, (config,
+# expert-axis shards)
+EP_TOKENS = (4, 4_096)
+EP_CONFIGS = (("olmoe-1b-7b", 8), ("phi3.5-moe-42b-a6.6b", 4))
 
 
 def phase(tag: str, **fields) -> None:
@@ -4764,6 +4789,351 @@ def run_lm_whisper_train(dev, smi):
           busy=profile["device_ms"] / round_ms, max_memory_allocated=peak)
 
 
+def flat_view(post):
+    """A pytree posterior's ``[A, P]`` flat form (``core.flat``'s layout),
+    for the checks that read flat buffers."""
+    from repro_torch.core.flat import flat_posterior_from_pytree
+
+    return flat_posterior_from_pytree(post, leading_axes=1)
+
+
+def flat_state(state):
+    """A pytree ``BayesTrainState``'s posterior and Adam moments in flat
+    form (``train_parity``'s and ``adam_noise_lanes``' inputs)."""
+    from types import SimpleNamespace
+
+    mu, nu = state.opt_state.mu, state.opt_state.nu
+    return SimpleNamespace(posterior=flat_view(state.posterior),
+                           opt_state=SimpleNamespace(mu=flat_view(mu), nu=flat_view(nu)))
+
+
+def run_lm_train_pod(dev, smi):
+    """Phase 3.lm_train_pod: the pod axis of the LM mesh at repro-100m's
+    full width (P = 163,597,056 an agent), A = 2 on LM_ZOO_W,
+    launch/train.py's defaults (TRAIN_BATCH x TRAIN_S Zipf tokens, Adam at
+    TRAIN_LR, kl_scale TRAIN_KL, bf16 compute).  A flat state and a pytree
+    state (``init_train_state(flat=False)``) from one generator seed, agent
+    1's mean moved by one seeded draw in both, on a ``("pod", "data",
+    "model")`` mesh of (2, 1, 1) virtual shards of the card, the posterior
+    shardings from ``param_shardings(state, mesh, agent_leading=True)``.
+    Held: ``consensus_ppermute_pod`` at the bf16 wire bitwise
+    ``consensus_ppermute_ring_flat`` on the flat posterior, leaf by leaf
+    (control: W with its rows swapped, which must differ), its rotated
+    bytes 2 A P 2 B; one ``make_train_round_step(consensus_impl=
+    "ppermute")`` of each state from one ``eps``, the pytree's within the
+    round-step tests' 1e-4 rule (``train_parity``) of the flat one (the
+    share of bitwise-equal lanes printed); ``serve_params`` of the
+    pytree-trained and of the flat-trained posterior, a prefill of S =
+    LM_SMALL_S each, within LM_BF16_ATOL / LM_BF16_RMS of each other
+    (whether bitwise printed; control: the prefill of the posterior before
+    the round, which must read beyond them), ``flash_attention`` once a
+    layer a prefill, the row's launches counted from 0 over the first
+    prefill alone.  Read: TRAIN_ROUND_STEPS round steps of each form (device ms
+    from CUDA events, wall ms), a profile of each (kernels a step), each
+    form's peak memory, beside ``analytic_costs``' bound.  Over two real
+    cards where the host has them: the pod consensus bitwise the virtual
+    run.  Returns the ``flash_attention_train_pod`` row of the kernel line
+    (the kernel at the prefill's shape)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.pipeline import make_lm_batch_sampler
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import consensus_opt as co
+    from repro_torch.launch import steps
+    from repro_torch.launch.costmodel import analytic_costs
+    from repro_torch.launch.dryrun import count_active_params, count_params, param_shapes
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import param_shardings
+    from repro_torch.optim import adam
+    from repro_torch.optim.schedules import exponential_decay
+
+    cfg = get_config(TRAIN_ARCH)
+    a, b, s, u = TRAIN_AGENTS, TRAIN_BATCH, TRAIN_S, TRAIN_U
+    bf16 = torch.bfloat16
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    opt = adam()
+    sched = exponential_decay(TRAIN_LR, TRAIN_LR_DECAY ** (1.0 / u))
+    flat = steps.init_train_state(cfg, a, opt, torch.Generator(device=dev).manual_seed(0),
+                                  device=dev)
+    tree = steps.init_train_state(cfg, a, opt, torch.Generator(device=dev).manual_seed(0),
+                                  device=dev, flat=False)
+    layout = flat.posterior.layout
+    p = flat.posterior.n_params()
+    if not all(torch.equal(x, y) for x, y in zip(tree_leaves(flat_view(tree.posterior)),
+                                                  tree_leaves(flat.posterior))):
+        raise AssertionError("3.lm_train_pod: the pytree and flat states of one seed differ")
+    moved = 1e-2 * torch.randn(p, generator=torch.Generator(device=dev).manual_seed(1),
+                               device=dev)
+    flat.posterior.mean[1] += moved
+    for leaf, m in zip(tree_leaves(tree.posterior.mean), tree_leaves(layout.unflatten(moved))):
+        leaf[1] += m
+    del moved
+    W = torch.as_tensor(LM_ZOO_W, dtype=torch.float32, device=dev)
+    mesh = make_mesh((a, 1, 1), ("pod", "data", "model"), dev)
+    tree_sh = param_shardings(tree, mesh, agent_leading=True).posterior
+    flat_sh = param_shardings(flat, mesh, agent_leading=True).posterior
+
+    # the pod consensus against the flat ring, leaf by leaf
+    co.reset_rotation_counts()
+    pod = co.consensus_ppermute_pod(tree.posterior, W, mesh, tree_sh, wire_dtype=bf16)
+    rotated = co.rotation_counts()
+    ring = co.consensus_ppermute_ring_flat(flat.posterior, mesh, "pod", wire_dtype=bf16, W=W)
+    ring_tree = (layout.unflatten(ring.mean), layout.unflatten(ring.rho))
+    leaves_equal = [torch.equal(x, y) for x, y in zip(
+        tree_leaves((pod.mean, pod.rho)), tree_leaves(ring_tree))]
+    if not all(leaves_equal):
+        raise AssertionError(f"3.lm_train_pod: the pod prior differs from the ring's in "
+                             f"{leaves_equal.count(False)} of {len(leaves_equal)} leaves")
+    swapped = co.consensus_ppermute_ring_flat(flat.posterior, mesh, "pod", wire_dtype=bf16,
+                                              W=W.flip(0))
+    control = float((flat_view(pod).mean - swapped.mean).abs().max())
+    if control == 0.0:
+        raise AssertionError("3.lm_train_pod: W with its rows swapped gives the pod's prior")
+    del ring, ring_tree, swapped
+    want_bytes = 2 * a * p * 2
+    if rotated["bytes"] != want_bytes:
+        raise AssertionError(f"3.lm_train_pod: rotated {rotated}, expected {want_bytes} bytes")
+    cards = {}
+    if torch.cuda.device_count() >= 2:
+        real = make_mesh((a, 1, 1), ("pod", "data", "model"),
+                         [torch.device("cuda", i) for i in range(a)])
+        got = co.consensus_ppermute_pod(tree.posterior, W, real, param_shardings(
+            tree, real, agent_leading=True).posterior, wire_dtype=bf16)
+        cards = {"cards": a, "bitwise_virtual": all(
+            torch.equal(x, y) for x, y in zip(tree_leaves(got), tree_leaves(pod)))}
+        if not cards["bitwise_virtual"]:
+            raise AssertionError(f"3.lm_train_pod: over real cards {cards}")
+        del got
+    del pod
+
+    # one round of each form from one eps, the pytree within the 1e-4 rule
+    kw = dict(opt=opt, lr_schedule=sched, kl_scale=TRAIN_KL, remat=False,
+              consensus_impl="ppermute", consensus_wire_dtype=bf16, mesh=mesh)
+    tree_step = steps.make_train_round_step(cfg, W, posterior_shardings=tree_sh, **kw)
+    flat_step = steps.make_train_round_step(cfg, W, posterior_shardings=flat_sh, **kw)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    sampler = make_lm_batch_sampler(cfg.vocab_size, b, s, n_agents=a, device=dev)
+    batch = sampler(gen, 0)
+    eps = torch.randn((a, p), generator=gen, device=dev)
+    toks = lm_tokens(cfg, LM_SMALL_S, dev, seed=5)
+    serve_cfg = dataclasses.replace(cfg, dtype="bfloat16")
+
+    def prefill(post):  # next-token logits of one prefill served from ``post``
+        params = steps.serve_params(post, bf16)
+        cache = steps.make_agent_cache(serve_cfg, a, LM_BATCH, LM_SMALL_S, dtype=bf16,
+                                       device=dev)
+        return steps.make_prefill_step(serve_cfg)(params, {"tokens": toks}, cache)[0]
+
+    before = prefill(tree.posterior)  # the served check's control
+    state, tree_m = tree_step(tree, batch, eps=layout.unflatten(eps))
+    flat1, flat_m = flat_step(flat, batch, eps=eps)
+    del eps, tree, flat
+    got = flat_state(state)
+    noise = adam_noise_lanes(got, flat1)
+    parity = train_parity(got, flat1, noise, 2 * TRAIN_LR)
+    if parity["failures"]:
+        raise AssertionError(f"3.lm_train_pod: pytree round vs flat round: {parity}")
+    bitwise_share = float((got.posterior.mean == flat1.posterior.mean).float().mean())
+    metrics = {k: float((tree_m[k] - flat_m[k]).abs().max()) for k in ("loss", "nll", "kl")}
+    if max(metrics.values()) > PARITY_ATOL:
+        raise AssertionError(f"3.lm_train_pod: metrics apart {metrics}")
+    del got, noise
+
+    # serving: the pytree-trained posterior against the flat-trained one, a prefill each
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    served_tree = prefill(state.posterior)
+    torch.cuda.synchronize()
+    counts = dispatch.launch_counts()
+    served_flat = prefill(flat1.posterior)
+    torch.cuda.synchronize()
+    both = dispatch.launch_counts()
+    if counts["flash_attention"] != cfg.n_layers or both["flash_attention"] != 2 * cfg.n_layers:
+        raise AssertionError(f"3.lm_train_pod: launches {counts} in the first prefill, "
+                             f"{both} in both")
+    served = lm_check("3.lm_train_pod pytree-trained vs flat-trained prefill", served_tree,
+                      served_flat, LM_BF16_ATOL, LM_BF16_RMS)
+    served_bitwise = torch.equal(served_tree, served_flat)
+    served_control = lm_control("3.lm_train_pod the prefill before the round (control)",
+                                before, served_flat, LM_BF16_ATOL, LM_BF16_RMS)
+    del flat1, before, served_tree, served_flat
+
+    def timed_wall(fn):  # (result, device ms, wall ms) of one synchronised call
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out, ms = timed(fn)
+        return out, ms, (time.perf_counter() - t) * 1e3
+
+    def series(name, step, state):
+        """TRAIN_ROUND_STEPS round steps with only ``state`` resident, then
+        a profile of one more; returns (the reading, the last state)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        co.reset_rotation_counts()
+        rounds = []
+        for r in range(TRAIN_ROUND_STEPS):
+            bt = sampler(gen, 1 + r)
+            (state, m), ms, wall = timed_wall(
+                lambda st=state, bt=bt: step(st, bt, generator=gen))
+            rounds.append({"device_ms": ms, "wall_ms": wall, "loss": float(m["loss"])})
+        moved = co.rotation_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        prof = lm_profile(lambda st=state: step(st, sampler(gen, 99), generator=gen))
+        if not all(math.isfinite(x["loss"]) for x in rounds):
+            raise AssertionError(f"3.lm_train_pod {name}: losses {rounds}")
+        return {"round_steps": rounds,
+                "device_ms_median": sorted(x["device_ms"] for x in rounds)[len(rounds) // 2],
+                "kernels_a_step": prof["device_kernels"], "profile": prof,
+                "max_memory_allocated": peak,
+                "rotated_bytes_a_round": moved["bytes"] // TRAIN_ROUND_STEPS}, state
+
+    runs = {}
+    runs["pytree"], state = series("pytree", tree_step, state)
+
+    # the flat form of the same state, alone on the card, for the flat step's reading
+    flat_form = flat_state(state)
+    state = steps.BayesTrainState(
+        posterior=flat_form.posterior,
+        opt_state=dataclasses.replace(state.opt_state, mu=flat_form.opt_state.mu,
+                                      nu=flat_form.opt_state.nu), step=state.step)
+    del flat_form
+    runs["flat"], state = series("flat", flat_step, state)
+    del state
+    torch.cuda.empty_cache()
+
+    shapes = param_shapes(cfg)
+    costs = analytic_costs(cfg, mode="train", batch_global=a * b, seq_len=s, n_agents=a,
+                           data_shards=1, model_shards=1,
+                           n_matmul_params=count_active_params(shapes, cfg),
+                           n_total_params=count_params(shapes))
+    bound = {"compute_ms": costs["flops_global"] / BF16_FLOP_PER_S * 1e3,
+             "memory_ms": costs["hbm_bytes_global"] / HBM_BYTES_PER_S * 1e3}
+    bound["ms"] = max(bound.values())
+    q = torch.randn((a, LM_BATCH, LM_SMALL_S, cfg.n_heads, cfg.hd),
+                    generator=torch.Generator(device=dev).manual_seed(6), device=dev).to(bf16)
+    k, v = (torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(7 + i),
+                        device=dev).to(bf16) for i in range(2))
+    attention, row = attention_kernel_row("3.lm_train_pod", "flash_attention_train_pod", cfg,
+                                          q, k, v, 0, counts["flash_attention"])
+    del q, k, v
+    torch.cuda.empty_cache()
+    phase("3.lm_train_pod", nvidia_smi=smi, arch=TRAIN_ARCH, agents=a, batch_per_agent=b,
+          seq=s, n_params_per_agent=p, mesh=mesh.shape, wire="bf16",
+          pod_leaves=len(leaves_equal), pod_leaves_bitwise_ring=sum(leaves_equal),
+          rows_swapped_control_max_abs=control, pod_rotations=rotated,
+          rotated_bytes_expected=want_bytes, real_cards=cards or "one card",
+          round_vs_flat={**parity, "metrics_max_abs_err": metrics,
+                         "bitwise_equal_lane_share": bitwise_share},
+          runs=runs, bound=bound,
+          bound_share={name: bound["ms"] / r["device_ms_median"] for name, r in runs.items()},
+          served_vs_flat_trained={"max_abs_err": served[0], "relative_rms": served[1],
+                                  "bitwise": served_bitwise},
+          served_before_round_control={"max_abs_err": served_control[0],
+                                       "relative_rms": served_control[1]},
+          launches=counts, launches_two_prefills=both, attention=attention)
+    return row
+
+
+def run_moe_ep(dev, smi):
+    """Phase 3.moe_ep: the expert-parallel MoE layer
+    (``launch.expert_parallel.moe_ffn_expert_parallel``) at full layer
+    width on virtual shards of the card: OLMoE-1B-7B (E = 64, top-8, D =
+    2,048, F = 1,024) over a (1, 8) ``("data", "model")`` mesh and
+    Phi-3.5-MoE (E = 16, top-2, D = 4,096, F = 6,400) over (1, 4), each on
+    ``3.lm_olmoe``'s 16,384 tokens (x ``[4, 4096, D]`` bf16, normal from a
+    seed), weights from ``moe_init`` at seed 0 cast to bf16.  Held: at
+    capacity factor 16 (no drops) against ``models.moe.moe_ffn``
+    (``LAYER_BF16_ATOL`` / ``LAYER_BF16_RMS``), with the control, each token
+    routed to its top-(k - 1) experts, beyond those bounds; two calls the
+    same bits.  Read at the config's capacity factor (1.25): the drop
+    share, each all-to-all's bytes a shard beside (m - 1) cap D 2 B, ms a
+    call (CUDA events) beside ``moe_ffn``'s.  Over real cards where the
+    host has more than one: the largest count of cards that divides E,
+    bitwise the virtual run of that mesh shape."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import expert_parallel as ep
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.moe import _capacity, moe_ffn, moe_init
+
+    out = {}
+    for arch, m in EP_CONFIGS:
+        cfg = get_config(arch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = moe_init(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+        params = {k: v.to(torch.bfloat16) for k, v in params.items()}
+        weight_bytes = tree_bytes(params)
+        x = torch.randn(EP_TOKENS + (cfg.d_model,), generator=torch.Generator(device=dev)
+                        .manual_seed(1), device=dev).to(torch.bfloat16)
+        mesh = make_mesh((1, m), ("data", "model"), dev)
+        no_drop = dataclasses.replace(cfg, capacity_factor=16.0)
+        ep.reset_ep_counts()
+        y, aux = ep.moe_ffn_expert_parallel(params, x, no_drop, mesh)
+        if ep.ep_counts()["dropped"]:
+            raise AssertionError(f"3.moe_ep {arch}: drops at capacity factor 16")
+        want, want_aux = moe_ffn(params, x, no_drop)
+        held = lm_check(f"3.moe_ep {arch} vs moe_ffn", y, want, LAYER_BF16_ATOL, LAYER_BF16_RMS)
+        del y
+        fewer = dataclasses.replace(no_drop, top_k=cfg.top_k - 1)
+        ctrl = lm_control(f"3.moe_ep {arch} top-(k - 1) (control)", moe_ffn(params, x, fewer)[0],
+                          want, LAYER_BF16_ATOL, LAYER_BF16_RMS)
+        del want
+        torch.cuda.empty_cache()
+        call = functools.partial(ep.moe_ffn_expert_parallel, params, x, cfg, mesh)
+        ep.reset_ep_counts()
+        first, first_aux = call()
+        counts = ep.ep_counts()
+        again, again_aux = call()
+        if not (torch.equal(first, again) and torch.equal(first_aux, again_aux)):
+            raise AssertionError(f"3.moe_ep {arch}: two calls give other bits")
+        if not bool(torch.isfinite(first).all()):
+            raise AssertionError(f"3.moe_ep {arch}: non-finite output")
+        del again
+        t_dev = x.shape[0] * x.shape[1] // m
+        cap = _capacity(t_dev, m, cfg.top_k, cfg.capacity_factor)
+        per_shard = counts["bytes"] // (2 * m)  # two all-to-alls of activations
+        expect = (m - 1) * cap * cfg.d_model * 2
+        if per_shard != expect:
+            raise AssertionError(f"3.moe_ep {arch}: {per_shard} B a shard and direction, "
+                                 f"expected {expect}")
+        cards = "one card"
+        n_cards = torch.cuda.device_count()
+        if n_cards > 1:
+            k = max(c for c in range(1, n_cards + 1) if cfg.n_experts % c == 0)
+            devices = [torch.device("cuda", i) for i in range(k)]
+            virtual = ep.moe_ffn_expert_parallel(params, x, cfg, make_mesh((1, k), ("data",
+                                                                                   "model"), dev))
+            real = ep.moe_ffn_expert_parallel(params, x, cfg, make_mesh((1, k), ("data", "model"),
+                                                                        devices))
+            cards = {"cards": k, "bitwise_virtual": torch.equal(real[0], virtual[0])
+                     and torch.equal(real[1], virtual[1])}
+            if not cards["bitwise_virtual"]:
+                raise AssertionError(f"3.moe_ep {arch}: over real cards {cards}")
+            del virtual, real
+        ms = event_ms(call)
+        plain_ms = event_ms(functools.partial(moe_ffn, params, x, cfg))
+        kept, dropped = counts["kept"], counts["dropped"]
+        out[arch] = {"experts": cfg.n_experts, "top_k": cfg.top_k, "d_model": cfg.d_model,
+                     "d_ff": cfg.d_ff, "mesh": mesh.shape, "tokens": x.shape[0] * x.shape[1],
+                     "weight_bytes": weight_bytes, "no_drop_vs_moe_ffn": held,
+                     "no_drop_aux": float(aux), "moe_ffn_aux": float(want_aux),
+                     "control_top_k_minus_1": ctrl, "bounds": [LAYER_BF16_ATOL, LAYER_BF16_RMS],
+                     "capacity_factor": cfg.capacity_factor, "capacity": cap,
+                     "drop_share": dropped / (kept + dropped), "counts": counts,
+                     "all_to_all_bytes_a_shard": per_shard,
+                     "all_to_all_bytes_expected": expect, "ms": ms, "moe_ffn_ms": plain_ms,
+                     "aux": float(first_aux), "real_cards": cards,
+                     "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
+        del params, x, first, call
+    torch.cuda.empty_cache()
+    phase("3.moe_ep", nvidia_smi=smi, **out)
+
+
 def main() -> int:
     import torch
 
@@ -4825,6 +5195,8 @@ def main() -> int:
     run_lm_whisper_train(dev, smi)
     new_rows += run_lm_new(dev, smi, "3.lm_pixtral", "pixtral-12b", True, PIXTRAL_BATCH,
                            PIXTRAL_TEXT, LM_CAP, FRONT_DECODE)
+    pod_row = run_lm_train_pod(dev, smi)
+    run_moe_ep(dev, smi)
     card_vs_cpu("4.parity", session, fig4_spec())
     card_vs_cpu("4.launch_parity", l_session, launch_spec())
     card_vs_cpu("4.gossip_parity", g_session, gossip_spec())
@@ -4859,7 +5231,7 @@ def main() -> int:
         "consensus_fused_shard": sh_counts["consensus_fused_shard"],
         "consensus_shard_encode": sh_counts["consensus_shard_encode"],
     }
-    rows = timings(dev, launches, errs) + [lm_row, zoo_row] + new_rows + [train_row]
+    rows = timings(dev, launches, errs) + [lm_row, zoo_row] + new_rows + [train_row, pod_row]
     profile_round("6.profile", session)
     profile_round("6.gossip_profile", g_session)
     profile_round("6.delayed_profile", d_session)

@@ -200,15 +200,16 @@ class FlatPosterior:
     def precision(self) -> torch.Tensor:
         return 1.0 / torch.square(softplus(self.rho))
 
-    def sample(self, eps: torch.Tensor | None = None,
+    def sample(self, noise: torch.Tensor | None = None,
                generator: torch.Generator | None = None) -> torch.Tensor:
         """Reparameterized sample theta = mu + sigma * eps, a FLAT [*B, P]
-        tensor.  ``eps`` is the injected standard-normal noise; without it
-        the noise is drawn from ``generator``."""
-        if eps is None:
-            eps = torch.randn(self.mean.shape, generator=generator,
-                              dtype=self.mean.dtype, device=self.mean.device)
-        return self.mean + softplus(self.rho) * eps
+        tensor.  ``noise`` is the injected standard-normal eps (the keyword
+        ``GaussianPosterior.sample`` takes too); without it eps is drawn from
+        ``generator``."""
+        if noise is None:
+            noise = torch.randn(self.mean.shape, generator=generator,
+                                dtype=self.mean.dtype, device=self.mean.device)
+        return self.mean + softplus(self.rho) * noise
 
     def n_params(self) -> int:
         return self.layout.n_params

@@ -127,6 +127,20 @@ def kl_gaussian(q, p) -> torch.Tensor:
     return _leaf_kl(q.mean, q.rho, p.mean, p.rho, dim=-1)
 
 
+def kl_gaussian_agents(q, p) -> torch.Tensor:
+    """KL(q || p) of each agent, ``[A]``: ``kl_gaussian`` of flat buffers
+    ``[A, P]``; over parameter dicts whose leaves lead with the agent axis,
+    each agent's leafwise sums added in sorted-key order (the reference's
+    ``kl_gaussian`` under ``jax.vmap``)."""
+    if not isinstance(q.mean, dict):
+        return kl_gaussian(q, p)
+    leaves = _leaves(q.mean)
+    total = torch.zeros(leaves[0].shape[0], dtype=torch.float32, device=leaves[0].device)
+    for mq, rq, mp, rp in zip(leaves, _leaves(q.rho), _leaves(p.mean), _leaves(p.rho)):
+        total = total + _leaf_kl(mq, rq, mp, rp, dim=tuple(range(1, mq.ndim)))
+    return total
+
+
 def consensus_mean_field(posts: GaussianPosterior, w_row: torch.Tensor) -> GaussianPosterior:
     """Eq. (6) for ONE agent from stacked neighbour posteriors: every leaf
     carries a leading axis of size N (the neighbours, self included) and

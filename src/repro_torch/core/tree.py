@@ -2,7 +2,9 @@
 the order ``jax.tree.leaves`` lists the JAX package's state of the same
 engine (dataclass fields in declaration order, dict keys sorted, ``None``
 an empty subtree, ``FlatLayout`` static), so checkpoint leaves line up
-across the packages."""
+across the packages.  ``tree_flatten_with_path`` gives each leaf its path
+of keys, as ``jax.tree_util``'s: a dict key (``.key``), a sequence index
+(``.idx``), a dataclass field (``str`` is ``.name``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,17 +15,62 @@ from repro_torch.core.flat import FlatLayout
 PyTree = Any
 
 
-def _children(node) -> list | None:
-    """The subtrees of a container node, or ``None`` for a leaf."""
+@dataclasses.dataclass(frozen=True)
+class DictKey:
+    key: Any
+
+
+@dataclasses.dataclass(frozen=True)
+class SequenceKey:
+    idx: int
+
+
+@dataclasses.dataclass(frozen=True)
+class GetAttrKey:
+    name: str
+
+    def __str__(self):
+        return f".{self.name}"
+
+
+def _keyed_children(node) -> list | None:
+    """``(key, subtree)`` pairs of a container node in ``_children``'s
+    order, or ``None`` for a leaf."""
     if node is None or isinstance(node, FlatLayout):
         return []
     if isinstance(node, dict):
-        return [node[k] for k in sorted(node)]
+        return [(DictKey(k), node[k]) for k in sorted(node)]
     if isinstance(node, (list, tuple)):
-        return list(node)
+        return [(SequenceKey(i), v) for i, v in enumerate(node)]
     if dataclasses.is_dataclass(node) and not isinstance(node, type):
-        return [getattr(node, f.name) for f in dataclasses.fields(node)]
+        return [(GetAttrKey(f.name), getattr(node, f.name)) for f in dataclasses.fields(node)]
     return None
+
+
+def _children(node) -> list | None:
+    """The subtrees of a container node, or ``None`` for a leaf."""
+    kids = _keyed_children(node)
+    return None if kids is None else [kid for _, kid in kids]
+
+
+def tree_flatten_with_path(tree: PyTree, path: tuple = ()) -> list:
+    """``(path, leaf)`` pairs in ``tree_leaves`` order; a path is a tuple
+    of ``DictKey`` / ``SequenceKey`` / ``GetAttrKey``."""
+    kids = _keyed_children(tree)
+    if kids is None:
+        return [(path, tree)]
+    return [pair for key, kid in kids for pair in tree_flatten_with_path(kid, path + (key,))]
+
+
+def tree_at(tree: PyTree, path: tuple):
+    """The subtree of ``tree`` at ``path`` (keys as ``tree_flatten_with_path``
+    gives them)."""
+    for key in path:
+        if isinstance(key, GetAttrKey):
+            tree = getattr(tree, key.name)
+        else:
+            tree = tree[key.key if isinstance(key, DictKey) else key.idx]
+    return tree
 
 
 def tree_leaves(tree: PyTree) -> list:

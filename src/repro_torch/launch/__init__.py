@@ -4,12 +4,12 @@ LM objective), the local and consensus steps that ``api.LaunchEngine`` and
 ``launch.train`` drive; the model zoo's serving steps
 (``steps.init_train_state``, ``serve_params``, ``make_prefill_step``,
 ``make_decode_step``, ``make_agent_cache``); the sharded consensus
-(``consensus_opt``) over the agent mesh (``mesh``); the cost model
-(``costmodel``) and the parameter counts (``dryrun``).  The entry points
-``launch.train`` and ``launch.serve`` are submodules this package does not
-import.  The sharding rules and the rest of item 10 come with ROADMAP queue
-A item 10f; this package imports without the model zoo, which the LM steps
-import when they are called."""
+(``consensus_opt``) over the meshes (``mesh``), the sharding rules and
+block placement (``sharding``), the expert-parallel MoE
+(``expert_parallel``); the cost model (``costmodel``) and the dry run
+(``dryrun``).  The entry points ``launch.train``, ``launch.serve`` and
+``launch.dryrun`` are submodules this package does not import; it imports
+without the model zoo, which the LM steps import when they are called."""
 from repro_torch.launch.steps import (
     BayesTrainState,
     make_consensus_step,

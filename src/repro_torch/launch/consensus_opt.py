@@ -1,13 +1,13 @@
-"""Sharded consensus over an agent mesh (port of ``repro.launch.consensus_opt``
-but ``consensus_ppermute_pod``, which takes the LM mesh's shardings and
-comes with the sharding slice, ROADMAP queue A item 10f).
+"""Sharded consensus over an agent mesh (port of ``repro.launch.consensus_opt``).
 
 One process drives every shard (single controller, as the reference: its
 ``shard_map`` programs run all shards from one process).  A shard is an
-entry of a ``launch.mesh.AgentMesh``; shard s holds agents ``[s N/S, (s + 1)
-N/S)``.  The state stays resident on its own device; each call moves the
-shards' blocks to their devices (views where a shard's device is the
-state's) and its results back.
+entry of a ``launch.mesh.AgentMesh``, or an index of one axis of a
+``launch.mesh.Mesh`` (its block on the device of the position with the
+other axes at 0); shard s holds agents ``[s N/S, (s + 1) N/S)``.  The
+state stays resident on its own device; each call moves the shards' blocks
+to their devices (views where a shard's device is the state's) and its
+results back.
 
 * ``consensus_ppermute_window``: one gossip event window, sharded.  Each
   shard encodes its own rows into its ``[N, P]`` statistic buffers in the
@@ -23,6 +23,16 @@ state's) and its results back.
 * ``consensus_ppermute_ring_flat`` / ``consensus_ppermute_ring``: eq. (6) on
   a bidirectional ring of shards, each mixing itself with the blocks of
   shards ``s - 1`` and ``s + 1`` (plain PyTorch: the reference is XLA).
+* ``consensus_ppermute_pod``: the same eq. (6) leaf by leaf over a pytree
+  posterior on the LM mesh's ``pod`` axis, each leaf split into the blocks
+  its sharding gives every mesh position (``launch.sharding.shard_blocks``);
+  a position mixes its block with the wire-rounded blocks of the positions
+  one pod before it (and one after, for more than two pods).  Its
+  arithmetic is the ring's, term for term, so on the card it is bitwise
+  ``consensus_ppermute_ring_flat`` on the same posterior flattened, for the
+  same W and wire (on the CPU PyTorch's elementwise kernels take another
+  path for a buffer's last lanes, so a leaf's tail may differ in the last
+  bit).
 * ``consensus_einsum`` / ``consensus_einsum_flat``: dense eq. (6) with the
   exchanged statistics and W rounded to the wire dtype and accumulated in
   float32 (plain PyTorch, the reference's einsum baseline).
@@ -51,8 +61,10 @@ import torch
 from repro_torch.core.flat import FlatPosterior
 from repro_torch.core.numerics import canonical_wire_dtype, softplus, softplus_inv, wire_cast_pair
 from repro_torch.core.posterior import GaussianPosterior
+from repro_torch.core.tree import tree_at, tree_flatten_with_path, tree_replace_leaves
 from repro_torch.kernels.consensus import consensus_fused_shard, consensus_shard_encode
 from repro_torch.launch.mesh import AGENTS, AgentMesh
+from repro_torch.launch.sharding import NamedSharding, join_blocks, shard_blocks
 
 _moved = {"rotations": 0, "copies": 0, "bytes": 0}
 
@@ -77,14 +89,25 @@ def rotate(src: torch.Tensor, dst: torch.Tensor) -> None:
 
 def _shards(mesh: AgentMesh, axis: str, n: int) -> tuple[int, int]:
     """(shards, agents a shard) of ``n`` agents over ``mesh``'s ``axis``."""
-    if axis != mesh.axis:
+    if isinstance(mesh, AgentMesh) and axis != mesh.axis:
         raise ValueError(f"mesh axis {mesh.axis!r}, asked for {axis!r}")
+    if axis not in mesh.shape:
+        raise ValueError(f"mesh axes {tuple(mesh.shape)}, asked for {axis!r}")
     n_shards = mesh.shape[axis]
     if n % n_shards:
         raise ValueError(
             f"agent axis ({n}) must divide evenly over the {n_shards}-shard mesh axis {axis!r}"
         )
     return n_shards, n // n_shards
+
+
+def _axis_devices(mesh, axis: str, default) -> list:
+    """The device of each shard of ``axis``: an ``AgentMesh``'s entries, or
+    a ``Mesh``'s positions with the other axes at 0 (``default`` when it is
+    abstract)."""
+    if isinstance(mesh, AgentMesh):
+        return list(mesh.devices)
+    return [mesh.device_at({axis: i}, default) for i in range(mesh.shape[axis])]
 
 
 # ---------------------------------------------------------------------------
@@ -180,6 +203,40 @@ def ring_weights(n: int, self_weight: float = 1.0 / 3.0) -> tuple[float, float, 
     return self_weight, side, side
 
 
+def _stats(m, r, wd):
+    """A block's precision and its wire-dtype (prec, prec*mu) pair."""
+    prec = 1.0 / torch.square(softplus(r))
+    return prec, wire_cast_pair(prec, prec * m, wd)
+
+
+def _receive(pair, device) -> list:
+    """Rotate a wire pair onto ``device`` and decode it to float32."""
+    out = []
+    for x in pair:
+        buf = torch.empty_like(x, device=device)
+        rotate(x, buf)
+        out.append(buf.to(torch.float32))
+    return out
+
+
+def _row_weights(W, i: int, n: int, device):
+    """Row i's (self, prev, next) of ``W`` as 0-d float32 tensors; next is
+    0 for two shards (both directions are one neighbour)."""
+    w = _float32(W, device)
+    nxt = w[i, (i + 1) % n] if n > 2 else torch.zeros((), device=device)
+    return w[i, i], w[i, (i - 1) % n], nxt
+
+
+def _mix(m, prec, prev, nxt, weights):
+    """Eq. (6) of one block from its own precision and the decoded (prec,
+    prec*mu) of its two neighbours, in the reference's order of terms."""
+    (prev_p, prev_pm), (next_p, next_pm) = prev, nxt
+    w_self, w_prev, w_next = weights
+    new_prec = w_self * prec + w_prev * prev_p + w_next * next_p
+    new_pm = w_self * (prec * m) + w_prev * prev_pm + w_next * next_pm
+    return new_pm / new_prec, softplus_inv(torch.sqrt(1.0 / new_prec))
+
+
 def _ring_eq6(mean, rho, mesh, axis, wd, weights):
     """Eq. (6) of ``[N, F]`` buffers on a bidirectional ring of shards:
     shard i mixes its block with the wire-dtype blocks of shards i - 1 and
@@ -187,27 +244,18 @@ def _ring_eq6(mean, rho, mesh, axis, wd, weights):
     n_shards, per = _shards(mesh, axis, mean.shape[0])
     blocks = [slice(s * per, (s + 1) * per) for s in range(n_shards)]
     local = []
-    for s, dev in enumerate(mesh.devices):
+    for s, dev in enumerate(_axis_devices(mesh, axis, mean.device)):
         m, r = mean[blocks[s]].to(dev), rho[blocks[s]].to(dev)
-        prec = 1.0 / torch.square(softplus(r))
-        local.append((m, prec, wire_cast_pair(prec, prec * m, wd)))
+        local.append((m, *_stats(m, r, wd)))
     mean_out, rho_out = torch.empty_like(mean), torch.empty_like(rho)
     for i, (m, prec, _) in enumerate(local):
         recv = []
         for src in ((i - 1) % n_shards, (i + 1) % n_shards):  # from i - 1, from i + 1
             _moved["rotations"] += 1
-            pair = []
-            for x in local[src][2]:
-                buf = torch.empty_like(x, device=m.device)
-                rotate(x, buf)
-                pair.append(buf.to(torch.float32))
-            recv.append(pair)
-        (prev_p, prev_pm), (next_p, next_pm) = recv
-        w_self, w_prev, w_next = weights(i, m.device)
-        new_prec = w_self * prec + w_prev * prev_p + w_next * next_p
-        new_pm = w_self * (prec * m) + w_prev * prev_pm + w_next * next_pm
-        mean_out[blocks[i]] = (new_pm / new_prec).to(mean.device)
-        rho_out[blocks[i]] = softplus_inv(torch.sqrt(1.0 / new_prec)).to(mean.device)
+            recv.append(_receive(local[src][2], m.device))
+        new_mean, new_rho = _mix(m, prec, *recv, weights(i, m.device))
+        mean_out[blocks[i]] = new_mean.to(mean.device)
+        rho_out[blocks[i]] = new_rho.to(mean.device)
     return mean_out, rho_out
 
 
@@ -228,12 +276,64 @@ def consensus_ppermute_ring_flat(posts: FlatPosterior, mesh: AgentMesh, axis: st
             return static
     else:
         def weights(i, dev):
-            w = _float32(W, dev)
-            nxt = w[i, (i + 1) % n] if n > 2 else torch.zeros((), device=dev)
-            return w[i, i], w[i, (i - 1) % n], nxt
+            return _row_weights(W, i, n, dev)
 
     mean, rho = _ring_eq6(posts.mean, posts.rho, mesh, axis, wd, weights)
     return dataclasses.replace(posts, mean=mean, rho=rho)
+
+
+def consensus_ppermute_pod(posts: GaussianPosterior, W, mesh, shardings,
+                           wire_dtype=torch.bfloat16, axis: str = "pod") -> GaussianPosterior:
+    """Eq. (6) over the pod axis, leaf by leaf, with explicit neighbour
+    exchange of ONLY the sufficient statistics (prec, prec*mu) in
+    ``wire_dtype``.
+
+    ``posts``: every leaf leads with the agent axis (one agent a pod);
+    ``shardings``: a ``GaussianPosterior``-shaped tree whose ``mean`` holds
+    a ``NamedSharding`` (or a bare ``PartitionSpec``) for each leaf, e.g.
+    ``launch.sharding.param_shardings(state, mesh, agent_leading=True)
+    .posterior``.  Each leaf is split into the block every position of
+    ``mesh`` holds (on its device); a position mixes its block with the
+    decoded wire blocks of the position one pod before it, and of the one
+    after when there are more than two pods (for two both directions are
+    one neighbour, mixed once), weights from W's row of its pod
+    (``W[i, i]``, ``W[i, i - 1]``, ``W[i, i + 1]``; other entries are
+    ignored, as in the ring).  Each direction is one rotation a leaf, a
+    ``rotate`` copy of every position's block, counted in
+    ``rotation_counts()``."""
+    wd = canonical_wire_dtype(wire_dtype)
+    n = mesh.shape[axis]
+    positions = list(mesh.positions())
+    where = {tuple(sorted(pos.items())): k for k, pos in enumerate(positions)}
+
+    def peer(pos, d):
+        return where[tuple(sorted({**pos, axis: (pos[axis] + d) % n}.items()))]
+
+    shifts = (-1, 1) if n > 2 else (-1,)
+    means, rhos = [], []
+    for path, m in tree_flatten_with_path(posts.mean):
+        r, s = tree_at(posts.rho, path), tree_at(shardings.mean, path)
+        sh = s if isinstance(s, NamedSharding) else NamedSharding(mesh, s)
+        local = []
+        for mb, rb in zip(shard_blocks(m, sh), shard_blocks(r, sh)):
+            local.append((mb, *_stats(mb, rb, wd)))
+        recv = {}
+        for d in shifts:
+            _moved["rotations"] += 1
+            for k, pos in enumerate(positions):
+                recv[k, d] = _receive(local[peer(pos, d)][2], local[k][0].device)
+        out_m, out_r = [], []
+        for k, (pos, (mb, prec, _)) in enumerate(zip(positions, local)):
+            zero = torch.zeros((), device=mb.device)
+            nxt = recv[k, 1] if n > 2 else (zero, zero)
+            new_m, new_r = _mix(mb, prec, recv[k, -1], nxt,
+                                _row_weights(W, pos[axis], n, mb.device))
+            out_m.append(new_m)
+            out_r.append(new_r)
+        means.append(join_blocks(out_m, sh, device=m.device))
+        rhos.append(join_blocks(out_r, sh, device=r.device))
+    return GaussianPosterior(mean=tree_replace_leaves(posts.mean, means),
+                             rho=tree_replace_leaves(posts.rho, rhos))
 
 
 def consensus_ppermute_ring(posts: GaussianPosterior, mesh: AgentMesh, axis: str = AGENTS,
@@ -297,7 +397,7 @@ def consensus_einsum_flat(posts: FlatPosterior, W, wire_dtype=torch.float32) -> 
 
 
 __all__ = [
-    "consensus_einsum", "consensus_einsum_flat", "consensus_ppermute_ring",
-    "consensus_ppermute_ring_flat", "consensus_ppermute_window", "reset_rotation_counts",
-    "ring_weights", "rotate", "rotation_counts", "window_shard_offsets",
+    "consensus_einsum", "consensus_einsum_flat", "consensus_ppermute_pod",
+    "consensus_ppermute_ring", "consensus_ppermute_ring_flat", "consensus_ppermute_window",
+    "reset_rotation_counts", "ring_weights", "rotate", "rotation_counts", "window_shard_offsets",
 ]

@@ -1,11 +1,13 @@
 """Production step functions (port of ``repro.launch.steps``) over a
-``BayesTrainState`` whose posterior is a ``FlatPosterior`` end to end: one
-train round of the paper's rule (``make_train_round_step``: eq. (6), then
-one Bayes-by-Backprop step from that prior on the language-model
-objective), one local step against an explicit prior (the LM objective, or
-a per-agent ``nll_fn``), the standalone eq. (6) consensus; and, over the
-model zoo, ``init_train_state``, ``serve_params`` and the prefill and decode
-steps for A agents at once.
+``BayesTrainState`` whose posterior is a ``FlatPosterior`` end to end (the
+default), or a ``GaussianPosterior`` over the agent-stacked parameter dict
+(``init_train_state(flat=False)``): one train round of the paper's rule
+(``make_train_round_step``: eq. (6), then one Bayes-by-Backprop step from
+that prior on the language-model objective), one local step against an
+explicit prior (the LM objective, or a per-agent ``nll_fn``), the
+standalone eq. (6) consensus; and, over the model zoo,
+``init_train_state``, ``serve_params`` and the prefill and decode steps
+for A agents at once.
 
 Agent axis: the reference ``jax.vmap``s its steps over agents.  The
 flash-attention kernels launch through raw pointers, which
@@ -18,9 +20,11 @@ float32 a buffer, so repro-100m's two agents run one at a time), each
 block's gradient that of its share of the mean over all A agents.
 
 Noise seam: the LM steps take ``eps [A, P]``, one standard-normal draw an
-agent (the reference's ``post_a.sample(key_a)``), or draw it from
-``generator``.  ``launch`` imports the model zoo only inside the LM
-functions.
+agent (the reference's ``post_a.sample(key_a)``), or, for a pytree
+posterior, a dict of ``[A, ...]`` draws shaped like its mean (the
+reference's draw of each leaf); without it they draw from ``generator``
+(a pytree's leaves in sorted-key order).  ``launch`` imports the model
+zoo only inside the LM functions.
 """
 from __future__ import annotations
 
@@ -30,11 +34,11 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.core.flat import FlatPosterior, make_flat_nll
-from repro_torch.core.posterior import consensus_all_agents, kl_gaussian
-from repro_torch.core.tree import tree_map
+from repro_torch.core.posterior import consensus_all_agents, kl_gaussian_agents
+from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.optim import Optimizer
 from repro_torch.optim.schedules import Schedule
-from repro_torch.vi.bayes_by_backprop import blocked_update, vi_step
+from repro_torch.vi.bayes_by_backprop import blocked_update, grads_like, vi_step
 
 PyTree = Any
 
@@ -44,7 +48,7 @@ class BayesTrainState:
     """Leaves in ``jax.tree.leaves`` order: ``posterior.mean``,
     ``posterior.rho``, the optimizer state's, then ``step``."""
 
-    posterior: FlatPosterior  # [A, P]
+    posterior: FlatPosterior  # [A, P], or a GaussianPosterior of [A, ...] leaves
     opt_state: Any
     step: torch.Tensor  # 0-d int32: local steps taken
 
@@ -53,11 +57,8 @@ class BayesTrainState:
         return tree_map(lambda x: x.to(device, copy=True), self)
 
 
-def _flat(posterior) -> FlatPosterior:
-    if not isinstance(posterior, FlatPosterior):
-        raise TypeError("the port's LM steps run on the flat posterior (init_train_state's "
-                        "default, flat=True)")
-    return posterior
+def _n_agents(posterior) -> int:
+    return tree_leaves(posterior.mean)[0].shape[0]
 
 
 def _lm_grad_fn(cfg, n_agents: int, kl_scale: float, bayesian: bool, remat: bool):
@@ -66,38 +67,49 @@ def _lm_grad_fn(cfg, n_agents: int, kl_scale: float, bayesian: bool, remat: bool
     ``(nll + router_aux_weight aux ntok) / ntok + kl_scale KL(q || prior) /
     ntok`` on ``theta = mean + softplus(rho) eps`` (the mean and KL = 0 when
     not ``bayesian``), the prior held fixed; the gradient is that of the
-    mean over all ``n_agents`` agents.  Metrics: (loss, nll / ntok, KL)."""
+    mean over all ``n_agents`` agents.  Flat or pytree blocks alike (the
+    flat theta crosses to the parameter dict at ``layout.unflatten``).
+    Metrics: (loss, nll / ntok, KL)."""
     from repro_torch.models import nll_loss
 
-    def grad_fn(block: FlatPosterior, prior: FlatPosterior, batch: dict, eps):
-        mean = block.mean.detach().requires_grad_(True)
-        rho = block.rho.detach().requires_grad_(bayesian)
-        q = FlatPosterior(mean, rho, block.layout)
+    def grad_fn(block, prior, batch: dict, eps):
+        q = dataclasses.replace(
+            block, mean=tree_map(lambda x: x.detach().requires_grad_(True), block.mean),
+            rho=tree_map(lambda x: x.detach().requires_grad_(bayesian), block.rho))
+        wrt = tree_leaves(q.mean) + (tree_leaves(q.rho) if bayesian else [])
         ntok = float(batch["targets"][0].numel())
         with torch.enable_grad():
             if bayesian:
-                theta = q.sample(eps)
-                kl = kl_gaussian(q, tree_map(torch.Tensor.detach, prior))
+                theta = q.sample(noise=eps)
+                kl = kl_gaussian_agents(q, tree_map(torch.Tensor.detach, prior))
             else:
-                theta = mean
-                kl = torch.zeros(mean.shape[0], dtype=torch.float32, device=mean.device)
-            nll, aux = nll_loss(block.layout.unflatten(theta), cfg, batch, remat=remat)
+                theta = q.mean
+                kl = torch.zeros(wrt[0].shape[0], dtype=torch.float32, device=wrt[0].device)
+            params = block.layout.unflatten(theta) if isinstance(block, FlatPosterior) else theta
+            nll, aux = nll_loss(params, cfg, batch, remat=remat)
             loss = (nll + cfg.router_aux_weight * aux * ntok) / ntok + kl_scale * kl / ntok
-            grads = torch.autograd.grad(loss.sum() / n_agents, (mean, rho) if bayesian else mean)
-        if not bayesian:
-            grads = (grads[0], torch.zeros_like(rho))
-        return ((loss.detach(), (nll / ntok).detach(), kl.detach()),
-                FlatPosterior(grads[0], grads[1], block.layout))
+            grads = grads_like(q, wrt, loss.sum() / n_agents)
+        return (loss.detach(), (nll / ntok).detach(), kl.detach()), grads
 
     return grad_fn
 
 
-def _draw(post: FlatPosterior, eps, generator, bayesian: bool):
+def _draw(post, eps, generator, bayesian: bool):
+    """The step's noise: ``eps`` as given, else one standard-normal draw of
+    the posterior's shape (a pytree's leaves in sorted-key order)."""
     if not bayesian:
         return None
     if eps is None:
-        eps = torch.randn(post.mean.shape, generator=generator, device=post.mean.device)
+        eps = tree_map(lambda m: torch.randn(m.shape, generator=generator, device=m.device),
+                       post.mean)
     return eps
+
+
+def _ring_axis(posterior_shardings) -> str:
+    """The ring's mesh axis: the first spec entry of the posterior mean's
+    sharding, else ``"pod"`` (the reference's rule)."""
+    spec0 = getattr(getattr(posterior_shardings, "mean", None), "spec", None)
+    return spec0[0] if spec0 and spec0[0] is not None else "pod"
 
 
 def make_train_round_step(cfg, W, opt: Optimizer | None = None,
@@ -112,9 +124,13 @@ def make_train_round_step(cfg, W, opt: Optimizer | None = None,
 
     1. eq. (6) over the agent axis -> the prior (``consensus_impl``:
        ``"einsum"`` is ``core.posterior.consensus_all_agents``, the network
-       kernel on the card, or ``launch.consensus_opt.consensus_einsum_flat``
-       when ``consensus_wire_dtype`` is set; ``"ppermute"`` is
-       ``consensus_ppermute_ring_flat`` over ``mesh``'s axis, wire bf16
+       kernel on the card for a flat posterior, the leaf loop for a pytree,
+       or ``launch.consensus_opt.consensus_einsum_flat`` /
+       ``consensus_einsum`` when ``consensus_wire_dtype`` is set;
+       ``"ppermute"`` is ``consensus_ppermute_ring_flat`` for a flat
+       posterior, over the axis of ``posterior_shardings.mean``'s first spec
+       entry, else ``"pod"``, and ``consensus_ppermute_pod`` over ``mesh``'s
+       ``"pod"`` axis with ``posterior_shardings`` for a pytree, wire bf16
        unless ``consensus_wire_dtype`` says otherwise; ``"none"`` keeps the
        posterior);
     2. one Bayes-by-Backprop step from that prior on the LM objective
@@ -126,9 +142,11 @@ def make_train_round_step(cfg, W, opt: Optimizer | None = None,
     rho, so from equal rho eq. (6) averages the means with W's weights.
     ``batch``: ``{"tokens", "targets"}`` ``[A, B, S]`` (and ``"frames"`` /
     ``"patches"`` ``[A, B, F or P, D]`` for an enc-dec or VLM config; a
-    VLM's targets may cover the patches); ``eps [A, P]``.
-    ``posterior_shardings`` is the reference's sharding tree; the port's
-    ``AgentMesh`` has one axis, which the ring takes."""
+    VLM's targets may cover the patches); ``eps [A, P]`` (flat) or a dict
+    like the posterior's mean (pytree).  ``mesh`` is a ``launch.mesh.Mesh``
+    (an ``AgentMesh`` serves the flat ring over its axis when the shardings
+    name it), ``posterior_shardings`` the posterior's part of
+    ``launch.sharding.param_shardings(state, mesh, agent_leading=True)``."""
     from repro_torch.optim import adam
     from repro_torch.optim.schedules import exponential_decay
 
@@ -144,27 +162,32 @@ def make_train_round_step(cfg, W, opt: Optimizer | None = None,
     def consensus(post):
         if consensus_impl == "none":
             return post
+        flat = isinstance(post, FlatPosterior)
+        wire = consensus_wire_dtype
         if consensus_impl == "ppermute":
-            if not isinstance(post, FlatPosterior):
-                raise NotImplementedError(
-                    "the leaf-wise consensus_ppermute_pod comes with the sharding slice "
-                    "(ROADMAP queue A item 10f); a flat posterior takes the ring")
             if mesh is None:
                 raise ValueError("consensus_impl='ppermute' needs the agent mesh")
-            from repro_torch.launch.consensus_opt import consensus_ppermute_ring_flat
+            from repro_torch.launch import consensus_opt as co
 
-            return consensus_ppermute_ring_flat(
-                post, mesh, mesh.axis, wire_dtype=consensus_wire_dtype or torch.bfloat16, W=W)
-        post = _flat(post)
-        if consensus_wire_dtype is not None:
-            from repro_torch.launch.consensus_opt import consensus_einsum_flat
+            if flat:
+                return co.consensus_ppermute_ring_flat(
+                    post, mesh, _ring_axis(posterior_shardings), wire_dtype=wire or torch.bfloat16,
+                    W=W)
+            if posterior_shardings is None:
+                raise ValueError("consensus_impl='ppermute' on a pytree posterior needs "
+                                 "posterior_shardings")
+            return co.consensus_ppermute_pod(post, W, mesh, posterior_shardings,
+                                             wire_dtype=wire or torch.bfloat16)
+        if wire is not None:
+            from repro_torch.launch import consensus_opt as co
 
-            return consensus_einsum_flat(post, W, wire_dtype=consensus_wire_dtype)
+            return (co.consensus_einsum_flat(post, W, wire_dtype=wire) if flat
+                    else co.consensus_einsum(post, W, wire_dtype=wire))
         return consensus_all_agents(post, W)
 
     def step_fn(state: BayesTrainState, batch: dict, eps: torch.Tensor | None = None,
                 generator: torch.Generator | None = None):
-        prior = _flat(consensus(state.posterior))
+        prior = consensus(state.posterior)
         new_post, opt_state, (losses, nll, kl) = blocked_update(
             prior, prior, opt, state.opt_state, grad_fn, batch,
             _draw(prior, eps, generator, bayesian), lr_schedule(state.step), state.step)
@@ -185,15 +208,16 @@ def make_local_step(cfg, opt: Optimizer, lr_schedule: Schedule, kl_scale: float 
 
     Default (``nll_fn=None``): the language-model objective on ``cfg``,
     ``make_train_round_step``'s against ``prior`` (per token, the gradient
-    that of the mean over agents); ``loss`` is that mean, ``eps [A, P]``.
+    that of the mean over agents); ``loss`` is that mean, ``eps [A, P]``
+    (a dict of ``[A, ...]`` draws for a pytree posterior).
 
     ``nll_fn`` (the ``api.LaunchEngine`` path; ``cfg`` unused): each
     agent's free energy ``kl_scale * KL(q||prior) + E_q[nll]`` (eq. 5,
     ``vi.free_energy`` over ``n_mc_samples`` samples); the gradient is that
     of their sum, so each agent's is its own; ``loss [A]``,
-    ``eps [A, S, P]``.  ``nll_fn(params, batch) -> [A]`` takes the
-    parameter dict; the flat theta crosses to it at the model-apply
-    boundary.
+    ``eps [A, S, P]`` (a dict of ``[A, S, ...]`` leaves for a pytree
+    posterior).  ``nll_fn(params, batch) -> [A]`` takes the parameter dict;
+    a flat theta crosses to it at the model-apply boundary.
 
     Either way the optimizer takes the scalar ``state.step`` and the
     learning rate ``lr_schedule(state.step)``, and the noise is drawn from
@@ -204,10 +228,10 @@ def make_local_step(cfg, opt: Optimizer, lr_schedule: Schedule, kl_scale: float 
 
         def lm_step(state: BayesTrainState, prior: FlatPosterior, batch: dict,
                     eps: torch.Tensor | None = None, generator: torch.Generator | None = None):
-            post = _flat(state.posterior)
-            grad_fn = _lm_grad_fn(cfg, post.mean.shape[0], kl_scale, True, remat)
+            post = state.posterior
+            grad_fn = _lm_grad_fn(cfg, _n_agents(post), kl_scale, True, remat)
             new_post, opt_state, (losses, _, _) = blocked_update(
-                post, _flat(prior), opt, state.opt_state, grad_fn, batch,
+                post, prior, opt, state.opt_state, grad_fn, batch,
                 _draw(post, eps, generator, True), lr_schedule(state.step), state.step)
             return (BayesTrainState(posterior=new_post, opt_state=opt_state,
                                     step=state.step + 1), losses.mean())
@@ -217,11 +241,14 @@ def make_local_step(cfg, opt: Optimizer, lr_schedule: Schedule, kl_scale: float 
     def step_fn(state: BayesTrainState, prior: FlatPosterior, batch: dict,
                 eps: torch.Tensor | None = None, generator: torch.Generator | None = None):
         post = state.posterior
+        flat = isinstance(post, FlatPosterior)
         if eps is None:
-            eps = torch.randn((post.mean.shape[0], n_mc_samples, post.mean.shape[1]),
-                              generator=generator, device=post.mean.device)
+            eps = tree_map(lambda m: torch.randn((m.shape[0], n_mc_samples) + tuple(m.shape[1:]),
+                                                 generator=generator, device=m.device),
+                           post.mean)
         new_post, opt_state, loss = vi_step(
-            post, prior, opt, state.opt_state, make_flat_nll(nll_fn, post.layout), batch,
+            post, prior, opt, state.opt_state,
+            make_flat_nll(nll_fn, post.layout) if flat else nll_fn, batch,
             lr_schedule(state.step), state.step, eps, kl_scale)
         return BayesTrainState(posterior=new_post, opt_state=opt_state,
                                step=state.step + 1), loss

@@ -1,7 +1,8 @@
 """Minimal optax-style optimizers (port of ``repro.optim.optimizers``).
 
 An ``Optimizer`` is an (init, update) pair over parameter trees: a tensor,
-or a dataclass of tensors such as ``FlatPosterior``.
+or a dataclass of tensors or of dicts of tensors such as ``FlatPosterior``
+and ``GaussianPosterior``.
 ``update`` takes (grads, state, step, lr) and returns (updates, new_state),
 so learning-rate schedules stay outside the state.  ``step`` may carry
 leading axes (the per-agent step counter [N]); they broadcast against the
@@ -14,22 +15,9 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from repro_torch.core import tree as _tree
+from repro_torch.core.tree import tree_leaves, tree_map
 
 PyTree = Any
-
-
-def tree_map(fn, tree, *rest):
-    """Map ``fn`` over the tensor fields of structurally equal trees: a
-    tensor, or a dataclass such as ``FlatPosterior`` (non-tensor fields, like
-    its layout, are carried over)."""
-    if isinstance(tree, torch.Tensor):
-        return fn(tree, *rest)
-    return dataclasses.replace(tree, **{
-        f.name: fn(getattr(tree, f.name), *(getattr(r, f.name) for r in rest))
-        for f in dataclasses.fields(tree)
-        if isinstance(getattr(tree, f.name), torch.Tensor)
-    })
 
 
 class Optimizer(NamedTuple):
@@ -98,10 +86,10 @@ def apply_updates(params: PyTree, updates: PyTree) -> PyTree:
 def global_norm(tree: PyTree) -> torch.Tensor:
     """The l2 norm of all of ``tree``'s leaves together, in float32."""
     return torch.sqrt(sum(torch.sum(torch.square(leaf.to(torch.float32)))
-                          for leaf in _tree.tree_leaves(tree)))
+                          for leaf in tree_leaves(tree)))
 
 
 def clip_by_global_norm(grads: PyTree, max_norm: float) -> PyTree:
     """``grads`` scaled by ``min(1, max_norm / (global_norm + 1e-12))``."""
     scale = torch.clamp(max_norm / (global_norm(grads) + 1e-12), max=1.0)
-    return _tree.tree_map(lambda g: g * scale, grads)
+    return tree_map(lambda g: g * scale, grads)

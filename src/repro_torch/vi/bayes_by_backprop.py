@@ -5,10 +5,12 @@ paper's steps 2+3 (Remark 1, eq. 5); port of ``repro.vi.bayes_by_backprop``:
 
 Everything runs on the whole network at once: ``post``/``prior`` are
 ``FlatPosterior``s over ``[N, P]`` buffers and ``nll_fn(theta [N, P],
-batch)`` returns one value per agent.  Agents are independent, so the
-gradient of the summed per-agent free energies is each agent's own gradient
-(``torch.autograd`` on plain PyTorch ops, as the JAX package leaves it to
-``jax.grad``).
+batch)`` returns one value per agent; or ``GaussianPosterior``s over
+parameter dicts whose leaves lead with the agent axis, ``nll_fn`` then
+taking the sampled dict and the noise a dict of the same leaves.  Agents
+are independent, so the gradient of the summed per-agent free energies is
+each agent's own gradient (``torch.autograd`` on plain PyTorch ops, as the
+JAX package leaves it to ``jax.grad``).
 
 Noise seam: every draw takes an optional injected tensor and otherwise uses
 the caller's ``torch.Generator``.  The BbB noise of a round is
@@ -17,13 +19,14 @@ key chain; the predictive noise is ``eps [n_mc, P]`` or ``[n_mc, N, P]``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable
 
 import torch
 
 from repro_torch.core.flat import FlatPosterior
-from repro_torch.core.posterior import kl_gaussian
-from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.core.posterior import kl_gaussian_agents
+from repro_torch.core.tree import tree_leaves, tree_map, tree_replace_leaves
 from repro_torch.optim import Optimizer, apply_updates
 
 PyTree = Any
@@ -35,10 +38,13 @@ def free_energy(post: FlatPosterior, prior: FlatPosterior, nll_fn: NllFn,
                 batch: Any, eps: torch.Tensor, kl_scale: float = 1.0) -> torch.Tensor:
     """Per-agent variational free energy (eq. 5), ``[N]``:
     ``kl_scale * KL(q||prior) + E_q[-log lik]`` with the expectation over the
-    MC samples ``eps [N, S, P]``."""
-    kl = kl_gaussian(post, prior)
+    MC samples ``eps [N, S, P]`` (a dict of ``[N, S, ...]`` leaves for a
+    ``GaussianPosterior``)."""
+    kl = kl_gaussian_agents(post, prior)
+    n_samples = tree_leaves(eps)[0].shape[1]
     enll = torch.stack(
-        [nll_fn(post.sample(eps[:, s]), batch) for s in range(eps.shape[1])]
+        [nll_fn(post.sample(noise=tree_map(lambda e: e[:, s], eps)), batch)
+         for s in range(n_samples)]
     ).mean(dim=0)
     return kl_scale * kl + enll
 
@@ -57,20 +63,31 @@ def agent_blocks(n: int, p: int) -> list[slice]:
     return [slice(s, min(s + b, n)) for s in range(0, n, b)]
 
 
+def grads_like(post, leaves, value: torch.Tensor):
+    """``torch.autograd.grad(value, leaves)`` as a tree shaped like
+    ``post``: the gradient in each of ``leaves`` (``post``'s mean leaves,
+    then its rho leaves, or the mean's alone, the rho's then 0)."""
+    n = len(tree_leaves(post.mean))
+    grads = torch.autograd.grad(value, leaves)
+    if len(grads) == n:
+        grads = grads + tuple(torch.zeros_like(r) for r in tree_leaves(post.rho))
+    return dataclasses.replace(post, mean=tree_replace_leaves(post.mean, grads[:n]),
+                               rho=tree_replace_leaves(post.rho, grads[n:]))
+
+
 def free_energy_and_grad(post: FlatPosterior, prior: FlatPosterior, nll_fn: NllFn,
                          batch: Any, eps: torch.Tensor, kl_scale: float = 1.0):
     """``free_energy`` ``[N]`` and its gradient with respect to ``post``'s
-    buffers, a ``FlatPosterior``: the gradient of the summed per-agent free
-    energies, which is each agent's own (``torch.autograd.grad``; the prior
-    is held fixed).  ``eps [N, S, P]`` is the injected MC noise."""
-    mean = post.mean.detach().requires_grad_(True)
-    rho = post.rho.detach().requires_grad_(True)
-    prior = FlatPosterior(prior.mean.detach(), prior.rho.detach(), prior.layout)
+    buffers (a posterior of ``post``'s form): the gradient of the summed
+    per-agent free energies, which is each agent's own
+    (``torch.autograd.grad``; the prior is held fixed).  ``eps`` is the
+    injected MC noise."""
+    q = tree_map(lambda x: x.detach().requires_grad_(True), post)
+    prior = tree_map(torch.Tensor.detach, prior)
     with torch.enable_grad():
-        value = free_energy(FlatPosterior(mean, rho, post.layout), prior, nll_fn, batch, eps,
-                            kl_scale)
-        g_mean, g_rho = torch.autograd.grad(value.sum(), (mean, rho))
-    return value.detach(), FlatPosterior(g_mean, g_rho, post.layout)
+        value = free_energy(q, prior, nll_fn, batch, eps, kl_scale)
+        grads = grads_like(q, tree_leaves(q.mean) + tree_leaves(q.rho), value.sum())
+    return value.detach(), grads
 
 
 def blocked_update(post: FlatPosterior, prior: FlatPosterior, opt: Optimizer, opt_state: Any,
@@ -83,9 +100,13 @@ def blocked_update(post: FlatPosterior, prior: FlatPosterior, opt: Optimizer, op
     ``step`` is the per-agent counter ``[N]`` or one scalar for all.  The
     new rows go into ``out`` (a ``(posterior, opt_state)`` pair, which may
     be ``post`` and ``opt_state`` themselves: a block's rows are read before
-    they are written), else into new buffers.  Returns (post', opt_state',
+    they are written), else into new buffers.  ``post`` is a
+    ``FlatPosterior`` or a ``GaussianPosterior`` (agent blocks by its
+    parameters an agent; ``eps`` then a dict).  Returns (post', opt_state',
     the metrics, each ``[N]``)."""
-    n, p = post.mean.shape
+    mean_leaves = tree_leaves(post.mean)
+    n = mean_leaves[0].shape[0]
+    p = sum(leaf[0].numel() for leaf in mean_leaves)
     if out is None:
         out = (tree_map(torch.empty_like, post), tree_map(torch.empty_like, opt_state))
     metrics = []
@@ -93,7 +114,7 @@ def blocked_update(post: FlatPosterior, prior: FlatPosterior, opt: Optimizer, op
         block = tree_map(lambda x: x[rows], post)
         values, grads = grad_fn(block, tree_map(lambda x: x[rows], prior),
                                 {k: v[rows] for k, v in batch.items()},
-                                None if eps is None else eps[rows])
+                                None if eps is None else tree_map(lambda e: e[rows], eps))
         updates, new_opt = opt.update(grads, tree_map(lambda x: x[rows], opt_state),
                                       step[rows] if step.ndim else step, lr)
         del grads  # [b, P] each: not held into the next block's forward

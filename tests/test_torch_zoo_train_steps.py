@@ -147,15 +147,20 @@ def test_remat_changes_no_bit(arch, monkeypatch):
 
 def test_flat_ppermute_routes_through_the_ring_and_equals_einsum(monkeypatch):
     """``consensus_impl="ppermute"`` on the flat posterior goes through
-    ``consensus_ppermute_ring_flat`` over the mesh's axis with the step's W
-    (as tests/test_gossip.py:1143 pins the reference's routing), and at the
-    f32 wire gives the einsum route's step; without a mesh it is refused,
-    and on a pytree posterior it waits for the leaf-wise ring (item 10f)."""
+    ``consensus_ppermute_ring_flat`` with the step's W, over the axis of the
+    posterior shardings' first spec entry, else ``"pod"`` (as
+    tests/test_gossip.py:1143 pins the reference's routing), and at the f32
+    wire gives the einsum route's step; without a mesh it is refused.  A
+    pytree posterior takes the leaf-wise ``consensus_ppermute_pod``, which
+    needs the shardings (tests/test_torch_pytree_steps.py)."""
     import repro_torch.launch.consensus_opt as co
+    from repro_torch.core.posterior import GaussianPosterior
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import NamedSharding, P, param_shardings
 
     tcfg, state, batch, eps = _port_case("repro-100m")
     Wt = torch.as_tensor(W, dtype=torch.float32)
-    mesh = agent_mesh([torch.device("cpu")] * A)
+    mesh = make_mesh((A, 1, 1), ("pod", "data", "model"), torch.device("cpu"))
     calls = {}
     ring = co.consensus_ppermute_ring_flat
 
@@ -166,11 +171,18 @@ def test_flat_ppermute_routes_through_the_ring_and_equals_einsum(monkeypatch):
     monkeypatch.setattr(co, "consensus_ppermute_ring_flat", spy)
     ring_out = ts.make_train_round_step(tcfg, Wt, consensus_impl="ppermute", mesh=mesh,
                                         consensus_wire_dtype=torch.float32)(state, batch, eps=eps)
-    assert calls == {"axis": mesh.axis, "W": Wt, "flat": True, "wire": torch.float32}
+    assert calls == {"axis": "pod", "W": Wt, "flat": True, "wire": torch.float32}
     assert calls["W"] is Wt
     ts.make_train_round_step(tcfg, Wt, consensus_impl="ppermute", mesh=mesh)(state, batch,
                                                                              eps=eps)
     assert calls["wire"] is torch.bfloat16  # the reference's default wire
+    agents = agent_mesh([torch.device("cpu")] * A)
+    shardings = FlatPosterior(NamedSharding(agents, P(agents.axis, None)), None, None)
+    again = ts.make_train_round_step(tcfg, Wt, consensus_impl="ppermute", mesh=agents,
+                                     consensus_wire_dtype=torch.float32,
+                                     posterior_shardings=shardings)(state, batch, eps=eps)
+    assert calls["axis"] == agents.axis  # the shardings' first spec entry
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(again), tree_leaves(ring_out)))
     einsum_out = ts.make_train_round_step(tcfg, Wt, consensus_wire_dtype=torch.float32)(
         state, batch, eps=eps)
     torch.testing.assert_close(ring_out[1], einsum_out[1], atol=1e-6, rtol=1e-6)
@@ -179,10 +191,13 @@ def test_flat_ppermute_routes_through_the_ring_and_equals_einsum(monkeypatch):
         ts.make_train_round_step(tcfg, Wt, consensus_impl="ppermute")(state, batch, eps=eps)
     tree = ts.init_train_state(tcfg, A, adam(), torch.Generator().manual_seed(0), flat=False,
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="10f"):
+    with pytest.raises(ValueError, match="posterior_shardings"):
         ts.make_train_round_step(tcfg, Wt, consensus_impl="ppermute", mesh=mesh)(tree, batch)
-    with pytest.raises(TypeError, match="flat"):
-        ts.make_train_round_step(tcfg, Wt)(tree, batch)
+    calls.clear()
+    pod = ts.make_train_round_step(tcfg, Wt, consensus_impl="ppermute", mesh=mesh,
+                                   posterior_shardings=param_shardings(
+                                       tree, mesh, agent_leading=True).posterior)(tree, batch)
+    assert isinstance(pod[0].posterior, GaussianPosterior) and calls == {}  # not the flat ring
 
 
 def test_loss_falls_on_a_fixed_batch():
