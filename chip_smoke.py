@@ -215,7 +215,23 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    kernels a step, peak memory) beside the step's bound; the trained
    pytree posterior's prefill (S = 512, ``flash_attention`` once a layer)
    bitwise its flat form's; over two real cards where the host has them,
-   the pod consensus bitwise the virtual run.  ``3.moe_ep``: the
+   the pod consensus bitwise the virtual run.  ``3.lm_spmd``: the
+   sharded LM steps (``launch.spmd_steps`` through ``launch.steps`` on
+   inputs placed by ``launch.spmd.device_put``) over a ``("pod", "data",
+   "model")`` mesh of virtual shards, single controller: Qwen3-8B at full
+   width and depth on (2, 2, 2) with 3.lm_qwen3_8b's weights and prompts,
+   a prefill and SPMD_DECODE decode steps against the unsharded steps of
+   the same call (``LM_BF16_*``; control: the agents swapped),
+   ``flash_attention`` 288 times a prefill, the gathered and all-reduced
+   bytes equal to ``spmd_steps.forward_gather_bytes``, each position's
+   placed bytes equal to ``sharding_report``'s, ms beside the unsharded
+   steps', peak memory, and ``flash_attention`` at a position's [1, 16,
+   4096, 128]; repro-100m at full width and float32 compute, a pytree
+   round step on (2, 2, 2) within ``train_parity`` of the unsharded one
+   and a flat one on (2, 1, 1) bitwise, each with its network-kernel
+   launches (one a (data, model) position), bytes, ms, kernels and peak,
+   and ``consensus_fused_network`` at a position's block; over two real
+   cards where the host has them, bitwise the virtual runs.  ``3.moe_ep``: the
    expert-parallel MoE layer at full width (OLMoE-1B-7B over a (1, 8)
    ``("data", "model")`` mesh, Phi-3.5-MoE over (1, 4), 16,384 bf16
    tokens, ``moe_init`` weights at seed 0 in bf16): at capacity factor 16
@@ -303,7 +319,10 @@ and its time at their prefills' shapes;
 ``consensus_fused_network_train``: eq. (6) on the trained posterior, its
 launches in ``launch.train``'s 3 rounds; ``flash_attention_train_pod``:
 its launches in 3.lm_train_pod's two prefills and its time at their
-shape), and ``{"ok": true, "device": {...}}``.
+shape; ``flash_attention_spmd``: its launches in 3.lm_spmd's sharded
+prefill and its time at a position's shape; ``consensus_fused_network_spmd``:
+its launches in 3.lm_spmd's placed pytree round and its time at a
+position's block), and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -518,6 +537,8 @@ TRAIN_REDUCED_B, TRAIN_REDUCED_S, TRAIN_REDUCED_U = 2, 32, 2
 # expert-axis shards)
 EP_TOKENS = (4, 4_096)
 EP_CONFIGS = (("olmoe-1b-7b", 8), ("phi3.5-moe-42b-a6.6b", 4))
+# the sharded LM steps (3.lm_spmd): decode steps after the sharded Qwen3-8B prefill
+SPMD_DECODE = 8
 
 
 def phase(tag: str, **fields) -> None:
@@ -5037,6 +5058,354 @@ def run_lm_train_pod(dev, smi):
     return row
 
 
+def spmd_train_pair(name, cfg, state, W, mesh, batch, eps, **kw):
+    """Round steps of ``state`` unsharded and of it placed on ``mesh``
+    (``param_shardings(state, mesh, agent_leading=True)``), each twice from
+    the same batch and ``eps`` (the second warm): (both new states on the
+    card, the metrics, the placed step's reading: device ms of each step
+    from CUDA events, first and warm, the network kernel's launches, the
+    gathered bytes and the peak memory of the first placed step, and its
+    kernels from a profile of one more)."""
+    import torch
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import spmd, steps
+    from repro_torch.launch.sharding import param_shardings
+
+    step = steps.make_train_round_step(cfg, W, **kw)
+    (want, want_m), unsharded_first_ms = timed(lambda: step(state, batch, eps=eps))
+    (want, want_m), unsharded_ms = timed(lambda: step(state, batch, eps=eps))
+    placed = spmd.device_put(state, param_shardings(state, mesh, agent_leading=True))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launch_counts()
+    spmd.reset_spmd_counts()
+    (got, got_m), first_ms = timed(lambda: step(placed, batch, eps=eps))
+    torch.cuda.synchronize()
+    counts, moved = dispatch.launch_counts(), spmd.spmd_counts()
+    peak = torch.cuda.max_memory_allocated()
+    (got, got_m), ms = timed(lambda: step(placed, batch, eps=eps))
+    prof = lm_profile(lambda: step(placed, batch, eps=eps))
+    if counts["consensus_fused_network"] != mesh.size // mesh.shape["pod"]:
+        raise AssertionError(f"3.lm_spmd {name}: launches {counts}, one a (data, model) "
+                             f"position expected")
+    got = spmd.device_get(got)
+    reading = {"mesh": mesh.shape, "ms": ms, "first_ms": first_ms,
+               "unsharded_ms": unsharded_ms, "unsharded_first_ms": unsharded_first_ms,
+               "consensus_fused_network": counts["consensus_fused_network"],
+               "flash_attention": counts["flash_attention"],
+               "spmd": {k: v for k, v in moved.items() if k != "gather_by_position"},
+               "gather_bytes_by_position_max": max(moved["gather_by_position"].values(),
+                                                   default=0),
+               "kernels_a_step": prof["device_kernels"], "profile": prof,
+               "max_memory_allocated": peak,
+               "loss": float(got_m["loss"]), "unsharded_loss": float(want_m["loss"])}
+    return got, want, got_m, want_m, reading
+
+
+def run_lm_spmd(dev, smi):
+    """Phase 3.lm_spmd: the language models' sharded execution
+    (``launch.spmd_steps`` through ``launch.steps`` on inputs placed by
+    ``launch.spmd.device_put``) over a ``("pod", "data", "model")`` mesh of
+    virtual shards of the card, single controller.
+
+    (a) Serving: Qwen3-8B at full width and depth, 3.lm_qwen3_8b's weights
+    and prompts (A = 2 x B = 2, S = 4,096 Zipf tokens, bf16, a 4,128-slot
+    cache), placed on (2, 2, 2) by ``param_shardings(..., agent_leading=
+    True)``, ``cache_shardings`` and ``batch_pspec``: a prefill (first and
+    warm) and SPMD_DECODE decode steps on the unsharded step's own inputs,
+    each against the unsharded step of the same call on the same weights
+    (LM_BF16_ATOL / LM_BF16_RMS; control: the agents swapped, which must
+    fail); ``flash_attention`` 36 x 8 = 288 times in one prefill, read
+    after a counter reset; the gathered and all-reduced bytes of the
+    prefill and of a decode step equal to ``forward_gather_bytes``' formula,
+    each position's gathers under its bound; each position's placed bytes
+    equal to ``sharding_report``'s per-device bytes; prefill ms and decode
+    ms a step (CUDA events) beside the unsharded steps'; peak memory; a
+    profile of one sharded decode step; and ``flash_attention`` at a
+    position's shape ([1, 16, 4096, 128], layer 0's own q/k/v of position
+    (0, 0, 0)) against its plain version, beside SDPA.
+
+    (b) Training: repro-100m at full width, 3.lm_train's A = 2, batch,
+    Adam, lr and kl_scale, with 3.lm_train_pod's W (LM_ZOO_W) and agent 1's
+    mean moved by one seeded draw, at float32 compute (TF32 off): the
+    placed step splits its products over positions, so at bf16 the two
+    steps' gradients part by bf16 roundings, beyond ``train_parity``'s
+    1e-4 on Adam's moments, which holds fp32 sums in another order.  A
+    pytree state on (2, 2, 2), one placed
+    round step against the unsharded pytree round step from one ``eps``,
+    within ``train_parity``; a flat state on (2, 1, 1), one placed round
+    step against the unsharded one, bitwise (both run one agent a block on
+    the card).  For each: ``consensus_fused_network`` once a (data, model)
+    position, the gathered bytes, step ms from CUDA events beside the
+    unsharded step's, kernels a step (a profile) and peak memory; and the
+    network kernel on position (0, 0, 0)'s blocks of the pytree state,
+    against its plain version.
+
+    (c) Real cards: where the host has two or more, (a)'s prefill and
+    first decode step and (b)'s two steps again with each pod on a card of
+    its own, bitwise the virtual run; else the reason it was skipped.
+
+    Returns the kernel line's ``flash_attention_spmd`` and
+    ``consensus_fused_network_spmd`` rows."""
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.data.pipeline import make_lm_batch_sampler
+    from repro_torch.kernels import consensus as kc
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import spmd, steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import (
+        NamedSharding,
+        batch_pspec,
+        cache_shardings,
+        param_shardings,
+        sharding_report,
+    )
+    from repro_torch.launch.spmd_steps import forward_gather_bytes
+    from repro_torch.models import attention as att
+    from repro_torch.models.modules import embed, rmsnorm
+    from repro_torch.optim import adam
+    from repro_torch.optim.schedules import exponential_decay
+
+    tag = "3.lm_spmd"
+    axes = ("pod", "data", "model")
+    n_cards = torch.cuda.device_count()
+
+    def pod_cards(shape):  # each pod on a card of its own
+        n = math.prod(shape) // shape[0]
+        return [torch.device("cuda", p) for p in range(shape[0]) for _ in range(n)]
+
+    # (a) serving: Qwen3-8B at full width and depth on (2, 2, 2)
+    cfg = get_config("qwen3-8b")
+    a, b, s = LM_AGENTS, LM_BATCH, LM_S
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm_params(cfg, dev, a, torch.bfloat16)
+    toks = lm_tokens(cfg, s + 1 + LM_DECODE, dev)  # 3.lm_qwen3_8b's prompts
+    prompt = {"tokens": toks[..., :s]}
+    prefill, decode = steps.make_prefill_step(cfg), steps.make_decode_step(cfg)
+    cache = steps.make_agent_cache(cfg, a, b, LM_CAP, device=dev)
+    (ref, cache), ref_ms = timed(lambda: prefill(params, prompt, cache))
+    (ref, cache), ref_warm_ms = timed(lambda: prefill(params, prompt, cache))
+    ref_dec, inputs, ref_dec_ms, _, cache = lm_decode(decode, params, toks[..., s:s + 1], s,
+                                                      SPMD_DECODE, cache)
+    forced = torch.cat(inputs, dim=-1)  # each unsharded step's input token
+    del cache
+
+    mesh = make_mesh((2, 2, 2), axes, dev)
+    placed = spmd.device_put(params, param_shardings(params, mesh, agent_leading=True))
+    report = sharding_report(params, mesh, agent_leading=True)
+    placed_bytes = [spmd.position_bytes(placed, i) for i in range(mesh.size)]
+    if set(placed_bytes) != {report[2]}:
+        raise AssertionError(f"{tag}: placed bytes a position {placed_bytes}, sharding_report "
+                             f"{report}")
+    cache = steps.make_agent_cache(cfg, a, b, LM_CAP, device=dev)
+    cache = spmd.device_put(cache, cache_shardings(cache, mesh))
+    tokens = spmd.place(prompt["tokens"], NamedSharding(mesh, batch_pspec(mesh, (a, b, s))))
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    spmd.reset_spmd_counts()
+    (logits, cache), first_ms = timed(lambda: prefill(placed, {"tokens": tokens}, cache))
+    torch.cuda.synchronize()
+    counts, moved = dispatch.launch_counts(), spmd.spmd_counts()
+    (logits, cache), warm_ms = timed(lambda: prefill(placed, {"tokens": tokens}, cache))
+    spmd.reset_spmd_counts()
+    dec, _, dec_ms, dec_wall, cache = lm_decode(decode, placed, toks[..., s:s + 1], s,
+                                                SPMD_DECODE, cache, tokens=forced)
+    dec_moved = spmd.spmd_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    expect = cfg.n_layers * mesh.size
+    if counts["flash_attention"] != expect:
+        raise AssertionError(f"{tag}: flash_attention launched {counts['flash_attention']} "
+                             f"times in a sharded prefill, expected {expect}")
+    formula = forward_gather_bytes(cfg, mesh, b, s, 2, a)
+    dec_formula = forward_gather_bytes(cfg, mesh, b, 1, 2, a)
+    traffic = {
+        "prefill": {k: moved[f"{k}_bytes"] for k in ("gather", "all_reduce")},
+        "prefill_formula": {k: formula[k] for k in ("gather", "all_reduce")},
+        "decode_step": {k: dec_moved[f"{k}_bytes"] / SPMD_DECODE for k in ("gather", "all_reduce")},
+        "decode_step_formula": {k: dec_formula[k] for k in ("gather", "all_reduce")},
+        "prefill_gather_by_position_max": max(moved["gather_by_position"].values()),
+        "gather_per_position_bound": formula["gather_per_position_max"],
+        "weight_bytes_an_agent": tree_bytes(params) // a}
+    if (traffic["prefill"] != traffic["prefill_formula"]
+            or traffic["decode_step"] != traffic["decode_step_formula"]
+            or traffic["prefill_gather_by_position_max"] > formula["gather_per_position_max"]):
+        raise AssertionError(f"{tag}: gathered bytes against the formula: {traffic}")
+    whole = lm_check(f"{tag} sharded vs unsharded prefill", logits, ref, LM_BF16_ATOL,
+                     LM_BF16_RMS)
+    whole_ctrl = lm_control(f"{tag} the agents swapped (control)", logits.flip(0), ref,
+                            LM_BF16_ATOL, LM_BF16_RMS)
+    steps_err = [lm_check(f"{tag} sharded vs unsharded decode {i}", x, y, LM_BF16_ATOL,
+                          LM_BF16_RMS) for i, (x, y) in enumerate(zip(dec, ref_dec))]
+    dec_ctrl = lm_control(f"{tag} decode 0, the agents swapped (control)", dec[0].flip(0),
+                          ref_dec[0], LM_BF16_ATOL, LM_BF16_RMS)
+    prof = lm_profile(lambda: decode(placed, forced[..., -1:], s + SPMD_DECODE, cache))
+    serving_cards = None
+    if n_cards >= 2:
+        real = make_mesh((2, 2, 2), axes, pod_cards((2, 2, 2)))
+        r_params = spmd.device_put(params, param_shardings(params, real, agent_leading=True))
+        r_cache = steps.make_agent_cache(cfg, a, b, LM_CAP, device=dev)
+        r_cache = spmd.device_put(r_cache, cache_shardings(r_cache, real))
+        r_logits, r_cache = prefill(r_params, prompt, r_cache)
+        v_cache = steps.make_agent_cache(cfg, a, b, LM_CAP, device=dev)
+        v_cache = spmd.device_put(v_cache, cache_shardings(v_cache, mesh))
+        v_logits, v_cache = prefill(placed, prompt, v_cache)
+        r_dec, _ = decode(r_params, toks[..., s:s + 1], s, r_cache)
+        v_dec, _ = decode(placed, toks[..., s:s + 1], s, v_cache)
+        serving_cards = {"cards": 2, "prefill_bitwise_virtual": torch.equal(r_logits, v_logits),
+                         "decode_bitwise_virtual": torch.equal(r_dec, v_dec)}
+        del r_params, r_cache, v_cache
+        if not all(serving_cards.values()):
+            raise AssertionError(f"{tag} over real cards: {serving_cards}")
+
+    # flash_attention at a position's shape: layer 0's q/k/v of position (0, 0, 0)
+    hl, kvl = cfg.n_heads // 2, cfg.n_kv_heads // 2
+    layer0 = tree_map(lambda x: x[0, 0, 0], params["stacks"]["attn"])
+    emb0 = {"emb": params["embed"]["emb"][0]}
+    h = rmsnorm(layer0["norm1"], embed(emb0, toks[0, :1, :s], torch.bfloat16), cfg.norm_eps)
+    q, k, v = att.attention_qkv(layer0["attn"], h, cfg, torch.arange(s, device=dev))
+    q = q[None, ..., :hl, :].contiguous()
+    k, v = (att._repeat_kv(t[None, ..., :kvl, :], hl).contiguous() for t in (k, v))
+    del params, placed, cache, h, layer0, emb0
+    torch.cuda.empty_cache()
+    attention, flash_row = attention_kernel_row(tag, "flash_attention_spmd", cfg, q, k, v, 0,
+                                                counts["flash_attention"])
+    del q, k, v
+    torch.cuda.empty_cache()
+    serving = {"model": cfg.name, "mesh": mesh.shape, "agents": a, "batch_per_agent": b,
+               "prompt": s, "capacity": LM_CAP, "prefill_first_ms": first_ms,
+               "prefill_warm_ms": warm_ms, "unsharded_prefill_ms": ref_ms,
+               "unsharded_prefill_warm_ms": ref_warm_ms,
+               "decode_ms_median": statistics.median(dec_ms),
+               "unsharded_decode_ms_median": statistics.median(ref_dec_ms),
+               "decode_wall_s": dec_wall, "decode_steps": SPMD_DECODE,
+               "prefill_max_abs_err_rel_rms": whole, "agents_swapped_control": whole_ctrl,
+               "decode_max_abs_err_rel_rms": steps_err, "decode_control": dec_ctrl,
+               "atol": LM_BF16_ATOL, "rms_tol": LM_BF16_RMS,
+               "flash_attention_a_prefill": counts["flash_attention"],
+               "flash_attention_expected": expect, "traffic": traffic,
+               "placed_bytes_a_position": placed_bytes[0],
+               "sharding_report_per_device": report[2], "max_memory_allocated": peak,
+               "decode_profile": prof, "real_cards": serving_cards or f"{n_cards} card(s)"}
+
+    # (b) training: repro-100m at full width, float32 compute (train_parity's setting)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), dtype="float32")
+    a, b, s, u = TRAIN_AGENTS, TRAIN_BATCH, TRAIN_S, TRAIN_U
+    torch.cuda.empty_cache()
+    opt = adam()
+    kw = dict(opt=opt, lr_schedule=exponential_decay(TRAIN_LR, TRAIN_LR_DECAY ** (1.0 / u)),
+              kl_scale=TRAIN_KL, remat=False)
+    W = torch.as_tensor(LM_ZOO_W, dtype=torch.float32, device=dev)
+    tree = steps.init_train_state(cfg, a, opt, torch.Generator(device=dev).manual_seed(0),
+                                  device=dev, flat=False)
+    layout = flat_view(tree.posterior).layout
+    p = layout.n_params
+    gen = torch.Generator(device=dev).manual_seed(1)
+    moved_by = 1e-2 * torch.randn(p, generator=gen, device=dev)
+    for leaf, m in zip(tree_leaves(tree.posterior.mean), tree_leaves(layout.unflatten(moved_by))):
+        leaf[1] += m
+    del moved_by
+    batch = make_lm_batch_sampler(cfg.vocab_size, b, s, n_agents=a, device=dev)(gen, 0)
+    eps = torch.randn((a, p), generator=gen, device=dev)
+    mesh3 = make_mesh((2, 2, 2), axes, dev)
+    got, want, got_m, want_m, tree_run = spmd_train_pair(
+        "pytree", cfg, tree, W, mesh3, batch, layout.unflatten(eps), **kw)
+    noise = adam_noise_lanes(flat_state(got), flat_state(want))
+    parity = train_parity(flat_state(got), flat_state(want), noise, 2 * TRAIN_LR)
+    if parity["failures"]:
+        raise AssertionError(f"{tag} pytree (2, 2, 2) vs unsharded: {parity}")
+    tree_run["parity"] = parity
+    tree_run["metrics_max_abs_err"] = {k: float((got_m[k] - want_m[k]).abs().max())
+                                       for k in ("loss", "nll", "kl")}
+    tree_got = got
+    del got, want, noise
+
+    # the network kernel on position (0, 0, 0)'s blocks, [A, n]
+    placed = spmd.device_put(tree.posterior, param_shardings(tree.posterior, mesh3,
+                                                             agent_leading=True))
+    group = [0, mesh3.size // 2]  # (0, 0, 0) and (1, 0, 0)
+    rows = [torch.cat([x.blocks[j].reshape(1, -1) for x in tree_leaves(field)], 1)
+            for field in (placed.mean, placed.rho) for j in group]
+    mean_blk, rho_blk = torch.cat(rows[:2]).contiguous(), torch.cat(rows[2:]).contiguous()
+    del rows, placed
+    network = functools.partial(kc.consensus_fused_network, W, mean_blk, rho_blk)
+    plain = functools.partial(kc.consensus_network_plain, W, mean_blk, rho_blk)
+    eq6_err = 0.0
+    for g, w in zip(network(), plain()):
+        err = (g - w).abs()
+        if not bool(torch.all(err <= F32_TOL + F32_TOL * w.abs())):
+            raise AssertionError(f"{tag} consensus at a position's block: max err "
+                                 f"{float(err.max())}")
+        eq6_err = max(eq6_err, float(err.max()))
+    n = mean_blk.shape[1]
+    nbytes, ops = 16 * a * n + 4 * a * a, 4 * a * a * n + 20 * a * n
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOP_PER_S * 1e3
+    network_row = {"name": "consensus_fused_network_spmd", "route": "cuda",
+                   "source": SRC + "consensus_network.cu", "replaces": REF + "195",
+                   "launches": tree_run["consensus_fused_network"], "max_abs_err": eq6_err,
+                   "ms": cuda_ms(network), "plain_ms": event_ms(plain),
+                   "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "library_ms": None}
+    del mean_blk, rho_blk, network, plain
+
+    flat = steps.BayesTrainState(posterior=flat_view(tree.posterior),
+                                 opt_state=dataclasses.replace(
+                                     tree.opt_state, mu=flat_view(tree.opt_state.mu),
+                                     nu=flat_view(tree.opt_state.nu)), step=tree.step)
+    mesh1 = make_mesh((2, 1, 1), axes, dev)
+    got, want, _, _, flat_run = spmd_train_pair("flat", cfg, flat, W, mesh1, batch, eps, **kw)
+    fields = {"posterior.mean": (got.posterior.mean, want.posterior.mean),
+              "posterior.rho": (got.posterior.rho, want.posterior.rho),
+              "adam.mu.mean": (got.opt_state.mu.mean, want.opt_state.mu.mean),
+              "adam.mu.rho": (got.opt_state.mu.rho, want.opt_state.mu.rho),
+              "adam.nu.mean": (got.opt_state.nu.mean, want.opt_state.nu.mean),
+              "adam.nu.rho": (got.opt_state.nu.rho, want.opt_state.nu.rho)}
+    flat_run["bitwise"] = {k: torch.equal(x, y) for k, (x, y) in fields.items()}
+    if not all(flat_run["bitwise"].values()):
+        noise = adam_noise_lanes(got, want)
+        flat_run["parity"] = train_parity(got, want, noise, 2 * TRAIN_LR)
+        if flat_run["parity"]["failures"]:
+            raise AssertionError(f"{tag} flat (2, 1, 1) vs unsharded: {flat_run}")
+    flat_got = got
+    del got, want, fields
+
+    training_cards = None
+    if n_cards >= 2:
+        training_cards = {"cards": 2}
+        for name, state, shape, e, virtual in (("pytree", tree, (2, 2, 2), layout.unflatten(eps),
+                                                tree_got),
+                                               ("flat", flat, (2, 1, 1), eps, flat_got)):
+            real = make_mesh(shape, axes, pod_cards(shape))
+            step = steps.make_train_round_step(cfg, W, **kw)
+            out, _ = step(spmd.device_put(state, param_shardings(state, real, agent_leading=True)),
+                          batch, eps=e)
+            out = spmd.device_get(out, dev)
+            training_cards[f"{name}_bitwise_virtual"] = all(
+                torch.equal(x, y) for x, y in zip(tree_leaves(out), tree_leaves(virtual)))
+            del out
+        if not all(v for k, v in training_cards.items() if k != "cards"):
+            raise AssertionError(f"{tag} training over real cards: {training_cards}")
+    del tree, flat, tree_got, flat_got, eps, batch
+    torch.cuda.empty_cache()
+    phase(tag, nvidia_smi=smi, serving=serving,
+          training={"model": cfg.name, "agents": a, "batch_per_agent": b, "seq": s,
+                    "n_params_per_agent": p, "pytree": tree_run, "flat": flat_run,
+                    "consensus_at_a_position": {"n": n, "ms": network_row["ms"],
+                                                "plain_ms": network_row["plain_ms"],
+                                                "bound_ms": network_row["bound_ms"],
+                                                "max_abs_err": eq6_err},
+                    "real_cards": training_cards or f"{n_cards} card(s)"},
+          attention=attention)
+    return [flash_row, network_row]
+
+
 def run_moe_ep(dev, smi):
     """Phase 3.moe_ep: the expert-parallel MoE layer
     (``launch.expert_parallel.moe_ffn_expert_parallel``) at full layer
@@ -5196,6 +5565,7 @@ def main() -> int:
     new_rows += run_lm_new(dev, smi, "3.lm_pixtral", "pixtral-12b", True, PIXTRAL_BATCH,
                            PIXTRAL_TEXT, LM_CAP, FRONT_DECODE)
     pod_row = run_lm_train_pod(dev, smi)
+    spmd_rows = run_lm_spmd(dev, smi)
     run_moe_ep(dev, smi)
     card_vs_cpu("4.parity", session, fig4_spec())
     card_vs_cpu("4.launch_parity", l_session, launch_spec())
@@ -5231,7 +5601,8 @@ def main() -> int:
         "consensus_fused_shard": sh_counts["consensus_fused_shard"],
         "consensus_shard_encode": sh_counts["consensus_shard_encode"],
     }
-    rows = timings(dev, launches, errs) + [lm_row, zoo_row] + new_rows + [train_row, pod_row]
+    rows = (timings(dev, launches, errs) + [lm_row, zoo_row] + new_rows + [train_row, pod_row]
+            + spmd_rows)
     profile_round("6.profile", session)
     profile_round("6.gossip_profile", g_session)
     profile_round("6.delayed_profile", d_session)

@@ -148,11 +148,12 @@ def _network_launch(name, W, active, mean, rho, wire_dtype, instance=None):
     wave = dispatch.wave(mean.device, "consensus_network", lib.consensus_network_blocks_per_sm,
                          wire, instance)
     plan = launch_plan.dense_plan(n, p, vec, instance, wave)
-    err = lib.consensus_network_launch(
-        W.data_ptr(), None if act is None else act.data_ptr(), mean.data_ptr(),
-        rho.data_ptr(), mean_out.data_ptr(), rho_out.data_ptr(), n, p, wire, plan.instance,
-        plan.vec, plan.grid, _stream(mean.device),
-    )
+    with torch.cuda.device(mean.device):  # the launch runs on the tensors' card
+        err = lib.consensus_network_launch(
+            W.data_ptr(), None if act is None else act.data_ptr(), mean.data_ptr(),
+            rho.data_ptr(), mean_out.data_ptr(), rho_out.data_ptr(), n, p, wire,
+            plan.instance, plan.vec, plan.grid, _stream(mean.device),
+        )
     dispatch.check_cuda(err, name)
     dispatch.count_launch(name)
     return mean_out, rho_out

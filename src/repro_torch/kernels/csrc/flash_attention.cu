@@ -210,15 +210,27 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+constexpr int MAX_DEVICES = 64;
+
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int b, int h,
            int s, int sk, int causal, int window, float scale, cudaStream_t stream) {
   constexpr size_t smem = Tiles<HD>::SMEM;
   auto kernel = flash_attention_kernel<T, HD>;
-  // above 48 KB a block's shared memory must be asked for (once per process)
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (attr != cudaSuccess) return static_cast<int>(attr);
+  // above 48 KB a block's shared memory must be asked for, once on each device
+  // (the attribute belongs to the current device)
+  static cudaError_t attr[MAX_DEVICES];
+  static bool asked[MAX_DEVICES];
+  int device = 0;
+  const cudaError_t dev_err = cudaGetDevice(&device);
+  if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
+  if (device >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!asked[device]) {
+    attr[device] = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                        static_cast<int>(smem));
+    asked[device] = true;
+  }
+  if (attr[device] != cudaSuccess) return static_cast<int>(attr[device]);
   const int bh = b * h;  // b * h * ceil(s / BQ) < 2^31: checked by the caller
   const dim3 grid(static_cast<unsigned>(bh) * static_cast<unsigned>((s + BQ - 1) / BQ));
   kernel<<<grid, THREADS, smem, stream>>>(

@@ -549,6 +549,8 @@ int make_map(CUtensorMap* map, const void* ptr, int hd, int rows, int bh, int bo
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
+constexpr int MAX_DEVICES = 64;
+
 template <int HD, bool F16>
 int launch(const void* q, const void* k, const void* v, void* out, int bh, int s, int sk,
            int causal, int window, float scale, cudaStream_t stream) {
@@ -559,9 +561,19 @@ int launch(const void* q, const void* k, const void* v, void* out, int bh, int s
   if (err == 0) err = make_map(&mv, v, HD, sk, bh, C::BK, C::SW, F16);
   if (err != 0) return err;
   auto kernel = flash_attention_tc_kernel<HD, F16>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
+  // the shared-memory attribute belongs to the current device: asked for once on each
+  static cudaError_t attr[MAX_DEVICES];
+  static bool asked[MAX_DEVICES];
+  int device = 0;
+  const cudaError_t dev_err = cudaGetDevice(&device);
+  if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
+  if (device >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!asked[device]) {
+    attr[device] = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                        C::SMEM);
+    asked[device] = true;
+  }
+  if (attr[device] != cudaSuccess) return static_cast<int>(attr[device]);
   const dim3 grid(static_cast<unsigned>(bh) * static_cast<unsigned>((s + C::BQ - 1) / C::BQ));
   kernel<<<grid, THREADS, C::SMEM, stream>>>(mq, mk, mv, out, bh, s, sk, causal, window,
                                              scale * LOG2E);

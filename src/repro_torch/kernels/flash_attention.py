@@ -128,19 +128,20 @@ def flash_attention(q, k, v, *, causal=True, window=0, block_q=512, block_k=512)
     lib = dispatch.library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     scale = 1.0 / math.sqrt(hd)
-    if q.dtype == torch.float32:
-        err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, s, sk, hd,
-            int(bool(causal)), int(window), scale, stream,
-        )
-    else:
-        if any(t.data_ptr() % 16 for t in (q, k, v, out)):
-            raise ValueError("flash_attention: the tensor-core kernel needs 16-byte aligned "
-                             "q, k, v (TMA)")
-        err = lib.flash_attention_tc_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, s, sk, hd,
-            _TC_DTYPE_CODE[q.dtype], int(bool(causal)), int(window), scale, stream,
-        )
+    if q.dtype != torch.float32 and any(t.data_ptr() % 16 for t in (q, k, v, out)):
+        raise ValueError("flash_attention: the tensor-core kernel needs 16-byte aligned "
+                         "q, k, v (TMA)")
+    with torch.cuda.device(q.device):  # the launch runs on the tensors' card
+        if q.dtype == torch.float32:
+            err = lib.flash_attention_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, s, sk, hd,
+                int(bool(causal)), int(window), scale, stream,
+            )
+        else:
+            err = lib.flash_attention_tc_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, s, sk, hd,
+                _TC_DTYPE_CODE[q.dtype], int(bool(causal)), int(window), scale, stream,
+            )
     dispatch.check_cuda(err, "flash_attention")
     dispatch.count_launch("flash_attention")
     return out

@@ -6,8 +6,9 @@ LM objective), the local and consensus steps that ``api.LaunchEngine`` and
 ``make_decode_step``, ``make_agent_cache``); the sharded consensus
 (``consensus_opt``) over the meshes (``mesh``), the sharding rules and
 block placement (``sharding``), the expert-parallel MoE
-(``expert_parallel``); the cost model (``costmodel``) and the dry run
-(``dryrun``).  The entry points ``launch.train``, ``launch.serve`` and
+(``expert_parallel``), placed trees and their collectives (``spmd``) and
+the LM steps on placed inputs (``spmd_steps``); the cost model
+(``costmodel``) and the dry run (``dryrun``).  The entry points ``launch.train``, ``launch.serve`` and
 ``launch.dryrun`` are submodules this package does not import; it imports
 without the model zoo, which the LM steps import when they are called."""
 from repro_torch.launch.steps import (

@@ -25,6 +25,13 @@ posterior, a dict of ``[A, ...]`` draws shaped like its mean (the
 reference's draw of each leaf); without it they draw from ``generator``
 (a pytree's leaves in sorted-key order).  ``launch`` imports the model
 zoo only inside the LM functions.
+
+Placed inputs: where the params (prefill, decode) or the state's
+posterior (the train round) are placed on a ``launch.mesh.Mesh`` by
+``launch.spmd.device_put``, the step runs SPMD over its positions
+(``launch.spmd_steps``), as the reference's ``jit`` reads its inputs'
+shardings; tokens, caches, batches and ``eps`` given as plain tensors are
+placed by the reference's specs on the way in.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ import torch
 from repro_torch.core.flat import FlatPosterior, make_flat_nll
 from repro_torch.core.posterior import consensus_all_agents, kl_gaussian_agents
 from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.launch import spmd
 from repro_torch.optim import Optimizer
 from repro_torch.optim.schedules import Schedule
 from repro_torch.vi.bayes_by_backprop import blocked_update, grads_like, vi_step
@@ -187,6 +195,13 @@ def make_train_round_step(cfg, W, opt: Optimizer | None = None,
 
     def step_fn(state: BayesTrainState, batch: dict, eps: torch.Tensor | None = None,
                 generator: torch.Generator | None = None):
+        if spmd.is_placed(state.posterior.mean):
+            from repro_torch.launch import spmd_steps
+
+            return spmd_steps.train_round(
+                cfg, state, batch, eps, generator, W=W, opt=opt, lr_schedule=lr_schedule,
+                kl_scale=kl_scale, bayesian=bayesian, remat=remat, consensus_impl=consensus_impl,
+                wire_dtype=consensus_wire_dtype)
         prior = consensus(state.posterior)
         new_post, opt_state, (losses, nll, kl) = blocked_update(
             prior, prior, opt, state.opt_state, grad_fn, batch,
@@ -314,6 +329,10 @@ def make_prefill_step(cfg, window_override: int | None = None):
     from repro_torch.models import forward
 
     def step_fn(params: PyTree, batch: dict, cache: PyTree):
+        if spmd.is_placed(params):
+            from repro_torch.launch import spmd_steps
+
+            return spmd_steps.prefill(cfg, params, batch, cache, window_override)
         logits, cache, _ = forward(params, cfg, batch["tokens"], cache=cache,
                                    frames=batch.get("frames"), patches=batch.get("patches"),
                                    logits_tail=1, window_override=window_override)
@@ -331,6 +350,10 @@ def make_decode_step(cfg, window_override: int | None = None):
     from repro_torch.models import decode_step
 
     def step_fn(params: PyTree, token: torch.Tensor, position, cache: PyTree, frames=None):
+        if spmd.is_placed(params):
+            from repro_torch.launch import spmd_steps
+
+            return spmd_steps.decode(cfg, params, token, position, cache, frames, window_override)
         return decode_step(params, cfg, token, position, cache, enc_out_frames=frames,
                            window_override=window_override)
 

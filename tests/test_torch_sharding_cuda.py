@@ -13,6 +13,17 @@ file imports neither JAX nor the JAX package:
 * ``moe_ffn_expert_parallel`` at OLMoE's ``reduced()`` width with 8
   experts, float32 (TF32 off), on the card within 1e-5 of its CPU run on
   the same mesh shape, and two calls the same bits; over the real cards too.
+* The sharded LM steps (``launch.spmd_steps``) at ``reduced()`` width,
+  float32: the prefill and a decode step of Qwen3-8B, Granite-20B and
+  Pixtral-12B placed on a (2, 2, 2) mesh of virtual shards of the card,
+  within 1e-5 of the same steps placed on the CPU and of the card's
+  unsharded steps, ``flash_attention`` once a layer a position, two calls
+  the same bits; the train round of repro-100m, a pytree state on
+  (2, 2, 2) and a flat one on (2, 1, 1), within 1e-4 of the card's
+  unsharded round (Adam's moments, and the posterior off the lanes whose
+  Adam step is a rounding-noise sign), ``consensus_fused_network`` once a
+  (data, model) position; over two real cards (each pod on its own) the
+  prefill and the train round bitwise the virtual run.
 """
 import dataclasses
 
@@ -28,6 +39,13 @@ from repro_torch.launch.expert_parallel import moe_ffn_expert_parallel  # noqa: 
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.launch.sharding import param_shardings  # noqa: E402
 from repro_torch.models.moe import moe_init  # noqa: E402
+from repro_torch.core.tree import tree_leaves, tree_map  # noqa: E402
+from repro_torch.kernels import dispatch  # noqa: E402
+from repro_torch.launch import spmd  # noqa: E402
+from repro_torch.launch import steps  # noqa: E402
+from repro_torch.launch.sharding import cache_shardings  # noqa: E402
+from repro_torch.models import init_params  # noqa: E402
+from repro_torch.optim import adam  # noqa: E402
 
 WIRES = (torch.float32, torch.bfloat16, torch.float16)
 
@@ -129,3 +147,110 @@ def test_expert_parallel_over_real_cards(dev):
     virtual, aux_v = _moe(dev, (1, m))
     real, aux_r = _moe(dev, (1, m), cards)
     assert torch.equal(real, virtual) and torch.equal(aux_r, aux_v)
+
+
+AXES = ("pod", "data", "model")
+
+
+def _lm(arch, device):
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    ps = [init_params(cfg, torch.Generator().manual_seed(10 + i), device="cpu") for i in range(2)]
+    params = tree_map(lambda *xs: torch.stack(xs).to(device), *ps)
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 4, 8), generator=g).to(device)}
+    n_p = cfg.n_patches if cfg.frontend == "vision_stub" else 0
+    if n_p:
+        batch["patches"] = (0.1 * torch.randn(2, 4, n_p, cfg.d_model, generator=g)).to(device)
+    return cfg, params, batch, n_p
+
+
+def _serve(cfg, params, batch, n_p, mesh):
+    """Prefill and one decode step, placed on ``mesh`` when it is given."""
+    device = params["embed"]["emb"].device
+    cache = steps.make_agent_cache(cfg, 2, 4, 8 + n_p + 2, torch.float32, device=device)
+    if mesh is not None:
+        params = spmd.device_put(params, param_shardings(params, mesh, agent_leading=True))
+        cache = spmd.device_put(cache, cache_shardings(cache, mesh))
+    lg, cache = steps.make_prefill_step(cfg)(params, batch, cache)
+    d, _ = steps.make_decode_step(cfg)(params, batch["tokens"][..., :1], 8 + n_p, cache)
+    return lg, d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-8b", "granite-20b", "pixtral-12b"])
+def test_sharded_serving_card_against_cpu(dev, arch):
+    cfg, params, batch, n_p = _lm(arch, dev)
+    dispatch.reset_launch_counts()
+    lg, d = _serve(cfg, params, batch, n_p, make_mesh((2, 2, 2), AXES, dev))
+    assert dispatch.launch_counts()["flash_attention"] == cfg.n_layers * 8
+    lg2, d2 = _serve(cfg, params, batch, n_p, make_mesh((2, 2, 2), AXES, dev))
+    assert torch.equal(lg, lg2) and torch.equal(d, d2)
+    cpu = tree_map(lambda x: x.cpu(), (params, batch))
+    want, want_d = _serve(cfg, *cpu, n_p, make_mesh((2, 2, 2), AXES, torch.device("cpu")))
+    torch.testing.assert_close(lg.cpu(), want, atol=1e-5, rtol=0)
+    torch.testing.assert_close(d.cpu(), want_d, atol=1e-5, rtol=0)
+    ref, ref_d = _serve(cfg, params, batch, n_p, None)
+    torch.testing.assert_close(lg, ref, atol=1e-5, rtol=0)
+    torch.testing.assert_close(d, ref_d, atol=1e-5, rtol=0)
+
+
+def _train(device, flat, mesh=None):
+    cfg = dataclasses.replace(get_config("repro-100m").reduced(), dtype="float32")
+    state = steps.init_train_state(cfg, 2, adam(), torch.Generator().manual_seed(0), flat=flat,
+                                   device="cpu")
+    g = torch.Generator().manual_seed(7)
+    for m in tree_leaves(state.posterior.mean):
+        m[1] += 0.01 * torch.randn(m.shape[1:], generator=g)
+    eps = tree_map(lambda m: torch.randn(m.shape, generator=g), state.posterior.mean)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 4, 32), generator=g)
+             for k in ("tokens", "targets")}
+    state, eps, batch = tree_map(lambda x: x.to(device), (state, eps, batch))
+    if mesh is not None:
+        state = spmd.device_put(state, param_shardings(state, mesh, agent_leading=True))
+    step = steps.make_train_round_step(cfg, torch.tensor([[0.75, 0.25], [0.25, 0.75]]),
+                                       opt=adam(), remat=False, kl_scale=1e-5)
+    out, metrics = step(state, batch, eps=eps)
+    return spmd.device_get(out) if mesh is not None else out, metrics
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flat,shape", [(False, (2, 2, 2)), (True, (2, 1, 1))],
+                         ids=["pytree-2x2x2", "flat-2x1x1"])
+def test_sharded_train_round_on_the_card(dev, flat, shape):
+    dispatch.reset_launch_counts()
+    got, got_m = _train(dev, flat, make_mesh(shape, AXES, dev))
+    assert dispatch.launch_counts()["consensus_fused_network"] == shape[1] * shape[2]
+    want, want_m = _train(dev, flat)
+    torch.testing.assert_close(got_m["loss"], want_m["loss"], rtol=1e-5, atol=0)
+    for field in ("mu", "nu"):
+        for x, y in zip(tree_leaves(getattr(got.opt_state, field)),
+                        tree_leaves(getattr(want.opt_state, field))):
+            torch.testing.assert_close(x, y, atol=1e-4, rtol=0)
+    moments = zip(*(tree_leaves(getattr(st.opt_state, f)) for st in (got, want)
+                    for f in ("mu", "nu")))
+    for x, y, (m1, v1, m2, v2) in zip(tree_leaves(got.posterior), tree_leaves(want.posterior),
+                                      moments):
+        # Adam's noise lanes (chip_smoke.adam_noise_lanes): the two runs' moments apart
+        # by more than rounding of a well-set gradient; there a step is about lr either way
+        v = torch.maximum(v1, v2)
+        noise = ((m1 - m2).abs() > 1e-3 * v.sqrt()) | ((v1 - v2).abs() > 1e-3 * v)
+        d = (x - y).abs()
+        assert float(d.masked_fill(noise, 0.0).max()) <= 1e-4
+        assert float(d.max()) <= 2.5e-3
+
+
+@pytest.mark.cuda
+def test_sharded_steps_over_real_cards(dev):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("one card: the virtual shards above cover it")
+    cards = [torch.device("cuda", p) for p in range(2) for _ in range(4)]
+    cfg, params, batch, n_p = _lm("qwen3-8b", dev)
+    real = _serve(cfg, params, batch, n_p, make_mesh((2, 2, 2), AXES, cards))
+    virtual = _serve(cfg, params, batch, n_p, make_mesh((2, 2, 2), AXES, dev))
+    assert all(torch.equal(x.to(dev), y) for x, y in zip(real, virtual))
+    for flat, shape in ((False, (2, 2, 2)), (True, (2, 1, 1))):
+        n = shape[1] * shape[2]
+        mesh_cards = [torch.device("cuda", p) for p in range(2) for _ in range(n)]
+        got, _ = _train(dev, flat, make_mesh(shape, AXES, mesh_cards))
+        want, _ = _train(dev, flat, make_mesh(shape, AXES, dev))
+        assert all(torch.equal(x.to(dev), y) for x, y in zip(tree_leaves(got), tree_leaves(want)))
