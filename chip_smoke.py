@@ -231,7 +231,22 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    and a flat one on (2, 1, 1) bitwise, each with its network-kernel
    launches (one a (data, model) position), bytes, ms, kernels and peak,
    and ``consensus_fused_network`` at a position's block; over two real
-   cards where the host has them, bitwise the virtual runs.  ``3.moe_ep``: the
+   cards where the host has them, bitwise the virtual runs.
+   ``3.lm_spmd_kinds``: the ``moe``, ``local_attn`` and ``rglru`` kinds and
+   tied embeddings under data x model on the same (2, 2, 2) mesh:
+   OLMoE-1B-7B (capacity factor E / k) and RecurrentGemma-9B at full width
+   and depth with 3.lm_olmoe's and 3.lm_recurrentgemma's weights and
+   prompts, a prefill and SPMD_DECODE decode steps against the unsharded
+   steps of the same call (``SPMD_KINDS_BF16``; OLMoE on the rows routed
+   alike; control: the agents swapped), ``flash_attention`` 128 and 96
+   times a prefill, the moved bytes equal to the formula, placed bytes to
+   ``sharding_report``'s, ms and peak memory, ``flash_attention`` at a
+   position's [1, 8, 4096, 128] and [1, 8, 4096, 256] (window 2,048);
+   reduced OLMoE and Phi-3.5-MoE at f32 and capacity factor 0.5, the
+   placed steps' drops equal to the unsharded dispatch's; the pytree round
+   of reduced OLMoE and RecurrentGemma on (2, 2, 2) within
+   ``train_parity``; over two real cards where the host has them, bitwise
+   the virtual run.  ``3.moe_ep``: the
    expert-parallel MoE layer at full width (OLMoE-1B-7B over a (1, 8)
    ``("data", "model")`` mesh, Phi-3.5-MoE over (1, 4), 16,384 bf16
    tokens, ``moe_init`` weights at seed 0 in bf16): at capacity factor 16
@@ -322,7 +337,10 @@ its launches in 3.lm_train_pod's two prefills and its time at their
 shape; ``flash_attention_spmd``: its launches in 3.lm_spmd's sharded
 prefill and its time at a position's shape; ``consensus_fused_network_spmd``:
 its launches in 3.lm_spmd's placed pytree round and its time at a
-position's block), and ``{"ok": true, "device": {...}}``.
+position's block; ``flash_attention_spmd_olmoe`` /
+``flash_attention_spmd_recurrentgemma``: its launches in 3.lm_spmd_kinds'
+first placed prefill of each and its time at a position's shape), and
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -539,6 +557,21 @@ EP_TOKENS = (4, 4_096)
 EP_CONFIGS = (("olmoe-1b-7b", 8), ("phi3.5-moe-42b-a6.6b", 4))
 # the sharded LM steps (3.lm_spmd): decode steps after the sharded Qwen3-8B prefill
 SPMD_DECODE = 8
+# the moe, local_attn and rglru kinds under data x model (3.lm_spmd_kinds): the
+# full-width configs served and the reduced ones trained; the reduced MoE configs
+# whose drops are held, at a capacity factor where the unsharded dispatch drops,
+# B = 4 rows an agent
+SPMD_KINDS = ("olmoe-1b-7b", "recurrentgemma-9b")
+# their placed logits against the unsharded steps', bf16, max abs and rms ratio:
+# OLMoE's (on the rows routed alike) read 0.035-0.049 / 0.0096-0.0117 on the
+# H100, within LM_BF16_*; RecurrentGemma's 0.164-0.195 / 0.0266-0.0291 (its 26
+# recurrent layers keep more bf16 roundings, as 3.lm_recurrentgemma found for
+# its decode against the prefill), so it keeps its whole model's WHOLE_BF16_*;
+# the controls (agents swapped) read 5.52 / 1.41 and 9.16 / 1.41
+SPMD_KINDS_BF16 = {"olmoe-1b-7b": (LM_BF16_ATOL, LM_BF16_RMS),
+                   "recurrentgemma-9b": (WHOLE_BF16_ATOL, WHOLE_BF16_RMS)}
+SPMD_DROP_CONFIGS = ("olmoe-1b-7b", "phi3.5-moe-42b-a6.6b")
+SPMD_DROP_FACTOR, SPMD_DROP_BATCH = 0.5, 4
 
 
 def phase(tag: str, **fields) -> None:
@@ -5058,7 +5091,7 @@ def run_lm_train_pod(dev, smi):
     return row
 
 
-def spmd_train_pair(name, cfg, state, W, mesh, batch, eps, **kw):
+def spmd_train_pair(name, cfg, state, W, mesh, batch, eps, tag="3.lm_spmd", **kw):
     """Round steps of ``state`` unsharded and of it placed on ``mesh``
     (``param_shardings(state, mesh, agent_leading=True)``), each twice from
     the same batch and ``eps`` (the second warm): (both new states on the
@@ -5087,7 +5120,7 @@ def spmd_train_pair(name, cfg, state, W, mesh, batch, eps, **kw):
     (got, got_m), ms = timed(lambda: step(placed, batch, eps=eps))
     prof = lm_profile(lambda: step(placed, batch, eps=eps))
     if counts["consensus_fused_network"] != mesh.size // mesh.shape["pod"]:
-        raise AssertionError(f"3.lm_spmd {name}: launches {counts}, one a (data, model) "
+        raise AssertionError(f"{tag} {name}: launches {counts}, one a (data, model) "
                              f"position expected")
     got = spmd.device_get(got)
     reading = {"mesh": mesh.shape, "ms": ms, "first_ms": first_ms,
@@ -5406,6 +5439,374 @@ def run_lm_spmd(dev, smi):
     return [flash_row, network_row]
 
 
+def placed_routes(calls, a, n_layers, n_pos, mm):
+    """A placed step's routing records (``RoutingRecord.calls``: for each
+    agent, layer and position of its pod in row-major (data, model) order,
+    that block's ``[T/data, k]``) joined as the unsharded step's: for each
+    layer ``[A, T, k]``, the ``model``-0 positions' blocks in data order
+    (the other positions route the same tokens)."""
+    import torch
+
+    if len(calls) != a * n_layers * n_pos:
+        raise AssertionError(f"{len(calls)} routing records, {a} x {n_layers} x {n_pos} "
+                             "expected")
+    per = [calls[(x * n_layers + layer) * n_pos:(x * n_layers + layer + 1) * n_pos]
+           for x in range(a) for layer in range(n_layers)]
+    return [torch.stack([torch.cat(per[x * n_layers + layer][::mm]) for x in range(a)])
+            for layer in range(n_layers)]
+
+
+def last_tokens(calls, b):
+    """Routing records ``[A, B S, k]`` cut to each row's last token."""
+    return [x.reshape(x.shape[0], b, -1, x.shape[-1])[:, :, -1] for x in calls]
+
+
+def moe_drops(calls, cfg):
+    """The assignments an unsharded step's dispatch drops: each agent's
+    slots from its routing records (``[A, T, k]`` a layer) over
+    ``models.moe._capacity`` of its T tokens."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import moe as moe_lib
+
+    dropped = 0
+    for idx in calls:
+        a, t, k = idx.shape
+        cap = moe_lib._capacity(t, cfg.n_experts, k, cfg.capacity_factor)
+        flat = idx.reshape(a, t * k)
+        running = torch.cumsum(F.one_hot(flat, cfg.n_experts), 1)
+        slot = running.gather(2, flat[..., None])[..., 0] - 1
+        dropped += int((slot >= cap).sum())
+    return dropped
+
+
+def run_lm_spmd_kinds(dev, smi):
+    """Phase 3.lm_spmd_kinds: the ``moe``, ``local_attn`` and ``rglru``
+    kinds and tied embeddings under data x model > 1 (``launch.spmd_steps``
+    through ``launch.steps`` on placed inputs), on a (2, 2, 2) ``("pod",
+    "data", "model")`` mesh of virtual shards of the card.
+
+    (a) Serving at full width and depth: OLMoE-1B-7B and RecurrentGemma-9B,
+    one at a time, with 3.lm_olmoe's and 3.lm_recurrentgemma's weights and
+    prompts (A = 2 x B = 2, S = 4,096 Zipf tokens, bf16, LM_CAP slots): a
+    prefill (first and warm) and SPMD_DECODE decode steps on the unsharded
+    step's own inputs, each against the unsharded step of the same call on
+    the same weights (``SPMD_KINDS_BF16``).  RecurrentGemma within
+    WHOLE_BF16_ATOL / WHOLE_BF16_RMS; OLMoE within LM_BF16_*, at
+    capacity factor E / k (nothing drops), on the (agent, row)
+    pairs whose held token (the prompt's last, or the step's) took the same
+    experts at every layer in both runs, counted, as 3.lm_olmoe holds its
+    decode: a row-parallel bf16 sum can tip a near-tie among the router's
+    bf16 logits to another expert, so a step may hold no row, and the check
+    needs one held (step, agent, row) in the prefill and the steps (the
+    rows routed alike over the whole prompt are counted too).  Control, on
+    the held rows of every step: the agents swapped, which must fail.
+    ``flash_attention`` once an attention layer a position in one prefill
+    (16 x 8 = 128, 12 x 8 = 96), read after a counter reset; the gathered,
+    all-reduced and all-gathered bytes of the prefill and of a decode step
+    equal to ``forward_gather_bytes``' formula, each position's gathers
+    under its bound; each position's placed bytes equal to
+    ``sharding_report``'s; prefill and decode ms (CUDA events) beside the
+    unsharded steps', and the peak memory.  Then ``flash_attention`` at a
+    position's shape on the first attention layer's q/k/v of the embedded
+    prompt at position (0, 0, 0): [1, 8, 4096, 128] causal (OLMoE), [1, 8,
+    4096, 256] with window 2,048 and K/V from one head (RecurrentGemma),
+    against its plain version, beside SDPA.
+
+    (b) Drops: OLMoE and Phi-3.5-MoE at ``reduced()`` size, float32, A = 2
+    x B = 4 rows of LM_REDUCED_S tokens, capacity factor
+    SPMD_DROP_FACTOR (where the unsharded dispatch drops): a placed prefill
+    and decode step within ZOO_F32_ATOL of the unsharded ones, and the
+    placed steps' dropped assignments (``spmd_steps.moe_counts``) equal to
+    the unsharded prefill's (from its routing, ``moe_drops``), which must
+    be some.
+
+    (c) Training: the pytree train round of reduced OLMoE (the router's aux
+    in the loss) and RecurrentGemma (tied) on (2, 2, 2) at float32, against
+    the card's unsharded round from the same ``eps``, within
+    ``train_parity``; ``consensus_fused_network`` once a (data, model)
+    position.
+
+    (d) Real cards: where the host has two or more, (a)'s prefill and first
+    decode step with each pod on a card of its own, bitwise the virtual
+    run; else the reason it was skipped.
+
+    Returns the kernel line's ``flash_attention_spmd_olmoe`` and
+    ``flash_attention_spmd_recurrentgemma`` rows."""
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.data.pipeline import make_lm_batch_sampler
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import spmd, spmd_steps, steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import (
+        NamedSharding,
+        batch_pspec,
+        cache_shardings,
+        param_shardings,
+        sharding_report,
+    )
+    from repro_torch.launch.spmd_steps import forward_gather_bytes
+    from repro_torch.models import attention as att
+    from repro_torch.models.modules import embed, rmsnorm
+    from repro_torch.optim import adam
+    from repro_torch.optim.schedules import exponential_decay
+
+    tag = "3.lm_spmd_kinds"
+    axes = ("pod", "data", "model")
+    n_cards = torch.cuda.device_count()
+    mesh = make_mesh((2, 2, 2), axes, dev)
+    n_pos = mesh.size // mesh.shape["pod"]
+    a, b, s, n_dec = LM_AGENTS, LM_BATCH, LM_S, SPMD_DECODE
+    serving, rows = {}, []
+
+    # (a) serving at full width and depth
+    for arch in SPMD_KINDS:
+        cfg = get_config(arch)
+        is_moe = "moe" in cfg.pattern
+        if is_moe:  # nothing drops: each row's logits hang on its own routing only
+            cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+        kinds = cfg.pattern * cfg.n_periods + cfg.tail
+        n_moe = kinds.count("moe")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = lm_params(cfg, dev, a, torch.bfloat16)  # agent i from seed i
+        toks = lm_tokens(cfg, s + 1 + LM_SHORT_DECODE, dev)  # run_lm_new's prompts
+        prompt = {"tokens": toks[..., :s]}
+        prefill, decode = steps.make_prefill_step(cfg), steps.make_decode_step(cfg)
+        cache = steps.make_agent_cache(cfg, a, b, LM_CAP, device=dev)
+        with RoutingRecord() as r_ref:
+            (ref, cache), ref_ms = timed(lambda: prefill(params, prompt, cache))
+        del cache
+        cache = steps.make_agent_cache(cfg, a, b, LM_CAP, device=dev)
+        (ref, cache), ref_warm_ms = timed(lambda: prefill(params, prompt, cache))
+        with RoutingRecord() as r_ref_dec:
+            ref_dec, inputs, ref_dec_ms, _, cache = lm_decode(decode, params,
+                                                              toks[..., s:s + 1], s, n_dec,
+                                                              cache)
+        forced = torch.cat(inputs, dim=-1)  # each unsharded step's input token
+        del cache
+
+        placed = spmd.device_put(params, param_shardings(params, mesh, agent_leading=True))
+        report = sharding_report(params, mesh, agent_leading=True)
+        placed_bytes = [spmd.position_bytes(placed, i) for i in range(mesh.size)]
+        if set(placed_bytes) != {report[2]}:
+            raise AssertionError(f"{tag} {arch}: placed bytes a position {placed_bytes}, "
+                                 f"sharding_report {report}")
+        tokens = spmd.place(prompt["tokens"], NamedSharding(mesh, batch_pspec(mesh, (a, b, s))))
+
+        def fresh():
+            c = steps.make_agent_cache(cfg, a, b, LM_CAP, device=dev)
+            return spmd.device_put(c, cache_shardings(c, mesh))
+
+        cache = fresh()
+        torch.cuda.synchronize()
+        dispatch.reset_launch_counts()
+        spmd.reset_spmd_counts()
+        with RoutingRecord() as r_got:
+            (logits, cache), first_ms = timed(lambda: prefill(placed, {"tokens": tokens}, cache))
+        torch.cuda.synchronize()
+        counts, moved = dispatch.launch_counts(), spmd.spmd_counts()
+        cache = fresh()  # a recurrent cache holds the state a prefill starts from
+        (logits, cache), warm_ms = timed(lambda: prefill(placed, {"tokens": tokens}, cache))
+        spmd.reset_spmd_counts()
+        with RoutingRecord() as r_got_dec:
+            dec, _, dec_ms, dec_wall, cache = lm_decode(decode, placed, toks[..., s:s + 1], s,
+                                                        n_dec, cache, tokens=forced)
+        dec_moved = spmd.spmd_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        expect = sum(kind != "rglru" for kind in kinds) * mesh.size
+        if counts["flash_attention"] != expect:
+            raise AssertionError(f"{tag} {arch}: flash_attention launched "
+                                 f"{counts['flash_attention']} times in a sharded prefill, "
+                                 f"expected {expect}")
+        formula = forward_gather_bytes(cfg, mesh, b, s, 2, a)
+        dec_formula = forward_gather_bytes(cfg, mesh, b, 1, 2, a)
+        kinds_moved = ("gather", "all_reduce", "all_gather")
+        traffic = {
+            "prefill": {k: moved[f"{k}_bytes"] for k in kinds_moved},
+            "prefill_formula": {k: formula[k] for k in kinds_moved},
+            "decode_step": {k: dec_moved[f"{k}_bytes"] / n_dec for k in kinds_moved},
+            "decode_step_formula": {k: dec_formula[k] for k in kinds_moved},
+            "prefill_gather_by_position_max": max(moved["gather_by_position"].values()),
+            "gather_per_position_bound": formula["gather_per_position_max"],
+            "weight_bytes_an_agent": tree_bytes(params) // a}
+        if (traffic["prefill"] != traffic["prefill_formula"]
+                or traffic["decode_step"] != traffic["decode_step_formula"]
+                or traffic["prefill_gather_by_position_max"]
+                > formula["gather_per_position_max"]):
+            raise AssertionError(f"{tag} {arch}: moved bytes against the formula: {traffic}")
+
+        # the held rows: all of them, or for the MoE those routed alike up to the step
+        agree_prefill = torch.ones((a, b), dtype=torch.bool)
+        step_agree, prompt_alike = [agree_prefill] * n_dec, None
+        if is_moe:  # the rows whose held token took the same experts at every layer
+            joined = placed_routes(r_got.calls, a, n_moe, n_pos, 2)
+            prompt_alike = int(rows_routed_alike(joined, r_ref.calls, b).sum())
+            agree_prefill = rows_routed_alike(last_tokens(joined, b), last_tokens(r_ref.calls, b),
+                                              b)
+            mine, theirs = a * n_moe * n_pos, n_moe  # routing records a decode step
+            step_agree = [rows_routed_alike(
+                placed_routes(r_got_dec.calls[i * mine:(i + 1) * mine], a, n_moe, n_pos, 2),
+                r_ref_dec.calls[i * theirs:(i + 1) * theirs], b) for i in range(n_dec)]
+            del joined
+        del r_ref, r_ref_dec, r_got, r_got_dec
+        what = f"{tag} {arch} sharded vs unsharded"
+        bounds = SPMD_KINDS_BF16[arch]
+        pool, errs, held = [], [], []
+        for name, (x, y, ok) in [("prefill", (logits, ref, agree_prefill))] + [
+                (f"decode {i}", step) for i, step in enumerate(zip(dec, ref_dec, step_agree))]:
+            held.append(int(ok.sum()))
+            if not held[-1]:
+                errs.append(None)
+                continue
+            got, want, _ = held_rows(f"{what} {name}", x, y, ok)
+            errs.append(lm_check(f"{what} {name}", got, want, *bounds))
+            pool.append((got, want, held_rows(f"{what} {name}", x.flip(0), y, ok)[0]))
+        if not pool:
+            raise AssertionError(f"{what}: no (step, agent, row) routed alike")
+        got, want, wrong = (torch.cat(part) for part in zip(*pool))
+        whole = lm_check(f"{what}, the held rows of every step", got, want, *bounds)
+        ctrl = lm_control(f"{tag} {arch} the agents swapped (control)", wrong, want, *bounds)
+        del pool
+        prof = lm_profile(lambda: decode(placed, forced[..., -1:], s + n_dec, cache))
+        del got, want, wrong, dec, ref_dec, logits, ref
+
+        cards = None
+        if n_cards >= 2:  # (d): each pod on a card of its own
+            real = make_mesh((2, 2, 2), axes, [torch.device("cuda", p) for p in range(2)
+                                                 for _ in range(n_pos)])
+            r_params = spmd.device_put(params, param_shardings(params, real, agent_leading=True))
+            r_cache = steps.make_agent_cache(cfg, a, b, LM_CAP, device=dev)
+            r_cache = spmd.device_put(r_cache, cache_shardings(r_cache, real))
+            r_logits, r_cache = prefill(r_params, prompt, r_cache)
+            v_cache = fresh()
+            v_logits, v_cache = prefill(placed, prompt, v_cache)
+            r_dec, _ = decode(r_params, toks[..., s:s + 1], s, r_cache)
+            v_dec, _ = decode(placed, toks[..., s:s + 1], s, v_cache)
+            cards = {"cards": 2, "prefill_bitwise_virtual": torch.equal(r_logits, v_logits),
+                     "decode_bitwise_virtual": torch.equal(r_dec, v_dec)}
+            del r_params, r_cache, v_cache
+            if not all(cards.values()):
+                raise AssertionError(f"{tag} {arch} over real cards: {cards}")
+
+        # flash_attention at a position's shape: the first attention layer's q/k/v
+        kind = "moe" if is_moe else "local_attn"
+        window = cfg.sliding_window if kind == "local_attn" else 0
+        hl = cfg.n_heads // 2
+        kvl = cfg.n_kv_heads // 2 if cfg.n_kv_heads % 2 == 0 else cfg.n_kv_heads
+        layer = tree_map(lambda x: x[0, 0, 0], params["stacks"][kind])
+        emb0 = {"emb": params["embed"]["emb"][0]}
+        h = rmsnorm(layer["norm1"], embed(emb0, toks[0, :1, :s], torch.bfloat16), cfg.norm_eps)
+        q, k, v = att.attention_qkv(layer["attn"], h, cfg, torch.arange(s, device=dev))
+        q = q[None, ..., :hl, :].contiguous()
+        k, v = (att._repeat_kv(t[None, ..., :kvl, :], hl).contiguous() for t in (k, v))
+        del params, placed, cache, h, layer, emb0
+        torch.cuda.empty_cache()
+        attention, row = attention_kernel_row(f"{tag} {arch}", "flash_attention_spmd_"
+                                              + arch.split("-")[0], cfg, q, k, v, window,
+                                              counts["flash_attention"])
+        rows.append(row)
+        del q, k, v
+        torch.cuda.empty_cache()
+        serving[arch] = {
+            "mesh": mesh.shape, "agents": a, "batch_per_agent": b, "prompt": s,
+            "capacity": LM_CAP, "capacity_factor": cfg.capacity_factor if is_moe else None,
+            "prefill_first_ms": first_ms, "prefill_warm_ms": warm_ms,
+            "unsharded_prefill_ms": ref_ms, "unsharded_prefill_warm_ms": ref_warm_ms,
+            "decode_ms_median": statistics.median(dec_ms),
+            "unsharded_decode_ms_median": statistics.median(ref_dec_ms),
+            "decode_wall_s": dec_wall, "decode_steps": n_dec,
+            "rows": a * b, "rows_held_prefill": held[0], "rows_held_decode": held[1:],
+            "rows_routed_alike_whole_prompt": prompt_alike,
+            "prefill_max_abs_err_rel_rms": errs[0], "decode_max_abs_err_rel_rms": errs[1:],
+            "held_rows_max_abs_err_rel_rms": whole, "agents_swapped_control": ctrl,
+            "atol": bounds[0], "rms_tol": bounds[1],
+            "flash_attention_a_prefill": counts["flash_attention"],
+            "flash_attention_expected": expect, "traffic": traffic,
+            "placed_bytes_a_position": placed_bytes[0],
+            "sharding_report_per_device": report[2], "max_memory_allocated": peak,
+            "decode_profile": prof, "attention": attention,
+            "real_cards": cards or f"{n_cards} card(s)"}
+
+    # (b) drops: reduced MoE configs at float32, a capacity factor that drops
+    drops = {}
+    for arch in SPMD_DROP_CONFIGS:
+        cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32",
+                                  capacity_factor=SPMD_DROP_FACTOR)
+        n_moe = cfg.n_layers
+        params = lm_params(cfg, dev, a, torch.float32)
+        toks = lm_tokens(cfg, LM_REDUCED_S + 1, dev, b=SPMD_DROP_BATCH)
+        prompt = {"tokens": toks[..., :LM_REDUCED_S]}
+        cap = LM_REDUCED_S + 8
+        prefill, decode = steps.make_prefill_step(cfg), steps.make_decode_step(cfg)
+        cache = steps.make_agent_cache(cfg, a, SPMD_DROP_BATCH, cap, torch.float32, device=dev)
+        with RoutingRecord() as r_ref:
+            ref, cache = prefill(params, prompt, cache)
+        ref_dec, _ = decode(params, toks[..., -1:], LM_REDUCED_S, cache)
+        want_drops = moe_drops(r_ref.calls, cfg)
+        placed = spmd.device_put(params, param_shardings(params, mesh, agent_leading=True))
+        cache = steps.make_agent_cache(cfg, a, SPMD_DROP_BATCH, cap, torch.float32, device=dev)
+        cache = spmd.device_put(cache, cache_shardings(cache, mesh))
+        spmd_steps.reset_moe_counts()
+        with RoutingRecord() as r_got:
+            got, cache = prefill(placed, prompt, cache)
+        got_counts = spmd_steps.moe_counts()
+        got_dec, _ = decode(placed, toks[..., -1:], LM_REDUCED_S, cache)
+        routed_alike = bool(rows_routed_alike(placed_routes(r_got.calls, a, n_moe, n_pos, 2),
+                                              r_ref.calls, SPMD_DROP_BATCH).all())
+        err = [float((x - y).abs().max()) for x, y in ((got, ref), (got_dec, ref_dec))]
+        drops[arch] = {"capacity_factor": SPMD_DROP_FACTOR, "batch_per_agent": SPMD_DROP_BATCH,
+                       "prompt": LM_REDUCED_S, "unsharded_dropped": want_drops,
+                       "placed": got_counts, "routed_alike": routed_alike,
+                       "prefill_max_abs_err": err[0], "decode_max_abs_err": err[1],
+                       "atol": ZOO_F32_ATOL}
+        if (want_drops == 0 or got_counts["dropped"] != want_drops or not routed_alike
+                or max(err) > ZOO_F32_ATOL):
+            raise AssertionError(f"{tag} drops, {arch}: {drops[arch]}")
+        del params, placed, cache
+
+    # (c) training: the pytree round of reduced OLMoE and RecurrentGemma, float32
+    training = {}
+    opt = adam()
+    kw = dict(opt=opt, lr_schedule=exponential_decay(TRAIN_LR, TRAIN_LR_DECAY ** (1.0 / TRAIN_U)),
+              kl_scale=TRAIN_KL, remat=False)
+    W = torch.as_tensor(LM_ZOO_W, dtype=torch.float32, device=dev)
+    for arch in SPMD_KINDS:
+        cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+        tree = steps.init_train_state(cfg, a, opt, torch.Generator(device=dev).manual_seed(0),
+                                      device=dev, flat=False)
+        layout = flat_view(tree.posterior).layout
+        gen = torch.Generator(device=dev).manual_seed(1)
+        moved_by = 1e-2 * torch.randn(layout.n_params, generator=gen, device=dev)
+        for leaf, m in zip(tree_leaves(tree.posterior.mean),
+                           tree_leaves(layout.unflatten(moved_by))):
+            leaf[1] += m
+        batch = make_lm_batch_sampler(cfg.vocab_size, TRAIN_BATCH, TRAIN_S, n_agents=a,
+                                      device=dev)(gen, 0)
+        eps = layout.unflatten(torch.randn((a, layout.n_params), generator=gen, device=dev))
+        got, want, got_m, want_m, run = spmd_train_pair(f"{arch} pytree", cfg, tree, W, mesh,
+                                                        batch, eps, tag=tag, **kw)
+        noise = adam_noise_lanes(flat_state(got), flat_state(want))
+        run["parity"] = train_parity(flat_state(got), flat_state(want), noise, 2 * TRAIN_LR)
+        run["metrics_max_abs_err"] = {k: float((got_m[k] - want_m[k]).abs().max())
+                                      for k in ("loss", "nll", "kl")}
+        if run["parity"]["failures"]:
+            raise AssertionError(f"{tag} training, {arch} (2, 2, 2) vs unsharded: {run}")
+        training[arch] = run
+        del tree, got, want, noise, batch, eps
+    torch.cuda.empty_cache()
+    phase(tag, nvidia_smi=smi, serving=serving, drops=drops,
+          training={"batch_per_agent": TRAIN_BATCH, "seq": TRAIN_S, **training},
+          real_cards=None if n_cards >= 2 else f"skipped: {n_cards} card(s), two needed")
+    return rows
+
+
 def run_moe_ep(dev, smi):
     """Phase 3.moe_ep: the expert-parallel MoE layer
     (``launch.expert_parallel.moe_ffn_expert_parallel``) at full layer
@@ -5566,6 +5967,7 @@ def main() -> int:
                            PIXTRAL_TEXT, LM_CAP, FRONT_DECODE)
     pod_row = run_lm_train_pod(dev, smi)
     spmd_rows = run_lm_spmd(dev, smi)
+    spmd_rows += run_lm_spmd_kinds(dev, smi)
     run_moe_ep(dev, smi)
     card_vs_cpu("4.parity", session, fig4_spec())
     card_vs_cpu("4.launch_parity", l_session, launch_spec())

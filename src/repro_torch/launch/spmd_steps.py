@@ -13,28 +13,65 @@ agent_leading=True)``, ``cache_shardings``, ``batch_pspec``).  Two schedules:
 * **Pod-only** (``data`` and ``model`` of size 1): each pod position runs
   the unsharded forward, or the unsharded local step, on its agents'
   blocks.  Every block kind runs.
-* **data x model > 1**: the ``attn`` kind only; the other kinds (``moe``,
-  ``local_attn`` / ``rglru``, ``mlstm`` / ``slstm``, ``enc_attn`` /
-  ``dec_attn``) and tied embeddings raise ``NotImplementedError`` naming
-  ROADMAP 10h.  Position ``(p, d, m)`` computes for the agents of pod ``p``
-  and the batch rows its token block holds (block ``d`` of B), over query
-  heads ``[m H/M, (m+1) H/M)`` and the KV heads those use (all KV heads
-  where ``n_kv_heads`` does not divide M: Granite-20B's one), and FFN
-  columns ``[m F/M, (m+1) F/M)``.  Just before use it gathers
-  (``spmd.gather``) what it computes with and no more: the column blocks
-  of ``wq`` / ``wk`` / ``wv`` / ``w_gate`` / ``w_up`` / ``lm_head`` over
-  ``data``, the head-row block of ``wo`` and the F-row block of
-  ``w_down`` from the positions storing them, the norm scales whole, a
-  VLM's ``patch_proj`` whole, and its tokens' embedding rows
-  (``spmd.gather_rows``).  The o- and down-projections are row-parallel:
-  an all-reduce over ``model`` (bf16 partials summed in float32) adds them
-  to the residual stream.  The KV cache's ``(B over data, KV heads over
-  model)`` blocks are the blocks a position attends with, written in place.
-  Prefill launches ``flash_attention`` once a layer a position, on
-  ``[B/data, H/M, S, hd]``; decode attends over the position's own cache
-  block (plain ``chunked_attention``, as unsharded).  The logits come out
-  ``[A, B, T, V]``, joined over ``data`` and ``model``.
-  ``forward_gather_bytes`` is the schedule's traffic as a formula.
+* **data x model > 1**: the ``attn``, ``local_attn``, ``moe`` and
+  ``rglru`` kinds, and tied embeddings; ``mlstm`` / ``slstm`` and
+  ``enc_attn`` / ``dec_attn`` raise ``NotImplementedError`` naming ROADMAP
+  10i.  Position ``(p, d, m)`` computes for the agents of pod ``p`` and the
+  batch rows its token block holds (block ``d`` of B).  The layer loop
+  walks each period's pattern in order, each kind's stack indexed by that
+  kind's own occurrence count (``models.transformer._apply_period``), then
+  the tail.  Just before use a position gathers (``spmd.gather``) what it
+  computes with and no more, norm scales whole, and its tokens' embedding
+  rows (``spmd.gather_rows``):
+
+  - attention (``attn``, ``local_attn``, ``moe``): query heads ``[m H/M,
+    (m+1) H/M)`` and the KV heads those use (all KV heads where
+    ``n_kv_heads`` does not divide M: Granite-20B's and RecurrentGemma's
+    one), the column blocks of ``wq`` / ``wk`` / ``wv`` over ``data`` and
+    the head-row block of ``wo``.  ``local_attn`` takes
+    ``cfg.sliding_window``; ``window_override`` applies to ``attn`` /
+    ``local_attn`` and never to ``moe``.  Prefill launches
+    ``flash_attention`` once a layer a position, on ``[B/data, H/M, S,
+    hd]``; decode attends over the position's own cache block (plain
+    ``chunked_attention``, as unsharded).  The KV cache's ``(B over data,
+    KV heads over model)`` blocks, a ring of ``min(capacity, window)``
+    slots for ``local_attn``, are written in place;
+  - the FFN (``attn``, ``local_attn``, ``rglru``): FFN columns ``[m F/M,
+    (m+1) F/M)``, the column blocks of ``w_gate`` / ``w_up`` and the F-row
+    block of ``w_down``;
+  - ``moe`` (``_moe``): experts ``[m E/M, (m+1) E/M)``, stored with E over
+    ``model`` and D over ``data``, gathered over ``data``; the router
+    whole.  The tokens are replicated over ``model`` within a data block
+    and every position routes them (``models.moe.route_topk``).  Capacity
+    is the agent's (``_capacity`` of its B S tokens) and an assignment's
+    slot its expert's running count in token-major order over the whole
+    batch, so each data block's slots begin after the counts of the blocks
+    before it: an all-gather over ``data`` of the per-expert counts gives
+    that exclusive prefix, and exactly the unsharded dispatch's
+    assignments drop.  A position runs its experts on its block's kept
+    assignments (``min(capacity, its tokens)`` slots an expert) and
+    combines their contributions in float32; an all-reduce over ``model``
+    of those float32 partials adds them up (``moe_counts()``: the kept and
+    dropped assignments, summed on the device).  In training the
+    load-balancing aux takes the expert counts and probability sums
+    all-reduced over ``data`` (the agent's whole token axis);
+  - ``rglru`` (``_recurrent``, the Griffin block), channel-parallel over
+    ``model`` as the reference's cache spec fixes it: the position's D/M
+    channels of the branch and the gate (column blocks of ``w_in`` /
+    ``w_gate``), the conv on them (``conv_w``'s column block, ``conv_b``'s
+    slice); ``w_r`` / ``w_i`` read every channel, so ``conv_out`` is
+    all-gathered over ``model`` and the position takes their column
+    blocks; the scan on its channels (its slice of ``lam_raw``) from its
+    cache block ``h [B/data, D/M]`` / ``conv [B/data, 3, D/M]``, written in
+    place;
+  - the head: ``lm_head``'s column block over ``data``, or, with tied
+    embeddings, the embedding's row region ``[m V/M, (m+1) V/M)``.
+
+  The o-, down- and ``w_out`` projections are row-parallel: an all-reduce
+  over ``model`` (bf16 partials summed in float32) adds them to the
+  residual stream.  The logits come out ``[A, B, T, V]``, joined over
+  ``data`` and ``model``.  ``forward_gather_bytes`` is the schedule's
+  traffic as a formula.
 
 The train round (``consensus_impl="einsum"``, the reference's default):
 eq. (6) gathers each ``(data, model)`` position's blocks over ``pod``,
@@ -51,13 +88,15 @@ local step:
   position samples its own blocks (``theta = mean + softplus(rho) eps``),
   the sharded forward runs on them (plain ``chunked_attention``:
   ``flash_attention`` has no backward), the logits' column blocks are
-  all-gathered over ``model`` for the NLL, the KL counts each distinct
-  block once (at its first holder), and autograd runs through the
-  gathers' copies and sums.  The gradient of a leaf replicated over an
-  axis is all-reduced over it.  Adam then runs on each position's blocks.
-  The activations are kept (``remat`` is a memory choice that changes no
-  bit; a position holds its share of them).  A flat state has the spec
-  ``("pod", None)``: it runs pod-only.
+  all-gathered over ``model`` for the NLL, the router's aux is added as
+  the reference adds it (``router_aux_weight aux ntok``), the KL counts
+  each distinct block once (at its first holder), and autograd runs
+  through the gathers' copies and sums (a tied embedding's gradient sums
+  its two uses so).  The gradient of a leaf replicated over an axis is
+  all-reduced over it.  Adam then runs on each position's blocks.  The
+  activations are kept (``remat`` is a memory choice that changes no bit;
+  a position holds its share of them).  A flat state has the spec
+  ``("pod", None)``: it runs pod-only (ROADMAP 10i).
 """
 from __future__ import annotations
 
@@ -73,13 +112,30 @@ from repro_torch.launch import spmd
 from repro_torch.launch.sharding import (
     NamedSharding,
     batch_pspec,
+    block_index,
     cache_shardings,
     join_blocks,
-    leaf_pspec,
+    param_shardings,
 )
 from repro_torch.optim.optimizers import apply_updates
 
-NEXT = "ROADMAP 10h"
+NEXT = "ROADMAP 10i"
+SHARDED_KINDS = ("attn", "local_attn", "moe", "rglru")
+_moe_tally: dict = {}  # device -> [kept, dropped] assignments, summed on that device
+
+
+def moe_counts() -> dict:
+    """The ``moe`` layers' kept and dropped assignments since the last
+    ``reset_moe_counts`` (each assignment counted once, at the position
+    holding its expert; one host sync a device)."""
+    total = [0, 0]
+    for t in _moe_tally.values():
+        total = [x + int(y) for x, y in zip(total, t.tolist())]
+    return {"kept": total[0], "dropped": total[1]}
+
+
+def reset_moe_counts() -> None:
+    _moe_tally.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -93,22 +149,27 @@ def mesh_of(tree):
 
 def sharded_schedule(cfg, mesh) -> bool:
     """Whether ``cfg`` runs the data x model schedule on ``mesh`` (False:
-    pod-only).  Raises ``NotImplementedError`` naming ROADMAP 10h for the
-    kinds it does not run, ``ValueError`` where heads, FFN columns or the
-    vocabulary do not split over ``model``."""
+    pod-only).  Raises ``NotImplementedError`` naming ROADMAP 10i for the
+    kinds it does not run, ``ValueError`` where heads, FFN columns,
+    experts, recurrence channels or the vocabulary do not split over
+    ``model``."""
     _, dd, mm = spmd.mesh_sizes(mesh)
     if dd * mm == 1:
         return False
     kinds = set(cfg.pattern) | set(cfg.tail) | ({"enc_attn"} if cfg.is_encdec else set())
-    other = sorted(kinds - {"attn"})
+    other = sorted(kinds - set(SHARDED_KINDS))
     if other:
         raise NotImplementedError(
             f"{cfg.name}: the {', '.join(other)} block kind(s) do not run under data x model = "
             f"{dd} x {mm} yet ({NEXT}); a mesh whose data and model axes are 1 runs every kind")
-    if cfg.tie_embeddings:
-        raise NotImplementedError(f"{cfg.name}: tied embeddings under data x model > 1 ({NEXT})")
-    for what, n in (("query heads", cfg.n_heads), ("FFN columns", cfg.d_ff),
-                    ("padded vocabulary", cfg.padded_vocab)):
+    splits = [("query heads", cfg.n_heads), ("padded vocabulary", cfg.padded_vocab)]
+    if kinds - {"moe"}:
+        splits.append(("FFN columns", cfg.d_ff))
+    if "moe" in kinds:
+        splits.append(("experts", cfg.n_experts))
+    if "rglru" in kinds:
+        splits.append(("recurrence channels", cfg.d_model))
+    for what, n in splits:
         if n % mm:
             raise ValueError(f"{cfg.name}: {n} {what} do not split over the {mm}-way model axis")
     return True
@@ -137,13 +198,15 @@ class _Grid:
 
     def __init__(self, cfg, mesh):
         self.cfg, self.mesh = cfg, mesh
-        self.model = spmd.mesh_sizes(mesh)[2]
+        self.data, self.model = spmd.mesh_sizes(mesh)[1:]
         self.coords = spmd.position_coords(mesh)
         self.dt = getattr(torch, cfg.dtype)
         mm, hd, kv = self.model, cfg.hd, cfg.n_kv_heads
         self.hl = cfg.n_heads // mm  # query heads a position
         self.fl = cfg.d_ff // mm
         self.vl = cfg.padded_vocab // mm
+        self.el = cfg.n_experts // mm  # experts a position
+        self.dl = cfg.d_model // mm  # recurrence channels a position
         if kv % mm == 0:
             self.kv_computed = kv // mm  # the position's KV block: all of it is used
             self.kv_all = False
@@ -171,12 +234,41 @@ class _Grid:
         group = self.cfg.n_heads // self.cfg.n_kv_heads
         return slice(m * self.hl // group, ((m + 1) * self.hl - 1) // group + 1)
 
+    def window(self, kind: str, override) -> int:
+        """The attention window of ``kind`` (``block_apply``'s rule)."""
+        if override is not None and kind in ("attn", "local_attn"):
+            return override
+        return self.cfg.sliding_window if kind == "local_attn" else 0
+
 
 def _w(leaf, i, lead, *ranges):
     """Position ``i``'s gather of ``leaf`` at the layer index ``lead``
     (one entry a leading dim), ``ranges`` over the dims after it."""
     out = spmd.gather(leaf, i, tuple((x, x + 1) for x in lead) + ranges)
     return out.reshape(out.shape[len(lead):])
+
+
+def _cols(m: int, n: int) -> tuple[int, int]:
+    """Block ``m`` of size ``n``."""
+    return m * n, (m + 1) * n
+
+
+def _layers(cfg, params_a, caches_a):
+    """(kind, its params, layer index, its cache) of every layer in order:
+    each period's pattern, each kind's stack at that kind's own occurrence
+    count, then the tail."""
+    out = []
+    for p in range(cfg.n_periods):
+        seen: dict[str, int] = {}
+        for kind in cfg.pattern:
+            o = seen.get(kind, 0)
+            seen[kind] = o + 1
+            out.append((kind, params_a["stacks"][kind], (p, o),
+                        None if caches_a is None else caches_a["stacks"][kind]))
+    for t, kind in enumerate(cfg.tail):
+        out.append((kind, params_a["tail"][t], (),
+                    None if caches_a is None else caches_a["tail"][t]))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -190,8 +282,7 @@ def _attention(grid, ap, lead, i, m, h, positions, cache, window):
     from repro_torch.models import attention as att
 
     hd = grid.cfg.hd
-    q0 = m * grid.hl * hd
-    local = {"wq": _w(ap["wq"], i, lead, None, (q0, q0 + grid.hl * hd))}
+    local = {"wq": _w(ap["wq"], i, lead, None, _cols(m, grid.hl * hd))}
     for name in ("wk", "wv"):
         local[name] = _w(ap[name], i, lead, None, grid.kv_cols(m))
     for name in ("q_norm", "k_norm"):
@@ -218,30 +309,151 @@ def _attention(grid, ap, lead, i, m, h, positions, cache, window):
     return out.reshape(tuple(h.shape[:-1]) + (grid.hl * hd,))
 
 
-def _layer(grid, lp, lead, x: dict, members, positions, caches, window):
-    """One ``attn`` block over the agent's positions: ``x {i: [rows, S,
-    D]}`` -> the same after the attention and the FFN, each row-parallel
-    product all-reduced over ``model``."""
-    from repro_torch.models.modules import matmul, rmsnorm, swiglu
+def _cache_at(caches, i, lead):
+    return None if caches is None else {k: v.blocks[i][lead] for k, v in caches.items()}
+
+
+def _attention_half(grid, lp, lead, x: dict, members, positions, caches, window):
+    """The attention half of an ``attn`` / ``local_attn`` / ``moe`` block:
+    ``x {i: [rows, S, D]}`` -> ``x + wo(attention)``, ``wo`` row-parallel,
+    all-reduced over ``model``."""
+    from repro_torch.models.modules import matmul, rmsnorm
 
     cfg, dt = grid.cfg, grid.dt
     part = {}
     for i, m in members:
         h = rmsnorm({"scale": _w(lp["norm1"]["scale"], i, lead)}, x[i], cfg.norm_eps)
-        cache = None if caches is None else {k: v.blocks[i][lead] for k, v in caches.items()}
-        out = _attention(grid, lp["attn"], lead, i, m, h, positions[i], cache, window)
-        rows = (m * grid.hl * cfg.hd, (m + 1) * grid.hl * cfg.hd)
-        part[i] = matmul(out, _w(lp["attn"]["wo"], i, lead, rows, None).to(dt))
+        out = _attention(grid, lp["attn"], lead, i, m, h, positions[i], _cache_at(caches, i, lead),
+                         window)
+        wo = _w(lp["attn"]["wo"], i, lead, _cols(m, grid.hl * cfg.hd), None)
+        part[i] = matmul(out, wo.to(dt))
     y = spmd.all_reduce(part, grid.mesh, "model")
-    x = {i: x[i] + y[i] for i in x}
+    return {i: x[i] + y[i] for i in x}
+
+
+def _ffn(grid, lp, lead, x: dict, members):
+    """``norm2`` and the SwiGLU FFN over FFN columns ``[m F/M, (m+1) F/M)``,
+    ``w_down`` row-parallel, all-reduced over ``model``."""
+    from repro_torch.models.modules import rmsnorm, swiglu
+
+    cfg, dt = grid.cfg, grid.dt
     part = {}
     for i, m in members:
         h2 = rmsnorm({"scale": _w(lp["norm2"]["scale"], i, lead)}, x[i], cfg.norm_eps)
-        f = (m * grid.fl, (m + 1) * grid.fl)
-        mlp = lp["mlp"]
+        f, mlp = _cols(m, grid.fl), lp["mlp"]
         part[i] = swiglu({"w_gate": _w(mlp["w_gate"], i, lead, None, f),
                           "w_up": _w(mlp["w_up"], i, lead, None, f),
                           "w_down": _w(mlp["w_down"], i, lead, f, None)}, h2, dt)
+    y = spmd.all_reduce(part, grid.mesh, "model")
+    return {i: x[i] + y[i] for i in x}
+
+
+def _moe(grid, lp, lead, x: dict, members, n_tokens: int, row_blocks: int, aux: dict | None):
+    """``norm2`` and the MoE FFN (module docstring): ``n_tokens`` the
+    agent's B S tokens, ``row_blocks`` the batch's blocks over ``data`` (1:
+    every data position holds every row).  With ``aux`` (a dict), each
+    position's load-balancing loss of the layer is added to ``aux[i]``."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.modules import rmsnorm
+
+    cfg, dt = grid.cfg, grid.dt
+    e, k, el = cfg.n_experts, cfg.top_k, grid.el
+    cap = moe_lib._capacity(n_tokens, e, k, cfg.capacity_factor)
+    mp = lp["moe"]
+    routed, counts, stats = {}, {}, {}
+    for i, m in members:
+        h2 = rmsnorm({"scale": _w(lp["norm2"]["scale"], i, lead)}, x[i], cfg.norm_eps)
+        ht = h2.reshape(-1, h2.shape[-1])  # [T_local, D], token-major
+        weights, idx, probs = moe_lib.route_topk(ht @ _w(mp["router"], i, lead).to(dt), k)
+        expert_of = idx.reshape(-1)  # [T_local k]
+        own = (expert_of >= m * el) & (expert_of < (m + 1) * el)
+        le = torch.where(own, expert_of - m * el, 0)
+        hot = F.one_hot(le, el) * own[:, None]  # [T_local k, E/M]
+        routed[i] = (ht, weights, expert_of, probs, le, own, torch.cumsum(hot, 0))
+        counts[i] = hot.sum(0, dtype=torch.int32)[None]
+    # each data block's slots start after the counts of the blocks before it
+    prefix = {i: torch.zeros_like(c[0]) for i, c in counts.items()}
+    if row_blocks > 1:
+        every = spmd.all_gather(counts, grid.mesh, "data", 0)
+        prefix = {i: every[i][:grid.coords[i][1]].sum(0) for i in counts}
+    part = {}
+    for i, m in members:
+        ht, weights, expert_of, probs, le, own, running = routed.pop(i)
+        t, d = ht.shape
+        local = torch.gather(running, 1, le[:, None])[:, 0] - 1  # slot within the block's run
+        keep = own & (local + prefix[i][le] < cap)
+        tally = torch.stack([keep.sum(), (own & ~keep).sum()])
+        _moe_tally[tally.device] = _moe_tally.get(tally.device, 0) + tally
+        cl = min(cap, t)  # a block's kept slots an expert: at most one a token
+        token_of = torch.arange(t, device=ht.device).repeat_interleave(k)
+        cell = torch.where(keep, le * cl + local, el * cl)
+        slots = torch.zeros(el * cl + 1, dtype=torch.long, device=ht.device)
+        slots.scatter_(0, cell, torch.where(keep, token_of + 1, 0))
+        xt_pad = torch.cat([ht.new_zeros((1, d)), ht])
+        x_disp = xt_pad[slots[:el * cl]].reshape(el, cl, d)
+        experts = _cols(m, el)
+        g = torch.matmul(x_disp, _w(mp["w_gate"], i, lead, experts, None, None).to(dt))
+        u = torch.matmul(x_disp, _w(mp["w_up"], i, lead, experts, None, None).to(dt))
+        del x_disp
+        yd = torch.matmul(F.silu(g) * u, _w(mp["w_down"], i, lead, experts, None, None).to(dt))
+        del g, u
+        src = torch.where(keep, le * cl + local, 0)
+        contrib = torch.where(keep[:, None], yd.reshape(el * cl, d)[src].float()
+                              * weights.reshape(-1)[:, None], 0.0).reshape(t, k, d)
+        out = contrib[:, 0]
+        for j in range(1, k):
+            out = out + contrib[:, j]
+        part[i] = out.reshape(x[i].shape)
+        if aux is not None:  # the block's expert counts and probability sums
+            stats[i] = torch.stack([F.one_hot(expert_of, e).sum(0).float(), probs.sum(0)])
+    y = spmd.all_reduce(part, grid.mesh, "model")  # float32 partials
+    x = {i: x[i] + y[i].to(dt) for i in x}
+    if aux is not None:
+        if row_blocks > 1:  # over the agent's whole token axis
+            stats = spmd.all_reduce(stats, grid.mesh, "data")
+        for i in aux:  # models.moe.load_balance_loss
+            frac, mean_prob = stats[i][0] / (n_tokens * k), stats[i][1] / n_tokens
+            aux[i] = aux[i] + e * torch.sum(frac * mean_prob)
+    return x
+
+
+def _recurrent(grid, rp, lead, x: dict, members, caches):
+    """The Griffin recurrent block (``models.rglru.rglru_block``) over
+    channels ``[m D/M, (m+1) D/M)`` a position (module docstring); its
+    state written into the position's cache block in place."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import rglru as rg
+    from repro_torch.models.modules import matmul, rmsnorm
+
+    cfg, dt = grid.cfg, grid.dt
+    local, conv = {}, {}
+    for i, m in members:
+        c = _cols(m, grid.dl)
+        xin = rmsnorm({"scale": _w(rp["norm"]["scale"], i, lead)}, x[i], cfg.norm_eps)
+        branch = matmul(xin, _w(rp["w_in"], i, lead, None, c).to(dt))
+        gate = F.gelu(matmul(xin, _w(rp["w_gate"], i, lead, None, c).to(dt)), approximate="tanh")
+        state = _cache_at(caches, i, lead)
+        if state is None:
+            rows = x[i].shape[:-2]
+            state = {"h": torch.zeros(rows + (grid.dl,), device=x[i].device),
+                     "conv": torch.zeros(rows + (rg.CONV_WIDTH - 1, grid.dl), device=x[i].device)}
+        conv[i], hist = rg.causal_conv1d(branch, _w(rp["conv_w"], i, lead, None, c),
+                                         _w(rp["conv_b"], i, lead, c), state["conv"])
+        local[i] = (c, gate, state, hist)
+    every = spmd.all_gather(conv, grid.mesh, "model", -1)  # w_r, w_i read every channel
+    part = {}
+    for i, m in members:
+        c, gate, state, hist = local.pop(i)
+        r = torch.sigmoid(matmul(every[i], _w(rp["w_r"], i, lead, None, c).to(dt)))
+        ig = torch.sigmoid(matmul(every[i], _w(rp["w_i"], i, lead, None, c).to(dt)))
+        hs, h_last = rg.rglru_scan(conv[i], r, ig, _w(rp["lam_raw"], i, lead, c), state["h"])
+        part[i] = matmul(hs.to(dt) * gate, _w(rp["w_out"], i, lead, c, None).to(dt))
+        if caches is not None:
+            state["h"].copy_(h_last)
+            state["conv"].copy_(hist)
     y = spmd.all_reduce(part, grid.mesh, "model")
     return {i: x[i] + y[i] for i in x}
 
@@ -252,39 +464,56 @@ def _members(grid, params_a):
     return [(i, grid.coords[i][2]) for i, blk in enumerate(emb.blocks) if blk is not None]
 
 
-def _forward(grid, params_a, tokens: dict, *, positions=None, caches_a=None, patches=None,
-             logits_tail=0, window=0):
+def _forward(grid, params_a, tokens: dict, row_blocks: int, *, positions=None, caches_a=None,
+             patches=None, logits_tail=0, window_override=None, with_aux=False):
     """One agent's forward over its pod's positions: ``params_a`` its
-    placed weights (``Placed.agent``), ``tokens {i: [rows, S]}``,
-    ``caches_a`` its placed cache or ``None``, ``patches {i: [rows, P,
-    D]}``.  Returns the logits' column blocks ``{i: [rows, T, V/M]}``
-    (float32)."""
+    placed weights (``Placed.agent``), ``tokens {i: [rows, S]}`` (the
+    batch in ``row_blocks`` blocks over ``data``), ``caches_a`` its placed
+    cache or ``None``, ``patches {i: [rows, P, D]}``.  Returns the logits'
+    column blocks ``{i: [rows, T, V/M]}`` (float32) and, ``with_aux``, each
+    position's router aux (``{i: 0-d}``, the agent's, alike on every
+    position; ``None`` otherwise)."""
     from repro_torch.models.modules import matmul, rmsnorm
 
     cfg, dt = grid.cfg, grid.dt
     members = _members(grid, params_a)
+    emb = params_a["embed"]["emb"]
     x = {}
     for i, _ in members:
-        x[i] = spmd.gather_rows(params_a["embed"]["emb"], i, tokens[i]).to(dt)
+        x[i] = spmd.gather_rows(emb, i, tokens[i]).to(dt)
         if patches is not None:
             proj = _w(params_a["patch_proj"]["w"], i, ()).to(dt)
             x[i] = torch.cat([matmul(patches[i].to(dt), proj), x[i]], dim=-2)
     if positions is None:
         positions = {i: torch.arange(x[i].shape[-2], device=x[i].device) for i in x}
-    layers = [(params_a["stacks"]["attn"], (p, o),
-               None if caches_a is None else caches_a["stacks"]["attn"])
-              for p in range(cfg.n_periods) for o in range(len(cfg.pattern))]
-    layers += [(params_a["tail"][t], (), None if caches_a is None else caches_a["tail"][t])
-               for t in range(len(cfg.tail))]
-    for lp, lead, caches in layers:
-        x = _layer(grid, lp, lead, x, members, positions, caches, window)
+    n_tokens = row_blocks * x[members[0][0]].shape[:-1].numel()  # the agent's B S
+    aux = {i: torch.zeros((), device=x[i].device) for i in x} if with_aux else None
+    for kind, lp, lead, caches in _layers(cfg, params_a, caches_a):
+        if kind == "rglru":
+            x = _recurrent(grid, lp["rec"], lead, x, members, caches)
+        else:
+            x = _attention_half(grid, lp, lead, x, members, positions, caches,
+                                grid.window(kind, window_override))
+        if kind == "moe":
+            x = _moe(grid, lp, lead, x, members, n_tokens, row_blocks, aux)
+        else:
+            x = _ffn(grid, lp, lead, x, members)
     logits = {}
     for i, m in members:
         xi = x[i][..., -logits_tail:, :] if logits_tail else x[i]
         xi = rmsnorm({"scale": _w(params_a["final_norm"]["scale"], i, ())}, xi, cfg.norm_eps)
-        w = _w(params_a["lm_head"]["w"], i, (), None, (m * grid.vl, (m + 1) * grid.vl))
-        logits[i] = matmul(xi, w.to(dt)).float()
-    return logits
+        v = _cols(m, grid.vl)
+        if cfg.tie_embeddings:
+            w = _w(emb, i, (), v, None).to(dt).transpose(-1, -2)
+        else:
+            w = _w(params_a["lm_head"]["w"], i, (), None, v).to(dt)
+        logits[i] = matmul(xi, w).float()
+    return logits, aux
+
+
+def _row_blocks(tokens_a) -> int:
+    """The blocks one agent's batch rows take over ``data``."""
+    return tokens_a.grid()[0]
 
 
 def _serve(cfg, params, tokens, cache, *, patches=None, position=None, logits_tail=0,
@@ -292,7 +521,6 @@ def _serve(cfg, params, tokens, cache, *, patches=None, position=None, logits_ta
     """The data x model prefill (``position`` None) or decode step:
     (logits ``[A, B, T, V]`` on the first position's device, cache)."""
     grid = _Grid(cfg, tokens.mesh)
-    window = 0 if window_override is None else window_override
     n_agents = tokens.shape[0]
     per_pos: list[list] = [[] for _ in tokens.blocks]
     for a in range(n_agents):
@@ -309,8 +537,10 @@ def _serve(cfg, params, tokens, cache, *, patches=None, position=None, logits_ta
             positions = {i: torch.as_tensor(position).reshape(1).to(device=b.device,
                                                                     dtype=torch.long)
                          for i, b in toks.items()}
-        for i, lg in _forward(grid, params_a, toks, positions=positions, caches_a=caches_a,
-                              patches=pat, logits_tail=logits_tail, window=window).items():
+        logits, _ = _forward(grid, params_a, toks, _row_blocks(tok_a), positions=positions,
+                             caches_a=caches_a, patches=pat, logits_tail=logits_tail,
+                             window_override=window_override)
+        for i, lg in logits.items():
             per_pos[i].append(lg)
     spec = tuple(tokens.sharding.spec)[:2] + (None, "model" if grid.model > 1 else None)
     blocks = [torch.stack(lgs) for lgs in per_pos]
@@ -411,17 +641,20 @@ def pod_consensus(post, W, wire_dtype=None):
 
 
 def _nll(grid, theta_a, batch_a: dict, members):
-    """One agent's summed next-token NLL on its placed batch: the logits'
-    column blocks all-gathered over ``model``, each data block's NLL on
-    its ``model``-0 position, summed over ``data``."""
+    """One agent's summed next-token NLL on its placed batch and its
+    router aux, both 0-d on one position: the logits' column blocks
+    all-gathered over ``model``, each data block's NLL on its ``model``-0
+    position, summed over ``data``."""
     toks = {i: batch_a["tokens"].blocks[i] for i, _ in members}
     pat = None
     if batch_a.get("patches") is not None:
         pat = {i: batch_a["patches"].blocks[i] for i, _ in members}
-    logits = spmd.all_gather(_forward(grid, theta_a, toks, patches=pat), grid.mesh, "model", -1)
+    row_blocks = _row_blocks(batch_a["tokens"])
+    logits, aux = _forward(grid, theta_a, toks, row_blocks, patches=pat, with_aux=True)
+    logits = spmd.all_gather(logits, grid.mesh, "model", -1)
     nll = {}
     for i, m in members:
-        if m:
+        if m or (row_blocks == 1 and grid.coords[i][1]):  # one position a distinct block
             continue
         lg, targets = logits[i], batch_a["targets"].blocks[i]
         if lg.shape[-2] != targets.shape[-1]:
@@ -433,7 +666,8 @@ def _nll(grid, theta_a, batch_a: dict, members):
             per_tok = per_tok * mask.blocks[i]
         nll[i] = torch.sum(per_tok)
     total = spmd.all_reduce(nll, grid.mesh, "data")
-    return total[min(total)]
+    i = min(total)
+    return total[i], aux[i]
 
 
 def _replicated_axes(sharding) -> list[str]:
@@ -475,8 +709,10 @@ def _sharded_local(grid, prior, opt, opt_state, batch, eps, lr, step, n_agents, 
                 for i in x.first_holders() if bayesian else ():  # each distinct block once
                     kl = kl + _leaf_kl(qm[k][i], qr[k][i], x.blocks[i].detach(),
                                        pr[k].blocks[i].detach()).to(root)
-            nll = _nll(grid, tree_replace_leaves(prior.mean, theta), batch_a, members).to(root)
-            loss = nll / ntok + kl_scale * kl / ntok
+            nll, aux = _nll(grid, tree_replace_leaves(prior.mean, theta), batch_a, members)
+            nll = nll.to(root)
+            loss = ((nll + grid.cfg.router_aux_weight * aux.to(root) * ntok) / ntok
+                    + kl_scale * kl / ntok)
             wrt = [q[i] for q in (qm + qr if bayesian else qm) for i, _ in members]
             got = iter(torch.autograd.grad(loss / n_agents, wrt))
         for k, x in enumerate(pm + pr):
@@ -590,67 +826,134 @@ def train_round(cfg, state, batch: dict, eps, generator, *, W, opt, lr_schedule,
 # ---------------------------------------------------------------------------
 
 
+def _taken(shape, spec, mesh, region) -> tuple[int, int]:
+    """One ``spmd.gather`` by each position of a pod of a per-agent leaf of
+    ``shape`` under ``spec``, position ``(d, m)`` taking ``region(m)`` (per
+    dim ``(start, stop)``): (the elements the pod's positions copy in, the
+    most one position assembles).  A position copies its region less the
+    part its own block holds."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    moved = most = 0
+    for pos in mesh.positions():
+        if pos.get("pod", 0):
+            continue
+        vol = own = 1
+        for (lo, hi), n, (b, nb) in zip(region(pos.get("model", 0)), shape,
+                                        block_index(spec, mesh, pos)):
+            size = n // nb
+            vol *= hi - lo
+            own *= max(0, min(hi, (b + 1) * size) - max(lo, b * size))
+        moved, most = moved + vol - own, max(most, vol)
+    return moved, most
+
+
 def forward_gather_bytes(cfg, mesh, rows: int, seq: int, itemsize: int, n_agents: int,
                          patches: int = 0) -> dict:
     """The data x model forward's cross-position bytes, as a formula of the
-    config, for ``n_agents`` agents of ``rows`` batch rows (``rows``
-    divisible by ``data``) and ``seq`` text positions (``patches`` more for
-    a VLM; 1 for a decode step), weights of ``itemsize`` bytes, every
-    weight dim dividing its axis under the reference's specs (a layer
-    stack ``[L, c, R, C]``: R over ``data``, C over ``model``; a norm scale
-    ``[L, c, n]``: n over ``model``, c over ``data`` where it divides).
-    Per layer and pod, for d x m positions:
+    config and the reference's specs, for ``n_agents`` agents of ``rows``
+    batch rows (``rows`` divisible by ``data``) and ``seq`` text positions
+    (``patches`` more for a VLM; 1 for a decode step), weights of
+    ``itemsize`` bytes.  For a dim that divides its axis the sums below
+    come to closed forms: a column block taken over ``data`` (``wq``,
+    ``wk``, ``wv``, ``w_gate``, ``w_up``, ``lm_head``, ``w_in``, ``w_r``,
+    ``w_i``, ``conv_w``, the experts ``[E/M, D, F]``) ``(d - 1) R C`` a pod,
+    a row block (``wo``, ``w_down``, ``w_out``) ``R C (d - 1/m)``, a tied
+    embedding's row region ``(d m - 1) V D / m``, a leaf taken whole (the
+    router, a VLM's ``patch_proj``) ``(d m - 1) R C``; a norm scale, a
+    slice of ``lam_raw`` / ``conv_b``, or a replicated tail leaf, what the
+    positions lack of it.  Per layer and pod, for ``d x m`` positions:
 
-    * column blocks (wq, wk, wv, w_gate, w_up; lm_head once): each position
-      copies the ``d - 1`` row blocks of its column block it lacks,
-      ``(d - 1) R C`` a pod;
-    * row blocks (wo, w_down): ``R C (d - 1/m)`` a pod (of the row block a
-      position needs, its own block holds ``R/d x C/m`` of one position's);
-    * a norm scale of ``n`` taken whole: ``d m n - o n / m``, ``o`` the
-      positions owning one of its ``m`` pieces (``m`` where c splits over
-      ``data``, else ``d m``); where ``n_kv_heads`` does not divide ``m``,
-      ``wk`` and ``wv`` whole, ``d m (1 - 1/f) D kv hd`` (``f`` their shard
-      factor); a VLM's ``patch_proj``, once, ``(d m - 1) D^2``;
+    * gathers: each weight a position takes (``_taken``), as the schedule
+      takes it;
     * the embedding rows: every row block is looked up for every token, so
-      a position copies ``d m - 1`` pieces of ``t D / m`` (``t`` its text
-      tokens);
-    * all-reduces: two a layer of ``[rows/d, seq + patches, D]`` over
-      ``model``, ``2 (m - 1)`` blocks a group.
+      a position copies all of its pieces but its own, ``t D / m`` each
+      (``t`` its text tokens);
+    * all-reduces over ``model`` of ``[rows/d, seq + patches, D]``, ``2 (m -
+      1)`` blocks a group: two a layer (``wo`` or ``w_out``, and the FFN),
+      a ``moe`` layer's second in float32 (the combine);
+    * all-gathers: an ``rglru`` layer's ``conv_out [rows/d, seq, D/m]``
+      over ``model``, ``m (m - 1)`` blocks a group; a ``moe`` layer's
+      per-expert counts (``E/m`` int32) over ``data``, ``d (d - 1)``.
 
     ``gather_per_position_max`` bounds one position's gathers: all it
     assembles, its own parts included."""
+    from repro_torch.launch.dryrun import param_shapes
+
+    grid = _Grid(cfg, mesh)
     _, dd, mm = spmd.mesh_sizes(mesh)
-    n_pos = dd * mm
-    dm, hd, h, kv, f = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
-    t = rows // dd * seq  # text tokens a position
-    owners = mm if len(cfg.pattern) % dd == 0 else n_pos
+    dm, hd = cfg.d_model, cfg.hd
+    shapes = tree_map(lambda x: x.expand((1,) + tuple(x.shape)), param_shapes(cfg))
+    leaves = tree_map(lambda x, sh: (tuple(x.shape[1:]), tuple(sh.spec)[1:]), shapes,
+                      param_shardings(shapes, mesh, agent_leading=True))
+    pod = most = 0
 
-    def norm(n):  # (a pod's bytes, one position's most)
-        return n_pos * n - owners * n / mm, n
+    def take(leaf, lead, ranges=lambda m: ()):  # one gather a position, as ``_w``'s
+        nonlocal pod, most
+        shape, spec = leaf
+        body = shape[len(lead):]
 
-    pod, most = 0.0, 0.0
-    parts = [((dd - 1) * r * c, r * c / mm) for r, c in ((dm, h * hd), (dm, f), (dm, f))]
-    parts += [(r * c * (dd - 1 / mm), r * c / mm) for r, c in ((h * hd, dm), (f, dm))]
-    parts += [norm(dm), norm(dm)] + ([norm(hd), norm(hd)] if cfg.qk_norm else [])
-    if kv % mm:
-        wk = torch.empty((1, dm, kv * hd), device="meta")
-        share = 1 - 1 / spmd.shard_factor(
-            NamedSharding(mesh, leaf_pspec((), wk, mesh, agent_leading=True)[1:]))
-        parts += [(n_pos * share * dm * kv * hd, dm * kv * hd)] * 2
+        def region(m):
+            rs = ranges(m) + (None,) * (len(body) - len(ranges(m)))
+            return [(x, x + 1) for x in lead] + [(0, n) if r is None else r
+                                                 for r, n in zip(rs, body)]
+
+        moved, biggest = _taken(shape, spec, mesh, region)
+        pod, most = pod + moved, most + biggest
+
+    rows_local = rows // dd if rows % dd == 0 else rows
+    t, t_all = rows_local * seq, rows_local * (seq + patches)
+    reduce = gather_all = 0  # a pod's all-reduced and all-gathered bytes
+    for kind, lp, lead, _ in _layers(cfg, leaves, None):
+        if kind == "rglru":
+            rp = lp["rec"]
+            take(rp["norm"]["scale"], lead)
+            for name in ("w_in", "w_gate", "conv_w", "w_r", "w_i"):
+                take(rp[name], lead, lambda m: (None, _cols(m, grid.dl)))
+            for name in ("conv_b", "lam_raw"):
+                take(rp[name], lead, lambda m: (_cols(m, grid.dl),))
+            take(rp["w_out"], lead, lambda m: (_cols(m, grid.dl), None))
+            gather_all += dd * mm * (mm - 1) * t_all * grid.dl * itemsize
+        else:
+            ap = lp["attn"]
+            take(lp["norm1"]["scale"], lead)
+            take(ap["wq"], lead, lambda m: (None, _cols(m, grid.hl * hd)))
+            take(ap["wk"], lead, lambda m: (None, grid.kv_cols(m)))
+            take(ap["wv"], lead, lambda m: (None, grid.kv_cols(m)))
+            for name in ("q_norm", "k_norm"):
+                if name in ap:
+                    take(ap[name]["scale"], lead)
+            take(ap["wo"], lead, lambda m: (_cols(m, grid.hl * hd), None))
+        take(lp["norm2"]["scale"], lead)
+        if kind == "moe":
+            take(lp["moe"]["router"], lead)
+            for name in ("w_gate", "w_up", "w_down"):
+                take(lp["moe"][name], lead, lambda m: (_cols(m, grid.el),))
+            reduce += dd * 2 * (mm - 1) * t_all * dm * (itemsize + 4)
+            if rows % dd == 0:
+                gather_all += mm * dd * (dd - 1) * grid.el * 4
+        else:
+            for name in ("w_gate", "w_up"):
+                take(lp["mlp"][name], lead, lambda m: (None, _cols(m, grid.fl)))
+            take(lp["mlp"]["w_down"], lead, lambda m: (_cols(m, grid.fl), None))
+            reduce += dd * 2 * 2 * (mm - 1) * t_all * dm * itemsize
+    take(leaves["final_norm"]["scale"], ())
+    if cfg.tie_embeddings:
+        take(leaves["embed"]["emb"], (), lambda m: (_cols(m, grid.vl), None))
     else:
-        parts += [((dd - 1) * dm * kv * hd, dm * kv * hd / mm)] * 2
-    for a, b in parts:
-        pod, most = pod + cfg.n_layers * a, most + cfg.n_layers * b
-    pod += (dd - 1) * dm * cfg.padded_vocab + n_pos * (n_pos - 1) * t * dm / mm
-    most += dm * cfg.padded_vocab / mm + n_pos * t * dm / mm
+        take(leaves["lm_head"]["w"], (), lambda m: (None, _cols(m, grid.vl)))
     if patches:
-        pod, most = pod + (n_pos - 1) * dm * dm, most + dm * dm
+        take(leaves["patch_proj"]["w"], ())
+    shape, spec = leaves["embed"]["emb"]
+    n_r, n_c = (nb for _, nb in block_index(spec + (None,) * (2 - len(spec)), mesh,
+                                            next(iter(mesh.positions()))))
+    pieces = n_r * n_c
+    pod += dd * mm * (pieces - 1) * t * dm // n_c
+    most += pieces * t * dm // n_c
     gather = n_agents * pod * itemsize
-    reduce = n_agents * dd * 2 * cfg.n_layers * 2 * (mm - 1) * (t + rows // dd * patches) \
-        * dm * itemsize
-    return {"gather": gather, "all_reduce": reduce, "bytes": gather + reduce,
-            "gather_per_position_max": most * itemsize}
+    reduce, gather_all = n_agents * reduce, n_agents * gather_all
+    return {"gather": gather, "all_reduce": reduce, "all_gather": gather_all,
+            "bytes": gather + reduce + gather_all, "gather_per_position_max": most * itemsize}
 
 
-__all__ = ["decode", "forward_gather_bytes", "pod_consensus", "prefill", "sharded_schedule",
-           "train_round"]
+__all__ = ["SHARDED_KINDS", "decode", "forward_gather_bytes", "moe_counts", "pod_consensus",
+           "prefill", "reset_moe_counts", "sharded_schedule", "train_round"]

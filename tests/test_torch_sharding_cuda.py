@@ -14,12 +14,14 @@ file imports neither JAX nor the JAX package:
   experts, float32 (TF32 off), on the card within 1e-5 of its CPU run on
   the same mesh shape, and two calls the same bits; over the real cards too.
 * The sharded LM steps (``launch.spmd_steps``) at ``reduced()`` width,
-  float32: the prefill and a decode step of Qwen3-8B, Granite-20B and
-  Pixtral-12B placed on a (2, 2, 2) mesh of virtual shards of the card,
-  within 1e-5 of the same steps placed on the CPU and of the card's
-  unsharded steps, ``flash_attention`` once a layer a position, two calls
-  the same bits; the train round of repro-100m, a pytree state on
-  (2, 2, 2) and a flat one on (2, 1, 1), within 1e-4 of the card's
+  float32: the prefill and a decode step of Qwen3-8B, Granite-20B,
+  Pixtral-12B, OLMoE-1B-7B, Phi-3.5-MoE and RecurrentGemma-9B placed on a
+  (2, 2, 2) mesh of virtual shards of the card, within 1e-5 of the same
+  steps placed on the CPU and of the card's unsharded steps,
+  ``flash_attention`` once an attention layer a position, two calls the
+  same bits; the train round of repro-100m, a pytree state on (2, 2, 2)
+  and a flat one on (2, 1, 1), and of OLMoE and RecurrentGemma, a pytree
+  state on (2, 2, 2), within 1e-4 of the card's
   unsharded round (Adam's moments, and the posterior off the lanes whose
   Adam step is a rounding-noise sign), ``consensus_fused_network`` once a
   (data, model) position; over two real cards (each pod on its own) the
@@ -177,12 +179,14 @@ def _serve(cfg, params, batch, n_p, mesh):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["qwen3-8b", "granite-20b", "pixtral-12b"])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "granite-20b", "pixtral-12b", "olmoe-1b-7b",
+                                  "phi3.5-moe-42b-a6.6b", "recurrentgemma-9b"])
 def test_sharded_serving_card_against_cpu(dev, arch):
     cfg, params, batch, n_p = _lm(arch, dev)
     dispatch.reset_launch_counts()
     lg, d = _serve(cfg, params, batch, n_p, make_mesh((2, 2, 2), AXES, dev))
-    assert dispatch.launch_counts()["flash_attention"] == cfg.n_layers * 8
+    n_attn = sum(kind != "rglru" for kind in cfg.pattern * cfg.n_periods + cfg.tail)
+    assert dispatch.launch_counts()["flash_attention"] == n_attn * 8
     lg2, d2 = _serve(cfg, params, batch, n_p, make_mesh((2, 2, 2), AXES, dev))
     assert torch.equal(lg, lg2) and torch.equal(d, d2)
     cpu = tree_map(lambda x: x.cpu(), (params, batch))
@@ -194,8 +198,8 @@ def test_sharded_serving_card_against_cpu(dev, arch):
     torch.testing.assert_close(d, ref_d, atol=1e-5, rtol=0)
 
 
-def _train(device, flat, mesh=None):
-    cfg = dataclasses.replace(get_config("repro-100m").reduced(), dtype="float32")
+def _train(device, flat, mesh=None, arch="repro-100m"):
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
     state = steps.init_train_state(cfg, 2, adam(), torch.Generator().manual_seed(0), flat=flat,
                                    device="cpu")
     g = torch.Generator().manual_seed(7)
@@ -214,13 +218,17 @@ def _train(device, flat, mesh=None):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("flat,shape", [(False, (2, 2, 2)), (True, (2, 1, 1))],
-                         ids=["pytree-2x2x2", "flat-2x1x1"])
-def test_sharded_train_round_on_the_card(dev, flat, shape):
+@pytest.mark.parametrize("arch,flat,shape", [("repro-100m", False, (2, 2, 2)),
+                                             ("repro-100m", True, (2, 1, 1)),
+                                             ("olmoe-1b-7b", False, (2, 2, 2)),
+                                             ("recurrentgemma-9b", False, (2, 2, 2))],
+                         ids=["pytree-2x2x2", "flat-2x1x1", "olmoe-pytree-2x2x2",
+                              "recurrentgemma-pytree-2x2x2"])
+def test_sharded_train_round_on_the_card(dev, arch, flat, shape):
     dispatch.reset_launch_counts()
-    got, got_m = _train(dev, flat, make_mesh(shape, AXES, dev))
+    got, got_m = _train(dev, flat, make_mesh(shape, AXES, dev), arch)
     assert dispatch.launch_counts()["consensus_fused_network"] == shape[1] * shape[2]
-    want, want_m = _train(dev, flat)
+    want, want_m = _train(dev, flat, arch=arch)
     torch.testing.assert_close(got_m["loss"], want_m["loss"], rtol=1e-5, atol=0)
     for field in ("mu", "nu"):
         for x, y in zip(tree_leaves(getattr(got.opt_state, field)),

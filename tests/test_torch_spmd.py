@@ -16,14 +16,17 @@ Held:
   and (k - 1) n + (k - 1) n / k a group of k blocks of n bytes);
 * ``gather`` / ``gather_rows`` against slicing and indexing the whole
   tensor, and their counted bytes;
-* the data x model schedule refuses the ``moe``, ``local_attn`` /
-  ``rglru``, ``mlstm`` / ``slstm`` and ``enc_attn`` / ``dec_attn`` kinds
-  with ``NotImplementedError`` naming ROADMAP 10h, while a pod-only mesh
-  runs OLMoE's ``reduced()`` prefill and decode equal to the unsharded ones
-  (a plain cache placed on the way in, its blocks views written in place);
-* no whole-model gather: a sharded prefill's and decode step's gathered
-  bytes equal ``forward_gather_bytes``' formula in all, and each position's
-  stay at or under its per-position bound, a fraction of the model.
+* the data x model schedule refuses the ``mlstm`` / ``slstm`` and
+  ``enc_attn`` / ``dec_attn`` kinds, and a placed state's train round
+  refuses the ppermute consensus, a bf16 wire and a flat state, with
+  ``NotImplementedError`` naming ROADMAP 10i, while a pod-only mesh runs
+  OLMoE's ``reduced()`` prefill and decode equal to the unsharded ones (a
+  plain cache placed on the way in, its blocks views written in place);
+* no whole-model gather: a sharded prefill's and decode step's gathered,
+  all-reduced and all-gathered bytes equal ``forward_gather_bytes``'
+  formula in all (the ``attn`` configs, OLMoE's experts and RecurrentGemma's
+  recurrent blocks and tied embedding), and each position's gathers stay at
+  or under its per-position bound, a fraction of the model.
 """
 import dataclasses
 
@@ -232,25 +235,38 @@ def test_gather_and_gather_rows_against_slicing():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "recurrentgemma-9b", "xlstm-1.3b",
-                                  "whisper-tiny"])
-def test_other_kinds_are_refused_under_data_or_model(arch):
-    cfg = _cfg(arch)
-    for shape in ((2, 2, 1), (2, 1, 2)):
-        mesh = _mesh(shape)
-        params = _params(cfg)
-        params = spmd.device_put(params, param_shardings(params, mesh, agent_leading=True))
-        toks = torch.zeros((A, 2, 4), dtype=torch.long)
-        with pytest.raises(NotImplementedError, match="ROADMAP 10h"):
-            ts.make_prefill_step(cfg)(params, {"tokens": toks}, None)
-        with pytest.raises(NotImplementedError, match="ROADMAP 10h"):
-            ts.make_decode_step(cfg)(params, toks[..., :1], 4, None)
+@pytest.mark.parametrize("case", ["xlstm-1.3b", "whisper-tiny", "ppermute", "wire_bf16"])
+def test_other_kinds_are_refused_under_data_or_model(case):
+    W = torch.full((A, A), 0.5)
+    if case in ("ppermute", "wire_bf16"):  # a placed state's consensus: einsum at the f32 wire
+        cfg = _cfg("olmoe-1b-7b")
+        state = ts.init_train_state(cfg, A, adam(), torch.Generator().manual_seed(0), flat=False,
+                                    device="cpu")
+        mesh = _mesh((2, 2, 2))
+        placed = spmd.device_put(state, param_shardings(state, mesh, agent_leading=True))
+        kw = ({"consensus_impl": "ppermute", "mesh": mesh} if case == "ppermute"
+              else {"consensus_wire_dtype": torch.bfloat16})
+        step = ts.make_train_round_step(cfg, W, opt=adam(), **kw)
+        with pytest.raises(NotImplementedError, match="ROADMAP 10i"):
+            step(placed, {"tokens": torch.zeros((A, 2, 4), dtype=torch.long),
+                          "targets": torch.zeros((A, 2, 4), dtype=torch.long)})
+    else:
+        cfg = _cfg(case)
+        for shape in ((2, 2, 1), (2, 1, 2)):
+            mesh = _mesh(shape)
+            params = _params(cfg)
+            params = spmd.device_put(params, param_shardings(params, mesh, agent_leading=True))
+            toks = torch.zeros((A, 2, 4), dtype=torch.long)
+            with pytest.raises(NotImplementedError, match="ROADMAP 10i"):
+                ts.make_prefill_step(cfg)(params, {"tokens": toks}, None)
+            with pytest.raises(NotImplementedError, match="ROADMAP 10i"):
+                ts.make_decode_step(cfg)(params, toks[..., :1], 4, None)
     state = ts.init_train_state(_cfg("repro-100m"), A, adam(), torch.Generator().manual_seed(0),
                                 device="cpu")
     mesh = _mesh((2, 2, 2))
     placed = spmd.device_put(state, param_shardings(state, mesh, agent_leading=True))
-    step = ts.make_train_round_step(_cfg("repro-100m"), torch.full((A, A), 0.5), opt=adam())
-    with pytest.raises(NotImplementedError, match="ROADMAP 10h"):  # a flat state is pod-only
+    step = ts.make_train_round_step(_cfg("repro-100m"), W, opt=adam())
+    with pytest.raises(NotImplementedError, match="ROADMAP 10i"):  # a flat state is pod-only
         step(placed, {"tokens": torch.zeros((A, 2, 4), dtype=torch.long),
                       "targets": torch.zeros((A, 2, 4), dtype=torch.long)})
 
@@ -279,7 +295,9 @@ def test_pod_only_mesh_runs_the_moe_prefill_and_decode():
 
 
 @pytest.mark.parametrize("arch,shape", [("qwen3-8b", (2, 2, 2)), ("granite-20b", (2, 2, 2)),
-                                        ("pixtral-12b", (1, 2, 2)), ("qwen3-8b", (1, 1, 4))],
+                                        ("pixtral-12b", (1, 2, 2)), ("qwen3-8b", (1, 1, 4)),
+                                        ("olmoe-1b-7b", (2, 2, 2)),
+                                        ("recurrentgemma-9b", (2, 2, 2))],
                          ids=str)
 def test_gathered_bytes_stay_at_the_formula(arch, shape):
     cfg = _cfg(arch)
@@ -305,5 +323,6 @@ def test_gathered_bytes_stay_at_the_formula(arch, shape):
         want = forward_gather_bytes(cfg, mesh, b, seq, 4, a, n_p if name == "prefill" else 0)
         assert counts["gather_bytes"] == want["gather"], name
         assert counts["all_reduce_bytes"] == want["all_reduce"], name
+        assert counts["all_gather_bytes"] == want["all_gather"], name
         most = max(counts["gather_by_position"].values())
         assert most <= want["gather_per_position_max"] < model_bytes, name
