@@ -148,7 +148,8 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    steps on the CPU (f32 1e-4, bf16 as above) and each agent's prefill
    against its weights alone (the other agent's must fail it).  The MoE
    and recurrent configs (``run_lm_new``): ``3.lm_olmoe``,
-   ``3.lm_recurrentgemma`` and ``3.lm_xlstm`` at full width and depth, A =
+   ``3.lm_recurrentgemma`` and ``3.lm_xlstm`` at full width (and depth;
+   the xLSTM at 24 of its 48 blocks, ``LM_NEW``), A =
    2 (seeds 0, 1), B = 2 prompts of S = 4096, bf16: prefill into a
    4,128-slot cache (first and warm, each into a fresh cache), 8 decode
    steps, the prefill's FLOP bound (bf16 GEMMs and the mLSTM's fp32 chunk
@@ -245,8 +246,23 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    reduced OLMoE and Phi-3.5-MoE at f32 and capacity factor 0.5, the
    placed steps' drops equal to the unsharded dispatch's; the pytree round
    of reduced OLMoE and RecurrentGemma on (2, 2, 2) within
-   ``train_parity``; over two real cards where the host has them, bitwise
-   the virtual run.  ``3.moe_ep``: the
+   ``train_parity``; RecurrentGemma's placed bf16 parting read layer by
+   layer on SPMD_LAYER_READ_S tokens (``placed_layers``); over two real
+   cards where the host has them, bitwise the virtual run.
+   ``3.lm_spmd_xlstm_whisper``: the ``mlstm`` / ``slstm`` and ``enc_attn``
+   / ``dec_attn`` kinds under data x model on the same mesh: xLSTM-1.3B at
+   full width and depth (SPMD_XLSTM_S-token prompts), every block held
+   placed against unsharded on the same input (``LAYER_BF16_*``; control:
+   the agents swapped), the whole model's logits read, the mLSTM's ``m``
+   bitwise over ``model``; Whisper-tiny at full width and depth within
+   ``LM_BF16_*`` of the unsharded steps (control: the agents swapped), 96
+   ``flash_attention`` launches a prefill; for both the moved bytes equal
+   to the formula, placed bytes to ``sharding_report``'s, ms and peak
+   memory; ``flash_attention`` at a position's encoder [4, 3, 1500, 64]
+   and cross-attention [4, 3, 224, 64] over 1,500 keys; the pytree round
+   of reduced xLSTM and of Whisper-tiny at full width on (2, 2, 2), f32,
+   within ``train_parity``; over two real cards where the host has them,
+   bitwise the virtual run.  ``3.moe_ep``: the
    expert-parallel MoE layer at full width (OLMoE-1B-7B over a (1, 8)
    ``("data", "model")`` mesh, Phi-3.5-MoE over (1, 4), 16,384 bf16
    tokens, ``moe_init`` weights at seed 0 in bf16): at capacity factor 16
@@ -339,7 +355,10 @@ prefill and its time at a position's shape; ``consensus_fused_network_spmd``:
 its launches in 3.lm_spmd's placed pytree round and its time at a
 position's block; ``flash_attention_spmd_olmoe`` /
 ``flash_attention_spmd_recurrentgemma``: its launches in 3.lm_spmd_kinds'
-first placed prefill of each and its time at a position's shape), and
+first placed prefill of each and its time at a position's shape;
+``flash_attention_spmd_whisper_enc`` / ``_cross``: its launches on the
+encoder and the cross-attention in 3.lm_spmd_xlstm_whisper's placed
+prefill and its time at a position's shapes), and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -486,11 +505,13 @@ LAYER0_DECODE_ATOL, LAYER0_DECODE_RMS = 0.008, 0.005
 LM_F32_ATOL = 1e-4  # f32 logits, card (TF32 off) vs CPU: fp32 sums in another order
 # the MoE and recurrent configs at full width (3.lm_olmoe, 3.lm_recurrentgemma,
 # 3.lm_xlstm), and the four new configs at reduced() size, card vs CPU
-# (tag, config, whole-model checks held): the xLSTM's are read, not held
-# (run_lm_new)
-LM_NEW = (("3.lm_olmoe", "olmoe-1b-7b", True),
-          ("3.lm_recurrentgemma", "recurrentgemma-9b", True),
-          ("3.lm_xlstm", "xlstm-1.3b", False))
+# (tag, config, whole-model checks held, depth or None for the config's): the
+# xLSTM's checks are read, not held (run_lm_new); its depth is cut from 48 to 24
+# blocks to keep the script inside its time (its sequential sLSTM steps take most
+# of the phase; 3.lm_spmd_xlstm_whisper serves all 48 blocks)
+LM_NEW = (("3.lm_olmoe", "olmoe-1b-7b", True, None),
+          ("3.lm_recurrentgemma", "recurrentgemma-9b", True, None),
+          ("3.lm_xlstm", "xlstm-1.3b", False, 24))
 LM_REDUCED = ("olmoe-1b-7b", "phi3.5-moe-42b-a6.6b", "recurrentgemma-9b", "xlstm-1.3b",
               "whisper-tiny", "pixtral-12b")
 LM_REDUCED_S, LM_REDUCED_DECODE = 64, 4
@@ -572,9 +593,22 @@ SPMD_KINDS_BF16 = {"olmoe-1b-7b": (LM_BF16_ATOL, LM_BF16_RMS),
                    "recurrentgemma-9b": (WHOLE_BF16_ATOL, WHOLE_BF16_RMS)}
 SPMD_DROP_CONFIGS = ("olmoe-1b-7b", "phi3.5-moe-42b-a6.6b")
 SPMD_DROP_FACTOR, SPMD_DROP_BATCH = 0.5, 4
+# RecurrentGemma's placed bf16 parting read layer by layer (placed_layers) on
+# the first tokens of its prompt
+SPMD_LAYER_READ_S = 1_024
+# the mlstm / slstm and enc_attn / dec_attn kinds under data x model
+# (3.lm_spmd_xlstm_whisper): the xLSTM's prompt, cut from 4,096, since its placed
+# prefill runs the sLSTM's sequential steps once a (data, model) position; the
+# decode steps of its two configs, cut from SPMD_DECODE to keep the script inside
+# its time
+SPMD_XLSTM_S = 1_024
+SPMD_NEW_DECODE = 4
+_START = time.perf_counter()
 
 
 def phase(tag: str, **fields) -> None:
+    """One phase's line; ``elapsed_s``: seconds since the script started."""
+    fields = {"elapsed_s": time.perf_counter() - _START, **fields}
     print(f"phase {tag} " + json.dumps(fields, default=str), flush=True)
 
 
@@ -1723,7 +1757,8 @@ def train_parity(got, want, noise, exempt_atol):
     the lanes the exemption is used on: at q == prior the KL's gradient on
     an embedding row no token reached is rounding noise on both sides
     (3e-14 against 0), a noise lane by its moments that moves the posterior
-    by ~1e-9.  Returns the fields, with what failed under ``failures``."""
+    by ~1e-9.  A lane that is not finite on either side fails.  Returns the
+    fields, with what failed under ``failures``."""
     import torch
 
     failures, errs, beyond = [], {}, torch.zeros_like(noise)
@@ -1744,6 +1779,8 @@ def train_parity(got, want, noise, exempt_atol):
             errs[f"adam_{m}_{field}"] = float(d.max())
             if errs[f"adam_{m}_{field}"] > PARITY_ATOL:
                 failures.append(f"adam {m}.{field}: {errs[f'adam_{m}_{field}']}")
+    if not all(map(math.isfinite, errs.values())):
+        failures.append(f"a lane is not finite: {errs}")
     share = float(beyond.float().mean())
     if share > EXEMPT_SHARE_MAX:
         failures.append(f"{share:.4%} of the lanes beyond PARITY_ATOL, more than "
@@ -4176,9 +4213,10 @@ def encoder_checks(tag, cfg, params, frames, dev):
 
 
 def run_lm_new(dev, smi, tag, arch, held, b=LM_BATCH, n_text=LM_S, cap=LM_CAP,
-               n_dec=LM_SHORT_DECODE):
+               n_dec=LM_SHORT_DECODE, n_layers=None):
     """Phases 3.lm_olmoe, 3.lm_recurrentgemma, 3.lm_xlstm, 3.lm_whisper and
-    3.lm_pixtral: ``arch`` at full width and depth for A = 2 agents (agent
+    3.lm_pixtral: ``arch`` at full width and depth (``n_layers``, where
+    given, its cut depth) for A = 2 agents (agent
     i from seed i), ``b`` prompts of ``n_text`` Zipf tokens each (S
     positions: a VLM's patches first), bf16 weights; an enc-dec config's
     frames and a VLM's patches from ``lm_front``, carried per agent: a
@@ -4195,7 +4233,7 @@ def run_lm_new(dev, smi, tag, arch, held, b=LM_BATCH, n_text=LM_S, cap=LM_CAP,
     them: the decode after a prefill of the other row's prompt, and agent
     0's weights on agent 1's prompt.  Without (the xLSTM), both are read:
     at random init one bf16 rounding taken the other way grows through its
-    48 layers to O(1) in the logits (3.6 stacked against alone, measured
+    layers to O(1) in the logits (3.6 stacked against alone at 48, measured
     on the H100).  Every model is held layer by layer (``layer_checks``; an
     enc-dec config's encoder by ``encoder_checks`` first, whose output the
     decoder layers cross-attend).  The MoE's layer 0 twice on the prompt,
@@ -4219,6 +4257,8 @@ def run_lm_new(dev, smi, tag, arch, held, b=LM_BATCH, n_text=LM_S, cap=LM_CAP,
     from repro_torch.models.modules import embed, rmsnorm
 
     cfg = get_config(arch)
+    if n_layers is not None:  # a cut depth (LM_NEW)
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     a = LM_AGENTS
     kinds = cfg.pattern * cfg.n_periods + cfg.tail
     n_attn = sum(kind in ("attn", "local_attn", "moe", "dec_attn") for kind in kinds) + \
@@ -4418,7 +4458,7 @@ def run_lm_new(dev, smi, tag, arch, held, b=LM_BATCH, n_text=LM_S, cap=LM_CAP,
           logits_rms=logits_rms, check_capacity_factor=chk.capacity_factor,
           encoder_ms=encoder_ms, encoder_share_of_decode_step=encoder_ms and
           encoder_ms / sorted(dec_ms)[len(dec_ms) // 2],
-          whole_model=whole, encoder=encoder, layers=layers,
+          n_layers=cfg.n_layers, whole_model=whole, encoder=encoder, layers=layers,
           moe_two_calls_same_bits=moe_same_bits,
           flash_attention_per_prefill=first_counts["flash_attention"],
           flash_attention=attention, max_memory_allocated=peak, launches=counts,
@@ -5091,14 +5131,15 @@ def run_lm_train_pod(dev, smi):
     return row
 
 
-def spmd_train_pair(name, cfg, state, W, mesh, batch, eps, tag="3.lm_spmd", **kw):
+def spmd_train_pair(name, cfg, state, W, mesh, batch, eps, tag="3.lm_spmd", profile=True,
+                    **kw):
     """Round steps of ``state`` unsharded and of it placed on ``mesh``
     (``param_shardings(state, mesh, agent_leading=True)``), each twice from
     the same batch and ``eps`` (the second warm): (both new states on the
     card, the metrics, the placed step's reading: device ms of each step
     from CUDA events, first and warm, the network kernel's launches, the
-    gathered bytes and the peak memory of the first placed step, and its
-    kernels from a profile of one more)."""
+    gathered bytes and the peak memory of the first placed step, and, with
+    ``profile``, its kernels from a profile of one more)."""
     import torch
 
     from repro_torch.kernels import dispatch
@@ -5118,7 +5159,8 @@ def spmd_train_pair(name, cfg, state, W, mesh, batch, eps, tag="3.lm_spmd", **kw
     counts, moved = dispatch.launch_counts(), spmd.spmd_counts()
     peak = torch.cuda.max_memory_allocated()
     (got, got_m), ms = timed(lambda: step(placed, batch, eps=eps))
-    prof = lm_profile(lambda: step(placed, batch, eps=eps))
+    prof = (lm_profile(lambda: step(placed, batch, eps=eps)) if profile
+            else {"device_kernels": "not measured"})
     if counts["consensus_fused_network"] != mesh.size // mesh.shape["pod"]:
         raise AssertionError(f"{tag} {name}: launches {counts}, one a (data, model) "
                              f"position expected")
@@ -5695,6 +5737,14 @@ def run_lm_spmd_kinds(dev, smi):
             if not all(cards.values()):
                 raise AssertionError(f"{tag} {arch} over real cards: {cards}")
 
+        layers_read = None
+        if not is_moe:  # the placed bf16 parting, layer by layer (read)
+            x = lm_input(cfg, params, toks[..., :SPMD_LAYER_READ_S + 1], {})
+            layers_read = placed_layers(f"{tag} {arch}", cfg, params, placed, mesh, x,
+                                        SPMD_LAYER_READ_S, dev, held=False)
+            del x
+            torch.cuda.empty_cache()
+
         # flash_attention at a position's shape: the first attention layer's q/k/v
         kind = "moe" if is_moe else "local_attn"
         window = cfg.sliding_window if kind == "local_attn" else 0
@@ -5731,7 +5781,7 @@ def run_lm_spmd_kinds(dev, smi):
             "flash_attention_expected": expect, "traffic": traffic,
             "placed_bytes_a_position": placed_bytes[0],
             "sharding_report_per_device": report[2], "max_memory_allocated": peak,
-            "decode_profile": prof, "attention": attention,
+            "decode_profile": prof, "attention": attention, "layers_read": layers_read,
             "real_cards": cards or f"{n_cards} card(s)"}
 
     # (b) drops: reduced MoE configs at float32, a capacity factor that drops
@@ -5804,6 +5854,396 @@ def run_lm_spmd_kinds(dev, smi):
     phase(tag, nvidia_smi=smi, serving=serving, drops=drops,
           training={"batch_per_agent": TRAIN_BATCH, "seq": TRAIN_S, **training},
           real_cards=None if n_cards >= 2 else f"skipped: {n_cards} card(s), two needed")
+    return rows
+
+
+def placed_layers(tag, cfg, params, placed, mesh, x, s, dev, held):
+    """Every layer of ``cfg`` placed on ``mesh`` (``spmd_steps.apply_layer``,
+    the data x model schedule's own layer step) against the unsharded block
+    (``block_apply``) on the same bf16 input: a teacher-forced stream from
+    ``x [A, B, S + 1, D]`` (``lm_input``), each layer's input the unsharded
+    output of the layer before, so no layer's parting reaches the next.  At
+    each layer, on both sides: the prefill of positions 0..S-1 into the
+    layer's cache (placed by ``cache_shardings``), then the decode of
+    position S from it; each on the block's contribution (its output less
+    its input, in fp32).  ``held``: within ``LAYER_BF16_*``, and the
+    control, the placed outputs with the agents swapped, must fail them at
+    every layer; else read.  Returns the worst readings and each layer's
+    (layer, kind, prefill, decode)."""
+    import torch
+
+    from repro_torch.launch import spmd, steps
+    from repro_torch.launch.sharding import cache_shardings
+    from repro_torch.launch.spmd_steps import apply_layer
+    from repro_torch.models import transformer as tr
+
+    a, b = x.shape[:2]
+    pos = torch.arange(s + 1, device=dev)
+    cache = steps.make_agent_cache(cfg, a, b, s + 2, device=dev)
+    cache = spmd.device_put(cache, cache_shardings(cache, mesh))
+
+    def placed_block(layer, rows, positions):  # [A, B, T, D] through the placed layer
+        return apply_layer(cfg, placed, cache, layer, rows, positions)
+
+    def contribution(y, x_in):
+        return y.float() - x_in.float()
+
+    worst = {"prefill": (0.0, 0.0), "decode": (0.0, 0.0)}
+    per_layer, controls = [], {}
+    for layer, kind, lp in model_layers(cfg, params):
+        c_u = tr.block_cache_init(kind, cfg, b, s + 2, torch.bfloat16, dev, lead=(a,))
+        want_p = tr.block_apply(kind, lp, x[..., :s, :], cfg, positions=pos[:s], cache=c_u)[0]
+        want_d = tr.block_apply(kind, lp, x[..., s:, :], cfg, positions=pos[s:], cache=c_u)[0]
+        got_p = placed_block(layer, x[..., :s, :], pos[:s])
+        got_d = placed_block(layer, x[..., s:, :], pos[s:])
+        reading = [layer, kind]
+        for name, got, want, x_in in (("prefill", got_p, want_p, x[..., :s, :]),
+                                      ("decode", got_d, want_d, x[..., s:, :])):
+            what = f"{tag} layer {layer} ({kind}) {name}, placed vs unsharded"
+            g, w = contribution(got, x_in), contribution(want, x_in)
+            err = (lm_check(what, g, w, LAYER_BF16_ATOL, LAYER_BF16_RMS) if held
+                   else lm_diff(what, g, w))
+            wrong = contribution(got.flip(0), x_in)
+            ctrl_what = f"{tag} layer {layer} ({kind}) {name}, the agents swapped (control)"
+            ctrl = (lm_control(ctrl_what, wrong, w, LAYER_BF16_ATOL, LAYER_BF16_RMS) if held
+                    else lm_diff(ctrl_what, wrong, w))
+            controls[name] = min(controls.get(name, ctrl), ctrl, key=lambda c: c[1])
+            worst[name] = tuple(map(max, worst[name], err))
+            reading.append(err)
+        per_layer.append(reading)
+        x = torch.cat([want_p, want_d], dim=-2)
+        del c_u, want_p, want_d, got_p, got_d
+    del cache
+    largest = sorted(per_layer, key=lambda r: -r[2][1])[:6]
+    return {"layers": len(per_layer), "prompt": s, "held": held,
+            "bounds": (LAYER_BF16_ATOL, LAYER_BF16_RMS),
+            "worst_max_abs_err_rel_rms": worst, "controls_weakest": controls,
+            "largest_prefill_rel_rms": largest, "per_layer": per_layer}
+
+
+def run_lm_spmd_xlstm_whisper(dev, smi):
+    """Phase 3.lm_spmd_xlstm_whisper: the ``mlstm`` / ``slstm`` and
+    ``enc_attn`` / ``dec_attn`` kinds under data x model > 1
+    (``launch.spmd_steps`` through ``launch.steps`` on placed inputs), on a
+    (2, 2, 2) ``("pod", "data", "model")`` mesh of virtual shards of the
+    card.
+
+    (a) xLSTM-1.3B at full width and depth (48 blocks, d_model 2,048), with
+    3.lm_xlstm's weights (agent i from seed i), A = 2 x B = 2 Zipf prompts
+    of SPMD_XLSTM_S tokens, bf16: a prefill (first and warm, each into a
+    fresh cache) and SPMD_NEW_DECODE decode steps on the unsharded steps' own
+    inputs, beside the unsharded steps of the same call.  The cache is
+    placed with a block of its own on every position, and each position's
+    copy of the mLSTM's ``m`` (computed on every model position) must be
+    bitwise equal over ``model`` after the steps.  The whole model's
+    logits are read beside LM_BF16_* (at random init one bf16 rounding
+    taken the other way grows through 48 layers: 3.lm_xlstm); every block
+    is held by ``placed_layers`` within LAYER_BF16_* (prefill and decode,
+    the placed block against the unsharded one on the same input), the
+    agents swapped the control.  The moved bytes of the prefill and of a
+    decode step equal to ``forward_gather_bytes``, each position's gathers
+    under its bound; each position's placed bytes equal to
+    ``sharding_report``'s; ms (CUDA events) beside the unsharded steps';
+    peak memory.
+
+    (b) Whisper-tiny at full width and depth, 3.lm_whisper's weights,
+    clips and prompts (A = 2 x WHISPER_BATCH clips of 1,500 frames,
+    WHISPER_TEXT-token prompts, WHISPER_CAP slots), bf16: a prefill and
+    SPMD_NEW_DECODE decode steps, each re-running the placed encoder over the
+    frames, within LM_BF16_* of the unsharded steps (control: the agents
+    swapped); ``flash_attention`` (4 + 4 + 4) x 8 = 96 times a prefill; the
+    bytes (the encoder's frames counted), placed bytes, ms and peak memory
+    as (a).  Then ``flash_attention`` at a position's shapes: the encoder's
+    layer 0 [4, 3, 1500, 64] non-causal, and the first cross-attention [4,
+    3, 224, 64] over 1,500 keys, on position (0, 0, 0)'s rows and heads,
+    against the plain version, beside SDPA; each row's launches are the
+    placed prefill's recorded ``ops.attention`` calls of its shape, and
+    with the causal self-attention's they must add up to its launches.
+
+    (c) Training at f32 (TF32 off): the pytree round of reduced xLSTM
+    (TRAIN_BATCH x TRAIN_S tokens: its mLSTM chunk is 256 steps) and of
+    Whisper-tiny at full width (WHISPER_BATCH clips of 1,500 frames and
+    WHISPER_TEXT tokens an agent) on (2, 2, 2), with LM_ZOO_W and agent 1's
+    mean moved by a seeded draw, each against the card's unsharded round
+    from the same ``eps`` within ``train_parity`` (which fails a lane that
+    is not finite); ``consensus_fused_network`` once a (data, model)
+    position; step ms, bytes and peak memory, no profile.
+
+    (d) Real cards: where the host has two or more, (a)'s and (b)'s
+    prefill and first decode step with each pod on a card of its own,
+    bitwise the virtual run; else the reason it was skipped.
+
+    Returns the kernel line's ``flash_attention_spmd_whisper_enc`` and
+    ``flash_attention_spmd_whisper_cross`` rows."""
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.data.pipeline import make_lm_batch_sampler
+    from repro_torch.kernels import dispatch, ops
+    from repro_torch.launch import spmd, steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import (
+        NamedSharding,
+        batch_pspec,
+        cache_shardings,
+        param_shardings,
+        sharding_report,
+    )
+    from repro_torch.launch.spmd_steps import forward_gather_bytes
+    from repro_torch.models import attention as att
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.modules import embed, rmsnorm
+    from repro_torch.optim import adam
+    from repro_torch.optim.schedules import exponential_decay
+
+    tag = "3.lm_spmd_xlstm_whisper"
+    axes = ("pod", "data", "model")
+    n_cards = torch.cuda.device_count()
+    mesh = make_mesh((2, 2, 2), axes, dev)
+    coords = spmd.position_coords(mesh)
+    a, n_dec = LM_AGENTS, SPMD_NEW_DECODE
+    serving, rows, cards = {}, [], {}
+
+    def place(x):
+        return spmd.place(x, NamedSharding(mesh, batch_pspec(mesh, tuple(x.shape))))
+
+    def own_blocks(tree):  # a block of its own on every position (no shared views)
+        return tree_map(lambda x: spmd.Placed(x.sharding, [blk.clone() for blk in x.blocks],
+                                              x.shape, x.dtype), tree)
+
+    for arch, b, n_text, cap in (("xlstm-1.3b", LM_BATCH, SPMD_XLSTM_S, SPMD_XLSTM_S + 32),
+                                 ("whisper-tiny", WHISPER_BATCH, WHISPER_TEXT, WHISPER_CAP)):
+        cfg = get_config(arch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        allocated_at_start = torch.cuda.memory_allocated(dev)
+        params = lm_params(cfg, dev, a, torch.bfloat16)  # agent i from seed i
+        toks = lm_tokens(cfg, n_text + 1 + n_dec, dev, b=b)
+        front = lm_front(cfg, b, dev)  # Whisper's frames; {} for the xLSTM
+        frames = front.get("frames")
+        prompt = {"tokens": toks[..., :n_text], **front}
+        prefill = steps.make_prefill_step(cfg)
+        decode = functools.partial(steps.make_decode_step(cfg), frames=frames)
+
+        def fresh_ref():
+            return steps.make_agent_cache(cfg, a, b, cap, device=dev)
+
+        cache = fresh_ref()
+        (ref, cache), ref_ms = timed(lambda: prefill(params, prompt, cache))
+        cache = fresh_ref()  # a recurrent cache holds the state a prefill starts from
+        (ref, cache), ref_warm_ms = timed(lambda: prefill(params, prompt, cache))
+        ref_dec, inputs, ref_dec_ms, _, cache = lm_decode(decode, params,
+                                                          toks[..., n_text:n_text + 1], n_text,
+                                                          n_dec, cache)
+        forced = torch.cat(inputs, dim=-1)  # each unsharded step's input token
+        del cache
+
+        placed = spmd.device_put(params, param_shardings(params, mesh, agent_leading=True))
+        report = sharding_report(params, mesh, agent_leading=True)
+        placed_bytes = [spmd.position_bytes(placed, i) for i in range(mesh.size)]
+        if set(placed_bytes) != {report[2]}:
+            raise AssertionError(f"{tag} {arch}: placed bytes a position {placed_bytes}, "
+                                 f"sharding_report {report}")
+        p_prompt = {k: place(v) for k, v in prompt.items()}
+        p_frames = p_prompt.get("frames")
+        p_decode = functools.partial(steps.make_decode_step(cfg), frames=p_frames)
+
+        def fresh():
+            c = steps.make_agent_cache(cfg, a, b, cap, device=dev)
+            return own_blocks(spmd.device_put(c, cache_shardings(c, mesh)))
+
+        cache = fresh()
+        calls = []  # (causal, q shape, k shape) of each ops.attention call in the prefill
+        attention_op = ops.attention
+
+        def recorded(q, k, v, **kw):
+            calls.append((kw.get("causal", True), tuple(q.shape), tuple(k.shape)))
+            return attention_op(q, k, v, **kw)
+
+        torch.cuda.synchronize()
+        ops.attention = recorded
+        dispatch.reset_launch_counts()
+        spmd.reset_spmd_counts()
+        try:
+            (logits, cache), first_ms = timed(lambda: prefill(placed, p_prompt, cache))
+            torch.cuda.synchronize()
+            counts, moved = dispatch.launch_counts(), spmd.spmd_counts()
+        finally:
+            ops.attention = attention_op
+        cache = fresh()
+        (logits, cache), warm_ms = timed(lambda: prefill(placed, p_prompt, cache))
+        spmd.reset_spmd_counts()
+        dec, _, dec_ms, dec_wall, cache = lm_decode(p_decode, placed,
+                                                    toks[..., n_text:n_text + 1], n_text, n_dec,
+                                                    cache, tokens=forced)
+        dec_moved = spmd.spmd_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        kinds = cfg.pattern * cfg.n_periods + cfg.tail
+        expect = (cfg.encoder_layers + 2 * kinds.count("dec_attn")) * mesh.size
+        if counts["flash_attention"] != expect or len(calls) != expect:
+            raise AssertionError(f"{tag} {arch}: flash_attention launched "
+                                 f"{counts['flash_attention']} times in a placed prefill "
+                                 f"({len(calls)} calls), expected {expect}")
+        n_f = cfg.encoder_seq if cfg.is_encdec else 0
+        formula = forward_gather_bytes(cfg, mesh, b, n_text, 2, a, frames=n_f)
+        dec_formula = forward_gather_bytes(cfg, mesh, b, 1, 2, a, frames=n_f)
+        kinds_moved = ("gather", "all_reduce", "all_gather")
+        traffic = {
+            "prefill": {k: moved[f"{k}_bytes"] for k in kinds_moved},
+            "prefill_formula": {k: formula[k] for k in kinds_moved},
+            "decode_step": {k: dec_moved[f"{k}_bytes"] / n_dec for k in kinds_moved},
+            "decode_step_formula": {k: dec_formula[k] for k in kinds_moved},
+            "prefill_gather_by_position_max": max(moved["gather_by_position"].values()),
+            "gather_per_position_bound": formula["gather_per_position_max"],
+            "weight_bytes_an_agent": tree_bytes(params) // a}
+        if (traffic["prefill"] != traffic["prefill_formula"]
+                or traffic["decode_step"] != traffic["decode_step_formula"]
+                or traffic["prefill_gather_by_position_max"]
+                > formula["gather_per_position_max"]):
+            raise AssertionError(f"{tag} {arch}: moved bytes against the formula: {traffic}")
+
+        what = f"{tag} {arch} placed vs unsharded"
+        pairs = [("prefill", logits, ref)] + [(f"decode {i}", x, y)
+                                              for i, (x, y) in enumerate(zip(dec, ref_dec))]
+        reading = {"mesh": mesh.shape, "agents": a, "batch_per_agent": b, "prompt": n_text,
+                   "capacity": cap, "prefill_first_ms": first_ms, "prefill_warm_ms": warm_ms,
+                   "unsharded_prefill_ms": ref_ms, "unsharded_prefill_warm_ms": ref_warm_ms,
+                   "decode_ms_median": statistics.median(dec_ms),
+                   "unsharded_decode_ms_median": statistics.median(ref_dec_ms),
+                   "decode_wall_s": dec_wall, "decode_steps": n_dec,
+                   "bounds": (LM_BF16_ATOL, LM_BF16_RMS),
+                   "flash_attention_a_prefill": counts["flash_attention"],
+                   "flash_attention_expected": expect, "traffic": traffic,
+                   "placed_bytes_a_position": placed_bytes[0],
+                   "sharding_report_per_device": report[2], "max_memory_allocated": peak,
+                   "memory_allocated_at_start": allocated_at_start}
+        if cfg.is_encdec:  # held
+            reading["max_abs_err_rel_rms"] = [lm_check(f"{what} {name}", x, y, LM_BF16_ATOL,
+                                                       LM_BF16_RMS) for name, x, y in pairs]
+            reading["agents_swapped_control"] = [
+                lm_control(f"{tag} {arch} {name}, the agents swapped (control)", x.flip(0), y,
+                           LM_BF16_ATOL, LM_BF16_RMS) for name, x, y in pairs]
+        else:  # read: 48 layers carry one rounding taken the other way to O(1)
+            reading["max_abs_err_rel_rms_read"] = [lm_diff(f"{what} {name}", x, y)
+                                                   for name, x, y in pairs]
+            reading["agents_swapped_read"] = [lm_diff(f"{what} {name} swapped", x.flip(0), y)
+                                              for name, x, y in pairs]
+            m_leaf = cache["stacks"]["mlstm"]["m"]
+            same = all(torch.equal(m_leaf.blocks[i], m_leaf.blocks[coords.index(c[:2] + (0,))])
+                       for i, c in enumerate(coords))
+            if not same or m_leaf.blocks[0].data_ptr() == m_leaf.blocks[1].data_ptr():
+                raise AssertionError(f"{tag} {arch}: the mLSTM's m copies differ over model")
+            reading["mlstm_m_bitwise_over_model"] = same
+        del logits, ref, dec, ref_dec, cache
+
+        if n_cards >= 2:  # (d): each pod on a card of its own
+            n_pos = mesh.size // mesh.shape["pod"]
+            real = make_mesh((2, 2, 2), axes, [torch.device("cuda", p) for p in range(2)
+                                                 for _ in range(n_pos)])
+            r_params = spmd.device_put(params, param_shardings(params, real, agent_leading=True))
+            r_cache = steps.make_agent_cache(cfg, a, b, cap, device=dev)
+            r_cache = spmd.device_put(r_cache, cache_shardings(r_cache, real))
+            r_logits, r_cache = prefill(r_params, prompt, r_cache)
+            v_logits, v_cache = prefill(placed, prompt, fresh())
+            tok0 = toks[..., n_text:n_text + 1]
+            r_dec, _ = steps.make_decode_step(cfg)(r_params, tok0, n_text, r_cache, frames)
+            v_dec, _ = steps.make_decode_step(cfg)(placed, tok0, n_text, v_cache, frames)
+            cards[arch] = {"cards": 2, "prefill_bitwise_virtual": torch.equal(r_logits,
+                                                                              v_logits),
+                           "decode_bitwise_virtual": torch.equal(r_dec, v_dec)}
+            del r_params, r_cache, v_cache
+            if not all(cards[arch].values()):
+                raise AssertionError(f"{tag} {arch} over real cards: {cards[arch]}")
+
+        x = lm_input(cfg, params, toks[..., :n_text + 1], front)
+        if not cfg.is_encdec:  # every block held, prefill and decode
+            reading["layers"] = placed_layers(tag, cfg, params, placed, mesh, x, n_text, dev,
+                                              held=True)
+        else:  # flash_attention at a position's shapes: position (0, 0, 0)'s rows and heads
+            rb, hl = b // 2, cfg.n_heads // 2
+            p0 = tree_map(lambda t: t[0], params)
+            fr = frames[0, :rb]
+            enc0 = tree_map(lambda t: t[0, 0], p0["enc_stack"])
+            fpos = torch.arange(fr.shape[-2], device=dev)
+            he = rmsnorm(enc0["norm1"], fr.to(torch.bfloat16) + tr._sinusoidal(
+                fpos, cfg.d_model).to(torch.bfloat16), cfg.norm_eps)
+            qkv = {"enc": att.attention_qkv(enc0["attn"], he, cfg, None, use_rope=False)}
+            enc_out = tr.encode(p0, cfg, fr)
+            dec0 = tree_map(lambda t: t[0, 0], p0["stacks"]["dec_attn"])
+            pos = torch.arange(n_text, device=dev)
+            xt = x[0, :rb, :n_text]
+            h = rmsnorm(dec0["norm1"], xt, cfg.norm_eps)
+            x1 = xt + att.attention_block(dec0["attn"], h, cfg, positions=pos, use_rope=False)[0]
+            hx = rmsnorm(dec0["norm_x"], x1, cfg.norm_eps)
+            qkv["cross"] = att.attention_qkv(dec0["xattn"], hx, cfg, pos, cross_x=enc_out,
+                                             use_rope=False)
+            del p0, fr, enc0, he, enc_out, dec0, xt, h, x1, hx
+            reading["attention"] = {}
+            # each row's launches: the placed prefill's recorded calls of its shape
+            shapes = {"self": (True, (rb, hl, n_text, cfg.hd), (rb, hl, n_text, cfg.hd))}
+            for name, (q, k, v) in qkv.items():
+                q, k, v = (t[None, ..., :hl, :].contiguous() for t in (q, k, v))
+                shapes[name] = (False, (rb, hl, q.shape[2], cfg.hd),
+                                (rb, hl, k.shape[2], cfg.hd))
+                launches = sum(c == shapes[name] for c in calls)
+                reading["attention"][name], row = attention_kernel_row(
+                    f"{tag} {name}", f"flash_attention_spmd_whisper_{name}", cfg, q, k, v, 0,
+                    launches, causal=False)
+                rows.append(row)
+            split = {name: sum(c == shape for c in calls) for name, shape in shapes.items()}
+            reading["flash_attention_split"] = split
+            if sum(split.values()) != counts["flash_attention"] or 0 in split.values():
+                raise AssertionError(f"{tag} {arch}: the placed prefill's {len(calls)} "
+                                     f"attention calls split as {split}, not into its "
+                                     f"{counts['flash_attention']} launches")
+            del qkv, q, k, v
+        serving[arch] = reading
+        del params, placed, x, toks, front, frames, prompt, p_prompt, p_frames
+        torch.cuda.empty_cache()
+
+    # (c) training, float32: the pytree round of reduced xLSTM and of Whisper-tiny
+    training = {}
+    opt = adam()
+    kw = dict(opt=opt, lr_schedule=exponential_decay(TRAIN_LR, TRAIN_LR_DECAY ** (1.0 / TRAIN_U)),
+              kl_scale=TRAIN_KL, remat=False)
+    W = torch.as_tensor(LM_ZOO_W, dtype=torch.float32, device=dev)
+    for arch in ("xlstm-1.3b", "whisper-tiny"):
+        cfg = dataclasses.replace(get_config(arch), dtype="float32")
+        if not cfg.is_encdec:
+            cfg = dataclasses.replace(cfg.reduced(), dtype="float32")
+        b, s = (WHISPER_BATCH, WHISPER_TEXT) if cfg.is_encdec else (TRAIN_BATCH, TRAIN_S)
+        tree = steps.init_train_state(cfg, a, opt, torch.Generator(device=dev).manual_seed(0),
+                                      device=dev, flat=False)
+        layout = flat_view(tree.posterior).layout
+        gen = torch.Generator(device=dev).manual_seed(1)
+        moved_by = 1e-2 * torch.randn(layout.n_params, generator=gen, device=dev)
+        for leaf, m in zip(tree_leaves(tree.posterior.mean),
+                           tree_leaves(layout.unflatten(moved_by))):
+            leaf[1] += m
+        del moved_by
+        batch = {**make_lm_batch_sampler(cfg.vocab_size, b, s, n_agents=a, device=dev)(gen, 0),
+                 **lm_front(cfg, b, dev, seed=100)}
+        eps = layout.unflatten(torch.randn((a, layout.n_params), generator=gen, device=dev))
+        # no profile: on the H100 one of a placed xLSTM step (207,865 kernels)
+        # takes the profiler 123 s, one of Whisper's 45 s
+        got, want, got_m, want_m, run = spmd_train_pair(f"{arch} pytree", cfg, tree, W, mesh,
+                                                        batch, eps, tag=tag, profile=False,
+                                                        **kw)
+        noise = adam_noise_lanes(flat_state(got), flat_state(want))
+        run["parity"] = train_parity(flat_state(got), flat_state(want), noise, 2 * TRAIN_LR)
+        run["metrics_max_abs_err"] = {k: float((got_m[k] - want_m[k]).abs().max())
+                                      for k in ("loss", "nll", "kl")}
+        run.update(model=cfg.name, batch_per_agent=b, seq=s, n_params_per_agent=layout.n_params)
+        if run["parity"]["failures"]:
+            raise AssertionError(f"{tag} training, {arch} (2, 2, 2) vs unsharded: {run}")
+        training[arch] = run
+        del tree, got, want, noise, batch, eps
+        torch.cuda.empty_cache()
+    phase(tag, nvidia_smi=smi, serving=serving, training=training,
+          real_cards=cards or f"skipped: {n_cards} card(s), two needed")
     return rows
 
 
@@ -5957,7 +6397,8 @@ def main() -> int:
     run_obs_gossip(dev, smi)
     lm_row = run_lm_qwen3(dev, smi)
     zoo_row = run_lm_repro100m(dev, smi)
-    new_rows = [row for new in LM_NEW for row in run_lm_new(dev, smi, *new)]
+    new_rows = [row for tag, arch, held, depth in LM_NEW
+                for row in run_lm_new(dev, smi, tag, arch, held, n_layers=depth)]
     run_lm_reduced(dev, smi)
     train_row = run_lm_train(dev, smi)
     new_rows += run_lm_new(dev, smi, "3.lm_whisper", "whisper-tiny", True, WHISPER_BATCH,
@@ -5968,6 +6409,7 @@ def main() -> int:
     pod_row = run_lm_train_pod(dev, smi)
     spmd_rows = run_lm_spmd(dev, smi)
     spmd_rows += run_lm_spmd_kinds(dev, smi)
+    spmd_rows += run_lm_spmd_xlstm_whisper(dev, smi)
     run_moe_ep(dev, smi)
     card_vs_cpu("4.parity", session, fig4_spec())
     card_vs_cpu("4.launch_parity", l_session, launch_spec())

@@ -317,6 +317,10 @@ def gather(leaf: Placed, i: int, region=None) -> torch.Tensor:
         return parts[0] if len(parts) == 1 else torch.cat(parts, d)
 
     out = assemble(0, ())
+    # ``assemble`` refers to itself through its closure: a cycle that would
+    # keep ``leaf``'s blocks alive until the next cyclic collection (GBs of
+    # weights on the card after their last reference is dropped)
+    del assemble
     if moved:
         record("gather", moved, i)
     return out

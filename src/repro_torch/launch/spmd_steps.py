@@ -13,16 +13,16 @@ agent_leading=True)``, ``cache_shardings``, ``batch_pspec``).  Two schedules:
 * **Pod-only** (``data`` and ``model`` of size 1): each pod position runs
   the unsharded forward, or the unsharded local step, on its agents'
   blocks.  Every block kind runs.
-* **data x model > 1**: the ``attn``, ``local_attn``, ``moe`` and
-  ``rglru`` kinds, and tied embeddings; ``mlstm`` / ``slstm`` and
-  ``enc_attn`` / ``dec_attn`` raise ``NotImplementedError`` naming ROADMAP
-  10i.  Position ``(p, d, m)`` computes for the agents of pod ``p`` and the
-  batch rows its token block holds (block ``d`` of B).  The layer loop
-  walks each period's pattern in order, each kind's stack indexed by that
-  kind's own occurrence count (``models.transformer._apply_period``), then
-  the tail.  Just before use a position gathers (``spmd.gather``) what it
-  computes with and no more, norm scales whole, and its tokens' embedding
-  rows (``spmd.gather_rows``):
+* **data x model > 1**: every kind (``SHARDED_KINDS``), and tied
+  embeddings.  Position ``(p, d, m)`` computes for the agents of pod ``p``
+  and the batch rows its token block holds (block ``d`` of B; an enc-dec
+  config's frames too).  The layer loop (``_apply_block``) walks each
+  period's pattern in order, each kind's stack indexed by that kind's own
+  occurrence count (``models.transformer._apply_period``), then the tail
+  (``apply_layer`` runs one layer alone, through the same dispatch).
+  Just before use a position gathers (``spmd.gather``) what it computes
+  with and no more, norm scales whole, and its tokens' embedding rows
+  (``spmd.gather_rows``):
 
   - attention (``attn``, ``local_attn``, ``moe``): query heads ``[m H/M,
     (m+1) H/M)`` and the KV heads those use (all KV heads where
@@ -64,14 +64,45 @@ agent_leading=True)``, ``cache_shardings``, ``batch_pspec``).  Two schedules:
     blocks; the scan on its channels (its slice of ``lam_raw``) from its
     cache block ``h [B/data, D/M]`` / ``conv [B/data, 3, D/M]``, written in
     place;
+  - ``mlstm`` (``_mlstm``), value-parallel as the reference's cache spec
+    fixes it (``C [B, H, hd, hd]``'s value dim and ``n``'s key dim over
+    ``model``): ``up``, ``q`` and ``k`` on the position's column block of
+    ``w_up`` / ``wq`` / ``wk`` (``2 D/M`` columns), each all-gathered over
+    ``model`` (an activation, where gathering ``wq`` / ``wk`` whole would
+    move ``2 (2D)^2`` weights a layer and position every step); ``w_i`` /
+    ``w_f`` whole, so ``m`` comes out alike on every model position; ``v``,
+    the gate, the out-norm's scale and ``w_down``'s rows on value block
+    ``m`` of every head (``_Grid.value_cols``); ``n``'s key blocks
+    all-gathered at the layer's start and carried whole through the
+    chunkwise scan (``models.xlstm.mlstm_scan`` on the value block); the
+    out-norm over all ``2 D`` from float32 partial sums of squares
+    all-reduced over ``model`` (``_out_norm``); ``C``'s value block, ``n``'s
+    key block and ``m`` written in place once every position has read its
+    state;
+  - ``slstm`` (``_slstm``), head-parallel: channels ``[m D/M, (m+1) D/M)``,
+    whole heads (the column blocks of ``w_z`` / ``w_i`` / ``w_f`` /
+    ``w_o``, the head block of ``r_*``), so the sequential scan needs no
+    communication; its ``c`` / ``n`` / ``h`` cache blocks, and ``m`` (whole
+    on every model position) all-gathered over ``model`` once after the
+    scan; the out-norm as the mLSTM's;
+  - ``enc_attn`` / ``dec_attn`` (Whisper): the encoder (``_encode``) runs
+    on the ``attn`` schedule, non-causal and without RoPE, from the
+    position's frames plus the sinusoid, ``enc_norm``'s scale whole, so
+    every model position holds its rows' encoder output; a ``dec_attn``
+    layer's causal self-attention (no RoPE) over its cache block, then the
+    cross-attention: the position's heads, q from the stream, k / v from
+    the encoder output through ``xattn``'s column blocks, ``xattn.wo``
+    row-parallel.  Prefill launches ``flash_attention`` for the encoder,
+    the self- and the cross-attention; a decode step re-runs the encoder
+    (the reference's step does);
   - the head: ``lm_head``'s column block over ``data``, or, with tied
     embeddings, the embedding's row region ``[m V/M, (m+1) V/M)``.
 
-  The o-, down- and ``w_out`` projections are row-parallel: an all-reduce
-  over ``model`` (bf16 partials summed in float32) adds them to the
-  residual stream.  The logits come out ``[A, B, T, V]``, joined over
-  ``data`` and ``model``.  ``forward_gather_bytes`` is the schedule's
-  traffic as a formula.
+  The o-, down- and ``w_out`` projections (the xLSTM's ``w_down`` too)
+  are row-parallel: an all-reduce over ``model`` (bf16 partials summed in
+  float32) adds them to the residual stream.  The logits come out ``[A,
+  B, T, V]``, joined over ``data`` and ``model``.  ``forward_gather_bytes``
+  is the schedule's traffic as a formula.
 
 The train round (``consensus_impl="einsum"``, the reference's default):
 eq. (6) gathers each ``(data, model)`` position's blocks over ``pod``,
@@ -86,8 +117,9 @@ local step:
   unsharded step also runs one);
 * data x model > 1 (a pytree state): for one agent at a time, each
   position samples its own blocks (``theta = mean + softplus(rho) eps``),
-  the sharded forward runs on them (plain ``chunked_attention``:
-  ``flash_attention`` has no backward), the logits' column blocks are
+  the sharded forward runs on them (an enc-dec config's frames sliced by
+  data block; plain ``chunked_attention``: ``flash_attention`` has no
+  backward), the logits' column blocks are
   all-gathered over ``model`` for the NLL, the router's aux is added as
   the reference adds it (``router_aux_weight aux ntok``), the KL counts
   each distinct block once (at its first holder), and autograd runs
@@ -96,11 +128,13 @@ local step:
   all-reduced over it.  Adam then runs on each position's blocks.  The
   activations are kept (``remat`` is a memory choice that changes no bit;
   a position holds its share of them).  A flat state has the spec
-  ``("pod", None)``: it runs pod-only (ROADMAP 10i).
+  ``("pod", None)``: it runs pod-only; under data x model it, the
+  ppermute consensus and a bf16 / f16 wire are refused (ROADMAP 10i).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -120,7 +154,7 @@ from repro_torch.launch.sharding import (
 from repro_torch.optim.optimizers import apply_updates
 
 NEXT = "ROADMAP 10i"
-SHARDED_KINDS = ("attn", "local_attn", "moe", "rglru")
+SHARDED_KINDS = ("attn", "local_attn", "moe", "rglru", "mlstm", "slstm", "enc_attn", "dec_attn")
 _moe_tally: dict = {}  # device -> [kept, dropped] assignments, summed on that device
 
 
@@ -149,10 +183,10 @@ def mesh_of(tree):
 
 def sharded_schedule(cfg, mesh) -> bool:
     """Whether ``cfg`` runs the data x model schedule on ``mesh`` (False:
-    pod-only).  Raises ``NotImplementedError`` naming ROADMAP 10i for the
-    kinds it does not run, ``ValueError`` where heads, FFN columns,
-    experts, recurrence channels or the vocabulary do not split over
-    ``model``."""
+    pod-only).  Raises ``NotImplementedError`` naming ROADMAP 10i for a
+    kind it does not run (none now), ``ValueError`` where heads, FFN
+    columns, experts, recurrence channels, the mLSTM's width and head
+    columns or the vocabulary do not split over ``model``."""
     _, dd, mm = spmd.mesh_sizes(mesh)
     if dd * mm == 1:
         return False
@@ -163,12 +197,15 @@ def sharded_schedule(cfg, mesh) -> bool:
             f"{cfg.name}: the {', '.join(other)} block kind(s) do not run under data x model = "
             f"{dd} x {mm} yet ({NEXT}); a mesh whose data and model axes are 1 runs every kind")
     splits = [("query heads", cfg.n_heads), ("padded vocabulary", cfg.padded_vocab)]
-    if kinds - {"moe"}:
+    if kinds - {"moe", "mlstm", "slstm"}:
         splits.append(("FFN columns", cfg.d_ff))
     if "moe" in kinds:
         splits.append(("experts", cfg.n_experts))
-    if "rglru" in kinds:
+    if kinds & {"rglru", "slstm"}:
         splits.append(("recurrence channels", cfg.d_model))
+    if "mlstm" in kinds:  # p = 2 D, and each head's hd = p / H value and key columns
+        splits += [("mLSTM columns", 2 * cfg.d_model),
+                   ("mLSTM head columns", 2 * cfg.d_model // cfg.n_heads)]
     for what, n in splits:
         if n % mm:
             raise ValueError(f"{cfg.name}: {n} {what} do not split over the {mm}-way model axis")
@@ -207,6 +244,8 @@ class _Grid:
         self.vl = cfg.padded_vocab // mm
         self.el = cfg.n_experts // mm  # experts a position
         self.dl = cfg.d_model // mm  # recurrence channels a position
+        self.pl = 2 * cfg.d_model // mm  # the mLSTM's up / q / k columns a position
+        self.hv = 2 * cfg.d_model // cfg.n_heads // mm  # its value columns a head a position
         if kv % mm == 0:
             self.kv_computed = kv // mm  # the position's KV block: all of it is used
             self.kv_all = False
@@ -234,6 +273,14 @@ class _Grid:
         group = self.cfg.n_heads // self.cfg.n_kv_heads
         return slice(m * self.hl // group, ((m + 1) * self.hl - 1) // group + 1)
 
+    def value_cols(self, m: int) -> list[tuple[int, int]]:
+        """The mLSTM's columns of ``p = 2 D`` position model ``m``
+        computes: value block ``m`` of every head, ``[h hd + m hd/M, h hd
+        + (m+1) hd/M)`` in head order (``C``'s value block)."""
+        hd = self.hv * self.model
+        return [(h * hd + m * self.hv, h * hd + (m + 1) * self.hv)
+                for h in range(self.cfg.n_heads)]
+
     def window(self, kind: str, override) -> int:
         """The attention window of ``kind`` (``block_apply``'s rule)."""
         if override is not None and kind in ("attn", "local_attn"):
@@ -246,6 +293,13 @@ def _w(leaf, i, lead, *ranges):
     (one entry a leading dim), ``ranges`` over the dims after it."""
     out = spmd.gather(leaf, i, tuple((x, x + 1) for x in lead) + ranges)
     return out.reshape(out.shape[len(lead):])
+
+
+def _w_parts(leaf, i, lead, parts, dim):
+    """Position ``i``'s gathers of ``leaf`` at ``lead``, one for each
+    ``(start, stop)`` of ``parts`` along body dim ``dim`` (whole elsewhere),
+    concatenated along it."""
+    return torch.cat([_w(leaf, i, lead, *(None,) * dim, r) for r in parts], dim)
 
 
 def _cols(m: int, n: int) -> tuple[int, int]:
@@ -276,9 +330,12 @@ def _layers(cfg, params_a, caches_a):
 # ---------------------------------------------------------------------------
 
 
-def _attention(grid, ap, lead, i, m, h, positions, cache, window):
+def _attention(grid, ap, lead, i, m, h, positions, cache, window, causal=True, use_rope=True,
+               cross=None):
     """Position ``i``'s attention (model index ``m``): its query heads over
-    the KV heads they read, out ``[..., S, H/M * hd]`` before ``wo``."""
+    the KV heads they read (of ``cross [rows, F, D]``, the encoder's
+    output, when given: no mask, no cache), out ``[..., S, H/M * hd]``
+    before ``wo``; ``models.attention.attention_block``'s routes."""
     from repro_torch.models import attention as att
 
     hd = grid.cfg.hd
@@ -288,7 +345,7 @@ def _attention(grid, ap, lead, i, m, h, positions, cache, window):
     for name in ("q_norm", "k_norm"):
         if name in ap:
             local[name] = {"scale": _w(ap[name]["scale"], i, lead)}
-    q, k, v = att.attention_qkv(local, h, grid.lcfg, positions)
+    q, k, v = att.attention_qkv(local, h, grid.lcfg, positions, cross, use_rope)
     take = grid.kv_take(m)
     if cache is not None and h.shape[-2] == 1:
         att.cache_update(cache, k, v, positions[:1])
@@ -302,7 +359,12 @@ def _attention(grid, ap, lead, i, m, h, positions, cache, window):
             att._prefill_cache(cache, k, v, positions)
         k, v = k[..., take, :], v[..., take, :]
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-            out = att.chunked_attention(q, k, v, causal=True, window=window)
+            out = att.chunked_attention(q, k, v, causal=causal, window=window)
+        elif not causal and h.shape[-2] == 1:  # a decode step's one query row a head
+            out = att.chunked_attention(q, k, v, causal=False, chunk_size=k.shape[-3])
+        elif not causal:
+            out = att.kernel_attention_full(q, att._repeat_kv(k, grid.hl),
+                                            att._repeat_kv(v, grid.hl))
         else:
             out = att.kernel_attention(q, att._repeat_kv(k, grid.hl), att._repeat_kv(v, grid.hl),
                                        causal=True, window=window)
@@ -313,19 +375,22 @@ def _cache_at(caches, i, lead):
     return None if caches is None else {k: v.blocks[i][lead] for k, v in caches.items()}
 
 
-def _attention_half(grid, lp, lead, x: dict, members, positions, caches, window):
-    """The attention half of an ``attn`` / ``local_attn`` / ``moe`` block:
-    ``x {i: [rows, S, D]}`` -> ``x + wo(attention)``, ``wo`` row-parallel,
-    all-reduced over ``model``."""
+def _attention_half(grid, lp, lead, x: dict, members, positions, caches, window, *,
+                    causal=True, use_rope=True, norm="norm1", attn="attn", cross=None):
+    """The attention half of an attention block: ``x {i: [rows, S, D]}``
+    -> ``x + wo(attention)``, ``wo`` row-parallel, all-reduced over
+    ``model``.  ``norm`` / ``attn`` name the half's leaves (a ``dec_attn``
+    block's cross-attention: ``norm_x`` / ``xattn`` over ``cross {i:
+    [rows, F, D]}``)."""
     from repro_torch.models.modules import matmul, rmsnorm
 
     cfg, dt = grid.cfg, grid.dt
     part = {}
     for i, m in members:
-        h = rmsnorm({"scale": _w(lp["norm1"]["scale"], i, lead)}, x[i], cfg.norm_eps)
-        out = _attention(grid, lp["attn"], lead, i, m, h, positions[i], _cache_at(caches, i, lead),
-                         window)
-        wo = _w(lp["attn"]["wo"], i, lead, _cols(m, grid.hl * cfg.hd), None)
+        h = rmsnorm({"scale": _w(lp[norm]["scale"], i, lead)}, x[i], cfg.norm_eps)
+        out = _attention(grid, lp[attn], lead, i, m, h, positions[i], _cache_at(caches, i, lead),
+                         window, causal, use_rope, None if cross is None else cross[i])
+        wo = _w(lp[attn]["wo"], i, lead, _cols(m, grid.hl * cfg.hd), None)
         part[i] = matmul(out, wo.to(dt))
     y = spmd.all_reduce(part, grid.mesh, "model")
     return {i: x[i] + y[i] for i in x}
@@ -458,6 +523,169 @@ def _recurrent(grid, rp, lead, x: dict, members, caches):
     return {i: x[i] + y[i] for i in x}
 
 
+def _out_norm(grid, hs: dict, scale_of, members, width: int) -> dict:
+    """An RMS norm over ``width`` channels of which each position holds a
+    block ``hs[i]``: float32 partial sums of squares all-reduced over
+    ``model``, then the scale's slice ``scale_of(i, m)`` (``rmsnorm``'s
+    numerics, the sum in another order)."""
+    sq = spmd.all_reduce({i: torch.sum(torch.square(hs[i].float()), -1, keepdim=True)
+                          for i, _ in members}, grid.mesh, "model")
+    return {i: (hs[i].float() * torch.rsqrt(sq[i] / width + grid.cfg.norm_eps)
+                * scale_of(i, m).float()).to(hs[i].dtype) for i, m in members}
+
+
+def _mlstm(grid, lp, lead, x: dict, members, caches):
+    """The mLSTM block (``models.xlstm.mlstm_block``), value-parallel over
+    ``model`` as the reference's cache spec fixes it (module docstring);
+    its state written into the position's cache blocks in place once
+    every position has read its own."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import xlstm as xl
+    from repro_torch.models.modules import matmul, rmsnorm
+
+    cfg, dt, mesh = grid.cfg, grid.dt, grid.mesh
+    nh, p, hv = cfg.n_heads, 2 * cfg.d_model, grid.hv
+    hd = p // nh
+    xin, up = {}, {}
+    for i, m in members:
+        xin[i] = rmsnorm({"scale": _w(lp["norm"]["scale"], i, lead)}, x[i], cfg.norm_eps)
+        up[i] = matmul(xin[i], _w(lp["w_up"], i, lead, None, _cols(m, grid.pl)).to(dt))
+    up = spmd.all_gather(up, mesh, "model", -1)  # every projection below reads all of it
+    q, k = {}, {}
+    for i, m in members:
+        q[i] = matmul(up[i], _w(lp["wq"], i, lead, None, _cols(m, grid.pl)).to(dt))
+        k[i] = matmul(up[i], _w(lp["wk"], i, lead, None, _cols(m, grid.pl)).to(dt))
+    q, k = spmd.all_gather(q, mesh, "model", -1), spmd.all_gather(k, mesh, "model", -1)
+    n_whole = None
+    if caches is not None:  # n's key blocks: q . n needs the whole key dim
+        n_whole = spmd.all_gather({i: caches["n"].blocks[i][lead] for i, _ in members}, mesh,
+                                  "model", -1)
+    hs, gate, new = {}, {}, {}
+    for i, m in members:
+        rows = tuple(x[i].shape[:-1])
+        parts = grid.value_cols(m)
+        v = matmul(up[i], _w_parts(lp["wv"], i, lead, parts, 1).to(dt))
+        ig = matmul(up[i], _w(lp["w_i"], i, lead).to(dt))  # whole: m alike on every position
+        fg = matmul(up[i], _w(lp["w_f"], i, lead).to(dt))
+        gate[i] = F.silu(matmul(xin.pop(i), _w_parts(lp["w_gate"], i, lead, parts, 1).to(dt)))
+        if caches is None:
+            state = {"C": torch.zeros(rows[:-1] + (nh, hd, hv), device=x[i].device),
+                     "n": torch.zeros(rows[:-1] + (nh, hd), device=x[i].device),
+                     "m": torch.full(rows[:-1] + (nh,), xl.NEG_INIT, device=x[i].device)}
+        else:
+            state = {"C": caches["C"].blocks[i][lead], "n": n_whole[i],
+                     "m": caches["m"].blocks[i][lead]}
+        # the reference divides by sqrt(hd) rounded to the compute dtype
+        root = torch.tensor(math.sqrt(hd), dtype=torch.float32, device=x[i].device).to(dt)
+        out, new[i] = xl.mlstm_scan(q[i].reshape(rows + (nh, hd)),
+                                    k[i].reshape(rows + (nh, hd)) / root,
+                                    v.reshape(rows + (nh, hv)), ig, fg, state)
+        hs[i] = out.reshape(rows + (nh * hv,))
+    hs = _out_norm(grid, hs, lambda i, m: _w_parts(lp["out_norm"]["scale"], i, lead,
+                                                   grid.value_cols(m), 0), members, p)
+    part = {}
+    for i, m in members:
+        w_down = _w_parts(lp["w_down"], i, lead, grid.value_cols(m), 0)
+        part[i] = matmul(hs.pop(i) * gate.pop(i), w_down.to(dt))
+    if caches is not None:  # m is alike on every model position: each writes its copy
+        for i, m in members:
+            blk = {name: leaf.blocks[i][lead] for name, leaf in caches.items()}
+            blk["C"].copy_(new[i]["C"])
+            blk["n"].copy_(new[i]["n"][..., slice(*_cols(m, hv))])
+            blk["m"].copy_(new[i]["m"])
+    y = spmd.all_reduce(part, mesh, "model")
+    return {i: x[i] + y[i] for i in x}
+
+
+def _slstm(grid, lp, lead, x: dict, members, caches):
+    """The sLSTM block (``models.xlstm.slstm_block``), head-parallel over
+    ``model``: channels ``[m D/M, (m+1) D/M)`` (whole heads) a position,
+    so the sequential scan needs no communication; ``m`` (whole on every
+    model position) all-gathered once after the scan and written whole."""
+    from repro_torch.models import xlstm as xl
+    from repro_torch.models.modules import matmul, rmsnorm
+
+    cfg, dt, mesh = grid.cfg, grid.dt, grid.mesh
+    hl = cfg.n_heads // grid.model
+    hs, new = {}, {}
+    for i, m in members:
+        c = _cols(m, grid.dl)
+        xin = rmsnorm({"scale": _w(lp["norm"]["scale"], i, lead)}, x[i], cfg.norm_eps)
+        xz, xi, xf, xo = (matmul(xin, _w(lp[name], i, lead, None, c).to(dt))
+                          for name in ("w_z", "w_i", "w_f", "w_o"))
+        rec = {f"r_{g}": _w(lp[f"r_{g}"], i, lead, _cols(m, hl)) for g in "zifo"}
+        if caches is None:
+            shape = tuple(x[i].shape[:-2]) + (grid.dl,)
+            state = {name: torch.zeros(shape, device=x[i].device) for name in "cnh"}
+            state["m"] = torch.full(shape, xl.NEG_INIT, device=x[i].device)
+        else:
+            state = {name: leaf.blocks[i][lead] for name, leaf in caches.items()}
+            state["m"] = state["m"][..., slice(*c)]
+        out, new[i] = xl.slstm_scan(rec, xz, xi, xf, xo, state, hl)
+        hs[i] = out.to(dt)
+    hs = _out_norm(grid, hs, lambda i, m: _w(lp["out_norm"]["scale"], i, lead,
+                                             _cols(m, grid.dl)), members, cfg.d_model)
+    part = {i: matmul(hs.pop(i), _w(lp["w_down"], i, lead, _cols(m, grid.dl), None).to(dt))
+            for i, m in members}
+    if caches is not None:
+        m_whole = spmd.all_gather({i: new[i]["m"] for i, _ in members}, mesh, "model", -1)
+        for i, _ in members:
+            blk = {name: leaf.blocks[i][lead] for name, leaf in caches.items()}
+            for name in "cnh":
+                blk[name].copy_(new[i][name])
+            blk["m"].copy_(m_whole[i])
+    y = spmd.all_reduce(part, mesh, "model")
+    return {i: x[i] + y[i] for i in x}
+
+
+def _encode(grid, params_a, frames: dict, members) -> dict:
+    """The encoder (``models.transformer.encode``): ``frames {i: [rows, F,
+    D]}`` plus the sinusoid, ``encoder_layers`` non-causal ``enc_attn``
+    blocks on the ``attn`` schedule without RoPE, then ``enc_norm`` (its
+    scale whole): ``{i: [rows, F, D]}``, alike over ``model``."""
+    from repro_torch.models.modules import rmsnorm
+    from repro_torch.models.transformer import _sinusoidal
+
+    cfg, dt = grid.cfg, grid.dt
+    x, fpos = {}, {}
+    for i, _ in members:
+        fpos[i] = torch.arange(frames[i].shape[-2], device=frames[i].device)
+        x[i] = frames[i].to(dt) + _sinusoidal(fpos[i], cfg.d_model).to(dt)
+    for layer in range(cfg.encoder_layers):
+        x = _apply_block(grid, "enc_attn", params_a["enc_stack"], (layer, 0), x, members, fpos,
+                         None)
+    return {i: rmsnorm({"scale": _w(params_a["enc_norm"]["scale"], i, ())}, x[i], cfg.norm_eps)
+            for i, _ in members}
+
+
+def _apply_block(grid, kind, lp, lead, x: dict, members, positions, caches, *,
+                 window_override=None, enc_out=None, n_tokens=0, row_blocks=1,
+                 aux=None) -> dict:
+    """One layer of ``kind`` (``models.transformer.block_apply``) on every
+    position holding the agent: ``x {i: [rows, S, D]}`` -> the same, its
+    cache (``caches``, the kind's placed leaves, or ``None``) written in
+    place.  ``enc_out``: a ``dec_attn`` block's cross-attended encoder
+    output; ``n_tokens``, ``row_blocks``, ``aux``: ``_moe``'s."""
+    if kind == "mlstm":
+        return _mlstm(grid, lp, lead, x, members, caches)
+    if kind == "slstm":
+        return _slstm(grid, lp, lead, x, members, caches)
+    if kind == "rglru":
+        x = _recurrent(grid, lp["rec"], lead, x, members, caches)
+    else:
+        encdec = kind in ("enc_attn", "dec_attn")
+        x = _attention_half(grid, lp, lead, x, members, positions, caches,
+                            grid.window(kind, window_override), causal=kind != "enc_attn",
+                            use_rope=not encdec)
+        if kind == "dec_attn":
+            x = _attention_half(grid, lp, lead, x, members, positions, None, 0, causal=False,
+                                use_rope=False, norm="norm_x", attn="xattn", cross=enc_out)
+    if kind == "moe":
+        return _moe(grid, lp, lead, x, members, n_tokens, row_blocks, aux)
+    return _ffn(grid, lp, lead, x, members)
+
+
 def _members(grid, params_a):
     """(position, model index) of each position holding the agent."""
     emb = params_a["embed"]["emb"]
@@ -465,18 +693,25 @@ def _members(grid, params_a):
 
 
 def _forward(grid, params_a, tokens: dict, row_blocks: int, *, positions=None, caches_a=None,
-             patches=None, logits_tail=0, window_override=None, with_aux=False):
+             patches=None, frames=None, logits_tail=0, window_override=None, with_aux=False):
     """One agent's forward over its pod's positions: ``params_a`` its
     placed weights (``Placed.agent``), ``tokens {i: [rows, S]}`` (the
     batch in ``row_blocks`` blocks over ``data``), ``caches_a`` its placed
-    cache or ``None``, ``patches {i: [rows, P, D]}``.  Returns the logits'
-    column blocks ``{i: [rows, T, V/M]}`` (float32) and, ``with_aux``, each
-    position's router aux (``{i: 0-d}``, the agent's, alike on every
-    position; ``None`` otherwise)."""
+    cache or ``None``, ``patches {i: [rows, P, D]}``, ``frames {i: [rows,
+    F, D]}`` (an enc-dec config's: the encoder runs over them on every
+    call).  Returns the logits' column blocks ``{i: [rows, T, V/M]}``
+    (float32) and, ``with_aux``, each position's router aux (``{i: 0-d}``,
+    the agent's, alike on every position; ``None`` otherwise)."""
     from repro_torch.models.modules import matmul, rmsnorm
+    from repro_torch.models.transformer import _sinusoidal
 
     cfg, dt = grid.cfg, grid.dt
     members = _members(grid, params_a)
+    enc_out = None
+    if cfg.is_encdec:
+        if frames is None:
+            raise ValueError(f"{cfg.name}: an enc-dec model needs frame embeddings")
+        enc_out = _encode(grid, params_a, frames, members)
     emb = params_a["embed"]["emb"]
     x = {}
     for i, _ in members:
@@ -486,18 +721,14 @@ def _forward(grid, params_a, tokens: dict, row_blocks: int, *, positions=None, c
             x[i] = torch.cat([matmul(patches[i].to(dt), proj), x[i]], dim=-2)
     if positions is None:
         positions = {i: torch.arange(x[i].shape[-2], device=x[i].device) for i in x}
+    if cfg.is_encdec:
+        x = {i: x[i] + _sinusoidal(positions[i], cfg.d_model).to(dt) for i in x}
     n_tokens = row_blocks * x[members[0][0]].shape[:-1].numel()  # the agent's B S
     aux = {i: torch.zeros((), device=x[i].device) for i in x} if with_aux else None
     for kind, lp, lead, caches in _layers(cfg, params_a, caches_a):
-        if kind == "rglru":
-            x = _recurrent(grid, lp["rec"], lead, x, members, caches)
-        else:
-            x = _attention_half(grid, lp, lead, x, members, positions, caches,
-                                grid.window(kind, window_override))
-        if kind == "moe":
-            x = _moe(grid, lp, lead, x, members, n_tokens, row_blocks, aux)
-        else:
-            x = _ffn(grid, lp, lead, x, members)
+        x = _apply_block(grid, kind, lp, lead, x, members, positions, caches,
+                         window_override=window_override, enc_out=enc_out, n_tokens=n_tokens,
+                         row_blocks=row_blocks, aux=aux)
     logits = {}
     for i, m in members:
         xi = x[i][..., -logits_tail:, :] if logits_tail else x[i]
@@ -516,35 +747,76 @@ def _row_blocks(tokens_a) -> int:
     return tokens_a.grid()[0]
 
 
-def _serve(cfg, params, tokens, cache, *, patches=None, position=None, logits_tail=0,
-           window_override=None):
+def _agent_blocks(x, a):
+    """Agent ``a``'s blocks ``{i: block}`` of a placed batch leaf (``None``
+    for none)."""
+    return None if x is None else {i: b for i, b in enumerate(x.agent(a).blocks) if b is not None}
+
+
+def _per_agent(params, cache, batch: dict, step) -> list:
+    """``step(params_a, caches_a, blocks, row_blocks)`` for each agent a
+    over its pod's positions (``blocks``: each placed leaf of ``batch`` as
+    ``{i: block}`` of the agent's rows, ``None`` for none; ``row_blocks``
+    the blocks its rows take over ``data``; it returns ``{i: [rows,
+    ...]}``): each position's outputs stacked over its pod's agents, a list
+    in position order."""
+    lead = batch["tokens"]
+    per_pos: list[list] = [[] for _ in lead.blocks]
+    for a in range(lead.shape[0]):
+        params_a = tree_map(lambda leaf: leaf.agent(a), params)
+        caches_a = None if cache is None else tree_map(lambda leaf: leaf.agent(a), cache)
+        blocks = {k: _agent_blocks(v, a) for k, v in batch.items()}
+        for i, y in step(params_a, caches_a, blocks, _row_blocks(lead.agent(a))).items():
+            per_pos[i].append(y)
+    return [torch.stack(ys) for ys in per_pos]
+
+
+def _serve(cfg, params, tokens, cache, *, patches=None, frames=None, position=None,
+           logits_tail=0, window_override=None):
     """The data x model prefill (``position`` None) or decode step:
     (logits ``[A, B, T, V]`` on the first position's device, cache)."""
     grid = _Grid(cfg, tokens.mesh)
-    n_agents = tokens.shape[0]
-    per_pos: list[list] = [[] for _ in tokens.blocks]
-    for a in range(n_agents):
-        params_a = tree_map(lambda leaf: leaf.agent(a), params)
-        caches_a = None if cache is None else tree_map(lambda leaf: leaf.agent(a), cache)
-        tok_a = tokens.agent(a)
-        toks = {i: b for i, b in enumerate(tok_a.blocks) if b is not None}
-        pat = None
-        if patches is not None:
-            pat_a = patches.agent(a)
-            pat = {i: b for i, b in enumerate(pat_a.blocks) if b is not None}
+
+    def step(params_a, caches_a, blk, row_blocks):
         positions = None
         if position is not None:
             positions = {i: torch.as_tensor(position).reshape(1).to(device=b.device,
                                                                     dtype=torch.long)
-                         for i, b in toks.items()}
-        logits, _ = _forward(grid, params_a, toks, _row_blocks(tok_a), positions=positions,
-                             caches_a=caches_a, patches=pat, logits_tail=logits_tail,
-                             window_override=window_override)
-        for i, lg in logits.items():
-            per_pos[i].append(lg)
+                         for i, b in blk["tokens"].items()}
+        return _forward(grid, params_a, blk["tokens"], row_blocks, positions=positions,
+                        caches_a=caches_a, patches=blk["patches"], frames=blk["frames"],
+                        logits_tail=logits_tail, window_override=window_override)[0]
+
+    blocks = _per_agent(params, cache, {"tokens": tokens, "patches": patches, "frames": frames},
+                        step)
     spec = tuple(tokens.sharding.spec)[:2] + (None, "model" if grid.model > 1 else None)
-    blocks = [torch.stack(lgs) for lgs in per_pos]
     return join_blocks(blocks, NamedSharding(grid.mesh, spec)), cache
+
+
+def apply_layer(cfg, params, cache, layer: int, x, positions, enc_out=None):
+    """Layer ``layer`` of the model alone, on the schedule ``prefill`` and
+    ``decode`` run it (``_forward``'s layer step at that depth): ``x [A,
+    B, T, D]`` the layer's input (a tensor, placed here as a batch is),
+    ``positions [T]`` its token positions, ``cache`` placed (the layer's
+    blocks written in place, as a step writes them) or ``None``;
+    ``enc_out [A, B, F, D]`` a ``dec_attn`` layer's encoder output.
+    Returns the layer's output ``[A, B, T, D]`` on the first position's
+    device."""
+    mesh = mesh_of(params)
+    grid = _Grid(cfg, mesh)
+    batch = _place_batch({"tokens": x, "enc_out": enc_out}, mesh)
+    cache = _place_cache(cache, mesh)
+
+    def step(params_a, caches_a, blk, row_blocks):
+        xs = blk["tokens"]
+        kind, lp, lead, caches = _layers(cfg, params_a, caches_a)[layer]
+        n_tokens = row_blocks * next(iter(xs.values())).shape[:-1].numel()
+        return _apply_block(grid, kind, lp, lead, xs, _members(grid, params_a),
+                            {i: positions.to(b.device) for i, b in xs.items()}, caches,
+                            enc_out=blk["enc_out"], n_tokens=n_tokens, row_blocks=row_blocks)
+
+    spec = tuple(batch["tokens"].sharding.spec)[:2] + (None, None)
+    return join_blocks(_per_agent(params, cache, batch, step), NamedSharding(mesh, spec))
 
 
 # ---------------------------------------------------------------------------
@@ -569,22 +841,23 @@ def prefill(cfg, params, batch: dict, cache, window_override=None):
             blocks.append(lg)
         return _join_pods(blocks, batch["tokens"]), cache
     return _serve(cfg, params, batch["tokens"], cache, patches=batch.get("patches"),
-                  logits_tail=1, window_override=window_override)
+                  frames=batch.get("frames"), logits_tail=1, window_override=window_override)
 
 
 def decode(cfg, params, token, position, cache, frames=None, window_override=None):
     """``launch.steps.make_decode_step`` on placed inputs."""
     mesh = mesh_of(params)
     token, cache = _place_batch({"t": token}, mesh)["t"], _place_cache(cache, mesh)
+    frames = None if frames is None else _place_batch({"f": frames}, mesh)["f"]
     if not sharded_schedule(cfg, mesh):
         from repro_torch.models import decode_step
 
-        frames = None if frames is None else _place_batch({"f": frames}, mesh)["f"]
         blocks = [decode_step(spmd.blocks_at(params, i), cfg, token.blocks[i], position,
                               spmd.blocks_at(cache, i), enc_out_frames=_block(frames, i),
                               window_override=window_override)[0] for i in range(mesh.size)]
         return _join_pods(blocks, token), cache
-    return _serve(cfg, params, token, cache, position=position, window_override=window_override)
+    return _serve(cfg, params, token, cache, frames=frames, position=position,
+                  window_override=window_override)
 
 
 def _block(x, i):
@@ -645,12 +918,13 @@ def _nll(grid, theta_a, batch_a: dict, members):
     router aux, both 0-d on one position: the logits' column blocks
     all-gathered over ``model``, each data block's NLL on its ``model``-0
     position, summed over ``data``."""
-    toks = {i: batch_a["tokens"].blocks[i] for i, _ in members}
-    pat = None
-    if batch_a.get("patches") is not None:
-        pat = {i: batch_a["patches"].blocks[i] for i, _ in members}
+    def blocks(name):
+        leaf = batch_a.get(name)
+        return None if leaf is None else {i: leaf.blocks[i] for i, _ in members}
+
     row_blocks = _row_blocks(batch_a["tokens"])
-    logits, aux = _forward(grid, theta_a, toks, row_blocks, patches=pat, with_aux=True)
+    logits, aux = _forward(grid, theta_a, blocks("tokens"), row_blocks, patches=blocks("patches"),
+                           frames=blocks("frames"), with_aux=True)
     logits = spmd.all_gather(logits, grid.mesh, "model", -1)
     nll = {}
     for i, m in members:
@@ -848,32 +1122,44 @@ def _taken(shape, spec, mesh, region) -> tuple[int, int]:
 
 
 def forward_gather_bytes(cfg, mesh, rows: int, seq: int, itemsize: int, n_agents: int,
-                         patches: int = 0) -> dict:
+                         patches: int = 0, frames: int = 0) -> dict:
     """The data x model forward's cross-position bytes, as a formula of the
     config and the reference's specs, for ``n_agents`` agents of ``rows``
     batch rows (``rows`` divisible by ``data``) and ``seq`` text positions
-    (``patches`` more for a VLM; 1 for a decode step), weights of
-    ``itemsize`` bytes.  For a dim that divides its axis the sums below
-    come to closed forms: a column block taken over ``data`` (``wq``,
-    ``wk``, ``wv``, ``w_gate``, ``w_up``, ``lm_head``, ``w_in``, ``w_r``,
-    ``w_i``, ``conv_w``, the experts ``[E/M, D, F]``) ``(d - 1) R C`` a pod,
-    a row block (``wo``, ``w_down``, ``w_out``) ``R C (d - 1/m)``, a tied
-    embedding's row region ``(d m - 1) V D / m``, a leaf taken whole (the
-    router, a VLM's ``patch_proj``) ``(d m - 1) R C``; a norm scale, a
-    slice of ``lam_raw`` / ``conv_b``, or a replicated tail leaf, what the
-    positions lack of it.  Per layer and pod, for ``d x m`` positions:
+    (``patches`` more for a VLM; 1 for a decode step; ``frames`` the
+    encoder's, which runs on every step of an enc-dec config), weights of
+    ``itemsize`` bytes, in the prefill and decode steps (with a cache: the
+    recurrent states' gathers below).  For a dim that divides its axis
+    the sums below come to closed forms: a column block taken over
+    ``data`` (``wq``, ``wk``, ``wv``, ``w_gate``, ``w_up``, ``lm_head``,
+    ``w_in``, ``w_r``, ``w_i``, ``conv_w``, ``w_z`` / ``w_f`` / ``w_o``, the
+    experts ``[E/M, D, F]``) ``(d - 1) R C`` a pod, a row block (``wo``,
+    ``w_down``, ``w_out``) ``R C (d - 1/m)``, a tied embedding's row region
+    ``(d m - 1) V D / m``, a leaf taken whole (the router, a VLM's
+    ``patch_proj``, the mLSTM's ``w_i`` / ``w_f``) ``(d m - 1) R C``; the
+    mLSTM's value columns (``wv``, ``w_gate``, ``w_down``'s rows, one
+    region a head) and the sLSTM's head block of ``r_*`` cross both axes'
+    blocks; a norm scale, a slice of ``lam_raw`` / ``conv_b``, or a
+    replicated tail leaf, what the positions lack of it.  Per layer and
+    pod, for ``d x m`` positions:
 
     * gathers: each weight a position takes (``_taken``), as the schedule
       takes it;
     * the embedding rows: every row block is looked up for every token, so
       a position copies all of its pieces but its own, ``t D / m`` each
       (``t`` its text tokens);
-    * all-reduces over ``model`` of ``[rows/d, seq + patches, D]``, ``2 (m -
-      1)`` blocks a group: two a layer (``wo`` or ``w_out``, and the FFN),
-      a ``moe`` layer's second in float32 (the combine);
-    * all-gathers: an ``rglru`` layer's ``conv_out [rows/d, seq, D/m]``
-      over ``model``, ``m (m - 1)`` blocks a group; a ``moe`` layer's
-      per-expert counts (``E/m`` int32) over ``data``, ``d (d - 1)``.
+    * all-reduces over ``model``, ``2 (m - 1)`` blocks a group, of ``[rows/d,
+      T, D]`` (T = seq + patches, or the frames in the encoder): each
+      attention half's ``wo`` (two in a ``dec_attn`` layer: the
+      cross-attention's), the FFN, ``w_out`` and the xLSTM's ``w_down``,
+      a ``moe`` layer's combine in float32; the xLSTM's partial sums of
+      squares ``[rows/d, T, 1]`` float32;
+    * all-gathers, ``m (m - 1)`` blocks a group over ``model``: an
+      ``rglru`` layer's ``conv_out [rows/d, T, D/m]``, an ``mlstm`` layer's
+      ``up``, ``q`` and ``k`` ``[rows/d, T, 2 D/m]`` and the key blocks of
+      ``n [rows/d, H, hd/m]`` (float32), an ``slstm`` layer's ``m [rows/d,
+      D/m]`` (float32); ``d (d - 1)`` over ``data``:
+      a ``moe`` layer's per-expert counts (``E/m`` int32).
 
     ``gather_per_position_max`` bounds one position's gathers: all it
     assembles, its own parts included."""
@@ -900,10 +1186,68 @@ def forward_gather_bytes(cfg, mesh, rows: int, seq: int, itemsize: int, n_agents
         moved, biggest = _taken(shape, spec, mesh, region)
         pod, most = pod + moved, most + biggest
 
+    def take_parts(leaf, lead, dim):  # ``_w_parts``: the mLSTM's value columns
+        for h in range(cfg.n_heads):
+            take(leaf, lead, lambda m: (None,) * dim + (grid.value_cols(m)[h],))
+
     rows_local = rows // dd if rows % dd == 0 else rows
-    t, t_all = rows_local * seq, rows_local * (seq + patches)
     reduce = gather_all = 0  # a pod's all-reduced and all-gathered bytes
+
+    def all_reduce(n, nbytes):  # [rows/d, ..., n] a position
+        nonlocal reduce
+        reduce += dd * 2 * (mm - 1) * rows_local * n * nbytes
+
+    def all_gather(n, nbytes):
+        nonlocal gather_all
+        gather_all += dd * mm * (mm - 1) * rows_local * n * nbytes
+
+    def attention_half(lp, lead, t, norm="norm1", attn="attn"):
+        ap = lp[attn]
+        take(lp[norm]["scale"], lead)
+        take(ap["wq"], lead, lambda m: (None, _cols(m, grid.hl * hd)))
+        take(ap["wk"], lead, lambda m: (None, grid.kv_cols(m)))
+        take(ap["wv"], lead, lambda m: (None, grid.kv_cols(m)))
+        for name in ("q_norm", "k_norm"):
+            if name in ap:
+                take(ap[name]["scale"], lead)
+        take(ap["wo"], lead, lambda m: (_cols(m, grid.hl * hd), None))
+        all_reduce(t * dm, itemsize)
+
+    def ffn(lp, lead, t):
+        take(lp["norm2"]["scale"], lead)
+        for name in ("w_gate", "w_up"):
+            take(lp["mlp"][name], lead, lambda m: (None, _cols(m, grid.fl)))
+        take(lp["mlp"]["w_down"], lead, lambda m: (_cols(m, grid.fl), None))
+        all_reduce(t * dm, itemsize)
+
+    t = seq + patches  # positions a row
     for kind, lp, lead, _ in _layers(cfg, leaves, None):
+        if kind == "mlstm":
+            take(lp["norm"]["scale"], lead)
+            for name in ("w_up", "wq", "wk"):
+                take(lp[name], lead, lambda m: (None, _cols(m, grid.pl)))
+                all_gather(t * grid.pl, itemsize)  # up, q, k
+            all_gather(cfg.n_heads * grid.hv, 4)  # n's key blocks
+            for name in ("w_i", "w_f"):
+                take(lp[name], lead)
+            for name, dim in (("wv", 1), ("w_gate", 1), ("w_down", 0)):
+                take_parts(lp[name], lead, dim)
+            take_parts(lp["out_norm"]["scale"], lead, 0)
+            all_reduce(t, 4)  # out_norm's sums of squares
+            all_reduce(t * dm, itemsize)
+            continue
+        if kind == "slstm":
+            take(lp["norm"]["scale"], lead)
+            for name in ("w_z", "w_i", "w_f", "w_o"):
+                take(lp[name], lead, lambda m: (None, _cols(m, grid.dl)))
+            for name in ("r_z", "r_i", "r_f", "r_o"):
+                take(lp[name], lead, lambda m: (_cols(m, cfg.n_heads // mm),))
+            take(lp["out_norm"]["scale"], lead, lambda m: (_cols(m, grid.dl),))
+            take(lp["w_down"], lead, lambda m: (_cols(m, grid.dl), None))
+            all_reduce(t, 4)
+            all_reduce(t * dm, itemsize)
+            all_gather(grid.dl, 4)  # m
+            continue
         if kind == "rglru":
             rp = lp["rec"]
             take(rp["norm"]["scale"], lead)
@@ -912,30 +1256,27 @@ def forward_gather_bytes(cfg, mesh, rows: int, seq: int, itemsize: int, n_agents
             for name in ("conv_b", "lam_raw"):
                 take(rp[name], lead, lambda m: (_cols(m, grid.dl),))
             take(rp["w_out"], lead, lambda m: (_cols(m, grid.dl), None))
-            gather_all += dd * mm * (mm - 1) * t_all * grid.dl * itemsize
+            all_gather(t * grid.dl, itemsize)
+            all_reduce(t * dm, itemsize)
         else:
-            ap = lp["attn"]
-            take(lp["norm1"]["scale"], lead)
-            take(ap["wq"], lead, lambda m: (None, _cols(m, grid.hl * hd)))
-            take(ap["wk"], lead, lambda m: (None, grid.kv_cols(m)))
-            take(ap["wv"], lead, lambda m: (None, grid.kv_cols(m)))
-            for name in ("q_norm", "k_norm"):
-                if name in ap:
-                    take(ap[name]["scale"], lead)
-            take(ap["wo"], lead, lambda m: (_cols(m, grid.hl * hd), None))
-        take(lp["norm2"]["scale"], lead)
+            attention_half(lp, lead, t)
+            if kind == "dec_attn":
+                attention_half(lp, lead, t, "norm_x", "xattn")
         if kind == "moe":
+            take(lp["norm2"]["scale"], lead)
             take(lp["moe"]["router"], lead)
             for name in ("w_gate", "w_up", "w_down"):
                 take(lp["moe"][name], lead, lambda m: (_cols(m, grid.el),))
-            reduce += dd * 2 * (mm - 1) * t_all * dm * (itemsize + 4)
+            all_reduce(t * dm, 4)  # the float32 combine
             if rows % dd == 0:
                 gather_all += mm * dd * (dd - 1) * grid.el * 4
         else:
-            for name in ("w_gate", "w_up"):
-                take(lp["mlp"][name], lead, lambda m: (None, _cols(m, grid.fl)))
-            take(lp["mlp"]["w_down"], lead, lambda m: (_cols(m, grid.fl), None))
-            reduce += dd * 2 * 2 * (mm - 1) * t_all * dm * itemsize
+            ffn(lp, lead, t)
+    for layer in range(cfg.encoder_layers if frames else 0):
+        attention_half(leaves["enc_stack"], (layer, 0), frames)
+        ffn(leaves["enc_stack"], (layer, 0), frames)
+    if frames:
+        take(leaves["enc_norm"]["scale"], ())
     take(leaves["final_norm"]["scale"], ())
     if cfg.tie_embeddings:
         take(leaves["embed"]["emb"], (), lambda m: (_cols(m, grid.vl), None))
@@ -947,13 +1288,13 @@ def forward_gather_bytes(cfg, mesh, rows: int, seq: int, itemsize: int, n_agents
     n_r, n_c = (nb for _, nb in block_index(spec + (None,) * (2 - len(spec)), mesh,
                                             next(iter(mesh.positions()))))
     pieces = n_r * n_c
-    pod += dd * mm * (pieces - 1) * t * dm // n_c
-    most += pieces * t * dm // n_c
+    pod += dd * mm * (pieces - 1) * rows_local * seq * dm // n_c
+    most += pieces * rows_local * seq * dm // n_c
     gather = n_agents * pod * itemsize
     reduce, gather_all = n_agents * reduce, n_agents * gather_all
     return {"gather": gather, "all_reduce": reduce, "all_gather": gather_all,
             "bytes": gather + reduce + gather_all, "gather_per_position_max": most * itemsize}
 
 
-__all__ = ["SHARDED_KINDS", "decode", "forward_gather_bytes", "moe_counts", "pod_consensus",
-           "prefill", "reset_moe_counts", "sharded_schedule", "train_round"]
+__all__ = ["SHARDED_KINDS", "apply_layer", "decode", "forward_gather_bytes", "moe_counts",
+           "pod_consensus", "prefill", "reset_moe_counts", "sharded_schedule", "train_round"]

@@ -15,9 +15,13 @@ masked product and the inter-chunk term one ``[c, hd] @ [hd, hd]`` product
 a head (heads-first, so each is one batched product).  The last chunk is
 padded with i = -1e30 (no input) and f = 40 (the carry decays by 1), so an
 S that is not a multiple of the chunk, and decode (S = 1, c = 1), give the
-reference's state.  The sLSTM is a true recurrence: one step at a time, its
-four per-head recurrent products stacked into one ``[H, hd, 4 hd]`` product
-a step.  Gates and states in fp32, whatever the compute dtype; leading axes
+reference's state.  The intra-chunk decay is masked before its exp, where
+the reference masks after it: the values are the same, but above the
+diagonal the exponent can overflow, and there the reference's gradient
+is 0 * inf = NaN (a 256-token chunk of reduced xLSTM trains to NaN in the
+reference; the port's gradient stays finite).  The sLSTM is a true
+recurrence: one step at a time, its four per-head recurrent products
+stacked into one ``[H, hd, 4 hd]`` product a step.  Gates and states in fp32, whatever the compute dtype; leading axes
 ``[*A, B]`` (agents, batch) fold into the batch.
 """
 from __future__ import annotations
@@ -72,17 +76,20 @@ def mlstm_state_init(cfg, batch: int, dtype=torch.float32, device=None, lead=())
 def mlstm_scan(q, k, v, i_gate, f_gate, state, chunk_size: int = 256):
     """Chunkwise stabilized mLSTM.
 
-    ``q, k, v [*L, S, H, hd]`` (k pre-scaled by hd^-0.5 by the caller);
-    ``i_gate, f_gate [*L, S, H]`` raw (pre-activation) gates; ``state``
-    dict(C ``[*L, H, hd, hd]``, n ``[*L, H, hd]``, m ``[*L, H]``), the
-    stabilized carry.  Returns (h ``[*L, S, H, hd]`` in ``q.dtype``, the new
-    state in fp32)."""
+    ``q, k [*L, S, H, hd]`` (k pre-scaled by hd^-0.5 by the caller), ``v
+    [*L, S, H, hv]`` (``hv`` = hd, or a block of the value columns: the
+    placed schedule's); ``i_gate, f_gate [*L, S, H]`` raw (pre-activation)
+    gates; ``state`` dict(C ``[*L, H, hd, hv]``, n ``[*L, H, hd]``, m
+    ``[*L, H]``), the stabilized carry.  Returns (h ``[*L, S, H, hv]`` in
+    ``q.dtype``, the new state in fp32)."""
     lead = tuple(q.shape[:-3])
     s, h, hd = q.shape[-3:]
+    hv = v.shape[-1]
     c = min(chunk_size, s)
     n_chunks = -(-s // c)
     pad = n_chunks * c - s
-    q, k, v = (t.reshape((-1, s, h, hd)) for t in (q, k, v))
+    q, k = (t.reshape((-1, s, h, hd)) for t in (q, k))
+    v = v.reshape((-1, s, h, hv))
     i_gate, f_gate = (t.reshape((-1, s, h)) for t in (i_gate, f_gate))
     if pad:
         q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
@@ -93,7 +100,7 @@ def mlstm_scan(q, k, v, i_gate, f_gate, state, chunk_size: int = 256):
         return t.float().transpose(1, 2)
 
     qh, kh, vh, ih, fh = (heads_first(t) for t in (q, k, v, i_gate, f_gate))
-    C0 = state["C"].reshape((-1, h, hd, hd)).float()
+    C0 = state["C"].reshape((-1, h, hd, hv)).float()
     n0 = state["n"].reshape((-1, h, hd)).float()
     m0 = state["m"].reshape((-1, h)).float()
     mask = torch.tril(torch.ones((c, c), dtype=torch.bool, device=q.device))
@@ -108,9 +115,11 @@ def mlstm_scan(q, k, v, i_gate, f_gate, state, chunk_size: int = 256):
         local_max = torch.cummax(itb, dim=-1).values
         m = torch.maximum(a, bcum + local_max)  # m_j
 
-        # intra-chunk: D[j, l] = exp(b_j - b_l + i_l - m_j) for l <= j
+        # intra-chunk: D[j, l] = exp(b_j - b_l + i_l - m_j) for l <= j.  Masked
+        # before the exp: above the diagonal logd can overflow exp, and the
+        # gradient of exp there (0 * inf) would be NaN; the values are the same
         logd = (bcum - m)[..., :, None] + itb[..., None, :]  # [b, H, j, l]
-        dmat = torch.where(mask, torch.exp(logd), 0.0)
+        dmat = torch.exp(torch.where(mask, logd, float("-inf")))
         scores = torch.matmul(qj, kj.transpose(-1, -2)) * dmat
         h_intra = torch.matmul(scores, vj)
         n_intra = torch.matmul(dmat, kj)
@@ -133,10 +142,10 @@ def mlstm_scan(q, k, v, i_gate, f_gate, state, chunk_size: int = 256):
         C0 = C0 * w_carry[..., None, None] + torch.matmul((w_kv * kj).transpose(-1, -2), vj)
         n0 = n0 * w_carry[..., None] + torch.sum(w_kv * kj, dim=-2)
         m0 = m_end
-    out = torch.cat(outs, dim=2)[:, :, :s].transpose(1, 2)  # [b, S, H, hd]
-    new = {"C": C0.reshape(lead + (h, hd, hd)), "n": n0.reshape(lead + (h, hd)),
+    out = torch.cat(outs, dim=2)[:, :, :s].transpose(1, 2)  # [b, S, H, hv]
+    new = {"C": C0.reshape(lead + (h, hd, hv)), "n": n0.reshape(lead + (h, hd)),
            "m": m0.reshape(lead + (h,))}
-    return out.to(q.dtype).reshape(lead + (s, h, hd)), new
+    return out.to(q.dtype).reshape(lead + (s, h, hv)), new
 
 
 def mlstm_block(params, x, cfg, state=None, chunk_size: int = 256):

@@ -15,13 +15,16 @@ file imports neither JAX nor the JAX package:
   the same mesh shape, and two calls the same bits; over the real cards too.
 * The sharded LM steps (``launch.spmd_steps``) at ``reduced()`` width,
   float32: the prefill and a decode step of Qwen3-8B, Granite-20B,
-  Pixtral-12B, OLMoE-1B-7B, Phi-3.5-MoE and RecurrentGemma-9B placed on a
-  (2, 2, 2) mesh of virtual shards of the card, within 1e-5 of the same
-  steps placed on the CPU and of the card's unsharded steps,
-  ``flash_attention`` once an attention layer a position, two calls the
-  same bits; the train round of repro-100m, a pytree state on (2, 2, 2)
-  and a flat one on (2, 1, 1), and of OLMoE and RecurrentGemma, a pytree
-  state on (2, 2, 2), within 1e-4 of the card's
+  Pixtral-12B, OLMoE-1B-7B, Phi-3.5-MoE, RecurrentGemma-9B, xLSTM-1.3B and
+  Whisper-tiny (frames in the batch, the encoder re-run in the decode
+  step) placed on a (2, 2, 2) mesh of virtual shards of the card, within
+  1e-5 of the same steps placed on the CPU and of the card's unsharded
+  steps, ``flash_attention`` once an attention layer a position (twice a
+  ``dec_attn`` layer; the encoder's in the prefill and the step), two
+  calls the same bits; the train round of repro-100m, a pytree state on
+  (2, 2, 2) and a flat one on (2, 1, 1), and of OLMoE, RecurrentGemma,
+  xLSTM and Whisper-tiny, a pytree state on (2, 2, 2), within 1e-4 of the
+  card's
   unsharded round (Adam's moments, and the posterior off the lanes whose
   Adam step is a rounding-noise sign), ``consensus_fused_network`` once a
   (data, model) position; over two real cards (each pod on its own) the
@@ -163,6 +166,9 @@ def _lm(arch, device):
     n_p = cfg.n_patches if cfg.frontend == "vision_stub" else 0
     if n_p:
         batch["patches"] = (0.1 * torch.randn(2, 4, n_p, cfg.d_model, generator=g)).to(device)
+    if cfg.is_encdec:
+        batch["frames"] = (0.1 * torch.randn(2, 4, cfg.encoder_seq, cfg.d_model,
+                                             generator=g)).to(device)
     return cfg, params, batch, n_p
 
 
@@ -174,18 +180,23 @@ def _serve(cfg, params, batch, n_p, mesh):
         params = spmd.device_put(params, param_shardings(params, mesh, agent_leading=True))
         cache = spmd.device_put(cache, cache_shardings(cache, mesh))
     lg, cache = steps.make_prefill_step(cfg)(params, batch, cache)
-    d, _ = steps.make_decode_step(cfg)(params, batch["tokens"][..., :1], 8 + n_p, cache)
+    d, _ = steps.make_decode_step(cfg)(params, batch["tokens"][..., :1], 8 + n_p, cache,
+                                       batch.get("frames"))
     return lg, d
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["qwen3-8b", "granite-20b", "pixtral-12b", "olmoe-1b-7b",
-                                  "phi3.5-moe-42b-a6.6b", "recurrentgemma-9b"])
+                                  "phi3.5-moe-42b-a6.6b", "recurrentgemma-9b", "xlstm-1.3b",
+                                  "whisper-tiny"])
 def test_sharded_serving_card_against_cpu(dev, arch):
     cfg, params, batch, n_p = _lm(arch, dev)
     dispatch.reset_launch_counts()
     lg, d = _serve(cfg, params, batch, n_p, make_mesh((2, 2, 2), AXES, dev))
-    n_attn = sum(kind != "rglru" for kind in cfg.pattern * cfg.n_periods + cfg.tail)
+    # a prefill's attention layers (a dec_attn layer's two, the encoder's), and
+    # the encoder again in the decode step
+    n_attn = sum(1 + (kind == "dec_attn") for kind in cfg.pattern * cfg.n_periods + cfg.tail
+                 if kind not in ("rglru", "mlstm", "slstm")) + 2 * cfg.encoder_layers
     assert dispatch.launch_counts()["flash_attention"] == n_attn * 8
     lg2, d2 = _serve(cfg, params, batch, n_p, make_mesh((2, 2, 2), AXES, dev))
     assert torch.equal(lg, lg2) and torch.equal(d, d2)
@@ -208,6 +219,8 @@ def _train(device, flat, mesh=None, arch="repro-100m"):
     eps = tree_map(lambda m: torch.randn(m.shape, generator=g), state.posterior.mean)
     batch = {k: torch.randint(0, cfg.vocab_size, (2, 4, 32), generator=g)
              for k in ("tokens", "targets")}
+    if cfg.is_encdec:
+        batch["frames"] = 0.1 * torch.randn(2, 4, cfg.encoder_seq, cfg.d_model, generator=g)
     state, eps, batch = tree_map(lambda x: x.to(device), (state, eps, batch))
     if mesh is not None:
         state = spmd.device_put(state, param_shardings(state, mesh, agent_leading=True))
@@ -221,9 +234,12 @@ def _train(device, flat, mesh=None, arch="repro-100m"):
 @pytest.mark.parametrize("arch,flat,shape", [("repro-100m", False, (2, 2, 2)),
                                              ("repro-100m", True, (2, 1, 1)),
                                              ("olmoe-1b-7b", False, (2, 2, 2)),
-                                             ("recurrentgemma-9b", False, (2, 2, 2))],
+                                             ("recurrentgemma-9b", False, (2, 2, 2)),
+                                             ("xlstm-1.3b", False, (2, 2, 2)),
+                                             ("whisper-tiny", False, (2, 2, 2))],
                          ids=["pytree-2x2x2", "flat-2x1x1", "olmoe-pytree-2x2x2",
-                              "recurrentgemma-pytree-2x2x2"])
+                              "recurrentgemma-pytree-2x2x2", "xlstm-pytree-2x2x2",
+                              "whisper-pytree-2x2x2"])
 def test_sharded_train_round_on_the_card(dev, arch, flat, shape):
     dispatch.reset_launch_counts()
     got, got_m = _train(dev, flat, make_mesh(shape, AXES, dev), arch)

@@ -16,9 +16,8 @@ Held:
   and (k - 1) n + (k - 1) n / k a group of k blocks of n bytes);
 * ``gather`` / ``gather_rows`` against slicing and indexing the whole
   tensor, and their counted bytes;
-* the data x model schedule refuses the ``mlstm`` / ``slstm`` and
-  ``enc_attn`` / ``dec_attn`` kinds, and a placed state's train round
-  refuses the ppermute consensus, a bf16 wire and a flat state, with
+* a placed state's train round refuses the ppermute consensus, a bf16
+  and an f16 wire and a flat state under data x model, with
   ``NotImplementedError`` naming ROADMAP 10i, while a pod-only mesh runs
   OLMoE's ``reduced()`` prefill and decode equal to the unsharded ones (a
   plain cache placed on the way in, its blocks views written in place);
@@ -235,38 +234,23 @@ def test_gather_and_gather_rows_against_slicing():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("case", ["xlstm-1.3b", "whisper-tiny", "ppermute", "wire_bf16"])
+@pytest.mark.parametrize("case", ["flat_state", "wire_f16", "ppermute", "wire_bf16"])
 def test_other_kinds_are_refused_under_data_or_model(case):
+    """Every block kind runs under data x model; a placed state's train
+    round still refuses a flat state (its spec replicates it over data x
+    model), the ppermute consensus and a bf16 / f16 wire, naming ROADMAP
+    10i."""
     W = torch.full((A, A), 0.5)
-    if case in ("ppermute", "wire_bf16"):  # a placed state's consensus: einsum at the f32 wire
-        cfg = _cfg("olmoe-1b-7b")
-        state = ts.init_train_state(cfg, A, adam(), torch.Generator().manual_seed(0), flat=False,
-                                    device="cpu")
-        mesh = _mesh((2, 2, 2))
-        placed = spmd.device_put(state, param_shardings(state, mesh, agent_leading=True))
-        kw = ({"consensus_impl": "ppermute", "mesh": mesh} if case == "ppermute"
-              else {"consensus_wire_dtype": torch.bfloat16})
-        step = ts.make_train_round_step(cfg, W, opt=adam(), **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP 10i"):
-            step(placed, {"tokens": torch.zeros((A, 2, 4), dtype=torch.long),
-                          "targets": torch.zeros((A, 2, 4), dtype=torch.long)})
-    else:
-        cfg = _cfg(case)
-        for shape in ((2, 2, 1), (2, 1, 2)):
-            mesh = _mesh(shape)
-            params = _params(cfg)
-            params = spmd.device_put(params, param_shardings(params, mesh, agent_leading=True))
-            toks = torch.zeros((A, 2, 4), dtype=torch.long)
-            with pytest.raises(NotImplementedError, match="ROADMAP 10i"):
-                ts.make_prefill_step(cfg)(params, {"tokens": toks}, None)
-            with pytest.raises(NotImplementedError, match="ROADMAP 10i"):
-                ts.make_decode_step(cfg)(params, toks[..., :1], 4, None)
-    state = ts.init_train_state(_cfg("repro-100m"), A, adam(), torch.Generator().manual_seed(0),
-                                device="cpu")
+    cfg = _cfg("repro-100m" if case == "flat_state" else "olmoe-1b-7b")
+    state = ts.init_train_state(cfg, A, adam(), torch.Generator().manual_seed(0),
+                                flat=case == "flat_state", device="cpu")
     mesh = _mesh((2, 2, 2))
     placed = spmd.device_put(state, param_shardings(state, mesh, agent_leading=True))
-    step = ts.make_train_round_step(_cfg("repro-100m"), W, opt=adam())
-    with pytest.raises(NotImplementedError, match="ROADMAP 10i"):  # a flat state is pod-only
+    kw = {"ppermute": {"consensus_impl": "ppermute", "mesh": mesh},
+          "wire_bf16": {"consensus_wire_dtype": torch.bfloat16},
+          "wire_f16": {"consensus_wire_dtype": torch.float16}}.get(case, {})
+    step = ts.make_train_round_step(cfg, W, opt=adam(), **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP 10i"):
         step(placed, {"tokens": torch.zeros((A, 2, 4), dtype=torch.long),
                       "targets": torch.zeros((A, 2, 4), dtype=torch.long)})
 

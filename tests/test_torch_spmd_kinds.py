@@ -243,11 +243,10 @@ def test_sharded_train_round_against_the_reference(arch):
 @pytest.mark.parametrize("arch,change,what", [
     ("olmoe-1b-7b", {"n_experts": 3}, "experts"),
     ("recurrentgemma-9b", {"d_model": 250}, "recurrence channels"),
-    ("xlstm-1.3b", {}, "ROADMAP 10i")])
+    ("xlstm-1.3b", {"d_model": 4, "head_dim": 1}, "mLSTM head columns")])
 def test_schedule_refuses_what_does_not_split(arch, change, what):
     cfg = dataclasses.replace(_cfgs(arch)[1], **change)
     mesh = make_mesh((1, 1, 4), AXES, CPU)
-    error = NotImplementedError if what.startswith("ROADMAP") else ValueError
-    with pytest.raises(error, match=what):
+    with pytest.raises(ValueError, match=what):
         spmd_steps.sharded_schedule(cfg, mesh)
     assert not spmd_steps.sharded_schedule(cfg, make_mesh((2, 1, 1), AXES, CPU))
