@@ -262,7 +262,17 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    and cross-attention [4, 3, 224, 64] over 1,500 keys; the pytree round
    of reduced xLSTM and of Whisper-tiny at full width on (2, 2, 2), f32,
    within ``train_parity``; over two real cards where the host has them,
-   bitwise the virtual run.  ``3.moe_ep``: the
+   bitwise the virtual run.  ``3.lm_spmd_consensus``: the placed train
+   round's other routes at repro-100m's full width, f32, on (2, 2, 2), W
+   ``SPMD_WIRE_W``: the flat state at the f32 and bf16 einsum and at
+   ppermute, the pytree state at the bf16 einsum and at ppermute, each
+   against the unsharded round of its route within ``train_parity`` (the
+   priors' bf16 wire-boundary lanes held within a bf16 place), the
+   ppermute prior bitwise the unplaced ring's, the flat rows bitwise alike
+   over a pod's positions, the eq. (6) gathers, rotations and the flat
+   rows' re-join equal to their formulas, ms and peak memory, and the
+   network kernel at a position's block at the bf16 wire with W rounded
+   (row ``consensus_fused_network_spmd_wire``).  ``3.moe_ep``: the
    expert-parallel MoE layer at full width (OLMoE-1B-7B over a (1, 8)
    ``("data", "model")`` mesh, Phi-3.5-MoE over (1, 4), 16,384 bf16
    tokens, ``moe_init`` weights at seed 0 in bf16): at capacity factor 16
@@ -603,6 +613,15 @@ SPMD_LAYER_READ_S = 1_024
 # its time
 SPMD_XLSTM_S = 1_024
 SPMD_NEW_DECODE = 4
+# the placed train round's other routes (3.lm_spmd_consensus): the W of the
+# reference's own consensus tests, whose entries bf16 and f16 do not hold exactly
+# (LM_ZOO_W's 0.75 / 0.25 they do), so a wire route that left W unrounded shows;
+# the wire-boundary lanes (two priors at the bf16 wire rounding a statistic apart)
+# at most SPMD_FLIP_SHARE of the lanes, each within one bf16 place (BF16_PLACE) of
+# the value plus 1
+SPMD_WIRE_W = [[0.6, 0.4], [0.25, 0.75]]
+BF16_PLACE = 2.0 ** -8
+SPMD_FLIP_SHARE = 1e-3
 _START = time.perf_counter()
 
 
@@ -5132,38 +5151,52 @@ def run_lm_train_pod(dev, smi):
 
 
 def spmd_train_pair(name, cfg, state, W, mesh, batch, eps, tag="3.lm_spmd", profile=True,
-                    **kw):
+                    launches=None, on_placed=None, **kw):
     """Round steps of ``state`` unsharded and of it placed on ``mesh``
     (``param_shardings(state, mesh, agent_leading=True)``), each twice from
-    the same batch and ``eps`` (the second warm): (both new states on the
-    card, the metrics, the placed step's reading: device ms of each step
-    from CUDA events, first and warm, the network kernel's launches, the
-    gathered bytes and the peak memory of the first placed step, and, with
-    ``profile``, its kernels from a profile of one more)."""
+    the same batch and ``eps`` (the second warm; the first's result freed
+    before it): (both new states on the card, the metrics, the placed
+    step's reading: device ms of each step from CUDA events, first and
+    warm, the network kernel's launches (``launches``, default one a (data,
+    model) position), the gathered and rotated bytes and the peak memory of
+    the first placed step beside what was allocated before it, and, with
+    ``profile``, its kernels from a profile of one more; ``on_placed(state)``'s
+    reading of the warm step's placed state, before it is joined).  The
+    ppermute route's unplaced ring runs over ``mesh``."""
     import torch
 
     from repro_torch.kernels import dispatch
-    from repro_torch.launch import spmd, steps
+    from repro_torch.launch import consensus_opt, spmd, steps
     from repro_torch.launch.sharding import param_shardings
 
+    if kw.get("consensus_impl") == "ppermute":  # the unplaced ring's mesh and shardings
+        kw.update(mesh=mesh, posterior_shardings=param_shardings(
+            state, mesh, agent_leading=True).posterior)
     step = steps.make_train_round_step(cfg, W, **kw)
     (want, want_m), unsharded_first_ms = timed(lambda: step(state, batch, eps=eps))
+    del want, want_m
     (want, want_m), unsharded_ms = timed(lambda: step(state, batch, eps=eps))
     placed = spmd.device_put(state, param_shardings(state, mesh, agent_leading=True))
     torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     dispatch.reset_launch_counts()
     spmd.reset_spmd_counts()
+    consensus_opt.reset_rotation_counts()
     (got, got_m), first_ms = timed(lambda: step(placed, batch, eps=eps))
     torch.cuda.synchronize()
     counts, moved = dispatch.launch_counts(), spmd.spmd_counts()
+    rotated = consensus_opt.rotation_counts()
     peak = torch.cuda.max_memory_allocated()
+    del got, got_m
     (got, got_m), ms = timed(lambda: step(placed, batch, eps=eps))
     prof = (lm_profile(lambda: step(placed, batch, eps=eps)) if profile
             else {"device_kernels": "not measured"})
-    if counts["consensus_fused_network"] != mesh.size // mesh.shape["pod"]:
-        raise AssertionError(f"{tag} {name}: launches {counts}, one a (data, model) "
-                             f"position expected")
+    expect = mesh.size // mesh.shape["pod"] if launches is None else launches
+    if counts["consensus_fused_network"] != expect:
+        raise AssertionError(f"{tag} {name}: launches {counts}, {expect} of the network "
+                             f"kernel expected")
+    placed_reading = None if on_placed is None else on_placed(got)
     got = spmd.device_get(got)
     reading = {"mesh": mesh.shape, "ms": ms, "first_ms": first_ms,
                "unsharded_ms": unsharded_ms, "unsharded_first_ms": unsharded_first_ms,
@@ -5172,9 +5205,11 @@ def spmd_train_pair(name, cfg, state, W, mesh, batch, eps, tag="3.lm_spmd", prof
                "spmd": {k: v for k, v in moved.items() if k != "gather_by_position"},
                "gather_bytes_by_position_max": max(moved["gather_by_position"].values(),
                                                    default=0),
-               "kernels_a_step": prof["device_kernels"], "profile": prof,
-               "max_memory_allocated": peak,
+               "rotated": rotated, "kernels_a_step": prof["device_kernels"], "profile": prof,
+               "max_memory_allocated": peak, "memory_allocated_before": before,
                "loss": float(got_m["loss"]), "unsharded_loss": float(want_m["loss"])}
+    if placed_reading is not None:
+        reading["placed"] = placed_reading
     return got, want, got_m, want_m, reading
 
 
@@ -6247,6 +6282,278 @@ def run_lm_spmd_xlstm_whisper(dev, smi):
     return rows
 
 
+def wire_lanes(tag, got, want):
+    """Two priors at the bf16 wire (``[A, P]`` mean and rho pairs): the
+    lanes where they part by more than F32_TOL (a statistic at a wire
+    rounding boundary, rounded apart), each held within one bf16 place of
+    the value plus 1, at most SPMD_FLIP_SHARE of the lanes.  Returns (the
+    lanes, as one ``[A, P]`` bool, their count, the largest parting)."""
+    import torch
+
+    lanes, worst = None, 0.0
+    for g, w in zip(got, want):
+        err = (g - w).abs()
+        far = err > F32_TOL + F32_TOL * w.abs()
+        if not bool(torch.all(err <= F32_TOL + BF16_PLACE * (w.abs() + 1.0))):
+            raise AssertionError(f"{tag}: a prior lane beyond one bf16 place")
+        worst = max(worst, float(err.max()))
+        lanes = far if lanes is None else lanes | far
+    count = int(lanes.sum())
+    if count > SPMD_FLIP_SHARE * lanes.numel():
+        raise AssertionError(f"{tag}: {count} wire-boundary lanes of {lanes.numel()}")
+    return lanes, count, worst
+
+
+def run_lm_spmd_consensus(dev, smi):
+    """Phase 3.lm_spmd_consensus: the placed train round's other routes
+    (``launch.spmd_steps.train_round``): a flat state under data x model,
+    the ppermute consensus and the bf16 wire.  repro-100m at full width
+    (P = 163,597,056 an agent), float32 compute, 3.lm_spmd's A = 2, batch,
+    Adam, lr and kl_scale, W = SPMD_WIRE_W, agent 1's mean moved by one
+    seeded draw, on (2, 2, 2) virtual positions of the card.  Cases, each
+    one placed round step against the unsharded round step of the same
+    route from one ``eps`` (``spmd_train_pair``, no profile), within
+    ``train_parity``: the flat state at the f32 einsum, at the bf16 einsum
+    and at ppermute (bf16, its default); the pytree state at the bf16
+    einsum and at ppermute.  At the bf16 einsum the priors' wire-boundary
+    lanes (``wire_lanes``: the network kernel's, handed W rounded through
+    the wire, against ``consensus_einsum(_flat)``'s) are held within one
+    bf16 place and exempted from PARITY_ATOL in the round; the ppermute
+    prior (``spmd_steps.pod_ppermute``) is bitwise the unplaced ring's
+    (``consensus_ppermute_ring_flat`` / ``consensus_ppermute_pod``); every
+    position of a pod holds the flat rows bitwise alike.  Bytes, each
+    case's equal to formulas: the local step's gathers
+    (``forward_gather_bytes``), all-reduces (the forward's, a replicated
+    leaf's gradient over each axis it is replicated on, the NLL's sum over
+    data) and all-gathers (the logits' column blocks over model), the
+    einsum's gathers (the cost model's f32 exchange a (data, model)
+    position; its bf16 wire bytes beside), the flat rows' re-join (six
+    times ``rejoin_bytes``), the rotations (the cost model's bf16 wire
+    bytes, both ring directions for the flat state).  Returns the kernel line's
+    ``consensus_fused_network_spmd_wire`` row: the network kernel at
+    position (0, 0, 0)'s block, the bf16 wire, W rounded through it."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.posterior import GaussianPosterior
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.data.pipeline import make_lm_batch_sampler
+    from repro_torch.kernels import consensus as kc
+    from repro_torch.launch import consensus_opt as co
+    from repro_torch.launch import spmd, spmd_steps, steps
+    from repro_torch.launch.costmodel import consensus_roofline
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import param_shardings
+    from repro_torch.optim import adam
+    from repro_torch.optim.schedules import exponential_decay
+
+    tag = "3.lm_spmd_consensus"
+    bf16 = torch.bfloat16
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), dtype="float32")
+    a, b, s = TRAIN_AGENTS, TRAIN_BATCH, TRAIN_S
+    torch.cuda.empty_cache()
+    opt = adam()
+    kw = dict(opt=opt, lr_schedule=exponential_decay(TRAIN_LR, TRAIN_LR_DECAY ** (1.0 / TRAIN_U)),
+              kl_scale=TRAIN_KL, remat=False)
+    W = torch.as_tensor(SPMD_WIRE_W, dtype=torch.float32, device=dev)
+    w_wire = W.to(bf16).float()
+    flat = steps.init_train_state(cfg, a, opt, torch.Generator(device=dev).manual_seed(0),
+                                  device=dev)
+    layout, p = flat.posterior.layout, flat.posterior.layout.n_params
+    gen = torch.Generator(device=dev).manual_seed(1)
+    flat.posterior.mean[1] += 1e-2 * torch.randn(p, generator=gen, device=dev)
+    batch = make_lm_batch_sampler(cfg.vocab_size, b, s, n_agents=a, device=dev)(gen, 0)
+    eps = torch.randn((a, p), generator=gen, device=dev)
+    mesh = make_mesh((2, 2, 2), ("pod", "data", "model"), dev)
+    k = mesh.size // mesh.shape["pod"]
+
+    def rows_alike(state):  # every position of a pod holds its rows bitwise alike
+        pods = [pos["pod"] for pos in mesh.positions()]
+        same = True
+        for buf in tree_leaves(state.posterior) + tree_leaves(state.opt_state):
+            first = {}
+            same &= all(torch.equal(first.setdefault(pod, blk), blk)
+                        for pod, blk in zip(pods, buf.blocks))
+        return {"rows_bitwise_alike": same}
+
+    def block_sizes(post):  # n of each (data, model) position's [A, n] eq. (6) block
+        return [sum(x.blocks[i][0].numel() for x in tree_leaves(post.mean)) for i in range(k)]
+
+    def roofline_bytes(sizes, wire):
+        return sum(consensus_roofline(a, n, len(layout.specs), wire_dtype=wire)["wire"]
+                   ["collective_bytes"] for n in sizes)
+
+    # a round's traffic as formulas: the local step's (the forward's gathers and
+    # all-reduces, a replicated leaf's gradient all-reduced over each axis it is
+    # replicated on, the NLL's sum over data, the logits' column blocks gathered
+    # over model), then eq. (6)'s gathers and the flat rows' re-join
+    shapes = layout.unflatten(torch.empty((a, p), device="meta"))
+    fwd = spmd_steps.forward_gather_bytes(cfg, mesh, b, s, 4, a)
+    _, dd, mm = spmd.mesh_sizes(mesh)
+    grads = n_block = 0  # n_block: what a (data, model) position holds of an agent's row
+    for x, sh in zip(tree_leaves(shapes), tree_leaves(param_shardings(shapes, mesh,
+                                                                      agent_leading=True))):
+        used = {ax for e in sh.spec if e is not None for ax in (e if isinstance(e, tuple) else (e,))}
+        blk = x[0].numel() // (spmd.shard_factor(sh) // mesh.shape["pod"])
+        n_block += blk
+        for axis in {"data", "model"} - used:
+            g = mesh.shape[axis]
+            grads += 2 * a * (k // g) * 2 * (g - 1) * blk * 4
+    local = {"gather_bytes": fwd["gather"],
+             "all_reduce_bytes": fwd["all_reduce"] + grads + a * 2 * (dd - 1) * 4,
+             "all_gather_bytes": a * dd * mm * (mm - 1) * (b // dd) * s * (cfg.padded_vocab // mm)
+             * 4}
+    eq6 = roofline_bytes([n_block] * k, "f32")
+    rejoin = 6 * spmd_steps.rejoin_bytes(layout, mesh, a)
+
+    def case(form, name, state, e, route, prior_check):
+        """One placed round step against the unsharded one (``route`` the
+        step's consensus keywords), ``prior_check(placed posterior)`` first;
+        its traffic against the formulas.  Returns the reading."""
+        ppermute = route.get("consensus_impl") == "ppermute"
+        placed = spmd.device_put(state.posterior, param_shardings(state.posterior, mesh,
+                                                                  agent_leading=True))
+        prior = prior_check(placed)
+        del placed
+        torch.cuda.empty_cache()
+        got, want, got_m, want_m, run = spmd_train_pair(
+            f"{form} {name}", cfg, state, W, mesh, batch, e, tag=tag, profile=False,
+            launches=0 if ppermute else k, on_placed=rows_alike if form == "flat" else None,
+            **kw, **route)
+        if form == "flat" and not run["placed"]["rows_bitwise_alike"]:
+            raise AssertionError(f"{tag} {form} {name}: a pod's positions hold other rows")
+        g, w = (x if form == "flat" else flat_state(x) for x in (got, want))
+        noise = adam_noise_lanes(g, w)
+        exempt = 2 * TRAIN_LR
+        lanes = prior.pop("lanes", None)
+        if lanes is not None and bool(lanes.any()):  # a wire-boundary lane: one bf16 place more
+            noise = noise | lanes
+            exempt += BF16_PLACE * (1.0 + float(w.posterior.mean.abs().max()))
+        run["parity"] = train_parity(g, w, noise, exempt)
+        run["prior"] = prior
+        run["metrics_max_abs_err"] = {x: float((got_m[x] - want_m[x]).abs().max())
+                                      for x in ("loss", "nll", "kl")}
+        if run["parity"]["failures"]:
+            raise AssertionError(f"{tag} {form} {name} (2, 2, 2) vs unsharded: {run}")
+        want_bytes = dict(local)
+        want_bytes["all_gather_bytes"] += ((0 if ppermute else eq6)
+                                           + (rejoin if form == "flat" else 0))
+        run["traffic_formula"] = want_bytes
+        if any(run["spmd"][x] != y for x, y in want_bytes.items()):
+            raise AssertionError(f"{tag} {form} {name}: moved {run['spmd']}, formula {want_bytes}")
+        del got, want, g, w, noise
+        torch.cuda.empty_cache()
+        return run
+
+    def einsum_prior(form, unplaced):
+        def check(placed):
+            view = (spmd_steps.FlatRows(layout, placed.mean).as_tree(placed) if form == "flat"
+                    else placed)
+            spmd.reset_spmd_counts()
+            got = spmd_steps.pod_consensus(view, W, bf16)
+            moved = spmd.spmd_counts()["all_gather_bytes"]
+            got = flat_view(spmd.device_get(got))
+            want = unplaced()
+            lanes, count, worst = wire_lanes(f"{tag} {form}", (got.mean, got.rho),
+                                             (want.mean, want.rho))
+            sizes = block_sizes(view)
+            formula = roofline_bytes(sizes, "f32")
+            if moved != formula:
+                raise AssertionError(f"{tag} {form}: eq. (6) gathered {moved} bytes, the "
+                                     f"cost model's f32 exchange {formula}")
+            return {"lanes": lanes, "wire_boundary_lanes": count, "max_abs_err": worst,
+                    "block_sizes": sizes, "gather_bytes": moved, "gather_bytes_formula": formula,
+                    "wire_bytes_bf16_cost_model": roofline_bytes(sizes, "bf16")}
+        return check
+
+    def ppermute_prior(form, unplaced, both_ways):
+        def check(placed):
+            co.reset_rotation_counts()
+            got = spmd.device_get(spmd_steps.pod_ppermute(placed, W, bf16))
+            rotated = co.rotation_counts()
+            want = unplaced()
+            same = all(torch.equal(x, y) for x, y in zip(tree_leaves(got), tree_leaves(want)))
+            if not same:
+                raise AssertionError(f"{tag} {form} ppermute: the placed prior is not the "
+                                     f"unplaced ring's")
+            sizes = [p] * k if form == "flat" else block_sizes(placed)
+            formula = (2 if both_ways else 1) * roofline_bytes(sizes, "bf16")
+            if rotated["bytes"] != formula:
+                raise AssertionError(f"{tag} {form} ppermute: rotated {rotated}, formula "
+                                     f"{formula}")
+            return {"bitwise_unplaced": same, "rotated": rotated, "rotated_formula": formula}
+        return check
+
+    runs = {}
+    runs["flat_einsum_f32"] = case(
+        "flat", "einsum f32", flat, eps, {},
+        lambda placed: {"block_sizes": block_sizes(spmd_steps.FlatRows(
+            layout, placed.mean).as_tree(placed))})
+    runs["flat_einsum_bf16"] = case(
+        "flat", "einsum bf16", flat, eps, {"consensus_wire_dtype": bf16},
+        einsum_prior("flat", lambda: co.consensus_einsum_flat(flat.posterior, W, bf16)))
+    runs["flat_ppermute"] = case(
+        "flat", "ppermute", flat, eps, {"consensus_impl": "ppermute"},
+        ppermute_prior("flat", lambda: co.consensus_ppermute_ring_flat(
+            flat.posterior, mesh, "pod", wire_dtype=bf16, W=W), True))
+
+    # the network kernel at position (0, 0, 0)'s block of the flat rows, bf16 wire
+    placed = spmd.device_put(flat.posterior, param_shardings(flat.posterior, mesh,
+                                                             agent_leading=True))
+    view = spmd_steps.FlatRows(layout, placed.mean).as_tree(placed)
+    group = [0, mesh.size // 2]  # (0, 0, 0) and (1, 0, 0)
+    blocks = [torch.cat([x.blocks[j].reshape(1, -1) for x in tree_leaves(field)], 1)
+              for field in (view.mean, view.rho) for j in group]
+    mean_blk, rho_blk = torch.cat(blocks[:2]).contiguous(), torch.cat(blocks[2:]).contiguous()
+    del blocks, view, placed
+    network = functools.partial(kc.consensus_fused_network, w_wire, mean_blk, rho_blk,
+                                wire_dtype=bf16)
+    plain = functools.partial(kc.consensus_network_plain, w_wire, mean_blk, rho_blk, bf16)
+    got_k, want_k = network(), plain()
+    lanes, flips, eq6_err = wire_lanes(f"{tag} row 1sw", got_k, want_k)
+    off_boundary = max(float((g_ - w_).abs().masked_fill(lanes, 0.0).max())
+                       for g_, w_ in zip(got_k, want_k))
+    del got_k, want_k, lanes
+    n = mean_blk.shape[1]
+    nbytes, ops = 16 * a * n + 4 * a * a, 4 * a * a * n + 20 * a * n
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOP_PER_S * 1e3
+    wire_row = {"name": "consensus_fused_network_spmd_wire", "route": "cuda",
+                "source": SRC + "consensus_network.cu", "replaces": REF + "195",
+                "launches": runs["flat_einsum_bf16"]["consensus_fused_network"],
+                "max_abs_err": eq6_err, "ms": cuda_ms(network), "plain_ms": event_ms(plain),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None}
+    kernel = {"n": n, "wire_boundary_lanes": flips, "max_abs_err_off_boundary": off_boundary,
+              "atol": F32_TOL, **{x: wire_row[x] for x in ("ms", "plain_ms", "bound_ms")}}
+    del mean_blk, rho_blk, network, plain
+
+    # the pytree form of the same state, alone on the card
+    post = GaussianPosterior(mean=tree_map(torch.clone, layout.unflatten(flat.posterior.mean)),
+                             rho=tree_map(torch.clone, layout.unflatten(flat.posterior.rho)))
+    tree = steps.BayesTrainState(posterior=post, opt_state=opt.init(post), step=flat.step)
+    del flat, post
+    torch.cuda.empty_cache()
+    e = layout.unflatten(eps)
+    runs["pytree_einsum_bf16"] = case(
+        "pytree", "einsum bf16", tree, e, {"consensus_wire_dtype": bf16},
+        einsum_prior("pytree", lambda: flat_view(co.consensus_einsum(tree.posterior, W, bf16))))
+    runs["pytree_ppermute"] = case(
+        "pytree", "ppermute", tree, e, {"consensus_impl": "ppermute"},
+        ppermute_prior("pytree", lambda: co.consensus_ppermute_pod(
+            tree.posterior, W, mesh, param_shardings(tree.posterior, mesh,
+                                                     agent_leading=True), bf16), False))
+    del tree, e, eps, batch
+    torch.cuda.empty_cache()
+
+    bytes_ = {"local_step": local, "eq6_gather_f32": eq6,
+              "eq6_wire_bf16_cost_model": roofline_bytes([n_block] * k, "bf16"),
+              "rejoin": rejoin, "rejoin_k_minus_1_rows": 6 * (k - 1) * a * p * 4}
+    phase(tag, nvidia_smi=smi, model=cfg.name, agents=a, batch_per_agent=b, seq=s,
+          n_params_per_agent=p, mesh=mesh.shape, W=SPMD_WIRE_W, runs=runs, bytes=bytes_,
+          kernel_1sw=kernel)
+    return [wire_row]
+
+
 def run_moe_ep(dev, smi):
     """Phase 3.moe_ep: the expert-parallel MoE layer
     (``launch.expert_parallel.moe_ffn_expert_parallel``) at full layer
@@ -6410,6 +6717,7 @@ def main() -> int:
     spmd_rows = run_lm_spmd(dev, smi)
     spmd_rows += run_lm_spmd_kinds(dev, smi)
     spmd_rows += run_lm_spmd_xlstm_whisper(dev, smi)
+    spmd_rows += run_lm_spmd_consensus(dev, smi)
     run_moe_ep(dev, smi)
     card_vs_cpu("4.parity", session, fig4_spec())
     card_vs_cpu("4.launch_parity", l_session, launch_spec())

@@ -33,6 +33,10 @@ results back.
   same W and wire (on the CPU PyTorch's elementwise kernels take another
   path for a buffer's last lanes, so a leaf's tail may differ in the last
   bit).
+* ``ring_blocks``: the one core of every ring form above and of their
+  placed forms (``launch.spmd_steps.pod_ppermute``, on the blocks each
+  mesh position holds): per holder the statistics, the rotations from its
+  neighbours, and the mix, so a placed ring is bitwise its unplaced form.
 * ``consensus_einsum`` / ``consensus_einsum_flat``: dense eq. (6) with the
   exchanged statistics and W rounded to the wire dtype and accumulated in
   float32 (plain PyTorch, the reference's einsum baseline).
@@ -70,8 +74,9 @@ _moved = {"rotations": 0, "copies": 0, "bytes": 0}
 
 
 def rotation_counts() -> dict[str, int]:
-    """Rotations (one per fired offset and call), block copies and bytes
-    copied since the last ``reset_rotation_counts``."""
+    """Rotations (one per fired offset of a window, one per direction of a
+    ring's ``ring_blocks`` call), block copies and bytes copied since the
+    last ``reset_rotation_counts``."""
     return dict(_moved)
 
 
@@ -237,26 +242,59 @@ def _mix(m, prec, prev, nxt, weights):
     return new_pm / new_prec, softplus_inv(torch.sqrt(1.0 / new_prec))
 
 
+def ring_blocks(blocks: list, index, peer, n: int, wd, weights, both_ways: bool) -> list:
+    """Eq. (6) on a ring of ``n``, one block a holder: ``blocks[k]`` holder
+    k's (mean, rho) block on its device, ``index(k)`` its place on the ring,
+    ``peer(k, d)`` the holder ``d`` steps along the ring from it,
+    ``weights(i, device)`` the (self, prev, next) of ring place ``i``.  A
+    holder mixes its block with the decoded wire pair of the holder before
+    it and, for more than two places or ``both_ways``, of the one after (a
+    missing one mixes as zeros).  Each direction is one rotation, every
+    holder's pair copied by ``rotate``.  Returns each holder's (mean',
+    rho').  Every form of the ring (flat and leaf-wise, placed or not)
+    computes here, so they agree term for term."""
+    local = [(m, *_stats(m, r, wd)) for m, r in blocks]
+    shifts = (-1, 1) if n > 2 or both_ways else (-1,)
+    _moved["rotations"] += len(shifts)
+    out = []
+    for k, (m, prec, _) in enumerate(local):
+        zero = torch.zeros((), device=m.device)
+        recv = {d: _receive(local[peer(k, d)][2], m.device) for d in shifts}
+        out.append(_mix(m, prec, recv[-1], recv.get(1, (zero, zero)),
+                        weights(index(k), m.device)))
+    return out
+
+
+def axis_peers(mesh, axis: str):
+    """(index, peer) of ``ring_blocks`` for the positions of ``mesh``
+    (row-major) around its ``axis``."""
+    positions = list(mesh.positions())
+    where = {tuple(sorted(pos.items())): k for k, pos in enumerate(positions)}
+    n = mesh.shape[axis]
+
+    def peer(k, d):
+        pos = positions[k]
+        return where[tuple(sorted({**pos, axis: (pos[axis] + d) % n}.items()))]
+
+    return (lambda k: positions[k][axis]), peer
+
+
+def row_weights(W, n: int):
+    """``ring_blocks``' weights from an ``[n, n]`` W's rows."""
+    return lambda i, dev: _row_weights(W, i, n, dev)
+
+
 def _ring_eq6(mean, rho, mesh, axis, wd, weights):
     """Eq. (6) of ``[N, F]`` buffers on a bidirectional ring of shards:
     shard i mixes its block with the wire-dtype blocks of shards i - 1 and
     i + 1, rotated to it; ``weights(i)`` gives its (self, prev, next)."""
     n_shards, per = _shards(mesh, axis, mean.shape[0])
-    blocks = [slice(s * per, (s + 1) * per) for s in range(n_shards)]
-    local = []
-    for s, dev in enumerate(_axis_devices(mesh, axis, mean.device)):
-        m, r = mean[blocks[s]].to(dev), rho[blocks[s]].to(dev)
-        local.append((m, *_stats(m, r, wd)))
-    mean_out, rho_out = torch.empty_like(mean), torch.empty_like(rho)
-    for i, (m, prec, _) in enumerate(local):
-        recv = []
-        for src in ((i - 1) % n_shards, (i + 1) % n_shards):  # from i - 1, from i + 1
-            _moved["rotations"] += 1
-            recv.append(_receive(local[src][2], m.device))
-        new_mean, new_rho = _mix(m, prec, *recv, weights(i, m.device))
-        mean_out[blocks[i]] = new_mean.to(mean.device)
-        rho_out[blocks[i]] = new_rho.to(mean.device)
-    return mean_out, rho_out
+    blocks = [(mean[s * per:(s + 1) * per].to(dev), rho[s * per:(s + 1) * per].to(dev))
+              for s, dev in enumerate(_axis_devices(mesh, axis, mean.device))]
+    out = ring_blocks(blocks, lambda k: k, lambda k, d: (k + d) % n_shards, n_shards, wd,
+                      weights, both_ways=True)
+    return (torch.cat([m.to(mean.device) for m, _ in out]),
+            torch.cat([r.to(rho.device) for _, r in out]))
 
 
 def consensus_ppermute_ring_flat(posts: FlatPosterior, mesh: AgentMesh, axis: str = AGENTS,
@@ -275,9 +313,7 @@ def consensus_ppermute_ring_flat(posts: FlatPosterior, mesh: AgentMesh, axis: st
         def weights(i, dev):
             return static
     else:
-        def weights(i, dev):
-            return _row_weights(W, i, n, dev)
-
+        weights = row_weights(W, n)
     mean, rho = _ring_eq6(posts.mean, posts.rho, mesh, axis, wd, weights)
     return dataclasses.replace(posts, mean=mean, rho=rho)
 
@@ -303,35 +339,15 @@ def consensus_ppermute_pod(posts: GaussianPosterior, W, mesh, shardings,
     ``rotation_counts()``."""
     wd = canonical_wire_dtype(wire_dtype)
     n = mesh.shape[axis]
-    positions = list(mesh.positions())
-    where = {tuple(sorted(pos.items())): k for k, pos in enumerate(positions)}
-
-    def peer(pos, d):
-        return where[tuple(sorted({**pos, axis: (pos[axis] + d) % n}.items()))]
-
-    shifts = (-1, 1) if n > 2 else (-1,)
+    index, peer = axis_peers(mesh, axis)
     means, rhos = [], []
     for path, m in tree_flatten_with_path(posts.mean):
         r, s = tree_at(posts.rho, path), tree_at(shardings.mean, path)
         sh = s if isinstance(s, NamedSharding) else NamedSharding(mesh, s)
-        local = []
-        for mb, rb in zip(shard_blocks(m, sh), shard_blocks(r, sh)):
-            local.append((mb, *_stats(mb, rb, wd)))
-        recv = {}
-        for d in shifts:
-            _moved["rotations"] += 1
-            for k, pos in enumerate(positions):
-                recv[k, d] = _receive(local[peer(pos, d)][2], local[k][0].device)
-        out_m, out_r = [], []
-        for k, (pos, (mb, prec, _)) in enumerate(zip(positions, local)):
-            zero = torch.zeros((), device=mb.device)
-            nxt = recv[k, 1] if n > 2 else (zero, zero)
-            new_m, new_r = _mix(mb, prec, recv[k, -1], nxt,
-                                _row_weights(W, pos[axis], n, mb.device))
-            out_m.append(new_m)
-            out_r.append(new_r)
-        means.append(join_blocks(out_m, sh, device=m.device))
-        rhos.append(join_blocks(out_r, sh, device=r.device))
+        out = ring_blocks(list(zip(shard_blocks(m, sh), shard_blocks(r, sh))), index, peer, n,
+                          wd, row_weights(W, n), both_ways=False)
+        means.append(join_blocks([x for x, _ in out], sh, device=m.device))
+        rhos.append(join_blocks([x for _, x in out], sh, device=r.device))
     return GaussianPosterior(mean=tree_replace_leaves(posts.mean, means),
                              rho=tree_replace_leaves(posts.rho, rhos))
 
@@ -397,7 +413,8 @@ def consensus_einsum_flat(posts: FlatPosterior, W, wire_dtype=torch.float32) -> 
 
 
 __all__ = [
-    "consensus_einsum", "consensus_einsum_flat", "consensus_ppermute_pod",
+    "axis_peers", "consensus_einsum", "consensus_einsum_flat", "consensus_ppermute_pod",
     "consensus_ppermute_ring", "consensus_ppermute_ring_flat", "consensus_ppermute_window",
-    "reset_rotation_counts", "ring_weights", "rotate", "rotation_counts", "window_shard_offsets",
+    "reset_rotation_counts", "ring_blocks", "ring_weights", "rotate", "rotation_counts",
+    "row_weights", "window_shard_offsets",
 ]

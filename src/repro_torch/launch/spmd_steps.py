@@ -104,13 +104,27 @@ agent_leading=True)``, ``cache_shardings``, ``batch_pspec``).  Two schedules:
   B, T, V]``, joined over ``data`` and ``model``.  ``forward_gather_bytes``
   is the schedule's traffic as a formula.
 
-The train round (``consensus_impl="einsum"``, the reference's default):
-eq. (6) gathers each ``(data, model)`` position's blocks over ``pod``,
-concatenated over the leaves into ``[A, n]``, and runs
-``kernels.consensus.consensus_fused_network`` on them (one launch a
-``(data, model)`` position, on its first pod position's device; the plain
-version on the CPU), each pod position taking its agents' rows back.  The
-local step:
+The train round runs every route of the reference's
+``make_train_round_step`` on a placed state, flat or pytree, on a pod-only
+or a data x model mesh.  Eq. (6) by ``consensus_impl``:
+
+* ``"einsum"`` (the default), at the f32, bf16 or f16 wire
+  (``pod_consensus``): each ``(data, model)`` position's blocks gathered
+  over ``pod``, concatenated over the leaves into ``[A, n]``, and
+  ``kernels.consensus.consensus_fused_network`` run on them (one launch a
+  ``(data, model)`` position, on its first pod position's device; the
+  plain version on the CPU), each pod position taking its agents' rows
+  back.  At a bf16 / f16 wire the kernel rounds the exchanged statistics
+  and is handed W rounded through the wire, as the reference's
+  ``consensus_einsum(_flat)`` rounds both;
+* ``"ppermute"`` (``pod_ppermute``), bf16 unless a wire is given: each
+  position mixes the blocks it holds with the rotated wire pairs of its
+  neighbours along ``pod`` (``launch.consensus_opt.ring_blocks``, the
+  unplaced ring's own arithmetic, so the prior is bitwise the unplaced
+  ``consensus_ppermute_ring_flat`` / ``consensus_ppermute_pod``);
+* ``"none"``.
+
+The local step:
 
 * pod-only: ``vi.bayes_by_backprop.blocked_update`` on each pod position's
   blocks, the unsharded step's own code (one agent a block where the
@@ -127,9 +141,18 @@ local step:
   its two uses so).  The gradient of a leaf replicated over an axis is
   all-reduced over it.  Adam then runs on each position's blocks.  The
   activations are kept (``remat`` is a memory choice that changes no bit;
-  a position holds its share of them).  A flat state has the spec
-  ``("pod", None)``: it runs pod-only; under data x model it, the
-  ppermute consensus and a bf16 / f16 wire are refused (ROADMAP 10i).
+  a position holds its share of them).
+
+A flat state has the spec ``("pod", None)``: its rows are replicated over
+data x model.  On a pod-only mesh it runs as above.  Under data x model it
+runs as the parameter dict its rows flatten (``FlatRows``): the ppermute
+ring on each position's whole row, then each position's blocks of every
+leaf taken as views of its own row (nothing moves), ``pod_consensus`` and
+the pytree local step on them (each position's eq. (6) on about a
+``1 / (data x model)`` share of the row), and the posterior's and Adam's
+rows joined again on every position, an all-gather over data x model
+(``rejoin_bytes``).  So under ``"einsum"`` and ``"none"`` the round is
+bitwise the placed pytree round of the same posterior.
 """
 from __future__ import annotations
 
@@ -143,6 +166,7 @@ from repro_torch.core.numerics import canonical_wire_dtype, softplus
 from repro_torch.core.posterior import _leaf_kl
 from repro_torch.core.tree import tree_leaves, tree_map, tree_replace_leaves
 from repro_torch.launch import spmd
+from repro_torch.launch.sharding import _block as narrow_block
 from repro_torch.launch.sharding import (
     NamedSharding,
     batch_pspec,
@@ -875,12 +899,16 @@ def pod_consensus(post, W, wire_dtype=None):
     ``(data, model)`` position, its leaf blocks concatenated into one row
     block a pod position, gathered into ``[A, n]`` on the first pod
     position's device, ``consensus_fused_network`` once, and each pod
-    position's rows copied back and split into its blocks."""
+    position's rows copied back and split into its blocks.  At a bf16 / f16
+    ``wire_dtype`` the kernel rounds the statistics and is handed W rounded
+    through the wire too, as the reference's ``consensus_einsum`` rounds
+    both."""
     from repro_torch.kernels.consensus import consensus_fused_network
 
     means, rhos = tree_leaves(post.mean), tree_leaves(post.rho)
     mesh = means[0].mesh
-    W = torch.as_tensor(W, dtype=torch.float32)
+    wd = canonical_wire_dtype(wire_dtype)
+    W = torch.as_tensor(W, dtype=torch.float32).to(wd).to(torch.float32)
     new = [[None] * mesh.size for _ in range(len(means) + len(rhos))]
     for group in spmd.axis_groups(mesh, "pod", range(mesh.size)):
         root = means[0].blocks[group[0]].device
@@ -893,7 +921,7 @@ def pod_consensus(post, W, wire_dtype=None):
         per = m_rows[0].shape[0]
         nm, nr = consensus_fused_network(
             W.to(root), torch.cat([x.to(root) for x in m_rows]).contiguous(),
-            torch.cat([x.to(root) for x in r_rows]).contiguous(), wire_dtype=wire_dtype)
+            torch.cat([x.to(root) for x in r_rows]).contiguous(), wire_dtype=wd)
         # in: the other pods' mean and rho row blocks; out: their new rows
         spmd.record("all_gather",
                     4 * (len(group) - 1) * m_rows[0].numel() * m_rows[0].element_size())
@@ -911,6 +939,129 @@ def pod_consensus(post, W, wire_dtype=None):
               for x, blocks in zip(means + rhos, new)]
     return dataclasses.replace(post, mean=tree_replace_leaves(post.mean, leaves[:len(means)]),
                                rho=tree_replace_leaves(post.rho, leaves[len(means):]))
+
+
+def pod_ppermute(post, W, wire_dtype):
+    """The ppermute consensus on a placed posterior, each position on the
+    blocks it holds (``launch.consensus_opt.ring_blocks`` around ``pod``,
+    W's row of its pod): a flat state's rows as
+    ``consensus_ppermute_ring_flat`` mixes them (both ring directions, over
+    the axis of the rows' spec), a pytree's leaves as
+    ``consensus_ppermute_pod`` (one direction for two pods).  A row or leaf
+    replicated over ``data`` x ``model`` is mixed on every position holding
+    it, as each device of the reference's ``shard_map`` mixes its own."""
+    from repro_torch.launch import consensus_opt as co
+
+    flat = isinstance(post, FlatPosterior)
+    means, rhos = tree_leaves(post.mean), tree_leaves(post.rho)
+    mesh = means[0].mesh
+    axis = (means[0].sharding.spec[0] if flat else None) or "pod"
+    n = mesh.shape[axis]
+    index, peer = co.axis_peers(mesh, axis)
+    out_m, out_r = [], []
+    for m, r in zip(means, rhos):
+        out = co.ring_blocks(list(zip(m.blocks, r.blocks)), index, peer, n,
+                             canonical_wire_dtype(wire_dtype), co.row_weights(W, n),
+                             both_ways=flat)
+        out_m.append(spmd.Placed(m.sharding, [x for x, _ in out], m.shape, m.dtype))
+        out_r.append(spmd.Placed(r.sharding, [x for _, x in out], r.shape, r.dtype))
+    return dataclasses.replace(post, mean=tree_replace_leaves(post.mean, out_m),
+                               rho=tree_replace_leaves(post.rho, out_r))
+
+
+class FlatRows:
+    """A flat state's placed ``[A, P]`` rows (spec ``("pod", None)``:
+    replicated over ``data`` x ``model``) seen as the parameter dict they
+    flatten, under that dict's ``param_shardings``: ``tree`` gives each
+    position its block of every leaf as a view of its own row (nothing
+    moves); ``rows`` joins the blocks of such a tree back into a whole row
+    on every position, an all-gather over ``data`` x ``model``."""
+
+    def __init__(self, layout, rows: spmd.Placed):
+        self.layout, self.mesh = layout, rows.mesh
+        self.sharding, self.shape = rows.sharding, rows.shape
+        self.skeleton = layout.unflatten(torch.empty(rows.shape, device="meta"))
+        self.shardings = tree_leaves(param_shardings(self.skeleton, self.mesh,
+                                                     agent_leading=True))
+        self.positions = list(self.mesh.positions())
+
+    def _block(self, x, spec, i):
+        """Position ``i``'s block of ``x``, one pod's rows of a leaf."""
+        return narrow_block(x, ((0, 1),) + block_index(spec, self.mesh, self.positions[i])[1:])
+
+    def _leaf(self, row, spec):
+        return row[:, spec.offset:spec.offset + spec.size].view(row.shape[0], *spec.shape)
+
+    def tree(self, rows: spmd.Placed):
+        """``rows`` as the placed parameter dict (views of each position's row)."""
+        leaves = []
+        for spec, sh in zip(self.layout.specs, self.shardings):
+            blocks = [self._block(self._leaf(row, spec), sh.spec, i)
+                      for i, row in enumerate(rows.blocks)]
+            leaves.append(spmd.Placed(sh, blocks, (self.shape[0],) + spec.shape, rows.dtype))
+        return tree_replace_leaves(self.skeleton, leaves)
+
+    def rows(self, tree) -> spmd.Placed:
+        """The placed leaves of ``tree`` joined into a whole row on every
+        position, its own blocks copied in place and the others from their
+        first holders in its pod: an all-gather over ``data`` x ``model``,
+        counted as one ``all_gather`` of what each position lacks of its
+        row (``rejoin_bytes``)."""
+        leaves = tree_leaves(tree)
+        blocks, moved = [], 0
+        for i, blk in enumerate(leaves[0].blocks):
+            pod = self.positions[i].get("pod", 0)
+            row = blk.new_empty((blk.shape[0], self.shape[1]))
+            for spec, sh, x in zip(self.layout.specs, self.shardings, leaves):
+                whole, seen = self._leaf(row, spec), {x.block_id(i)}
+                self._block(whole, sh.spec, i).copy_(x.blocks[i])
+                for j, b in enumerate(x.blocks):
+                    if self.positions[j].get("pod", 0) == pod and x.block_id(j) not in seen:
+                        seen.add(x.block_id(j))
+                        self._block(whole, sh.spec, j).copy_(b.to(row.device))
+                        moved += b.numel() * b.element_size()
+            blocks.append(row)
+        spmd.record("all_gather", moved)
+        return spmd.Placed(self.sharding, blocks, self.shape, leaves[0].dtype)
+
+    def as_tree(self, node):
+        """``node`` with every ``FlatPosterior`` of placed rows (the state's
+        posterior, Adam's moments) as a ``GaussianPosterior`` of ``tree``."""
+        from repro_torch.core.posterior import GaussianPosterior
+
+        if isinstance(node, FlatPosterior):
+            return GaussianPosterior(mean=self.tree(node.mean), rho=self.tree(node.rho))
+        if dataclasses.is_dataclass(node) and not isinstance(node, type):
+            return dataclasses.replace(node, **{f.name: self.as_tree(getattr(node, f.name))
+                                                for f in dataclasses.fields(node)})
+        return node
+
+    def as_rows(self, node, like):
+        """The inverse of ``as_tree``: every ``FlatPosterior`` of ``like``
+        taken from ``node``'s posterior of the same place, joined by ``rows``."""
+        if isinstance(like, FlatPosterior):
+            return dataclasses.replace(like, mean=self.rows(node.mean), rho=self.rows(node.rho))
+        if dataclasses.is_dataclass(like) and not isinstance(like, type):
+            return dataclasses.replace(like, **{f.name: self.as_rows(getattr(node, f.name),
+                                                                     getattr(like, f.name))
+                                                for f in dataclasses.fields(like)})
+        return node
+
+
+def rejoin_bytes(layout, mesh, n_agents: int, itemsize: int = 4) -> int:
+    """``FlatRows.rows``' counted bytes for one buffer, as a formula: a leaf
+    split into ``f`` distinct blocks over the ``k = data x model`` positions
+    of a pod is lacked, ``1 - 1/f`` of it, by each of them, so a row of
+    leaves all split ``k`` ways costs ``(k - 1)`` rows a pod."""
+    skeleton = layout.unflatten(torch.empty((n_agents, layout.n_params), device="meta"))
+    pods = mesh.shape.get("pod", 1)
+    k = mesh.size // pods
+    total = 0
+    for spec, sh in zip(layout.specs, tree_leaves(param_shardings(skeleton, mesh,
+                                                                  agent_leading=True))):
+        f = spmd.shard_factor(sh) // pods
+        total += k * (f - 1) * (n_agents * spec.size // f)
+    return total * itemsize
 
 
 def _nll(grid, theta_a, batch_a: dict, members):
@@ -1056,24 +1207,26 @@ def _pod_local(cfg, prior, opt, opt_state, batch, eps, lr, step, n_agents, kl_sc
 
 def train_round(cfg, state, batch: dict, eps, generator, *, W, opt, lr_schedule, kl_scale,
                 bayesian, remat, consensus_impl, wire_dtype):
-    """``launch.steps.make_train_round_step`` on a placed state."""
+    """``launch.steps.make_train_round_step`` on a placed state, flat or
+    pytree, on a pod-only or a ``data`` x ``model`` mesh: eq. (6) by
+    ``consensus_impl`` (``"einsum"``: ``pod_consensus`` at ``wire_dtype``,
+    f32 when ``None``; ``"ppermute"``: ``pod_ppermute``, bf16 unless
+    ``wire_dtype`` says otherwise; ``"none"``), then the local step.  A
+    flat state under ``data`` x ``model`` runs as the parameter dict its
+    rows flatten (``FlatRows``): the ppermute ring on each position's whole
+    row, then ``pod_consensus`` and the local step on the dict's blocks,
+    and its rows (mean, rho and Adam's moments) joined again on every
+    position."""
     from repro_torch.launch.steps import BayesTrainState
 
-    if (consensus_impl not in ("einsum", "none")
-            or canonical_wire_dtype(wire_dtype) != torch.float32):
-        raise NotImplementedError(
-            f"the placed train round runs consensus_impl='einsum' at the f32 wire ({NEXT}), "
-            f"asked for {consensus_impl!r} at {wire_dtype}")
     post = state.posterior
     mesh = mesh_of(post.mean)
-    flat = isinstance(post, FlatPosterior)
     sharded = sharded_schedule(cfg, mesh)
-    if flat and sharded:
-        raise NotImplementedError(f"a flat state's spec ('pod', None) replicates it over data x "
-                                  f"model; it runs on a pod-only mesh ({NEXT})")
     n_agents = tree_leaves(post.mean)[0].shape[0]
     batch = _place_batch(batch, mesh)
-    prior = post if consensus_impl == "none" else pod_consensus(post, W)
+    prior = post
+    if consensus_impl == "ppermute":
+        prior = pod_ppermute(post, W, wire_dtype or torch.bfloat16)
     if bayesian:
         if eps is None:
             eps = tree_map(lambda m: torch.randn(m.shape, generator=generator,
@@ -1081,17 +1234,28 @@ def train_round(cfg, state, batch: dict, eps, generator, *, W, opt, lr_schedule,
         eps = spmd.device_put(eps, tree_map(lambda m: m.sharding, post.mean))
     else:
         eps = None
+    rows = FlatRows(post.layout, post.mean) if isinstance(post, FlatPosterior) and sharded \
+        else None
+    opt_state = state.opt_state
+    if rows is not None:
+        prior, opt_state = rows.as_tree(prior), rows.as_tree(opt_state)
+        eps = None if eps is None else rows.tree(eps)
+    if consensus_impl == "einsum":
+        prior = pod_consensus(prior, W, wire_dtype)
     lr = lr_schedule(state.step.blocks[0])
     if sharded:
-        new_post, opt_state, (losses, nll, kl) = _sharded_local(
-            _Grid(cfg, mesh), prior, opt, state.opt_state, batch, eps, lr, state.step,
-            n_agents, kl_scale, bayesian)
+        new_post, new_opt, (losses, nll, kl) = _sharded_local(
+            _Grid(cfg, mesh), prior, opt, opt_state, batch, eps, lr, state.step, n_agents,
+            kl_scale, bayesian)
     else:
-        new_post, opt_state, (losses, nll, kl) = _pod_local(
-            cfg, prior, opt, state.opt_state, batch, eps, lr, state.step, n_agents, kl_scale,
+        new_post, new_opt, (losses, nll, kl) = _pod_local(
+            cfg, prior, opt, opt_state, batch, eps, lr, state.step, n_agents, kl_scale,
             bayesian, remat)
+    del prior, eps  # a flat state's prior rows: freed before its rows are joined again
+    if rows is not None:
+        new_post, new_opt = rows.as_rows(new_post, post), rows.as_rows(new_opt, state.opt_state)
     step = spmd.Placed(state.step.sharding, [s + 1 for s in state.step.blocks], (), torch.int32)
-    return (BayesTrainState(posterior=new_post, opt_state=opt_state, step=step),
+    return (BayesTrainState(posterior=new_post, opt_state=new_opt, step=step),
             {"loss": losses.mean(), "nll": nll, "kl": kl})
 
 
@@ -1296,5 +1460,6 @@ def forward_gather_bytes(cfg, mesh, rows: int, seq: int, itemsize: int, n_agents
             "bytes": gather + reduce + gather_all, "gather_per_position_max": most * itemsize}
 
 
-__all__ = ["SHARDED_KINDS", "apply_layer", "decode", "forward_gather_bytes", "moe_counts",
-           "pod_consensus", "prefill", "reset_moe_counts", "sharded_schedule", "train_round"]
+__all__ = ["SHARDED_KINDS", "FlatRows", "apply_layer", "decode", "forward_gather_bytes",
+           "moe_counts", "pod_consensus", "pod_ppermute", "prefill", "rejoin_bytes",
+           "reset_moe_counts", "sharded_schedule", "train_round"]

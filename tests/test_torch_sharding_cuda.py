@@ -22,13 +22,15 @@ file imports neither JAX nor the JAX package:
   steps, ``flash_attention`` once an attention layer a position (twice a
   ``dec_attn`` layer; the encoder's in the prefill and the step), two
   calls the same bits; the train round of repro-100m, a pytree state on
-  (2, 2, 2) and a flat one on (2, 1, 1), and of OLMoE, RecurrentGemma,
-  xLSTM and Whisper-tiny, a pytree state on (2, 2, 2), within 1e-4 of the
-  card's
-  unsharded round (Adam's moments, and the posterior off the lanes whose
-  Adam step is a rounding-noise sign), ``consensus_fused_network`` once a
-  (data, model) position; over two real cards (each pod on its own) the
-  prefill and the train round bitwise the virtual run.
+  (2, 2, 2) and a flat one on (2, 1, 1) and on (2, 2, 2) (its rows run as
+  the parameter dict they flatten), the pytree state's ppermute round and
+  the flat state's einsum round at the bf16 wire on (2, 2, 2), and of
+  OLMoE, RecurrentGemma, xLSTM and Whisper-tiny, a pytree state on (2, 2,
+  2), within 1e-4 of the card's unsharded round of the same route (Adam's
+  moments, and the posterior off the lanes whose Adam step is a
+  rounding-noise sign), ``consensus_fused_network`` once a (data, model)
+  position on the einsum routes; over two real cards (each pod on its
+  own) the prefill and the train round bitwise the virtual run.
 """
 import dataclasses
 
@@ -209,7 +211,12 @@ def test_sharded_serving_card_against_cpu(dev, arch):
     torch.testing.assert_close(d, ref_d, atol=1e-5, rtol=0)
 
 
-def _train(device, flat, mesh=None, arch="repro-100m"):
+ROUTES = {"einsum": {}, "ppermute-bf16": {"consensus_impl": "ppermute"},
+          "wire-bf16": {"consensus_wire_dtype": torch.bfloat16}}
+TRAIN_W = torch.tensor([[0.75, 0.25], [0.25, 0.75]])
+
+
+def _train_state(device, flat, arch):
     cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
     state = steps.init_train_state(cfg, 2, adam(), torch.Generator().manual_seed(0), flat=flat,
                                    device="cpu")
@@ -221,30 +228,72 @@ def _train(device, flat, mesh=None, arch="repro-100m"):
              for k in ("tokens", "targets")}
     if cfg.is_encdec:
         batch["frames"] = 0.1 * torch.randn(2, 4, cfg.encoder_seq, cfg.d_model, generator=g)
-    state, eps, batch = tree_map(lambda x: x.to(device), (state, eps, batch))
+    return (cfg, *tree_map(lambda x: x.to(device), (state, eps, batch)))
+
+
+def _train(device, flat, mesh=None, arch="repro-100m", route="einsum", ring_mesh=None):
+    """One train round of the reduced ``arch`` (placed on ``mesh``, or not);
+    the ppermute route's unplaced ring runs over ``ring_mesh``."""
+    cfg, state, eps, batch = _train_state(device, flat, arch)
+    kw = dict(ROUTES[route])
+    if route.startswith("ppermute") and mesh is None:
+        kw.update(mesh=ring_mesh, posterior_shardings=param_shardings(
+            state, ring_mesh, agent_leading=True).posterior)
     if mesh is not None:
         state = spmd.device_put(state, param_shardings(state, mesh, agent_leading=True))
-    step = steps.make_train_round_step(cfg, torch.tensor([[0.75, 0.25], [0.25, 0.75]]),
-                                       opt=adam(), remat=False, kl_scale=1e-5)
+    step = steps.make_train_round_step(cfg, TRAIN_W, opt=adam(), remat=False, kl_scale=1e-5,
+                                       **kw)
     out, metrics = step(state, batch, eps=eps)
     return spmd.device_get(out) if mesh is not None else out, metrics
 
 
+def _wire_lanes(device, flat, arch, mesh, wire):
+    """The lanes where the placed prior at ``wire`` (the network kernel) and
+    the unplaced one (``consensus_einsum(_flat)``, plain) part by more than
+    1e-5: a statistic at a wire rounding boundary, rounded apart.  One tree
+    like the posterior of bools."""
+    from repro_torch.launch import spmd_steps
+
+    _, state, _, _ = _train_state(device, flat, arch)
+    placed = spmd.device_put(state.posterior, param_shardings(state.posterior, mesh,
+                                                              agent_leading=True))
+    got = spmd.device_get(spmd_steps.pod_consensus(placed, TRAIN_W, wire))
+    want = (co.consensus_einsum_flat if flat else co.consensus_einsum)(
+        state.posterior, TRAIN_W, wire_dtype=wire)
+    lanes = [(x - y).abs() > 1e-5 * (1.0 + y.abs())
+             for x, y in zip(tree_leaves(got), tree_leaves(want))]
+    n = len(lanes) // 2
+    return [m | r for m, r in zip(lanes[:n], lanes[n:])] * 2
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch,flat,shape", [("repro-100m", False, (2, 2, 2)),
-                                             ("repro-100m", True, (2, 1, 1)),
-                                             ("olmoe-1b-7b", False, (2, 2, 2)),
-                                             ("recurrentgemma-9b", False, (2, 2, 2)),
-                                             ("xlstm-1.3b", False, (2, 2, 2)),
-                                             ("whisper-tiny", False, (2, 2, 2))],
-                         ids=["pytree-2x2x2", "flat-2x1x1", "olmoe-pytree-2x2x2",
-                              "recurrentgemma-pytree-2x2x2", "xlstm-pytree-2x2x2",
-                              "whisper-pytree-2x2x2"])
-def test_sharded_train_round_on_the_card(dev, arch, flat, shape):
+@pytest.mark.parametrize("arch,flat,shape,route", [
+    ("repro-100m", False, (2, 2, 2), "einsum"),
+    ("repro-100m", True, (2, 1, 1), "einsum"),
+    ("olmoe-1b-7b", False, (2, 2, 2), "einsum"),
+    ("recurrentgemma-9b", False, (2, 2, 2), "einsum"),
+    ("xlstm-1.3b", False, (2, 2, 2), "einsum"),
+    ("whisper-tiny", False, (2, 2, 2), "einsum"),
+    ("repro-100m", True, (2, 2, 2), "einsum"),
+    ("repro-100m", False, (2, 2, 2), "ppermute-bf16"),
+    ("repro-100m", True, (2, 2, 2), "wire-bf16")],
+    ids=["pytree-2x2x2", "flat-2x1x1", "olmoe-pytree-2x2x2", "recurrentgemma-pytree-2x2x2",
+         "xlstm-pytree-2x2x2", "whisper-pytree-2x2x2", "flat-2x2x2", "ppermute-bf16",
+         "wire-bf16"])
+def test_sharded_train_round_on_the_card(dev, arch, flat, shape, route):
+    """The placed round against the card's unplaced round of the same route
+    (a flat state under data x model included); ``consensus_fused_network``
+    once a (data, model) position on the einsum routes, never on the
+    ppermute one; at the bf16 wire the lanes whose statistic the two priors
+    round apart (``_wire_lanes``) are held only by the largest difference."""
+    mesh = make_mesh(shape, AXES, dev)
     dispatch.reset_launch_counts()
-    got, got_m = _train(dev, flat, make_mesh(shape, AXES, dev), arch)
-    assert dispatch.launch_counts()["consensus_fused_network"] == shape[1] * shape[2]
-    want, want_m = _train(dev, flat, arch=arch)
+    got, got_m = _train(dev, flat, mesh, arch, route)
+    launches = 0 if route.startswith("ppermute") else shape[1] * shape[2]
+    assert dispatch.launch_counts()["consensus_fused_network"] == launches
+    want, want_m = _train(dev, flat, arch=arch, route=route, ring_mesh=mesh)
+    boundary = (_wire_lanes(dev, flat, arch, mesh, torch.bfloat16) if route == "wire-bf16"
+                else None)
     torch.testing.assert_close(got_m["loss"], want_m["loss"], rtol=1e-5, atol=0)
     for field in ("mu", "nu"):
         for x, y in zip(tree_leaves(getattr(got.opt_state, field)),
@@ -252,12 +301,14 @@ def test_sharded_train_round_on_the_card(dev, arch, flat, shape):
             torch.testing.assert_close(x, y, atol=1e-4, rtol=0)
     moments = zip(*(tree_leaves(getattr(st.opt_state, f)) for st in (got, want)
                     for f in ("mu", "nu")))
-    for x, y, (m1, v1, m2, v2) in zip(tree_leaves(got.posterior), tree_leaves(want.posterior),
-                                      moments):
+    for k, (x, y, (m1, v1, m2, v2)) in enumerate(zip(tree_leaves(got.posterior),
+                                                     tree_leaves(want.posterior), moments)):
         # Adam's noise lanes (chip_smoke.adam_noise_lanes): the two runs' moments apart
         # by more than rounding of a well-set gradient; there a step is about lr either way
         v = torch.maximum(v1, v2)
         noise = ((m1 - m2).abs() > 1e-3 * v.sqrt()) | ((v1 - v2).abs() > 1e-3 * v)
+        if boundary is not None:
+            noise |= boundary[k]
         d = (x - y).abs()
         assert float(d.masked_fill(noise, 0.0).max()) <= 1e-4
         assert float(d.max()) <= 2.5e-3

@@ -16,9 +16,9 @@ Held:
   and (k - 1) n + (k - 1) n / k a group of k blocks of n bytes);
 * ``gather`` / ``gather_rows`` against slicing and indexing the whole
   tensor, and their counted bytes;
-* a placed state's train round refuses the ppermute consensus, a bf16
-  and an f16 wire and a flat state under data x model, with
-  ``NotImplementedError`` naming ROADMAP 10i, while a pod-only mesh runs
+* a placed state's train round runs the ppermute consensus, a bf16 and
+  an f16 wire and a flat state under data x model, each within the
+  reference's sharded-round rule of the unplaced round; a pod-only mesh runs
   OLMoE's ``reduced()`` prefill and decode equal to the unsharded ones (a
   plain cache placed on the way in, its blocks views written in place);
 * no whole-model gather: a sharded prefill's and decode step's gathered,
@@ -236,23 +236,35 @@ def test_gather_and_gather_rows_against_slicing():
 
 @pytest.mark.parametrize("case", ["flat_state", "wire_f16", "ppermute", "wire_bf16"])
 def test_other_kinds_are_refused_under_data_or_model(case):
-    """Every block kind runs under data x model; a placed state's train
-    round still refuses a flat state (its spec replicates it over data x
-    model), the ppermute consensus and a bf16 / f16 wire, naming ROADMAP
-    10i."""
+    """Every block kind runs under data x model, and so does every route of
+    a placed state's train round: a flat state (its spec replicates it over
+    data x model), the ppermute consensus and a bf16 / f16 wire, each
+    within ``tests/test_distributed.py:130``'s rule of the same step on the
+    unplaced state (the loss within rtol 1e-4; the posterior at most 2.5e-3
+    apart, under 0.5% of the lanes beyond 1e-4), its rows or leaves finite."""
     W = torch.full((A, A), 0.5)
     cfg = _cfg("repro-100m" if case == "flat_state" else "olmoe-1b-7b")
-    state = ts.init_train_state(cfg, A, adam(), torch.Generator().manual_seed(0),
-                                flat=case == "flat_state", device="cpu")
+    g = torch.Generator().manual_seed(0)
+    state = ts.init_train_state(cfg, A, adam(), g, flat=case == "flat_state", device="cpu")
     mesh = _mesh((2, 2, 2))
-    placed = spmd.device_put(state, param_shardings(state, mesh, agent_leading=True))
-    kw = {"ppermute": {"consensus_impl": "ppermute", "mesh": mesh},
+    shardings = param_shardings(state, mesh, agent_leading=True)
+    placed = spmd.device_put(state, shardings)
+    kw = {"ppermute": {"consensus_impl": "ppermute", "mesh": mesh,
+                       "posterior_shardings": shardings.posterior},
           "wire_bf16": {"consensus_wire_dtype": torch.bfloat16},
           "wire_f16": {"consensus_wire_dtype": torch.float16}}.get(case, {})
-    step = ts.make_train_round_step(cfg, W, opt=adam(), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP 10i"):
-        step(placed, {"tokens": torch.zeros((A, 2, 4), dtype=torch.long),
-                      "targets": torch.zeros((A, 2, 4), dtype=torch.long)})
+    step = ts.make_train_round_step(cfg, W, opt=adam(), remat=False, **kw)
+    batch = {k: torch.randint(0, cfg.vocab_size, (A, 2, 4), generator=g)
+             for k in ("tokens", "targets")}
+    eps = tree_map(lambda m: torch.randn(m.shape, generator=g), state.posterior.mean)
+    got, got_m = step(placed, batch, eps=eps)
+    want, want_m = step(state, batch, eps=eps)
+    torch.testing.assert_close(got_m["loss"], want_m["loss"], rtol=1e-4, atol=0)
+    got = spmd.device_get(got)
+    for x, y in zip(tree_leaves(got.posterior), tree_leaves(want.posterior)):
+        assert x.shape == y.shape and bool(torch.isfinite(x).all())
+        d = (x - y).abs()
+        assert float(d.max()) <= 2.5e-3 and float((d > 1e-4).float().mean()) < 5e-3
 
 
 def test_pod_only_mesh_runs_the_moe_prefill_and_decode():
