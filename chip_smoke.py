@@ -34,8 +34,8 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    bitwise the plain version's, the KL bitwise the same twice and on an
    aligned copy), and
    ``flash_attention`` on tests/test_kernels.py's sweep at f32, bf16 and
-   f16 (bf16/f16 on the tensor-core kernel, f32 on the SIMT kernel), at
-   every head dim 32-256 on ragged tiles at bf16 and f16, on a case
+   f16 (bf16/f16 on the tensor-core kernel, f32 on the 3xTF32 kernel), at
+   every head dim 32-256 on ragged tiles at each dtype, on a case
    with Sk < S whose window leaves rows with no key (zeros) at each dtype,
    and at B = 70,000 or H = 70,000 (S = 64, hd = 32) at f32 and bf16;
    ``consensus_fused_segments`` at every wire dtype on the term lists the
@@ -144,10 +144,10 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    one ``make_consensus_step`` over ``LM_ZOO_W`` (``consensus_fused_network``
    at N = 2, held against its plain version, timed against 16 N P bytes),
    ``serve_params`` and prefill (S = 512) + 8 decode steps at bf16 (the
-   tensor-core kernel) and f32 (the SIMT kernel), each against the same
-   steps on the CPU (f32 1e-4, bf16 as above) and each agent's prefill
-   against its weights alone (the other agent's must fail it).  The MoE
-   and recurrent configs (``run_lm_new``): ``3.lm_olmoe``,
+   tensor-core kernel) and f32 (the 3xTF32 kernel, 12 launches), each
+   against the same steps on the CPU (f32 1e-4, bf16 as above) and each
+   agent's prefill against its weights alone (the other agent's must fail
+   it).  The MoE and recurrent configs (``run_lm_new``): ``3.lm_olmoe``,
    ``3.lm_recurrentgemma`` and ``3.lm_xlstm`` at full width (and depth;
    the xLSTM at 24 of its 48 blocks, ``LM_NEW``), A =
    2 (seeds 0, 1), B = 2 prompts of S = 4096, bf16: prefill into a
@@ -327,7 +327,10 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    one agent's P = 199,210, ``flash_attention`` at both head shapes above,
    beside ``scaled_dot_product_attention``'s time and backend, with its
    TFLOP/s, share of the bound, ratio to SDPA and largest error in output
-   ulps, and the f32 SIMT kernel's time at the Qwen3-8B heads); for
+   ulps); ``flash_attention`` at f32 (the 3xTF32 kernel) at Qwen3-8B's and
+   RecurrentGemma-9B's rows, Whisper-tiny's encoder and repro-100m's
+   prefill (``ATTN_F32_SHAPES``), each a row beside SDPA on the same f32
+   tensors, its bound 3 x 4 hd flops a pair at the TF32 rate; for
    ``consensus_fused_shard`` and ``consensus_shard_encode`` on one shard
    of 3 rows (3.sharded's first run; gossip window 1's W-tilde); for
    ``consensus_fused_segments`` on the delayed slice's window 4, and on a
@@ -350,8 +353,13 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    time by kernel (torch.profiler).
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one JSON
-line describing the kernels (``flash_attention_lm``: the kernel's launches
-on the model zoo's path and its time at the Qwen3-8B prefill's shape;
+line describing the kernels (``flash_attention_f32`` /
+``flash_attention_f32_recurrentgemma`` / ``_whisper_enc`` / ``_repro100m``:
+the f32 kernel's time at each shape of ``ATTN_F32_SHAPES``, with its
+launches in 3.lm_repro100m's f32 prefill on the ``_repro100m`` row and 0 on
+the others, whose shapes no path here runs; ``flash_attention_lm``: the kernel's
+launches on the model zoo's path and its time at the Qwen3-8B prefill's
+shape;
 ``consensus_fused_network_zoo``: eq. (6) on the zoo posterior;
 ``flash_attention_olmoe`` / ``flash_attention_recurrentgemma`` /
 ``flash_attention_whisper_enc`` / ``_xattn`` / ``_dec`` /
@@ -387,12 +395,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM published peaks: HBM and dense bf16 from the port's one home for
-# them (launch/mesh.py, no torch import); 67 TFLOP/s fp32 outside the tensor cores
+# H100 SXM published peaks, from the port's one home for them
+# (launch/mesh.py, no torch import): HBM, dense bf16 and TF32 on the tensor
+# cores, fp32 outside them
 from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
 from repro_torch.launch.mesh import PEAK_FLOPS_BF16 as BF16_FLOP_PER_S  # noqa: E402
-
-FP32_FLOP_PER_S = 67e12
+from repro_torch.launch.mesh import PEAK_FLOPS_FP32 as FP32_FLOP_PER_S  # noqa: E402
+from repro_torch.launch.mesh import PEAK_FLOPS_TF32 as TF32_FLOP_PER_S  # noqa: E402
 
 # stated tolerances
 F32_TOL = 1e-5            # kernel vs cuBLAS/plain, fp32 reduction order
@@ -458,6 +467,18 @@ S_TRAIN = 4_096  # configs/base.py INPUT_SHAPES["train_4k"]
 ATTN_SHAPES = {  # (heads, kv heads, head dim, window), causal, B = 1, bf16
     "qwen3_8b": (32, 8, 128, 0),  # configs/qwen3_8b.py
     "recurrentgemma_9b_local": (16, 1, 256, 2048),  # configs/recurrentgemma_9b.py
+}
+# the float32 kernel's rows (csrc/flash_attention.cu, 3xTF32), each
+# (B, H, S, Sk, head dim, causal, window): Qwen3-8B's and RecurrentGemma-9B's
+# local attention as above, Whisper-tiny's encoder (configs/whisper_tiny.py:
+# 6 heads of 64, 1,500 frames, non-causal) at B = 16, and repro-100m's
+# prefill as 3.lm_repro100m's f32 prefill runs it (B = agents x prompts,
+# 12 heads of 64, S = 512)
+ATTN_F32_SHAPES = {  # by the row's name in the kernels line
+    "flash_attention_f32": (1, 32, 4096, 4096, 128, True, 0),
+    "flash_attention_f32_recurrentgemma": (1, 16, 4096, 4096, 256, True, 2048),
+    "flash_attention_f32_whisper_enc": (16, 6, 1500, 1500, 64, False, 0),
+    "flash_attention_f32_repro100m": (4, 12, 512, 512, 64, True, 0),
 }
 ATT_SWEEP = [  # tests/test_kernels.py:56-66: (s, block_q, block_k, causal, window)
     (128, 64, 64, True, 0),
@@ -1090,6 +1111,18 @@ def attention_inputs(name, dev, dtype=None):
     return q, k, v, window
 
 
+def attention_f32_inputs(name, dev):
+    """float32 q [B, H, S, hd], k, v [B, H, Sk, hd] of ``ATTN_F32_SHAPES[name]``
+    from a seed, on the card; with (causal, window)."""
+    import torch
+
+    b, h, s, sk, hd, causal, window = ATTN_F32_SHAPES[name]
+    g = torch.Generator(device=dev).manual_seed(b * h + hd)
+    q = torch.randn((b, h, s, hd), generator=g, device=dev)
+    k, v = (torch.randn((b, h, sk, hd), generator=g, device=dev) for _ in range(2))
+    return q, k, v, causal, window
+
+
 def attention_pairs(s, sk, causal, window):
     """The number of (query, key) pairs the mask leaves, counted exactly."""
     import torch
@@ -1210,7 +1243,7 @@ def check_ops_kernels(dev):
     cases = [(dt, (2, 2, s_, 64), s_, causal, window, dict(block_q=bq, block_k=bk))
              for dt in WIRES for s_, bq, bk, causal, window in ATT_SWEEP]
     cases += [(dt, (1, 3, s_, hd), sk, causal, window, dict(block_q=s_, block_k=sk))
-              for dt in ("bf16", "f16") for hd in fa.HEAD_DIMS
+              for dt in WIRES for hd in fa.HEAD_DIMS
               for s_, sk, causal, window in ATT_HD_CASES]
     cases += [(dt, (1, 2, 128, 64), 64, True, 16, dict(block_q=64, block_k=64)) for dt in WIRES]
     worst["flash_attention"] = 0.0
@@ -1238,7 +1271,7 @@ def check_ops_kernels(dev):
             err = attention_errors(f"flash_attention {dt} {shape}",
                                    fa.flash_attention(q, kk, vv, causal=True),
                                    fa.flash_attention_plain(q, kk, vv, causal=True), ATT_TOL[dt])
-            bq = launch_plan.ATTN_F32_BQ if dt == "f32" else fa.TC_TILES[32][0]
+            bq = (fa.F32_TILES if dt == "f32" else fa.TC_TILES)[32][0]
             phase("2.flash_attention", dtype=dt, shape=shape, sk=shape[2], causal=True, window=0,
                   max_abs_err=err,
                   grid_blocks=launch_plan.attention_blocks(shape[0] * shape[1], shape[2], bq))
@@ -3089,19 +3122,41 @@ def timings(dev, counts, errs):
                   "library_kernels": device_kernels(sdpa),
                   "library_max_abs_err": attention_errors(f"sdpa {shape}", sdpa(), plain(),
                                                           ATT_TOL["bf16"])}
-        if shape == "qwen3_8b":  # the f32 SIMT kernel, for the record
-            q32, k32, v32 = q.float(), kk.float(), vv.float()
-            simt = functools.partial(fa.flash_attention, q32, k32, v32, causal=True)
-            fields["simt_f32_max_abs_err"] = attention_errors(
-                "flash_attention f32 qwen3_8b", simt(),
-                fa.flash_attention_plain(q32, k32, v32, causal=True), ATT_TOL["f32"])
-            fields["simt_f32_ms"] = cuda_ms(simt)
         fields["read_bytes"] = q.element_size() * 3 * b * h * s * hd  # q, k, v
         kernels.append((
             "flash_attention", "flash_attention_tc.cu", "src/repro/kernels/flash_attention.py:94",
             kern, plain,
             q.element_size() * 4 * b * h * s * hd,  # q, k, v in; out
             4 * hd * pairs * b * h, BF16_FLOP_PER_S, sdpa, fields))
+    for name in ATTN_F32_SHAPES:  # the float32 kernel (3xTF32), a row a shape
+        q, kk, vv, causal, window = attention_f32_inputs(name, dev)
+        b, h, s, hd = q.shape
+        sk = kk.shape[2]
+        pairs = attention_pairs(s, sk, causal, window)
+        sdpa = (functools.partial(F.scaled_dot_product_attention, q, kk, vv,
+                                  attn_mask=fa.attention_mask(s, sk, causal, window, dev))
+                if window else
+                functools.partial(F.scaled_dot_product_attention, q, kk, vv, is_causal=causal))
+        plain = functools.partial(fa.flash_attention_plain, q, kk, vv, causal=causal,
+                                  window=window)
+        kern = functools.partial(fa.flash_attention, q, kk, vv, causal=causal, window=window,
+                                 block_q=s, block_k=sk)  # one block: S = 1,500 is ragged
+        want = plain()
+        fields = {"shape": name, "q": list(q.shape), "sk": sk, "causal": causal,
+                  "window": window, "pairs": pairs,
+                  "max_abs_err": attention_errors(f"{name} {list(q.shape)}", kern(), want,
+                                                  ATT_TOL["f32"]),
+                  **launch_fields(kern, launch_floor_ms),
+                  "kernel_device_names": device_kernels(kern, top=1),
+                  "library_kernels": device_kernels(sdpa, top=1),
+                  "library_max_abs_err": float((sdpa() - want).abs().max()),
+                  "useful_flops": 4 * hd * pairs * b * h,  # one fp32 product a product
+                  "read_bytes": 4 * b * h * (s + 2 * sk) * hd}  # q, k, v
+        del want
+        kernels.append((
+            name, "flash_attention.cu", "src/repro/kernels/flash_attention.py:94", kern, plain,
+            4 * b * h * (2 * s + 2 * sk) * hd,  # q, k, v in; out
+            3 * 4 * hd * pairs * b * h, TF32_FLOP_PER_S, sdpa, fields))  # 3xTF32
     single = [(name, f["device_kernels_per_call"]) for name, *_, f in kernels
               if "device_kernels_per_call" in f]
     if any(count != 1 for _, count in single):
@@ -3114,8 +3169,8 @@ def timings(dev, counts, errs):
             "route": "cuda",
             "source": SRC + src,
             "replaces": replaces,
-            "launches": counts[name],
-            "max_abs_err": errs[name],
+            "launches": counts[fields.get("counter", name)],
+            "max_abs_err": fields["max_abs_err"] if "max_abs_err" in fields else errs[name],
             "ms": cuda_ms(fn),
             "plain_ms": cuda_ms(plain, reps=fields.get("plain_reps", 20)),
             "bound_ms": max(t_bytes, t_ops),
@@ -3148,7 +3203,7 @@ def timings(dev, counts, errs):
               dirty_minus_clean_ms=cold - clean,
               read_bytes_over_hbm_ms=fields["read_bytes"] / HBM_BYTES_PER_S * 1e3,
               bytes=nbytes, ops=ops, **fields)
-        if not attention or fields["shape"] == "qwen3_8b":
+        if not attention or fields["shape"] == "qwen3_8b" or name in ATTN_F32_SHAPES:
             rows.append(row)
     time_segments_4200(dev, counts.get("consensus_fused_segments_4200"), launch_floor_ms, flush)
     return rows
@@ -3904,7 +3959,7 @@ def run_lm_repro100m(dev, smi):
     against its plain version, timed against its 16 N P byte bound), so the
     two agents' merged means differ; ``serve_params`` at bf16 and f32, and
     at each a prefill of S = 512 and 8 decode steps for B = 2 prompts an
-    agent (bf16 on the tensor-core kernel, f32 on the SIMT kernel), each
+    agent (bf16 on the tensor-core kernel, f32 on the 3xTF32 kernel), each
     held against the same steps on the CPU, and each agent's prefill
     against a forward of its own weights alone on the card (the other
     agent's weights, the control, must fail that check).  Returns the
@@ -3994,7 +4049,8 @@ def run_lm_repro100m(dev, smi):
     expect = {"bf16": ["flash_attention_tc_kernel"], "f32": ["flash_attention_kernel"]}
     if route_kernels != expect:
         raise AssertionError(f"3.lm_repro100m: attention ran {route_kernels}, expected {expect}")
-    if counts["consensus_fused_network"] != 1 or counts["flash_attention"] != 2 * base.n_layers:
+    if (counts["consensus_fused_network"] != 1 or counts["flash_attention"] != 2 * base.n_layers
+            or counts["flash_attention_f32"] != base.n_layers):  # the f32 prefill's
         raise AssertionError(f"3.lm_repro100m: launches {counts}")
 
     # the network kernel on the zoo posterior, against its plain version
@@ -4024,8 +4080,8 @@ def run_lm_repro100m(dev, smi):
           consensus_bound_share=row["bound_ms"] / row["ms"], consensus_max_abs_err=eq6_err,
           batch_per_agent=b, prompt=s, decode_steps=n_dec, runs=runs,
           route_kernels=route_kernels, max_memory_allocated=torch.cuda.max_memory_allocated(dev),
-          launches=counts)
-    return row
+          launches=counts, flash_attention_f32_launches=counts["flash_attention_f32"])
+    return row, counts["flash_attention_f32"]
 
 
 class RoutingRecord:
@@ -6703,7 +6759,7 @@ def main() -> int:
     run_obs(dev, smi, slice_wall_ms=slice_run_s * 1e3 / 3)
     run_obs_gossip(dev, smi)
     lm_row = run_lm_qwen3(dev, smi)
-    zoo_row = run_lm_repro100m(dev, smi)
+    zoo_row, zoo_f32_launches = run_lm_repro100m(dev, smi)
     new_rows = [row for tag, arch, held, depth in LM_NEW
                 for row in run_lm_new(dev, smi, tag, arch, held, n_layers=depth)]
     run_lm_reduced(dev, smi)
@@ -6748,6 +6804,10 @@ def main() -> int:
         "consensus_fused": ops_counts["consensus_fused"],
         "sample_and_kl_fused": ops_counts["sample_and_kl_fused"],
         "flash_attention": ops_counts["flash_attention"],
+        # the f32 kernel: 3.lm_repro100m's f32 prefill runs it at repro-100m's
+        # shape; no path runs its other rows' shapes, which are timed only
+        **{name: 0 for name in ATTN_F32_SHAPES},
+        "flash_attention_f32_repro100m": zoo_f32_launches,
         "consensus_fused_segments": d_counts["consensus_fused_segments"],
         "consensus_fused_segments_4200": sp_counts["consensus_fused_segments"],
         "consensus_fused_shard": sh_counts["consensus_fused_shard"],

@@ -6,9 +6,9 @@
 //   mask    = (!causal || k <= q) && (!window || k > q - window)
 //   out[q]  = sum_k p[q, k] v[k] / max(sum_k p[q, k], 1e-30)
 // with the online softmax's m_safe / corr guards, so a row with no key left
-// gives exactly 0.  float32 inputs go to the SIMT kernel of
-// flash_attention.cu instead (its 2e-5 contract is out of the tensor cores'
-// reach); the wrapper routes by dtype.
+// gives exactly 0.  float32 inputs go to the 3xTF32 kernel of
+// flash_attention.cu instead (its 2e-5 contract needs each product split in
+// TF32 parts); the wrapper routes by dtype.
 //
 // Replaces the TPU kernel flash_attention of repro/kernels/flash_attention.py
 // (pallas_call at flash_attention.py:117), the kernel behind kernels/ops.py

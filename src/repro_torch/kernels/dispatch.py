@@ -38,7 +38,7 @@ KERNELS = (
     "consensus_fused_network", "payload_validity_fused", "consensus_fused_masked",
     "consensus_fused_sparse", "consensus_fused_masked_sparse", "consensus_fused",
     "sample_and_kl_fused", "flash_attention", "consensus_fused_segments",
-    "consensus_shard_encode", "consensus_fused_shard",
+    "consensus_shard_encode", "consensus_fused_shard", "flash_attention_f32",
 )
 _launches = dict.fromkeys(KERNELS, 0)
 _lib: ctypes.CDLL | None = None

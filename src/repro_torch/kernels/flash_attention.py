@@ -16,19 +16,29 @@ entirely are never loaded.  The scale is ``1/sqrt(hd)``; the output is in
   two halves in the input type (hi + lo), so P keeps ~16 bits where one
   rounding would keep 8.  The two take turns to issue their products, so
   one's softmax runs under the other's.  Tiles ``TC_TILES[hd]`` (BQ, BK).
-* float32: ``csrc/flash_attention.cu``, the port's first kernel, on the CUDA
-  cores in fp32 (bound there by the 67 TFLOP/s SIMT peak).  It is kept for
-  float32 because the 2e-5 contract against the plain version needs fp32
-  products and sums, which the tensor cores do not give.
+* float32: ``csrc/flash_attention.cu``, on the tensor cores as 3xTF32: each
+  operand is split into ``hi = rna_tf32(x)`` and ``lo = rna_tf32(x - hi)``
+  and a product taken as ``a_hi b_hi + a_hi b_lo + a_lo b_hi`` in fp32, which
+  holds the 2e-5 contract against the plain version where one TF32 product
+  does not.  Bound by operations (3 x 4 hd flops per unmasked pair at the
+  495 TFLOP/s TF32 rate).  It runs ``mma.sync.m16n8k8`` on operands split in
+  registers (one design at every head dim): warps of 16 query rows, tiles
+  ``F32_TILES[hd]`` (query rows, keys; 8 warps a block at hd 256, else 4),
+  K/V tiles through a ring of ``cp.async`` copies (2 stages, 1 at hd 256),
+  P taken from the S accumulator with the keys relabelled on both
+  operands.  ``wgmma`` would need hi and lo copies of Q, K and a transposed
+  V in shared memory, more than a block has at hd 128 and 256 (the ``.cu``
+  header).
 
 Both kernels run one block per (b * h, query tile) on a 1-D grid, the
 heaviest causal tiles of every head first (``launch_plan.attention_block``),
 so B and H have no limit of their own: only B * H * (query tiles) is held
 to the grid's 2^31 - 1 blocks.
 
-A 16-bit CUDA tensor goes to the tensor-core kernel or raises; it never
-falls back to the fp32 kernel.  Both kernels count under ``flash_attention``
-in ``dispatch``.
+A CUDA tensor goes to the kernel of its dtype or raises: neither kernel
+falls back to the other, to SDPA or to the plain version.  Both need 16-byte
+aligned q, k, v (TMA, ``cp.async``).  Both count under ``flash_attention``
+in ``dispatch``, and the float32 kernel also under ``flash_attention_f32``.
 
 A query row with no key left (possible when Sk < S under a window) gives 0,
 as the TPU kernel does; ``ref.attention_ref`` instead gives the uniform
@@ -56,6 +66,9 @@ _TC_DTYPE_CODE = {torch.bfloat16: 1, torch.float16: 2}
 # (BQ, BK) of the tensor-core kernel by head dim, as ``TcCfg`` in
 # csrc/flash_attention_tc.cu sets them
 TC_TILES = {32: (128, 128), 64: (128, 128), 128: (128, 128), 256: (128, 64)}
+# (BQ, BK) of the float32 kernel by head dim, as ``F32Cfg`` in
+# csrc/flash_attention.cu sets them
+F32_TILES = {32: (64, 64), 64: (64, 32), 128: (64, 32), 256: (128, 32)}
 
 
 def attention_mask(s: int, sk: int, causal: bool, window: int, device=None) -> torch.Tensor:
@@ -122,15 +135,15 @@ def flash_attention(q, k, v, *, causal=True, window=0, block_q=512, block_k=512)
         raise ValueError(f"flash_attention: shape {tuple(q.shape)} / Sk {sk} / window "
                          f"{window} out of the kernel's range")
     # one block per (b * h, query tile) on a 1-D grid: raises past 2^31 - 1 blocks
-    launch_plan.attention_blocks(b * h, s, launch_plan.ATTN_F32_BQ if q.dtype == torch.float32
-                                 else TC_TILES[hd][0])
+    launch_plan.attention_blocks(b * h, s, (F32_TILES if q.dtype == torch.float32
+                                            else TC_TILES)[hd][0])
     out = torch.empty_like(q)
     lib = dispatch.library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     scale = 1.0 / math.sqrt(hd)
-    if q.dtype != torch.float32 and any(t.data_ptr() % 16 for t in (q, k, v, out)):
-        raise ValueError("flash_attention: the tensor-core kernel needs 16-byte aligned "
-                         "q, k, v (TMA)")
+    if any(t.data_ptr() % 16 for t in (q, k, v, out)):
+        raise ValueError("flash_attention: the kernels need 16-byte aligned q, k, v "
+                         "(TMA, cp.async)")
     with torch.cuda.device(q.device):  # the launch runs on the tensors' card
         if q.dtype == torch.float32:
             err = lib.flash_attention_launch(
@@ -144,4 +157,6 @@ def flash_attention(q, k, v, *, causal=True, window=0, block_q=512, block_k=512)
             )
     dispatch.check_cuda(err, "flash_attention")
     dispatch.count_launch("flash_attention")
+    if q.dtype == torch.float32:
+        dispatch.count_launch("flash_attention_f32")
     return out

@@ -99,7 +99,6 @@ SPARSE_THREADS = 256
 SPARSE_TILE = 256  # lanes of a staged tile: 64 groups
 STAGE_N_MAX = 24  # 2 * 24 rows * 256 lanes * 4 bytes = 48 KB
 GRID_MAX = 2 ** 31 - 1  # blocks of a 1-D grid
-ATTN_F32_BQ = 64  # query rows per block of flash_attention.cu
 ROW_N_MAX = 16  # consensus_row.cu: rows of the largest small instance
 SEGMENT_THREADS = 256  # consensus_segments.cu: threads per block
 SEGMENT_CHUNK_LANES = 8  # a chunk of terms times lanes a thread: loaded ahead, at a time

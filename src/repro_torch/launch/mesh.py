@@ -44,6 +44,9 @@ import math
 
 # dense bf16 (and fp16) on the tensor cores, H100 SXM5 data sheet
 PEAK_FLOPS_BF16 = 989e12  # FLOP/s
+# dense TF32 on the tensor cores, and fp32 on the CUDA cores, the same sheet
+PEAK_FLOPS_TF32 = 495e12  # FLOP/s
+PEAK_FLOPS_FP32 = 67e12  # FLOP/s
 # HBM3, 80 GB, H100 SXM5 data sheet
 HBM_BW = 3.35e12  # B/s
 # NVLink 4: 900 GB/s both ways per GPU, so 450 GB/s a direction (the data

@@ -8,7 +8,7 @@ as the same contract):
 * Prefill into a cache (S > 1) and the causal no-cache forward: the
   hand-written ``flash_attention`` kernels through ``kernels.ops.attention``
   (``kernel_attention``): on the card the tensor-core kernel for bf16/f16
-  and the SIMT kernel for f32, on the CPU their plain version.
+  and the 3xTF32 kernel for f32, on the CPU their plain version.
   ``kernel_attention`` moves the ``[B, S, H, hd]`` layout to the kernel's
   contiguous ``[B, H, S, hd]``, pads S > 512 at the end to a multiple of
   512 (the kernel's tile check), and drops the padded rows: under a causal

@@ -59,7 +59,10 @@ def test_plan_constants_are_the_kernels():
                                        lp.STAGE_N_MAX)
     # the staged terms of STAGE_N_MAX rows fill the 48 KB a block has without opting in
     assert 2 * lp.STAGE_N_MAX * lp.SPARSE_TILE * 4 == 48 * 1024
-    assert _constants("flash_attention.cu")["BQ"] == lp.ATTN_F32_BQ
+    x, at, other = re.search(r"static constexpr int WARPS = HD == (\d+) \? (\d+) : (\d+);",
+                             (CSRC / "flash_attention.cu").read_text()).groups()
+    assert {hd: bq for hd, (bq, _) in fa.F32_TILES.items()} == {
+        hd: 16 * int(at if hd == int(x) else other) for hd in fa.HEAD_DIMS}
     assert {bq for bq, _ in fa.TC_TILES.values()} == {
         int(re.search(r"static constexpr int BQ = (\d+);",
                       (CSRC / "flash_attention_tc.cu").read_text()).group(1))}

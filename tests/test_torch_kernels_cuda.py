@@ -579,7 +579,7 @@ def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(dev):
 
 @pytest.mark.cuda
 def test_flash_attention_routes_by_dtype(dev):
-    """bf16/f16 run the tensor-core kernel and f32 the SIMT kernel, both
+    """bf16/f16 run the tensor-core kernel and f32 the 3xTF32 kernel, both
     under the one counter; a 16-bit head dim outside HEAD_DIMS or a
     misaligned tensor raises instead of falling back."""
     from torch.profiler import ProfilerActivity, profile
@@ -598,6 +598,22 @@ def test_flash_attention_routes_by_dtype(dev):
             _attention_case(dev, dtype, (1, 2, 128, 64), 128, True, 0, seed=5)
         names = [e.key for e in prof.key_averages() if "flash_attention" in e.key]
         assert names and all(kernel in n for n in names), names
+
+
+@pytest.mark.cuda
+def test_flash_attention_f32_misaligned_raises_and_counts(dev):
+    """The f32 kernel copies q, k, v by 16-byte cp.async: a contiguous f32
+    view 4 bytes off 16-byte alignment raises (no launch, no fallback); an
+    aligned call counts once under ``flash_attention_f32`` too."""
+    flat = torch.randn(2 * 64 * 64 + 1, device=dev)
+    q = flat[1:].view(1, 2, 64, 64)
+    before = dispatch.launch_counts()
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention(q, q, q)
+    assert dispatch.launch_counts() == before
+    _attention_case(dev, torch.float32, (1, 2, 64, 64), 64, True, 0, seed=7)
+    after = dispatch.launch_counts()
+    assert after["flash_attention_f32"] == before["flash_attention_f32"] + 1
 
 
 def _ragged_case(n, p, k, seed, dev, ring):
