@@ -110,7 +110,7 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    ``3.obs_gossip``: the gossip slice with observability on, 4 windows:
    ``gossip.windows`` 4, the ``gossip.jit_traces`` gauge equal to the
    engine's ``n_traces`` (1), four ``gossip.window`` spans (masked), and
-   the window p50's ``window_attainment`` against the cost model's
+   the window device-time p50's ``window_attainment`` against the cost model's
    ``window_masked`` roofline.  ``3.sparse_1e4``: the
    reference's ``engine_sparse`` cell (N = 10,000, P = 90), 3 windows,
    ``evaluate()``, save -> load -> one resumed window, bitwise.
@@ -1569,13 +1569,13 @@ def span_p50s(obs):
             for name, modes in obs.tracer.summary().items()}
 
 
-def span_cost_us(sync, reps=200):
-    """Median µs of one empty span: live with ``sync`` (the card idle),
-    live without, and a disabled tracer's."""
+def span_cost_us(device, reps=200):
+    """Median host µs of one empty span: live on ``device`` (its two timing
+    events), live on the host's clock alone, and a disabled tracer's."""
     from repro_torch.obs import Tracer
 
     out = {}
-    for name, tracer in [("live_sync", Tracer(sync=sync)), ("live", Tracer()),
+    for name, tracer in [("live_device", Tracer(device=device)), ("live_host", Tracer()),
                          ("disabled", Tracer(enabled=False))]:
         times = []
         for _ in range(reps):
@@ -1625,8 +1625,10 @@ def run_obs(dev, smi, slice_wall_ms):
     rep = obs.convergence.report()
     theory = consensus_contraction_rate(fig4_spec().topology.w_schedule()(0))
     losses = [r["loss"] for r in hist]
-    if not isinstance(obs, Observability) or obs.tracer.sync is None:
-        failures.append(f"bundle {type(obs).__name__}, sync {obs.tracer.sync}")
+    if not isinstance(obs, Observability) or obs.tracer.device != dev:
+        failures.append(f"bundle {type(obs).__name__}, tracer device {obs.tracer.device}")
+    if any(sp.device_us is None for sp in obs.tracer.spans):
+        failures.append("spans left unresolved after summary()")
     if reg.counter("session.rounds").value() != 3:
         failures.append(f"session.rounds {reg.counter('session.rounds').value()}")
     if not OBS_SPANS <= names:
@@ -1646,7 +1648,7 @@ def run_obs(dev, smi, slice_wall_ms):
           convergence={k: rep[k] for k in ("measured_rate", "theory_rate", "rate_attainment")},
           latest=rep["latest"], serve_requests=reg.counter("serve.requests").value(),
           jsonl_events=len(events), jsonl_kinds=sorted(kinds),
-          span_cost_us=span_cost_us(obs.tracer.sync), nvidia_smi=smi, failures=failures)
+          span_cost_us=span_cost_us(dev), nvidia_smi=smi, failures=failures)
     print(dashboard, flush=True)
     if failures:
         raise AssertionError(f"3.obs: {'; '.join(failures)}")
@@ -1655,8 +1657,8 @@ def run_obs(dev, smi, slice_wall_ms):
 
 def run_obs_gossip(dev, smi):
     """Phase 3.obs_gossip: the gossip slice (chaos faults, quarantine) with
-    observability on, 4 windows; the window spans' p50 against the
-    ``window_masked`` roofline of the cost model."""
+    observability on, 4 windows; the window spans' device-time p50 against
+    the ``window_masked`` roofline of the cost model."""
     import numpy as np
 
     from repro_torch.api import build_session
@@ -1674,7 +1676,8 @@ def run_obs_gossip(dev, smi):
     wins = [clock.window(r) for r in range(4)]
     part = [int(w.participating().sum()) for w in wins]
     merging = [int(w.active.sum()) for w in wins]
-    window_us = sorted(sp.dur_us for sp in spans)
+    session.obs.tracer.resolve()
+    window_us = sorted(sp.device_us for sp in spans)
     p50_us = window_us[len(window_us) // 2]
     att = window_attainment(p50_us, n_agents=session.data.n_agents,
                             n_params=session.posterior().n_params(),
@@ -1707,7 +1710,7 @@ def run_obs_gossip(dev, smi):
 def obs_rung(dev):
     """4.ladder rung obs_on==obs_off: the synchronous and the gossip slice,
     each twice from one seed, one session with observability on (spans
-    synchronising the card, convergence sampled every round, a JSONL sink);
+    with their timing events, convergence sampled every round, a JSONL sink);
     after the same rounds every state leaf (the posterior, the optimizer
     state, every leaf a checkpoint writes) and the generators are bitwise
     equal."""

@@ -56,7 +56,7 @@ from repro_torch.core.simulated import as_w_schedule
 from repro_torch.core.tree import tree_leaves, tree_replace_leaves
 from repro_torch.gossip.engine import GossipEngine
 from repro_torch.kernels.dispatch import resolve_device
-from repro_torch.obs.trace import maybe_span
+from repro_torch.obs.trace import made_current, maybe_span
 from repro_torch.vi.bayes_by_backprop import mc_predict
 
 EVAL_SEED = 99  # evaluate()'s default MC noise, the same on every call
@@ -159,8 +159,10 @@ class Session:
         ``session.round`` span, marked ``compile`` when the engine's
         ``n_traces`` grew in it or, for an engine without one, on the first
         observed round (which pays the kernel library's load, cuBLAS
-        handles and the allocator's first growth), and the loop's counters
-        and gauges land in the registry.  They observe values this method
+        handles and the allocator's first growth), with the bundle current
+        (``obs.trace.made_current``) so that the engine's shared numeric
+        code opens its spans in it, and the loop's counters and gauges land
+        in the registry.  They observe values this method
         computes anyway: the training math is the same either way."""
         obs = self._obs
         if obs is None:
@@ -168,7 +170,7 @@ class Session:
         tr = obs.tracer
         n_traces0 = getattr(self.engine, "n_traces", None)
         first = obs.registry.counter("session.rounds").value() == 0
-        with tr.span("session.round", round=self.round_idx):
+        with made_current(obs), tr.span("session.round", round=self.round_idx):
             rec = self._round_impl(W, batch_idx, eps, batch_seed)
         if tr.enabled and tr.spans:
             retraced = (n_traces0 is not None
@@ -212,8 +214,12 @@ class Session:
     def _obs_after_round(self, rec: dict) -> None:
         """Post-round registry and convergence bookkeeping (observability on
         only).  Reads ``rec`` and, on the convergence-sample rounds (every
-        ``convergence_every``), the posterior buffers."""
+        ``convergence_every``), the posterior buffers.  The round's spans
+        are resolved here: the round ended on its losses' read from the
+        card, so nothing is left to wait for, and no round's span events
+        outlive it."""
         obs = self._obs
+        obs.tracer.resolve()
         reg = obs.registry
         reg.counter("session.rounds", "communication rounds run").inc()
         reg.gauge("session.n_trained", "agents trained last round").set(rec["n_trained"])

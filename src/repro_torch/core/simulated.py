@@ -19,6 +19,7 @@ import torch
 from repro_torch.core.flat import FlatLayout, FlatPosterior, flat_posterior_from_pytree, make_flat_nll
 from repro_torch.core.posterior import consensus_all_agents, consensus_mean_only, init_posterior
 from repro_torch.core.tree import tree_map
+from repro_torch.obs.trace import current_obs, maybe_span
 from repro_torch.optim import AdamState, Optimizer
 from repro_torch.optim.schedules import Schedule
 from repro_torch.vi.bayes_by_backprop import NllFn, local_vi_steps
@@ -121,31 +122,36 @@ def make_round_fn(nll_fn: NllFn, opt: Optimizer, lr_schedule: Schedule,
     ``[N, u, S, P]`` (else drawn from ``generator``).  ``nll_fn`` keeps its
     dict-parameter signature; the flat theta crosses to a dict only at the
     model-apply boundary.  ``wire_dtype`` compresses the gaussian consensus
-    exchange; f32/None is uncompressed."""
+    exchange; f32/None is uncompressed.  The local steps and the consensus
+    are the ``round.local_phase`` and ``round.consensus`` spans of the
+    current observability bundle."""
     if consensus not in ("gaussian", "mean_only", "none"):
         raise ValueError(f"unknown consensus mode {consensus!r}")
 
     def round_fn(state: NetworkState, batches: dict, W: torch.Tensor,
                  eps: torch.Tensor | None = None,
                  generator: torch.Generator | None = None):
+        obs = current_obs()
         nll = make_flat_nll(nll_fn, state.posterior.layout)
         lr = lr_schedule(state.round)
         prior = state.posterior  # q_i^{(n-1)}: consensus result of last round
-        post, opt_state, losses = network_local_steps(
-            state.posterior, prior, opt, state.opt_state, nll, batches, lr,
-            state.step, n_samples=n_mc_samples, kl_scale=kl_scale, eps=eps,
-            generator=generator,
-        )
-        u = next(iter(batches.values())).shape[1]
-        if consensus == "gaussian":
-            post = consensus_all_agents(post, W, wire_dtype=wire_dtype)
-        elif consensus == "mean_only":
-            post = dataclasses.replace(
-                post,
-                mean=consensus_mean_only(post.mean, W),
-                rho=consensus_mean_only(post.rho, W),
+        with maybe_span(obs, "round.local_phase"):
+            post, opt_state, losses = network_local_steps(
+                state.posterior, prior, opt, state.opt_state, nll, batches, lr,
+                state.step, n_samples=n_mc_samples, kl_scale=kl_scale, eps=eps,
+                generator=generator,
             )
-        # consensus == "none": isolated learning (paper Fig 1b baseline)
+        u = next(iter(batches.values())).shape[1]
+        with maybe_span(obs, "round.consensus"):
+            if consensus == "gaussian":
+                post = consensus_all_agents(post, W, wire_dtype=wire_dtype)
+            elif consensus == "mean_only":
+                post = dataclasses.replace(
+                    post,
+                    mean=consensus_mean_only(post.mean, W),
+                    rho=consensus_mean_only(post.rho, W),
+                )
+            # consensus == "none": isolated learning (paper Fig 1b baseline)
         new_state = NetworkState(
             posterior=post, opt_state=opt_state,
             step=state.step + u, round=state.round + 1,

@@ -71,13 +71,17 @@ the JAX engine pins one trace, the port counts one.
 
 Observability (``engine.obs``, attached by ``build_session`` when
 ``spec.obs.enabled``): each window runs in a ``gossip.window_build`` span
-(the host's fault draws and window lookup) and a ``gossip.window`` span
-whose ``impl`` is ``masked``, ``delayed`` or ``segments``; a sharded window
-runs in a ``gossip.local_phase`` and a ``gossip.consensus`` span, both with
-``impl="ppermute"``.  After it the ``gossip.windows`` counter and the
-``gossip.jit_traces`` gauge (``n_traces``) are updated.  On the card each
-span synchronises before it reads the clock; nothing of it touches the
-window's tensors.
+(the window lookup, the host's fault draws and the host-to-card copies)
+and a ``gossip.window`` span whose
+``impl`` is ``masked``, ``delayed`` or ``segments``, split into a
+``gossip.local_phase`` span (the local steps and the fault select) and a
+``gossip.consensus`` span (the merge with its fills, quarantine and
+count); a sharded window runs in a ``gossip.local_phase`` and a
+``gossip.consensus`` span, both with ``impl="ppermute"``.  After it the
+``gossip.windows`` counter and the ``gossip.jit_traces`` gauge
+(``n_traces``) are updated.  No span synchronises the card (each records
+its device time with timing events, ``obs.trace``); nothing of it touches
+the window's tensors.
 """
 from __future__ import annotations
 
@@ -363,6 +367,13 @@ class GossipEngine:
             step = state.step + u
         return post, opt_state, step, active, losses
 
+    def _phase(self, name: str):
+        """A ``gossip.local_phase`` or ``gossip.consensus`` span inside the
+        window's ``gossip.window``; the sharded execution opens its own two
+        around its two steps (``run_round``)."""
+        sharded = self.mesh is not None and self.consensus_mode == "gaussian"
+        return maybe_span(None if sharded else self.obs, name)
+
     def finish(self, state, post, opt_state, step, active, n_quarantined=None) -> GossipState:
         merged = active if self.consensus_mode != "none" else torch.zeros_like(active)
         return GossipState(
@@ -382,12 +393,14 @@ class GossipEngine:
     def window_fn(self, state, batches, W, active, eps=None, generator=None):
         """The local phase, then the masked consensus (the sharded execution
         runs its consensus as a step of its own: ``_ppermute_consensus``)."""
-        post, opt_state, step, active, losses = self.local_phase(
-            state, batches, active, eps, generator)
-        if self.consensus_mode == "gaussian" and self.mesh is None:
-            post = consensus_flat_masked(post, W, active, wire_dtype=self.wire_dtype)
-        elif self.consensus_mode == "mean_only":
-            post = self._mean_only(post, W, active)
+        with self._phase("gossip.local_phase"):
+            post, opt_state, step, active, losses = self.local_phase(
+                state, batches, active, eps, generator)
+        with self._phase("gossip.consensus"):
+            if self.consensus_mode == "gaussian" and self.mesh is None:
+                post = consensus_flat_masked(post, W, active, wire_dtype=self.wire_dtype)
+            elif self.consensus_mode == "mean_only":
+                post = self._mean_only(post, W, active)
         return self.finish(state, post, opt_state, step, active), losses
 
     def window_fn_guarded(self, state, batches, W, active, eps=None, generator=None, *,
@@ -396,33 +409,35 @@ class GossipEngine:
         the fills replace the corrupted agents' wire payloads (resident state
         intact), quarantine validates the exchange.  All-up, no-corruption
         inputs make every extra op a value-identity."""
-        post, opt_state, step, active, losses = self.local_phase(
-            state, batches, active, eps, generator, up)
+        with self._phase("gossip.local_phase"):
+            post, opt_state, step, active, losses = self.local_phase(
+                state, batches, active, eps, generator, up)
         n_q = state.n_quarantined
-        if self.consensus_mode == "gaussian" and self.mesh is None:
-            c = corrupt[:, None]
-            mean_src = torch.where(c, fill_mean[:, None], post.mean)
-            rho_src = torch.where(c, fill_rho[:, None], post.rho)
-            if self.quarantine:
-                post, valid_src = consensus_flat_masked_quarantined(
-                    post, W, active, mean_src=mean_src, rho_src=rho_src,
-                    wire_dtype=self.wire_dtype,
-                )
-                n_q = n_q + (~valid_src).to(torch.int32)
-            else:
-                # strict: the wire is trusted verbatim, so the garbage reaches
-                # every receiver; non-merging agents keep their resident state
-                merged = consensus_flat_masked(
-                    dataclasses.replace(post, mean=mean_src, rho=rho_src), W, active,
-                    wire_dtype=self.wire_dtype,
-                )
-                act = active[:, None]
-                post = dataclasses.replace(
-                    post, mean=torch.where(act, merged.mean, post.mean),
-                    rho=torch.where(act, merged.rho, post.rho),
-                )
-        elif self.consensus_mode == "mean_only":
-            post = self._mean_only(post, W, active)
+        with self._phase("gossip.consensus"):
+            if self.consensus_mode == "gaussian" and self.mesh is None:
+                c = corrupt[:, None]
+                mean_src = torch.where(c, fill_mean[:, None], post.mean)
+                rho_src = torch.where(c, fill_rho[:, None], post.rho)
+                if self.quarantine:
+                    post, valid_src = consensus_flat_masked_quarantined(
+                        post, W, active, mean_src=mean_src, rho_src=rho_src,
+                        wire_dtype=self.wire_dtype,
+                    )
+                    n_q = n_q + (~valid_src).to(torch.int32)
+                else:
+                    # strict: the wire is trusted verbatim, so the garbage reaches
+                    # every receiver; non-merging agents keep their resident state
+                    merged = consensus_flat_masked(
+                        dataclasses.replace(post, mean=mean_src, rho=rho_src), W, active,
+                        wire_dtype=self.wire_dtype,
+                    )
+                    act = active[:, None]
+                    post = dataclasses.replace(
+                        post, mean=torch.where(act, merged.mean, post.mean),
+                        rho=torch.where(act, merged.rho, post.rho),
+                    )
+            elif self.consensus_mode == "mean_only":
+                post = self._mean_only(post, W, active)
         return self.finish(state, post, opt_state, step, active, n_q), losses
 
     def _write_slot(self, state, post):
@@ -446,13 +461,15 @@ class GossipEngine:
     def window_fn_delayed(self, state, batches, W, active, win, eps=None, generator=None):
         """Delayed-delivery window: write the slot, then merge each event's
         source as of its fire window."""
-        post, opt_state, step, active, losses = self.local_phase(
-            state, batches, active, eps, generator)
-        hist_mean, hist_rho = self._write_slot(state, post)
-        if self.consensus_mode == "gaussian":
-            post = consensus_flat_delayed(post, W, active, win.edges, win.weights, win.delays,
-                                          hist_mean, hist_rho, state.round,
-                                          wire_dtype=self.wire_dtype)
+        with self._phase("gossip.local_phase"):
+            post, opt_state, step, active, losses = self.local_phase(
+                state, batches, active, eps, generator)
+        with self._phase("gossip.consensus"):
+            hist_mean, hist_rho = self._write_slot(state, post)
+            if self.consensus_mode == "gaussian":
+                post = consensus_flat_delayed(post, W, active, win.edges, win.weights,
+                                              win.delays, hist_mean, hist_rho, state.round,
+                                              wire_dtype=self.wire_dtype)
         new = self.finish(state, post, opt_state, step, active)
         return dataclasses.replace(new, hist_mean=hist_mean, hist_rho=hist_rho), losses
 
@@ -462,20 +479,22 @@ class GossipEngine:
         source id (every event from a corrupted agent reads garbage, whatever
         its fire time); the ring always records the true resident
         posterior."""
-        post, opt_state, step, active, losses = self.local_phase(
-            state, batches, active, eps, generator, up)
-        hist_mean, hist_rho = self._write_slot(state, post)
+        with self._phase("gossip.local_phase"):
+            post, opt_state, step, active, losses = self.local_phase(
+                state, batches, active, eps, generator, up)
         n_q = state.n_quarantined
-        if self.consensus_mode == "gaussian":
-            args = (post, W, active, win.edges, win.weights, win.delays, hist_mean, hist_rho,
-                    state.round)
-            kw = dict(corrupt=faults["corrupt"], fill_mean=faults["fill_mean"],
-                      fill_rho=faults["fill_rho"], wire_dtype=self.wire_dtype)
-            if self.quarantine:
-                post, valid_e = consensus_flat_delayed_quarantined(*args, **kw)
-                n_q = self._n_q(n_q, win.edges[:, 0], win.weights, valid_e)
-            else:
-                post = consensus_flat_delayed_corrupted(*args, **kw)
+        with self._phase("gossip.consensus"):
+            hist_mean, hist_rho = self._write_slot(state, post)
+            if self.consensus_mode == "gaussian":
+                args = (post, W, active, win.edges, win.weights, win.delays, hist_mean,
+                        hist_rho, state.round)
+                kw = dict(corrupt=faults["corrupt"], fill_mean=faults["fill_mean"],
+                          fill_rho=faults["fill_rho"], wire_dtype=self.wire_dtype)
+                if self.quarantine:
+                    post, valid_e = consensus_flat_delayed_quarantined(*args, **kw)
+                    n_q = self._n_q(n_q, win.edges[:, 0], win.weights, valid_e)
+                else:
+                    post = consensus_flat_delayed_corrupted(*args, **kw)
         new = self.finish(state, post, opt_state, step, active, n_q)
         return dataclasses.replace(new, hist_mean=hist_mean, hist_rho=hist_rho), losses
 
@@ -491,11 +510,13 @@ class GossipEngine:
     def window_fn_segments(self, state, batches, win, active, eps=None, generator=None):
         """Edge-native window: the [E_max] fired arrays, [N] self-weights and
         the host-exact active mask are the whole exchange structure."""
-        post, opt_state, step, active, losses = self.local_phase(
-            state, batches, active, eps, generator)
-        if self.consensus_mode == "gaussian":
-            post = consensus_flat_segments(post, *self._self_loops(win), active=active,
-                                           wire_dtype=self.wire_dtype)
+        with self._phase("gossip.local_phase"):
+            post, opt_state, step, active, losses = self.local_phase(
+                state, batches, active, eps, generator)
+        with self._phase("gossip.consensus"):
+            if self.consensus_mode == "gaussian":
+                post = consensus_flat_segments(post, *self._self_loops(win), active=active,
+                                               wire_dtype=self.wire_dtype)
         return self.finish(state, post, opt_state, step, active), losses
 
     def window_fn_segments_guarded(self, state, batches, win, active, eps=None,
@@ -504,21 +525,25 @@ class GossipEngine:
         agents' fired edges, so ``up`` only gates local training; quarantine
         validates every fired edge's payload and moves dropped mass to the
         destination's self term."""
-        post, opt_state, step, active, losses = self.local_phase(
-            state, batches, active, eps, generator, up)
+        with self._phase("gossip.local_phase"):
+            post, opt_state, step, active, losses = self.local_phase(
+                state, batches, active, eps, generator, up)
         n_q = state.n_quarantined
-        if self.consensus_mode == "gaussian":
-            kw = dict(active=active, corrupt=faults["corrupt"], fill_mean=faults["fill_mean"],
-                      fill_rho=faults["fill_rho"], wire_dtype=self.wire_dtype)
-            if self.quarantine:
-                post, valid_e = consensus_flat_segments_quarantined(
-                    post, win.dst, win.src, win.weights, win.self_weight.astype(np.float32),
-                    **kw)
-                n_q = self._n_q(n_q, win.dst, win.weights, valid_e)
-            else:
-                # strict: the wire is trusted verbatim, so the garbage reaches
-                # every receiver; non-merging agents keep their resident state
-                post = consensus_flat_segments_corrupted(post, *self._self_loops(win), **kw)
+        with self._phase("gossip.consensus"):
+            if self.consensus_mode == "gaussian":
+                kw = dict(active=active, corrupt=faults["corrupt"],
+                          fill_mean=faults["fill_mean"], fill_rho=faults["fill_rho"],
+                          wire_dtype=self.wire_dtype)
+                if self.quarantine:
+                    post, valid_e = consensus_flat_segments_quarantined(
+                        post, win.dst, win.src, win.weights,
+                        win.self_weight.astype(np.float32), **kw)
+                    n_q = self._n_q(n_q, win.dst, win.weights, valid_e)
+                else:
+                    # strict: the wire is trusted verbatim, so the garbage reaches
+                    # every receiver; non-merging agents keep their resident state
+                    post = consensus_flat_segments_corrupted(post, *self._self_loops(win),
+                                                             **kw)
         return self.finish(state, post, opt_state, step, active, n_q), losses
 
     # -- Engine protocol -----------------------------------------------------

@@ -44,6 +44,7 @@ from repro_torch.core.flat import FlatPosterior, make_flat_nll
 from repro_torch.core.posterior import consensus_all_agents, kl_gaussian_agents
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.launch import spmd
+from repro_torch.obs.trace import current_obs, maybe_span
 from repro_torch.optim import Optimizer
 from repro_torch.optim.schedules import Schedule
 from repro_torch.vi.bayes_by_backprop import blocked_update, grads_like, vi_step
@@ -77,7 +78,8 @@ def _lm_grad_fn(cfg, n_agents: int, kl_scale: float, bayesian: bool, remat: bool
     not ``bayesian``), the prior held fixed; the gradient is that of the
     mean over all ``n_agents`` agents.  Flat or pytree blocks alike (the
     flat theta crosses to the parameter dict at ``layout.unflatten``).
-    Metrics: (loss, nll / ntok, KL)."""
+    The sample, KL and loss are a ``local.forward`` span of the current
+    observability bundle.  Metrics: (loss, nll / ntok, KL)."""
     from repro_torch.models import nll_loss
 
     def grad_fn(block, prior, batch: dict, eps):
@@ -87,16 +89,20 @@ def _lm_grad_fn(cfg, n_agents: int, kl_scale: float, bayesian: bool, remat: bool
         wrt = tree_leaves(q.mean) + (tree_leaves(q.rho) if bayesian else [])
         ntok = float(batch["targets"][0].numel())
         with torch.enable_grad():
-            if bayesian:
-                theta = q.sample(noise=eps)
-                kl = kl_gaussian_agents(q, tree_map(torch.Tensor.detach, prior))
-            else:
-                theta = q.mean
-                kl = torch.zeros(wrt[0].shape[0], dtype=torch.float32, device=wrt[0].device)
-            params = block.layout.unflatten(theta) if isinstance(block, FlatPosterior) else theta
-            nll, aux = nll_loss(params, cfg, batch, remat=remat)
-            loss = (nll + cfg.router_aux_weight * aux * ntok) / ntok + kl_scale * kl / ntok
-            grads = grads_like(q, wrt, loss.sum() / n_agents)
+            with maybe_span(current_obs(), "local.forward"):
+                if bayesian:
+                    theta = q.sample(noise=eps)
+                    kl = kl_gaussian_agents(q, tree_map(torch.Tensor.detach, prior))
+                else:
+                    theta = q.mean
+                    kl = torch.zeros(wrt[0].shape[0], dtype=torch.float32,
+                                     device=wrt[0].device)
+                params = (block.layout.unflatten(theta) if isinstance(block, FlatPosterior)
+                          else theta)
+                nll, aux = nll_loss(params, cfg, batch, remat=remat)
+                loss = (nll + cfg.router_aux_weight * aux * ntok) / ntok + kl_scale * kl / ntok
+                total = loss.sum() / n_agents
+            grads = grads_like(q, wrt, total)
         return (loss.detach(), (nll / ntok).detach(), kl.detach()), grads
 
     return grad_fn
@@ -236,7 +242,9 @@ def make_local_step(cfg, opt: Optimizer, lr_schedule: Schedule, kl_scale: float 
 
     Either way the optimizer takes the scalar ``state.step`` and the
     learning rate ``lr_schedule(state.step)``, and the noise is drawn from
-    ``generator`` without ``eps``."""
+    ``generator`` without ``eps``.  With an ``Observability`` bundle current
+    (``obs.trace.made_current``) the step's forward, backward and optimizer
+    are spans of its tracer."""
     if nll_fn is None:
         if cfg is None:
             raise ValueError("make_local_step needs a model config or an nll_fn")

@@ -15,13 +15,13 @@ assumption is conservative for this host).  The constants are the H100's,
 so on a CPU host attainment is tiny and only a run on the card gives a
 share of the card's roofline.
 
-Pure functions of plain numbers; nothing here touches a tensor.
+Pure functions of plain numbers; nothing here touches a tensor.  The cost
+model is imported where it is used: ``launch`` imports the local step,
+which opens its spans through ``obs.trace``.
 """
 from __future__ import annotations
 
 from typing import Any
-
-from repro_torch.launch.costmodel import consensus_roofline, gossip_window_roofline
 
 
 def attainment(measured_us: float, modeled_seconds: float) -> float:
@@ -44,6 +44,8 @@ def consensus_attainment(
     ``strategy`` picks the modeled execution (``leaf_loop | flat_fused |
     flat_sparse``); extra kwargs forward to the model (``max_degree``,
     ``wire_dtype``)."""
+    from repro_torch.launch.costmodel import consensus_roofline
+
     model = consensus_roofline(n_agents, n_params, n_leaves, **model_kwargs)
     modeled = model["roofline_seconds"][strategy]
     return {
@@ -69,6 +71,8 @@ def window_attainment(
     (``window_masked | dense_fused``, plus ``history`` /
     ``ici_window_ppermute`` when the model is built with ``delay_depth`` /
     ``n_shards``); extra kwargs forward to the model."""
+    from repro_torch.launch.costmodel import gossip_window_roofline
+
     model = gossip_window_roofline(
         n_agents, n_params, n_participating, **model_kwargs
     )

@@ -1,31 +1,37 @@
-"""Nested wall-clock spans with explicit compile-vs-warm attribution (port
-of ``repro.obs.trace``).
-
-The benches all reinvented the same timing discipline by hand: run the
-first call separately (it pays the one-time costs), THEN start the timer,
-and report ``compile_us`` next to the warm median, because a mean over
-calls that includes the first is off by orders of magnitude.  This module
-promotes that discipline into a reusable API:
+"""Nested spans on the host's clock, each with the card's time of the work
+inside it, and compile-vs-warm attribution (port of ``repro.obs.trace``).
 
 * ``Tracer`` — nested ``span(name, **attrs)`` context managers recording
-  wall-clock intervals into an in-process buffer.  Spans carry arbitrary
-  attributes; the ``compile=True`` attribute marks a span as
-  compile-attributed, and ``summary()`` splits every aggregate into
-  ``compile`` / ``warm`` groups so steady-state numbers are never polluted.
-  A DISABLED tracer's ``span`` is a reusable no-op context manager — the
-  instrumented hot path pays one attribute check and an empty ``with``.
-* ``CompileWarmTimer`` — the two-phase bench pattern as an object: time
-  the first call under ``with t.compile():``, the steady-state run under
-  ``with t.warm():``.
-* ``median_us(fn, *args)`` — median-of-warm-calls microbenchmark helper.
+  intervals into an in-process buffer.  Spans carry arbitrary attributes;
+  the ``compile=True`` attribute marks a span as compile-attributed, and
+  ``summary()`` splits every aggregate into ``compile`` / ``warm`` groups
+  so steady-state numbers are never polluted.  A DISABLED tracer's
+  ``span`` is a reusable no-op context manager — the instrumented hot path
+  pays one attribute check and an empty ``with``.
+* The current bundle: ``Session.round`` makes its ``Observability``
+  current for the call (``made_current``, which a caller of the launch
+  steps may use the same way); the numeric code the engines share (the
+  local step's forward, backward and optimizer, the synchronous round's
+  two halves) opens its spans with ``maybe_span(current_obs(), name)``.
+  With nothing current such a span costs one ``None`` check and allocates
+  nothing.
 
 The card runs asynchronously: a CUDA call returns when its kernels are
-queued, not done.  So a live span calls the tracer's ``sync`` (the
-``Observability`` of a CUDA session passes ``torch.cuda.synchronize`` for
-its device) before it reads the clock, on enter and on exit: the span then
-times the device work inside it, not its launches.  ``median_us`` and
-``compile_warm_split`` synchronise on a CUDA result (``_block``) for the
-same reason.  A synchronise changes no result.
+queued, not done.  A live span never synchronises.  It reads
+``time.perf_counter()`` on entry and exit (``t0_s`` and ``dur_us``: the
+host's time to issue the work inside it), and on a CUDA tracer
+(``Tracer(device=<cuda device>)``) it also records a timing
+``torch.cuda.Event`` on the device's current stream at each end.
+``Tracer.resolve()`` waits for the card once, fills each pending span's
+``device_us`` (the stream's time from the first event to the second: the
+work queued inside the span, and any stretch in which the stream waited
+for the host) and releases the events.  ``summary()`` and ``flush()``
+call it; the rounds never do.  On the CPU the work ran inside the span, so
+``device_us`` is its host duration.
+
+While ``torch.profiler`` records, a live span also opens a
+``record_function`` range of its name, so the program's phases sit in the
+profiler's host timeline, on the clock of the device operations.
 
 What the port pays once (the kernel library's build or load, cuBLAS
 handles, the allocator's first growth) falls in the first call it makes;
@@ -34,27 +40,32 @@ there is no JIT, so that is what the compile bucket holds here.
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import dataclasses
-import json
 import time
-from typing import Any, Callable
 
 import torch
+from torch.autograd import profiler as _profiler
 
 
 @dataclasses.dataclass
 class Span:
-    """One recorded interval (microseconds since the tracer epoch)."""
+    """One recorded interval: ``t0_us`` since the tracer epoch, ``t0_s`` on
+    ``time.perf_counter()``'s clock, ``dur_us`` on the host; ``device_us``
+    the card's time of the work inside it, once resolved (``None`` before)."""
 
     name: str
     t0_us: float
     dur_us: float
     depth: int
     attrs: dict
+    t0_s: float = 0.0
+    device_us: float | None = None
 
     def to_event(self) -> dict:
         ev = {"kind": "span", "name": self.name, "t0_us": round(self.t0_us, 3),
-              "dur_us": round(self.dur_us, 3), "depth": self.depth}
+              "dur_us": round(self.dur_us, 3), "depth": self.depth,
+              "device_us": None if self.device_us is None else round(self.device_us, 3)}
         if self.attrs:
             ev["attrs"] = {k: _plain(v) for k, v in self.attrs.items()}
         return ev
@@ -82,7 +93,7 @@ _NULL_SPAN = _NullSpan()
 class _LiveSpan:
     """An open span: closes itself into the tracer buffer on ``__exit__``."""
 
-    __slots__ = ("tracer", "name", "attrs", "t0")
+    __slots__ = ("tracer", "name", "attrs", "t0", "events", "range")
 
     def __init__(self, tracer: "Tracer", name: str, attrs: dict):
         self.tracer = tracer
@@ -92,38 +103,51 @@ class _LiveSpan:
     def __enter__(self):
         tr = self.tracer
         tr._depth += 1
-        if tr.sync is not None:
-            tr.sync()
+        self.range = None
+        if _profiler._is_profiler_enabled:
+            self.range = torch.profiler.record_function(self.name)
+            self.range.__enter__()
+        self.events = None
         self.t0 = time.perf_counter()
+        if tr._cuda:
+            self.events = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+            self.events[0].record(torch.cuda.current_stream(tr.device))
         return self
 
     def __exit__(self, *exc):
         tr = self.tracer
-        if tr.sync is not None:
-            tr.sync()
+        if self.events is not None:
+            self.events[1].record(torch.cuda.current_stream(tr.device))
         t1 = time.perf_counter()
         tr._depth -= 1
-        tr.spans.append(Span(
-            name=self.name,
-            t0_us=(self.t0 - tr._epoch) * 1e6,
-            dur_us=(t1 - self.t0) * 1e6,
-            depth=tr._depth,
-            attrs=self.attrs,
-        ))
+        span = Span(name=self.name, t0_us=(self.t0 - tr._epoch) * 1e6,
+                    dur_us=(t1 - self.t0) * 1e6, depth=tr._depth, attrs=self.attrs,
+                    t0_s=self.t0)
+        if self.events is None:
+            span.device_us = span.dur_us
+        else:
+            tr._pending.append((span, *self.events))
+            self.events = None
+        tr.spans.append(span)
+        if self.range is not None:
+            self.range.__exit__(*exc)
+            self.range = None
         return False
 
 
 class Tracer:
-    """In-process span recorder; free when disabled.  ``sync`` (optional,
-    no arguments) runs before each clock read of a live span: pass
-    ``torch.cuda.synchronize`` bound to the device whose work the spans
-    should time."""
+    """In-process span recorder; free when disabled.  ``device``: where the
+    spans' work runs; a CUDA device gives each span a pair of timing events
+    on that device's current stream, resolved by ``resolve()``."""
 
-    def __init__(self, enabled: bool = True, sink=None, sync: Callable[[], Any] | None = None):
+    def __init__(self, enabled: bool = True, sink=None, device=None):
         self.enabled = enabled
-        self.sync = sync
+        self.device = None if device is None else torch.device(device)
+        self._cuda = self.device is not None and self.device.type == "cuda"
         self.spans: list[Span] = []
         self.sink = sink  # optional metrics.JsonlSink; spans land as events
+        self._pending: list[tuple] = []  # (span, start event, end event)
         self._depth = 0
         self._flushed = 0
         self._epoch = time.perf_counter()
@@ -135,20 +159,34 @@ class Tracer:
             return _NULL_SPAN
         return _LiveSpan(self, name, attrs)
 
+    def resolve(self) -> None:
+        """Fill ``device_us`` of every span whose events are pending: one
+        synchronise of the tracer's device, then each pair's elapsed time;
+        the events are released.  A second call has nothing to do."""
+        if not self._pending:
+            return
+        torch.cuda.synchronize(self.device)
+        for span, start, end in self._pending:
+            span.device_us = start.elapsed_time(end) * 1e3
+        self._pending.clear()
+
     # -- aggregation ---------------------------------------------------------
 
     def summary(self) -> dict:
-        """Per span name: count / total / mean / p50 / max (us), split into
-        ``warm`` and ``compile`` groups by the ``compile`` attribute."""
-        grouped: dict[str, dict[str, list[float]]] = {}
+        """Per span name: count / total / mean / p50 / max (us) on the host,
+        and ``device_total_us`` / ``device_p50_us`` where every span of the
+        group has its device time, split into ``warm`` and ``compile``
+        groups by the ``compile`` attribute.  Resolves pending spans."""
+        self.resolve()
+        grouped: dict[str, dict[str, list[Span]]] = {}
         for s in self.spans:
             mode = "compile" if s.attrs.get("compile") else "warm"
-            grouped.setdefault(s.name, {}).setdefault(mode, []).append(s.dur_us)
+            grouped.setdefault(s.name, {}).setdefault(mode, []).append(s)
         out: dict[str, dict] = {}
         for name, modes in sorted(grouped.items()):
             out[name] = {}
-            for mode, durs in modes.items():
-                durs = sorted(durs)
+            for mode, spans in modes.items():
+                durs = sorted(s.dur_us for s in spans)
                 n = len(durs)
                 out[name][mode] = {
                     "n": n,
@@ -157,13 +195,17 @@ class Tracer:
                     "p50_us": durs[n // 2],
                     "max_us": durs[-1],
                 }
+                dev = sorted(s.device_us for s in spans if s.device_us is not None)
+                if len(dev) == n:
+                    out[name][mode].update(device_total_us=sum(dev), device_p50_us=dev[n // 2])
         return out
 
     def flush(self) -> int:
-        """Push buffered spans to the JSONL sink (if any); returns the
-        number of spans written this call."""
+        """Push buffered spans, resolved, to the JSONL sink (if any);
+        returns the number of spans written this call."""
         if self.sink is None:
             return 0
+        self.resolve()
         n = 0
         for s in self.spans[self._flushed:]:
             self.sink.emit(s.to_event())
@@ -171,13 +213,26 @@ class Tracer:
         self._flushed = len(self.spans)
         return n
 
-    def to_jsonl(self, path: str) -> int:
-        """Write every recorded span to ``path`` (one JSON object per
-        line); returns the span count."""
-        with open(path, "w") as fh:
-            for s in self.spans:
-                fh.write(json.dumps(s.to_event(), sort_keys=True) + "\n")
-        return len(self.spans)
+
+_CURRENT: contextvars.ContextVar = contextvars.ContextVar("repro_torch_current_obs",
+                                                          default=None)
+
+
+def current_obs():
+    """The ``Observability`` bundle made current up the call stack
+    (``made_current``), else ``None``."""
+    return _CURRENT.get()
+
+
+@contextlib.contextmanager
+def made_current(obs):
+    """``obs`` is ``current_obs()`` inside the block, and whatever was
+    current before it is again after (the blocks nest)."""
+    token = _CURRENT.set(obs)
+    try:
+        yield obs
+    finally:
+        _CURRENT.reset(token)
 
 
 def maybe_span(obs, name: str, **attrs):
@@ -185,93 +240,3 @@ def maybe_span(obs, name: str, **attrs):
     else the shared no-op context: an uninstrumented caller pays one
     ``is None`` check."""
     return obs.tracer.span(name, **attrs) if obs is not None else _NULL_SPAN
-
-
-class CompileWarmTimer:
-    """The bench_gossip ad-hoc split as a reusable object.
-
-        t = CompileWarmTimer()
-        with t.compile():
-            session.round()          # pays the one-time costs
-        with t.warm():
-            session.run(n_rounds=m)  # steady state
-        t.compile_us, t.warm_us, t.warm_us_per(m)
-
-    Multiple ``compile()``/``warm()`` blocks accumulate (first calls under
-    distinct shapes all belong to the compile bucket).  The blocks read the
-    host clock only: end each with a synchronise when it launches CUDA
-    work."""
-
-    def __init__(self):
-        self.compile_us = 0.0
-        self.warm_us = 0.0
-
-    @contextlib.contextmanager
-    def compile(self):
-        t0 = time.perf_counter()
-        try:
-            yield self
-        finally:
-            self.compile_us += (time.perf_counter() - t0) * 1e6
-
-    @contextlib.contextmanager
-    def warm(self):
-        t0 = time.perf_counter()
-        try:
-            yield self
-        finally:
-            self.warm_us += (time.perf_counter() - t0) * 1e6
-
-    def warm_us_per(self, n_calls: int) -> float:
-        return self.warm_us / max(1, n_calls)
-
-    def as_dict(self) -> dict:
-        return {"compile_us": self.compile_us, "warm_us": self.warm_us}
-
-
-def _block(x) -> None:
-    """Wait for the device work behind ``x``: synchronise every CUDA device
-    that a tensor in ``x`` (a tensor, or a list, tuple or dict of them)
-    lives on.  Anything else returns at once."""
-    devices = set()
-
-    def walk(v):
-        if isinstance(v, torch.Tensor):
-            if v.is_cuda:
-                devices.add(v.device)
-        elif isinstance(v, (list, tuple)):
-            for item in v:
-                walk(item)
-        elif isinstance(v, dict):
-            for item in v.values():
-                walk(item)
-
-    walk(x)
-    for dev in devices:
-        torch.cuda.synchronize(dev)
-
-
-def median_us(fn: Callable[..., Any], *args, iters: int = 5) -> float:
-    """Median warm wall-clock of ``fn(*args)`` in microseconds.  The caller
-    is responsible for warming ``fn`` first (or use ``compile_warm_split``);
-    a CUDA result is synchronised on, so device time is counted."""
-    times = []
-    for _ in range(iters):
-        t0 = time.perf_counter()
-        _block(fn(*args))
-        times.append((time.perf_counter() - t0) * 1e6)
-    return sorted(times)[len(times) // 2]
-
-
-def compile_warm_split(
-    fn: Callable[..., Any], *args, iters: int = 5
-) -> dict:
-    """Time ``fn(*args)``'s first call (compile) apart from its warm
-    median: ``{"compile_us", "warm_us_median"}``."""
-    t0 = time.perf_counter()
-    _block(fn(*args))
-    compile_us = (time.perf_counter() - t0) * 1e6
-    return {
-        "compile_us": compile_us,
-        "warm_us_median": median_us(fn, *args, iters=iters),
-    }

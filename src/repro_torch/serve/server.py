@@ -304,7 +304,8 @@ class PredictiveServer:
                 # [t0, t0 + lat] interval as one span
                 tr.spans.append(Span(
                     name="serve.request", t0_us=(t0 - tr._epoch) * 1e6, dur_us=lat_us,
-                    depth=tr._depth, attrs={"rows": n_rows, "mc": mc, "slo_ok": slo_ok}))
+                    depth=tr._depth, attrs={"rows": n_rows, "mc": mc, "slo_ok": slo_ok},
+                    t0_s=t0, device_us=lat_us))
         meta = {
             "snapshot_window": snap.window,
             "snapshot_version": snap.version,

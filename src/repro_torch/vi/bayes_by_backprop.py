@@ -27,6 +27,7 @@ import torch
 from repro_torch.core.flat import FlatPosterior
 from repro_torch.core.posterior import kl_gaussian_agents
 from repro_torch.core.tree import tree_leaves, tree_map, tree_replace_leaves
+from repro_torch.obs.trace import current_obs, maybe_span
 from repro_torch.optim import Optimizer, apply_updates
 
 PyTree = Any
@@ -66,9 +67,11 @@ def agent_blocks(n: int, p: int) -> list[slice]:
 def grads_like(post, leaves, value: torch.Tensor):
     """``torch.autograd.grad(value, leaves)`` as a tree shaped like
     ``post``: the gradient in each of ``leaves`` (``post``'s mean leaves,
-    then its rho leaves, or the mean's alone, the rho's then 0)."""
+    then its rho leaves, or the mean's alone, the rho's then 0), in a
+    ``local.backward`` span of the current observability bundle."""
     n = len(tree_leaves(post.mean))
-    grads = torch.autograd.grad(value, leaves)
+    with maybe_span(current_obs(), "local.backward"):
+        grads = torch.autograd.grad(value, leaves)
     if len(grads) == n:
         grads = grads + tuple(torch.zeros_like(r) for r in tree_leaves(post.rho))
     return dataclasses.replace(post, mean=tree_replace_leaves(post.mean, grads[:n]),
@@ -81,12 +84,15 @@ def free_energy_and_grad(post: FlatPosterior, prior: FlatPosterior, nll_fn: NllF
     buffers (a posterior of ``post``'s form): the gradient of the summed
     per-agent free energies, which is each agent's own
     (``torch.autograd.grad``; the prior is held fixed).  ``eps`` is the
-    injected MC noise."""
+    injected MC noise.  The value is a ``local.forward`` span of the current
+    observability bundle."""
     q = tree_map(lambda x: x.detach().requires_grad_(True), post)
     prior = tree_map(torch.Tensor.detach, prior)
     with torch.enable_grad():
-        value = free_energy(q, prior, nll_fn, batch, eps, kl_scale)
-        grads = grads_like(q, tree_leaves(q.mean) + tree_leaves(q.rho), value.sum())
+        with maybe_span(current_obs(), "local.forward"):
+            value = free_energy(q, prior, nll_fn, batch, eps, kl_scale)
+            total = value.sum()
+        grads = grads_like(q, tree_leaves(q.mean) + tree_leaves(q.rho), total)
     return value.detach(), grads
 
 
@@ -102,8 +108,10 @@ def blocked_update(post: FlatPosterior, prior: FlatPosterior, opt: Optimizer, op
     be ``post`` and ``opt_state`` themselves: a block's rows are read before
     they are written), else into new buffers.  ``post`` is a
     ``FlatPosterior`` or a ``GaussianPosterior`` (agent blocks by its
-    parameters an agent; ``eps`` then a dict).  Returns (post', opt_state',
-    the metrics, each ``[N]``)."""
+    parameters an agent; ``eps`` then a dict).  Each block's update and
+    write-back is a ``local.optimizer`` span of the current observability
+    bundle.  Returns (post', opt_state', the metrics, each ``[N]``)."""
+    obs = current_obs()
     mean_leaves = tree_leaves(post.mean)
     n = mean_leaves[0].shape[0]
     p = sum(leaf[0].numel() for leaf in mean_leaves)
@@ -115,13 +123,14 @@ def blocked_update(post: FlatPosterior, prior: FlatPosterior, opt: Optimizer, op
         values, grads = grad_fn(block, tree_map(lambda x: x[rows], prior),
                                 {k: v[rows] for k, v in batch.items()},
                                 None if eps is None else tree_map(lambda e: e[rows], eps))
-        updates, new_opt = opt.update(grads, tree_map(lambda x: x[rows], opt_state),
-                                      step[rows] if step.ndim else step, lr)
-        del grads  # [b, P] each: not held into the next block's forward
-        new = apply_updates(block, updates)
-        del updates
-        for dst, src in zip(tree_leaves(out), tree_leaves((new, new_opt))):
-            dst[rows].copy_(src)
+        with maybe_span(obs, "local.optimizer"):
+            updates, new_opt = opt.update(grads, tree_map(lambda x: x[rows], opt_state),
+                                          step[rows] if step.ndim else step, lr)
+            del grads  # [b, P] each: not held into the next block's forward
+            new = apply_updates(block, updates)
+            del updates
+            for dst, src in zip(tree_leaves(out), tree_leaves((new, new_opt))):
+                dst[rows].copy_(src)
         metrics.append(values)
     return out[0], out[1], tuple(torch.cat(m) for m in zip(*metrics))
 

@@ -30,10 +30,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import collections  # noqa: E402
 import dataclasses  # noqa: E402
+import gc  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
 import re  # noqa: E402
+import time  # noqa: E402
+import weakref  # noqa: E402
 
 import numpy as np  # noqa: E402
 
@@ -60,7 +64,7 @@ from repro_torch.obs.roofline import (  # noqa: E402
     consensus_attainment,
     window_attainment,
 )
-from repro_torch.obs.trace import CompileWarmTimer, Tracer, compile_warm_split, median_us  # noqa: E402
+from repro_torch.obs.trace import Tracer, current_obs, made_current  # noqa: E402
 
 NUMBER = re.compile(r"-?\d+(\.\d+)?(e[-+]?\d+)?")
 RTOL = 1e-5
@@ -218,23 +222,97 @@ def test_prometheus_text_is_byte_identical_across_packages(case, tmp_path):
 # -- tracer (tests/test_obs.py:146-211) ---------------------------------------------
 
 
-def test_disabled_tracer_records_nothing_and_reuses_null_span():
-    calls = []
-    tr = Tracer(enabled=False, sync=lambda: calls.append(1))
+class _FakeEvent:
+    """A stand-in for ``torch.cuda.Event`` on the CPU: ``record`` reads the
+    host clock; ``elapsed_time`` is in ms, as CUDA's."""
+
+    made = []
+
+    def __init__(self, enable_timing=False):
+        assert enable_timing
+        self.t = None
+        _FakeEvent.made.append(weakref.ref(self))
+
+    def record(self, stream=None):
+        self.t = time.perf_counter()
+
+    def elapsed_time(self, end):
+        return (end.t - self.t) * 1e3
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """``torch.cuda``'s events, streams and synchronise faked on the CPU, so
+    that a ``Tracer(device="cuda")`` runs here; yields the synchronise
+    calls."""
+    syncs = []
+    _FakeEvent.made = []
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: None)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: syncs.append(device))
+    return syncs
+
+
+def test_disabled_tracer_records_nothing_and_reuses_null_span(fake_card):
+    tr = Tracer(enabled=False, device="cuda")
     s1, s2 = tr.span("a"), tr.span("b", k=1)
     assert s1 is s2
     with s1:
         pass
-    assert tr.spans == [] and tr.summary() == {} and calls == []
+    assert tr.spans == [] and tr.summary() == {} and fake_card == [] and _FakeEvent.made == []
 
 
-def test_live_span_synchronises_before_each_clock_read():
-    events = []
-    tr = Tracer(enabled=True, sync=lambda: events.append("sync"))
+def test_live_span_synchronises_before_each_clock_read(fake_card):
+    """The old contract's name; the contract now: a live span calls no
+    synchronise on entry or exit, it records one timing event at each end,
+    and ``resolve()`` makes the one synchronise."""
+    tr = Tracer(enabled=True, device="cuda")
     with tr.span("outer"):
-        events.append("work")
-    assert events == ["sync", "work", "sync"]
-    assert [s.name for s in tr.spans] == ["outer"]
+        assert fake_card == [] and len(_FakeEvent.made) == 2
+    assert fake_card == [] and [s.name for s in tr.spans] == ["outer"]
+    assert tr.spans[0].device_us is None
+    tr.resolve()
+    assert fake_card == [torch.device("cuda")] and tr.spans[0].device_us >= 0
+
+
+def test_live_span_calls_no_synchronise_and_on_the_cpu_its_device_time_is_its_host_time(
+        monkeypatch):
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: pytest.fail("synchronised"))
+    tr = Tracer(enabled=True, device="cpu")
+    t_before = time.perf_counter()
+    with tr.span("outer"):
+        with tr.span("inner"):
+            time.sleep(0.002)
+    t_after = time.perf_counter()
+    inner, outer = tr.spans
+    for s in (inner, outer):
+        assert s.device_us == s.dur_us > 0
+        assert t_before <= s.t0_s and s.t0_s + s.dur_us * 1e-6 <= t_after
+        assert s.t0_s - tr._epoch == pytest.approx(s.t0_us * 1e-6, abs=1e-9)
+    assert inner.dur_us >= 2000 and outer.t0_s <= inner.t0_s
+    tr.resolve()  # nothing pending on the CPU
+    assert tr.summary()["outer"]["warm"]["device_total_us"] == outer.dur_us
+    assert tr.spans[0].to_event()["device_us"] == round(inner.dur_us, 3)
+
+
+def test_resolve_is_idempotent_and_releases_its_events(fake_card):
+    tr = Tracer(enabled=True, device="cuda")
+    for i in range(3):
+        with tr.span("step", compile=i == 0):
+            time.sleep(0.001)
+    assert len(tr._pending) == 3 and all(s.device_us is None for s in tr.spans)
+    tr.resolve()
+    assert len(fake_card) == 1 and tr._pending == []
+    gc.collect()
+    assert len(_FakeEvent.made) == 6 and all(ref() is None for ref in _FakeEvent.made)
+    got = [s.device_us for s in tr.spans]
+    assert all(d >= 1000 for d in got)
+    tr.resolve()
+    assert len(fake_card) == 1 and [s.device_us for s in tr.spans] == got
+    summ = tr.summary()["step"]  # the summary resolves too: nothing left to do
+    assert len(fake_card) == 1
+    assert summ["warm"]["device_total_us"] == pytest.approx(sum(got[1:]))
+    assert summ["compile"]["device_p50_us"] == got[0]
 
 
 def test_tracer_nesting_depth_and_order():
@@ -268,26 +346,6 @@ def test_tracer_flush_is_incremental(tmp_path):
     with tr.span("b"):
         pass
     assert tr.flush() == 1
-
-
-def test_compile_warm_timer_accumulates():
-    t = CompileWarmTimer()
-    with t.compile():
-        pass
-    with t.warm():
-        pass
-    with t.warm():
-        pass
-    assert t.compile_us > 0 and t.warm_us > 0
-    assert t.warm_us_per(4) == pytest.approx(t.warm_us / 4)
-    assert set(t.as_dict()) == {"compile_us", "warm_us"}
-
-
-def test_median_us_and_compile_warm_split_on_host_tensors():
-    x = torch.ones(64)
-    assert median_us(torch.cumsum, x, 0, iters=3) > 0
-    got = compile_warm_split(lambda: [x * 2, {"y": x + 1}], iters=3)
-    assert set(got) == {"compile_us", "warm_us_median"} and got["warm_us_median"] > 0
 
 
 # -- convergence tracking (tests/test_obs.py:216-271) -------------------------------
@@ -517,7 +575,7 @@ def test_obs_session_counters_convergence_and_dashboard():
     s = tapi.build_session(_tiny_spec(tapi, tapi.ObsSpec(enabled=True)), device="cpu")
     s.run()
     assert isinstance(s.obs, Observability)
-    assert s.obs.tracer.sync is None  # the CPU needs no synchronise
+    assert s.obs.tracer.device == torch.device("cpu")  # the host's clock alone
     reg = s.obs.registry
     assert reg.counter("session.rounds").value() == 3
     rep = s.obs.convergence.report()
@@ -567,6 +625,135 @@ def test_window_spans_name_their_execution(make, impl):
     assert [sp.attrs["round"] for sp in spans] == [0, 1, 2]
     assert s.obs.registry.counter("gossip.windows").value() == 3
     assert s.obs.registry.gauge("gossip.jit_traces").value() == s.engine.n_traces == 1
+
+
+def _spans(s, since=0):
+    return [(sp.name, sp.depth) for sp in s.obs.tracer.spans[since:]]
+
+
+LOCAL = ["local.forward", "local.backward", "local.optimizer"]
+
+
+def _one_agent_blocks(monkeypatch):
+    """Every agent a block of its own (``agent_blocks``' byte cap at 1)."""
+    from repro_torch.vi import bayes_by_backprop
+
+    monkeypatch.setattr(bayes_by_backprop, "AGENT_BLOCK_BYTES", 1)
+
+
+@pytest.mark.parametrize("case", ["sync", "masked", "segments"])
+def test_span_lists_of_a_round_and_of_a_window(case, monkeypatch):
+    """One round's spans in the order they close, with their depths: the
+    local step's three spans once a block (4 agents, one a block) and
+    step (u = 2) inside the round's or the window's local phase, then its
+    consensus."""
+    _one_agent_blocks(monkeypatch)
+    obs = tapi.ObsSpec(enabled=True, convergence=False)
+    spec = {"sync": lambda: _tiny_spec(tapi, obs), "masked": lambda: _gossip_spec(tapi, obs),
+            "segments": lambda: _sparse_spec(tapi, obs)}[case]()
+    n = spec.data.partition_params["n_agents"]
+    spec = dataclasses.replace(spec, data=dataclasses.replace(spec.data, local_updates=2))
+    s = tapi.build_session(spec, device="cpu")
+    s.round()
+    local = [(name, 3 if case != "sync" else 2) for name in LOCAL] * (2 * n)
+    head = [("session.w_build", 1), ("session.batches", 1)]
+    if case == "sync":
+        body = local + [("round.local_phase", 1), ("round.consensus", 1)]
+    else:
+        body = [("gossip.window_build", 1)] + local + [("gossip.local_phase", 2), ("gossip.consensus", 2),
+                                ("gossip.window", 1)]
+    assert _spans(s) == head + body + [("session.round", 0)]
+    assert all(sp.device_us == sp.dur_us for sp in s.obs.tracer.spans)
+
+
+def _lm_pair(monkeypatch):
+    """A tiny repro-100m (2 agents, one a block), its Adam, schedule, state
+    and one batch on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_lm_batch_sampler
+    from repro_torch.launch.steps import init_train_state
+    from repro_torch.optim import adam
+    from repro_torch.optim.schedules import exponential_decay
+
+    _one_agent_blocks(monkeypatch)
+    cfg = dataclasses.replace(get_config("repro-100m"), n_layers=1, d_model=32, n_heads=2,
+                              n_kv_heads=2, head_dim=16, d_ff=64, vocab_size=64,
+                              dtype="float32")
+    g = torch.Generator().manual_seed(0)
+    opt = adam()
+    state = init_train_state(cfg, 2, opt, generator=g, device="cpu")
+    batch = make_lm_batch_sampler(cfg.vocab_size, 2, 8, n_agents=2, device="cpu")(g, 0)
+    return cfg, opt, exponential_decay(1e-3, 1.0), state, batch
+
+
+def test_span_lists_of_the_launch_steps(monkeypatch):
+    """The launch steps open their spans in the bundle current at the
+    call (``made_current``): a local step, the three local spans once a
+    block (2 agents, one a block); eq. (6), none.  With nothing current
+    they record nothing."""
+    from repro_torch.launch.steps import make_consensus_step, make_local_step
+    from repro_torch.obs import Observability
+
+    cfg, opt, sched, state, batch = _lm_pair(monkeypatch)
+    obs = Observability(tapi.ObsSpec(enabled=True), device="cpu")
+    step = make_local_step(cfg, opt, sched, remat=False)
+    merge = make_consensus_step(cfg, W=torch.full((2, 2), 0.5))
+    g = torch.Generator().manual_seed(1)
+    prior = merge(state.posterior)
+    step(state, prior, batch, generator=g)
+    assert obs.tracer.spans == []
+    with made_current(obs):
+        prior = merge(state.posterior)
+        assert obs.tracer.spans == []
+        for _ in range(2):
+            state, loss = step(state, prior, batch, generator=g)
+    assert current_obs() is None
+    assert [(sp.name, sp.depth) for sp in obs.tracer.spans] == [
+        (name, 0) for name in LOCAL] * 2 * 2
+    assert torch.isfinite(loss)
+
+
+def test_current_bundle_nests_and_is_cleared_after_a_round(monkeypatch):
+    s = tapi.build_session(_tiny_spec(tapi, tapi.ObsSpec(enabled=True)), device="cpu")
+    seen = []
+    run_round = s.engine.run_round
+
+    def spy(*a, **k):
+        seen.append(current_obs())
+        return run_round(*a, **k)
+
+    monkeypatch.setattr(s.engine, "run_round", spy)
+    assert current_obs() is None
+    s.round()
+    assert seen == [s.obs] and current_obs() is None
+    outer, inner = object(), object()
+    with made_current(outer):
+        with made_current(inner):
+            assert current_obs() is inner
+        assert current_obs() is outer
+        s.round()
+        assert seen[-1] is s.obs and current_obs() is outer
+    assert current_obs() is None
+    with pytest.raises(RuntimeError), made_current(outer):
+        raise RuntimeError
+    assert current_obs() is None
+
+
+def test_spans_are_record_function_ranges_while_the_profiler_records():
+    from torch.autograd import profiler as autograd_profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    spec = _sparse_spec(tapi, tapi.ObsSpec(enabled=True, convergence=False))
+    s = tapi.build_session(spec, device="cpu")
+    s.round()
+    n0 = len(s.obs.tracer.spans)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        s.round()
+    assert not autograd_profiler._is_profiler_enabled
+    ranges = collections.Counter(e.name for e in prof.events())
+    spans = collections.Counter(sp.name for sp in s.obs.tracer.spans[n0:])
+    assert {"local.forward", "gossip.consensus", "session.round"} <= set(spans)
+    assert all(ranges[name] == n for name, n in spans.items()), (ranges, spans)
 
 
 def test_serving_hooks_record_requests_and_publishes():
@@ -665,6 +852,11 @@ def test_obs_jsonl_path_writes_trace(tmp_path):
 # -- against the JAX package ---------------------------------------------------------
 
 
+# the port's spans inside a round, window or step, which the reference does not open
+PORT_ONLY_SPANS = {"local.forward", "local.backward", "local.optimizer", "round.local_phase",
+                   "round.consensus", "gossip.local_phase", "gossip.consensus"}
+
+
 def _dashboard_pair(make, serve):
     sessions = []
     for mod, kw in ((japi, {}), (tapi, {"device": "cpu"})):
@@ -687,10 +879,12 @@ def test_dashboard_matches_the_reference(case):
             "gossip_served": _gossip_spec}[case]
     js, ts = _dashboard_pair(make, serve=case == "gossip_served")
     jd, td = js.dashboard().splitlines(), ts.dashboard().splitlines()
+    td = [x for x in td if not (x.startswith("span ") and x.split()[1] in PORT_ONLY_SPANS)]
     assert [_template(x) for x in td] == [_template(x) for x in jd]
     assert td[0] == jd[0]
-    assert {sp.name for sp in ts.obs.tracer.spans} == {sp.name for sp in js.obs.tracer.spans}
-    assert ts.obs.tracer.summary().keys() == js.obs.tracer.summary().keys()
+    names = {sp.name for sp in ts.obs.tracer.spans}
+    assert names - PORT_ONLY_SPANS == {sp.name for sp in js.obs.tracer.spans}
+    assert ts.obs.tracer.summary().keys() - PORT_ONLY_SPANS == js.obs.tracer.summary().keys()
     for name, modes in js.obs.tracer.summary().items():
         got = ts.obs.tracer.summary()[name]
         assert {m: v["n"] for m, v in got.items()} == {m: v["n"] for m, v in modes.items()}
