@@ -14,9 +14,13 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    build of the kernel library from ``src/repro_torch/kernels/csrc/*.cu``;
 2. every kernel against its plain PyTorch version on the card, at wire
    f32/bf16/f16: ``consensus_fused_network`` and ``consensus_fused_masked``
-   at (N, P) = (9, 199210), (300, 4099), (1, 5), the masked kernel with
-   masks all-true, all-false and mixed and its active rows bitwise the
-   network kernel's; ``consensus_fused_sparse`` and
+   at (N, P) = (9, 199210), (300, 4099), (1, 5) with a W of no zeros, on
+   the 3x3 grid's and a 16-ring's W, and on the 32x32 grid's W at
+   (1024, 199210) (the synchronous round's generic path, walking W's
+   nonzeros), the masked kernel with masks all-true, all-false and mixed
+   and its active rows bitwise the network kernel's; the 3x3 grid's W
+   over poisoned lanes, the generic path's bits the small kernel's and its
+   NaN lanes the plain version's; ``consensus_fused_sparse`` and
    ``consensus_fused_masked_sparse`` on the CSR tables of the 3x3 grid
    (D = 5) and of three gossip windows at P = 199210, of N = 300 ring and
    Watts-Strogatz graphs, and of a 70,000-agent ring at P = 3; the dense
@@ -807,22 +811,28 @@ def check_kernels(dev):
     from repro_torch.kernels import launch_plan
 
     worst = {}
-    for (n, p) in [(9, P_SLICE), (300, 4_099), (1, 5)]:
+    # W: eq6_inputs' all-positive one, or a graph's sparse W; grid32x32 is
+    # the synchronous cell's shape, the generic path walking <= 5 nonzeros a row
+    for (pattern, n, p) in [("dense", 9, P_SLICE), ("dense", 300, 4_099), ("dense", 1, 5),
+                            ("grid3x3", 9, P_SLICE), ("ring16", 16, 4_099),
+                            ("grid32x32", 1024, P_SLICE)]:
+        W, mean, rho = eq6_inputs(n, p, seed=n + p, device=dev)
+        if pattern != "dense":
+            W = torch.from_numpy(dense_pattern_w(pattern)).to(dev, torch.float32)
         for wire in WIRES:
-            W, mean, rho = eq6_inputs(n, p, seed=n + p, device=dev)
             got = k.consensus_fused_network(W, mean, rho, wire_dtype=wire)
             want = k.consensus_network_plain(W, mean, rho, wire)
-            errs = eq6_errors(f"consensus_fused_network N={n} P={p}", got, want, wire)
+            errs = eq6_errors(f"consensus_fused_network {pattern} N={n} P={p}", got, want, wire)
             generic = {}
             if launch_plan.dense_instance(n):  # both paths can run: the same bits
                 generic = {"generic_bitwise": eq6_same_bits(
-                    f"consensus_fused_network N={n} P={p} wire={wire} generic", got,
+                    f"consensus_fused_network {pattern} N={n} P={p} wire={wire} generic", got,
                     k._network_launch("consensus_fused_network", W, None, mean, rho, wire,
                                       instance=0))}
-            phase("2.consensus", n=n, p=p, wire=wire, max_abs_err_mean=errs[0],
-                  max_abs_err_rho=errs[1], **generic, variant=kernel_variant(
+            phase("2.consensus", w=pattern, n=n, p=p, wire=wire, max_abs_err_mean=errs[0],
+                  max_abs_err_rho=errs[1], **generic, variant=dense_variant(
                       lambda: k.consensus_fused_network(W, mean, rho, wire_dtype=wire)))
-            if (n, p, wire) == (9, P_SLICE, "f32"):
+            if (pattern, n, p, wire) == ("dense", 9, P_SLICE, "f32"):
                 worst["consensus_fused_network"] = max(errs)
             masks = {"all": torch.ones(n, dtype=torch.bool), "none": torch.zeros(n, dtype=torch.bool),
                      "mixed": torch.arange(n) % 3 != 1}
@@ -830,26 +840,31 @@ def check_kernels(dev):
                 active = active.to(dev)
                 got_m = k.consensus_fused_masked(W, active, mean, rho, wire_dtype=wire)
                 want_m = k.consensus_masked_plain(W, active, mean, rho, wire)
-                errs = eq6_errors(f"consensus_fused_masked N={n} P={p} mask={mask}", got_m,
-                                  want_m, wire)
+                errs = eq6_errors(f"consensus_fused_masked {pattern} N={n} P={p} mask={mask}",
+                                  got_m, want_m, wire)
                 for g_, x, nt in zip(got_m, (mean, rho), got):
                     if not (torch.equal(g_[active], nt[active])
                             and torch.equal(g_[~active], x[~active])):
                         raise AssertionError(
-                            f"consensus_fused_masked N={n} P={p} mask={mask} wire={wire}: "
+                            f"consensus_fused_masked {pattern} N={n} P={p} mask={mask} "
+                            f"wire={wire}: "
                             "active rows not bitwise the network kernel's, or inactive "
                             "rows not passed through")
-                fields = {"variant": kernel_variant(
+                fields = {"variant": dense_variant(
                     lambda: k.consensus_fused_masked(W, active, mean, rho, wire_dtype=wire))}
                 if mask == "mixed" and launch_plan.dense_instance(n):
                     fields["generic_bitwise"] = eq6_same_bits(
-                        f"consensus_fused_masked N={n} P={p} wire={wire} generic", got_m,
+                        f"consensus_fused_masked {pattern} N={n} P={p} wire={wire} generic",
+                        got_m,
                         k._network_launch("consensus_fused_masked", W, active, mean, rho,
                                           wire, instance=0))
-                phase("2.masked", n=n, p=p, wire=wire, mask=mask, max_abs_err_mean=errs[0],
-                      max_abs_err_rho=errs[1], active_rows_bitwise_network=True, **fields)
-                if (n, p, wire, mask) == (9, P_SLICE, "f32", "mixed"):
+                phase("2.masked", w=pattern, n=n, p=p, wire=wire, mask=mask,
+                      max_abs_err_mean=errs[0], max_abs_err_rho=errs[1],
+                      active_rows_bitwise_network=True, **fields)
+                if (pattern, n, p, wire, mask) == ("dense", 9, P_SLICE, "f32", "mixed"):
                     worst["consensus_fused_masked"] = max(errs)
+    del W, mean, rho, got, want, got_m, want_m
+    check_dense_poisoned(dev, k)
     tables = [("grid_base", neighbor_tables(graphs.grid_w(3, 3)), P_SLICE, None)]
     tables += [(f"window{w.index}", neighbor_tables(w.w_eff), P_SLICE, w.active)
                for w in gossip_windows()]
@@ -1046,6 +1061,46 @@ def check_shard(dev):
     return worst
 
 
+def dense_pattern_w(pattern):
+    """A sparse row-stochastic W of ``check_kernels``' dense eq. (6) cases."""
+    from repro_torch.core import graphs
+
+    return {"grid3x3": lambda: graphs.grid_w(3, 3), "ring16": lambda: graphs.bidirectional_ring_w(16),
+            "grid32x32": lambda: graphs.grid_w(32, 32)}[pattern]()
+
+
+def check_dense_poisoned(dev, k):
+    """Phase 2, dense eq. (6) over the sparse 3 x 3 grid W with ``poisoned``
+    lanes (NaN, +-inf, f16-overflowing): the generic walk over W's nonzeros
+    gives the small kernel's bits, masked and not, its NaN lanes the plain
+    version's (a zero weight over a term that is not finite is NaN, not
+    skipped)."""
+    import torch
+
+    W = torch.from_numpy(dense_pattern_w("grid3x3")).to(dev, torch.float32)
+    n, p = W.shape[0], P_SLICE
+    mean, rho = poisoned(n, p, seed=11, device=dev)
+    active = torch.arange(n, device=dev) % 3 != 1
+    for wire in WIRES:
+        for name, act in (("consensus_fused_network", None), ("consensus_fused_masked", active)):
+            small = k._network_launch(name, W, act, mean, rho, wire)
+            generic = k._network_launch(name, W, act, mean, rho, wire, instance=0)
+            plain = (k.consensus_network_plain(W, mean, rho, wire) if act is None else
+                     k.consensus_masked_plain(W, act, mean, rho, wire))
+            torch.cuda.synchronize()
+            for s_, g_, p_ in zip(small, generic, plain):
+                nan = s_.isnan()
+                if not (torch.equal(nan, g_.isnan()) and torch.equal(nan, p_.isnan())
+                        and torch.equal(s_.masked_fill(nan, 0.0).view(torch.int32),
+                                        g_.masked_fill(nan, 0.0).view(torch.int32))):
+                    raise AssertionError(f"{name} grid3x3 poisoned wire={wire}: the generic "
+                                         "path's bits or NaN lanes are not the small "
+                                         "kernel's and the plain version's")
+            phase("2.masked" if act is not None else "2.consensus", w="grid3x3", case="poisoned",
+                  n=n, p=p, wire=wire, nan_lanes=int(small[0].isnan().sum()),
+                  generic_bitwise=True, nans_as_plain=True)
+
+
 def eq6_same_bits(what, got, other):
     """Raise unless two eq. (6) results are the same bits; returns True."""
     import torch
@@ -1064,6 +1119,17 @@ def kernel_variant(fn, work=None):
     if len(work) != 1 or work[0]["type"] != "kernel" or "<" not in work[0]["name"]:
         raise AssertionError(f"expected one templated device kernel, got {work}")
     return work[0]["name"]
+
+
+def dense_variant(fn):
+    """``kernel_variant`` of a dense eq. (6) call: its small instance, or
+    the generic path's two kernels (W's nonzero lists, then the walk over
+    them), named together."""
+    work = captured_work(fn)
+    lists = "consensus_generic_kernel_nonzeros"  # not a template: its name stays mangled
+    if len(work) == 2 and lists in work[0].get("name", ""):
+        return f"{lists} + {kernel_variant(fn, work[1:])}"
+    return kernel_variant(fn, work)
 
 
 def ptxas_usage(variant):

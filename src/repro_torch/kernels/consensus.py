@@ -10,7 +10,8 @@ synchronous round's and the gossip windows' paths).
       mean' = new_pm / new_prec,  rho' = softplus^-1(new_prec^-1/2)
 
   CUDA source: ``csrc/consensus_network.cu`` (N <= 16 keeps every row of
-  a thread's 2 lanes in registers; larger N stages rows in chunks).
+  a thread's 2 lanes in registers; larger N lists W's nonzeros on the card
+  and walks only those, over each source's terms computed once a tile).
 * ``consensus_fused``: eq. (6) for ONE agent, ``w_row [N]`` over the
   stacked neighbour rows ``[N, P]`` -> ``[P]``, in that kernel's own op
   order (``wp = w * prec`` then ``sum(wp * mean)`` at f32; ``sum(w *
@@ -129,9 +130,11 @@ def _outputs_and_vec(mean, rho):
 
 
 def _network_launch(name, W, active, mean, rho, wire_dtype, instance=None):
-    """One launch of ``csrc/consensus_network.cu``: ``active`` None or an
+    """One call of ``csrc/consensus_network.cu``: ``active`` None or an
     ``[N]`` mask; ``instance`` the small instance ``dense_instance(N)``
-    (the default) or 0, the generic path, which runs any N."""
+    (the default) or 0, the generic path, which runs N up to
+    ``launch_plan.GENERIC_N_MAX``: two kernels, W's nonzero lists built on
+    the card, then the walk over them."""
     if mean.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for {mean.device}")
     _check_flat(name, mean, rho)
@@ -145,17 +148,28 @@ def _network_launch(name, W, active, mean, rho, wire_dtype, instance=None):
     wire = _WIRE_CODE[canonical_wire_dtype(wire_dtype)]
     lib = dispatch.library()
     instance = launch_plan.dense_instance(n) if instance is None else instance
+    if not instance:
+        launch_plan.generic_tile(n)  # refuses N past GENERIC_N_MAX before the card is asked
     wave = dispatch.wave(mean.device, "consensus_network", lib.consensus_network_blocks_per_sm,
-                         wire, instance)
+                         wire, instance, 0 if instance else n)
     plan = launch_plan.dense_plan(n, p, vec, instance, wave)
+    entries = walked = None
+    if not instance:
+        entries = torch.empty(launch_plan.nonzero_words(n), dtype=torch.int32,
+                              device=mean.device)
+        walked = dispatch.walk_counter(mean.device)
     with torch.cuda.device(mean.device):  # the launch runs on the tensors' card
         err = lib.consensus_network_launch(
             W.data_ptr(), None if act is None else act.data_ptr(), mean.data_ptr(),
             rho.data_ptr(), mean_out.data_ptr(), rho_out.data_ptr(), n, p, wire,
-            plan.instance, plan.vec, plan.grid, _stream(mean.device),
+            plan.instance, plan.vec, plan.grid, plan.tile,
+            *(None if t is None else t.data_ptr() for t in (entries, walked)),
+            _stream(mean.device),
         )
     dispatch.check_cuda(err, name)
     dispatch.count_launch(name)
+    if not instance:
+        dispatch.count_dense_walk(n * n)
     return mean_out, rho_out
 
 

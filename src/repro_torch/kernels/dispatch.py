@@ -13,6 +13,10 @@ every module of the package.
 Launch counters: each kernel wrapper calls ``count_launch(name)`` exactly
 where it launches its kernel, and nowhere else, so a run can show that its
 path went through the kernel (``launch_counts`` / ``reset_launch_counts``).
+The generic dense eq. (6) kernel also counts, on the card, the entries of W
+it walks (each merging row's nonzeros); ``walk_counts`` reads that count
+beside the entries a dense walk would take (N^2 a launch).  Reading it waits
+for the card: a test, a probe or a dashboard asks, never a round.
 """
 from __future__ import annotations
 
@@ -44,6 +48,8 @@ _launches = dict.fromkeys(KERNELS, 0)
 _lib: ctypes.CDLL | None = None
 _waves: dict[tuple, int] = {}  # (device index, kernel, instance) -> blocks in one wave
 _counters: dict[tuple[int, int], torch.Tensor] = {}  # (device index, stream) -> counter
+_walked: dict[int, torch.Tensor] = {}  # device index -> W entries the generic kernel walked
+_dense_entries = 0  # the entries a dense walk would have taken in the same launches
 build_info: dict = {}  # seconds / path / ptxas report of the last build or load
 
 
@@ -68,8 +74,34 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
+    global _dense_entries
     for k in _launches:
         _launches[k] = 0
+    for t in _walked.values():
+        t.zero_()
+    _dense_entries = 0
+
+
+def walk_counter(device: torch.device) -> torch.Tensor:
+    """The card's count (one int64, read as uint64 by the kernel) of W
+    entries the generic dense eq. (6) kernel walked on ``device``."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _walked:
+        _walked[index] = torch.zeros(1, dtype=torch.int64, device=torch.device("cuda", index))
+    return _walked[index]
+
+
+def count_dense_walk(entries: int) -> None:
+    """Add what a dense walk would take (N^2) for one generic launch."""
+    global _dense_entries
+    _dense_entries += entries
+
+
+def walk_counts() -> dict[str, int]:
+    """``walked``: W entries the generic dense eq. (6) kernel walked on every
+    card since the last reset; ``dense``: the entries a dense walk would
+    have taken in the same launches.  Waits for the cards."""
+    return {"walked": sum(int(t.item()) for t in _walked.values()), "dense": _dense_entries}
 
 
 def _nvcc() -> str:
@@ -142,10 +174,10 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build_library()))
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.consensus_network_blocks_per_sm.argtypes = [i32, i32]
+        lib.consensus_network_blocks_per_sm.argtypes = [i32, i32, i32]
         lib.consensus_network_blocks_per_sm.restype = i32
         lib.consensus_network_launch.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, ptr, i32, i64, i32, i32, i32, i32, ptr,
+            ptr, ptr, ptr, ptr, ptr, ptr, i32, i64, i32, i32, i32, i32, i32, ptr, ptr, ptr,
         ]
         lib.consensus_network_launch.restype = i32
         lib.payload_validity_blocks_per_sm.argtypes = [i32, i32]

@@ -11,8 +11,14 @@ Eq. (6), dense W (``consensus_fused_network`` / ``_masked``):
   rows in registers, so an instance is compiled per row count: N runs the
   smallest of ``SMALL_INSTANCES`` that holds it, with the rows past N
   skipped.  Loads are 8 bytes where every row allows it, else 4.
-* **generic** (any N): a block owns a tile of ``GENERIC_TILE`` lanes, one a
-  thread, tiles b, b + grid, ...; the input rows are staged in chunks.
+* **generic** (any N): first a kernel lists each merging row's nonzero
+  entries of W into ``nonzero_words(N)`` int32 of scratch; then a block of
+  ``GENERIC_THREADS`` owns a tile of ``generic_tile(N)`` lanes (tiles b,
+  b + grid, ...), thread t the ``GENERIC_LANES`` lanes of quad
+  q = t mod (tile / 4) of rows t div (tile / 4), + GENERIC_THREADS 4 / tile,
+  ...  It keeps every row's terms of its tile in ``generic_smem(N)`` bytes
+  of shared memory, and each merging output row walks its list over them.
+  N runs up to ``GENERIC_N_MAX``, the rows whose 4-lane tile fits a block.
 
 Eq. (6), CSR tables (``consensus_fused_sparse`` / ``_masked_sparse``):
 
@@ -94,7 +100,12 @@ SMALL_LANES = 2  # lanes a thread owns on the small dense path
 SMALL_N_MAX = 16
 SMALL_INSTANCES = (1, 2, 4, 8, 9, 16)  # exact at the 3x3 grid's N = 9
 SMALL_THREADS = 128
-GENERIC_TILE = 256  # lanes = threads per block
+GENERIC_TILE = 256  # consensus_row.cu: lanes = threads per block
+GENERIC_THREADS = 512  # consensus_network.cu's generic kernel: threads per block
+GENERIC_LANES = 4  # lanes a thread owns there
+GENERIC_SMEM = 131072  # shared-memory bytes a tile's terms fill at most
+SMEM_MAX = 232_448  # a block's shared memory on the H100 (227 KB)
+GENERIC_N_MAX = SMEM_MAX // (8 * GENERIC_LANES)  # 7,264 rows: the generic path's largest N
 SPARSE_THREADS = 256
 SPARSE_TILE = 256  # lanes of a staged tile: 64 groups
 STAGE_N_MAX = 24  # 2 * 24 rows * 256 lanes * 4 bytes = 48 KB
@@ -114,6 +125,7 @@ class Eq6Plan:
     items: int     # what the grid walks: lane groups, tiles or (agent, lane group) pairs
     threads: int   # per block
     grid: int      # blocks, <= one wave
+    tile: int = 0  # dense generic: lanes of a tile
 
 
 def row_vector_width(p: int, *ptrs: int) -> int:
@@ -129,6 +141,32 @@ def dense_instance(n: int) -> int:
     if n <= 0:
         raise ValueError(f"n = {n}: no agents")
     return next((nb for nb in SMALL_INSTANCES if nb >= n), 0)
+
+
+def generic_tile(n: int) -> int:
+    """Lanes of a generic dense tile for ``n`` rows: the largest power of
+    two from ``GENERIC_LANES`` to ``GENERIC_LANES * GENERIC_THREADS`` whose
+    terms (8 n bytes a lane) fit ``GENERIC_SMEM``; ``GENERIC_LANES`` where
+    none does.  Past ``GENERIC_N_MAX`` rows no tile fits: ValueError."""
+    if n > GENERIC_N_MAX:
+        raise ValueError(f"dense eq. (6): N = {n} is above the generic kernel's "
+                         f"{GENERIC_N_MAX} rows; use consensus_fused_sparse")
+    t = GENERIC_LANES
+    while t < GENERIC_LANES * GENERIC_THREADS and 16 * n * t <= GENERIC_SMEM:
+        t *= 2
+    return t
+
+
+def generic_smem(n: int) -> int:
+    """Shared-memory bytes of a generic tile's terms for ``n`` rows."""
+    return 8 * n * generic_tile(n)
+
+
+def nonzero_words(n: int) -> int:
+    """int32 words of the generic kernel's nonzero lists: a (column, weight)
+    pair for each of a row's up to ``n`` entries, for ``n`` rows, then a
+    count a row."""
+    return 2 * n * n + n
 
 
 def _groups(p: int) -> int:
@@ -161,8 +199,9 @@ def dense_plan(n: int, p: int, vec: int, instance: int, wave: int) -> Eq6Plan:
         items = -(-p // SMALL_LANES)
         return Eq6Plan(instance, vec, items, SMALL_THREADS,
                        _grid(-(-items // SMALL_THREADS), wave))
-    items = -(-p // GENERIC_TILE)
-    return Eq6Plan(0, vec, items, GENERIC_TILE, _grid(items, wave))
+    tile = generic_tile(n)
+    items = -(-p // tile)
+    return Eq6Plan(0, vec, items, GENERIC_THREADS, _grid(items, wave), tile)
 
 
 def sparse_staged(n: int) -> bool:

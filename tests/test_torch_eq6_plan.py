@@ -47,8 +47,18 @@ def _constants(name: str) -> dict[str, int]:
 def test_plan_constants_are_the_kernels():
     dense = _constants("consensus_network.cu")
     assert (dense["SMALL_N_MAX"], dense["SMALL_THREADS"], dense["SMALL_LANES"],
-            dense["GENERIC_TILE"]) == (lp.SMALL_N_MAX, lp.SMALL_THREADS, lp.SMALL_LANES,
-                                       lp.GENERIC_TILE)
+            dense["GENERIC_THREADS"], dense["GENERIC_LANES"], dense["GENERIC_SMEM"],
+            dense["SMEM_MAX"]) == (lp.SMALL_N_MAX, lp.SMALL_THREADS, lp.SMALL_LANES,
+                                   lp.GENERIC_THREADS, lp.GENERIC_LANES, lp.GENERIC_SMEM,
+                                   lp.SMEM_MAX)
+    # generic_tile: the same doubling from GENERIC_LANES while 16 n t fits GENERIC_SMEM
+    src = (CSRC / "consensus_network.cu").read_text()
+    assert "while (t < GENERIC_LANES * GENERIC_THREADS && 16 * n * t <= GENERIC_SMEM) t *= 2;" \
+        in src
+    assert "{ return 8 * n * generic_tile(n); }" in src
+    # the largest N of the generic path: the rows whose 4-lane tile fits a block
+    assert "constexpr int GENERIC_N_MAX = SMEM_MAX / (8 * GENERIC_LANES);" in src
+    assert lp.GENERIC_N_MAX == lp.SMEM_MAX // (8 * lp.GENERIC_LANES) == 7264
     found = re.search(r"kInstances\[\] = \{([\d, ]+)\}",
                       (CSRC / "consensus_network.cu").read_text())
     assert tuple(int(x) for x in found.group(1).split(",")) == lp.SMALL_INSTANCES
@@ -155,11 +165,33 @@ def _assert_balanced(plan, wave):
     assert share == -(-blocks // wave) and (share - 1) * plan.grid < blocks <= share * plan.grid
 
 
+def _generic_lanes(plan, n):
+    """(agent, lane) of every element the generic kernel's threads own, one
+    entry per visit: block b takes tiles b, b + grid, ...; thread t the 4
+    lanes of quad t mod (tile / 4) of rows t div (tile / 4), + GENERIC_THREADS
+    4 / tile, ... (the terms phase reads and the output phase writes the
+    same elements)."""
+    quads = plan.tile // lp.GENERIC_LANES
+    step = lp.GENERIC_THREADS // quads
+    t = np.arange(lp.GENERIC_THREADS)
+    rows = (t // quads)[:, None] + step * np.arange(-(-n // step))[None, :]
+    quad = np.broadcast_to((t % quads)[:, None], rows.shape)[rows < n]
+    rows = rows[rows < n]
+    tiles = _block_stride(plan.items, plan.grid)
+    lane0 = tiles[None, :] * plan.tile + lp.GENERIC_LANES * quad[:, None]
+    lanes = lane0[..., None] + np.arange(lp.GENERIC_LANES)
+    return np.broadcast_to(rows[:, None, None], lanes.shape), lanes
+
+
 @pytest.mark.parametrize("wave", WAVES)
 @pytest.mark.parametrize("n,p", SHAPES)
 def test_dense_walks_cover_every_lane_once(n, p, wave):
     # small path: thread g owns lanes 2 g, 2 g + 1 of every row
     for instance in ([lp.dense_instance(n)] if lp.dense_instance(n) else []) + [0]:
+        if not instance and n > lp.GENERIC_N_MAX:  # no tile of its terms fits a block
+            with pytest.raises(ValueError, match="consensus_fused_sparse"):
+                lp.dense_plan(n, p, 4, instance, wave)
+            continue
         plan = lp.dense_plan(n, p, 4, instance, wave)
         assert plan.instance == instance and plan.vec == lp.SMALL_LANES
         if instance:
@@ -168,12 +200,41 @@ def test_dense_walks_cover_every_lane_once(n, p, wave):
             rows = np.arange(n)
             agents, lanes = _group_lanes(np.repeat(rows, gs.size), np.tile(gs, n),
                                          lp.SMALL_LANES)
-        else:  # generic: block b owns tiles b, b + grid, ...; thread t lane tile * 256 + t
+        else:
+            assert plan.threads == lp.GENERIC_THREADS and plan.tile == lp.generic_tile(n)
+            assert plan.items == -(-p // plan.tile)
             _assert_balanced(dataclasses.replace(plan, threads=1), wave)
-            tiles = _block_stride(plan.items, plan.grid)
-            cols = (tiles[:, None] * lp.GENERIC_TILE + np.arange(lp.GENERIC_TILE)).ravel()
-            agents, lanes = np.repeat(np.arange(n), cols.size), np.tile(cols, n)
+            agents, lanes = _generic_lanes(plan, n)
         _assert_each_once(agents.ravel(), lanes.ravel(), n, p)
+
+
+@pytest.mark.parametrize("n,words,tile,smem", [
+    (1, 3, 2048, 16_384),  # the most lanes a tile: one row a thread
+    (17, 595, 512, 69_632),  # the first N past the small instances
+    (1024, 2_098_176, 16, 131_072),  # the sync cell's grid: 8 MB of lists and counts
+    (7264, 105_538_656, 4, 232_448),  # the last N whose 4-lane tile fits shared memory
+    (7265, 105_567_715, 0, 0),  # past it no tile fits: refused
+])
+def test_generic_scratch_sizes(n, words, tile, smem):
+    """The nonzero lists take 2 N^2 + N int32 words (a (column, weight) pair
+    for each entry a row can have, then a count a row); a tile's terms 8 N T
+    bytes of shared memory, at most a block's; past GENERIC_N_MAX rows the
+    generic path refuses."""
+    assert lp.nonzero_words(n) == words == 2 * n * n + n
+    if not tile:
+        assert n == lp.GENERIC_N_MAX + 1 and 8 * n * lp.GENERIC_LANES > lp.SMEM_MAX
+        for fn in (lp.generic_tile, lp.generic_smem,
+                   lambda n: lp.dense_plan(n, 199_210, 2, 0, SMS * 3)):
+            with pytest.raises(ValueError, match="consensus_fused_sparse"):
+                fn(n)
+        return
+    assert (lp.generic_tile(n), lp.generic_smem(n)) == (tile, smem) and smem <= lp.SMEM_MAX
+    if tile > lp.GENERIC_LANES:  # the largest power of two whose terms fit
+        assert 8 * n * tile <= lp.GENERIC_SMEM and (
+            tile == lp.GENERIC_LANES * lp.GENERIC_THREADS or 16 * n * tile > lp.GENERIC_SMEM)
+    assert lp.generic_tile(n) & (lp.generic_tile(n) - 1) == 0
+    plan = lp.dense_plan(n, 199_210, 2, 0, SMS * 3)
+    assert (plan.tile, plan.threads) == (tile, lp.GENERIC_THREADS)
 
 
 @pytest.mark.parametrize("wave", WAVES)

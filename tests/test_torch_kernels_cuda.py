@@ -9,8 +9,11 @@ Tolerances: at f32 rtol 1e-5 / atol 1e-5 (the kernel and cuBLAS sum the
 N terms in another order); at bf16/f16 one wire ulp relative to the output
 scale (a one-ulp fp32 difference in prec can flip a rounding tie).
 Validity is bit-equal; the masked kernel's active rows are bitwise the
-network kernel's and its inactive rows bitwise its inputs; the one-agent
-kernel's instances are bitwise its generic kernel.  Sample + KL:
+network kernel's and its inactive rows bitwise its inputs; the dense
+generic path (W's nonzeros walked) is bitwise the small one on dense and
+sparse W, with NaN where it has NaN, and its walk counter counts each
+merging row's nonzeros; it runs up to GENERIC_N_MAX rows and refuses one
+more; the one-agent kernel's instances are bitwise its generic kernel.  Sample + KL:
 theta bitwise the plain version's (rtol 1e-5 / atol 1e-6 in the older
 test), KL rtol 1e-5, and the KL bitwise the same from run to run, on two
 streams and at any pointer alignment (its summation order is fixed).  The
@@ -35,6 +38,7 @@ from repro_torch.kernels import consensus as k  # noqa: E402
 from repro_torch.kernels import dispatch  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import gauss_vi  # noqa: E402
+from repro_torch.kernels import launch_plan  # noqa: E402
 
 WIRE_EPS = {"bf16": 2.0 ** -7, "f16": 2.0 ** -10}
 
@@ -180,20 +184,128 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
     assert bad.tolist() == [False, True, False, False] and torch.isnan(r[1]).all()
 
 
+def _pattern_w(pattern, n):
+    """A row-stochastic W of ``n`` rows with the named zero pattern; None
+    for ``_inputs``' dense one."""
+    if pattern == "grid3x3":
+        return graphs.grid_w(3, 3).astype(np.float32)
+    if pattern == "ring16":
+        return graphs.bidirectional_ring_w(16).astype(np.float32)
+    if pattern == "random70":  # ~70% zeros, and a zero on the diagonal (row 2)
+        rng = np.random.default_rng(70)
+        w = np.where(rng.random((n, n)) < 0.3, rng.random((n, n)) + 0.05, 0.0)
+        w[np.arange(n), (np.arange(n) + 1) % n] = 0.5  # every row keeps a nonzero
+        w[2, 2] = 0.0
+        return (w / w.sum(axis=1, keepdims=True)).astype(np.float32)
+    return None
+
+
+def _poison_sources(mean, rho, W):
+    """rho = -inf (prec = inf) and mean = NaN at lanes of sources that some
+    rows weigh 0 and others do not, so the walk must keep fmaf(0, x, acc);
+    returns that source."""
+    n, p = mean.shape
+    zero = (W == 0).any(dim=0).cpu()
+    j0 = int(zero.nonzero()[0]) if bool(zero.any()) else 0
+    rho[j0, p // 2] = float("-inf")
+    mean[n - 1, p - 1] = float("nan")
+    mean[j0, 0] = float("nan")
+    return j0
+
+
+def _same_bits_and_nans(a, b):
+    """NaN where the other has NaN, and every other lane the same bits (the
+    sign of a zero included)."""
+    nan = a.isnan()
+    return torch.equal(nan, b.isnan()) and torch.equal(
+        a.masked_fill(nan, 0.0).view(torch.int32), b.masked_fill(nan, 0.0).view(torch.int32))
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("poison", [False, True])
 @pytest.mark.parametrize("wire", ["f32", "bf16", "f16"])
-@pytest.mark.parametrize("n,p", [(1, 5), (5, 4099), (9, 199_210), (16, 257)])
-def test_small_and_generic_dense_paths_agree_bitwise(dev, n, p, wire):
-    """Both dense paths run the same arithmetic in the same order (fmaf over
-    j ascending), so where both can run (N <= 16) they give the same bits,
-    masked and not."""
+@pytest.mark.parametrize("pattern,n,p", [
+    ("dense", 1, 5), ("dense", 5, 4099), ("dense", 9, 199_210), ("dense", 16, 257),
+    ("grid3x3", 9, 4099), ("ring16", 16, 4099), ("random70", 13, 4099),
+])
+def test_small_and_generic_dense_paths_agree_bitwise(dev, pattern, n, p, wire, poison):
+    """Both dense paths give the small kernel's bits (fmaf over j ascending
+    from 0.0f), so where both can run (N <= 16) they agree, masked and not:
+    the generic walk over W's nonzeros skips w = 0 terms, and keeps their
+    NaN where a zero weight meets a term that is not finite."""
     W, mean, rho = _inputs(n, p, n + p + 3, dev)
+    w = _pattern_w(pattern, n)
+    if w is not None:
+        W = torch.from_numpy(w).to(dev)
+    j0 = _poison_sources(mean, rho, W) if poison else None
     active = torch.arange(n, device=dev) % 3 != 1
     for name, act in (("consensus_fused_network", None), ("consensus_fused_masked", active)):
         small = k._network_launch(name, W, act, mean, rho, wire)
         generic = k._network_launch(name, W, act, mean, rho, wire, instance=0)
         torch.cuda.synchronize()
-        assert torch.equal(small[0], generic[0]) and torch.equal(small[1], generic[1]), name
+        assert all(_same_bits_and_nans(s_, g_) for s_, g_ in zip(small, generic)), name
+        if poison and pattern != "dense":  # a zero weight over prec = inf: NaN, not skipped
+            rows = (W[:, j0] == 0) & (True if act is None else act)
+            assert bool(rows.any()) and bool(generic[1][rows, p // 2].isnan().all()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["f32", "bf16"])
+@pytest.mark.parametrize("pattern", ["grid32x32", "complete64"])
+def test_generic_dense_path_walks_the_nonzeros(dev, pattern, wire):
+    """The sync cell's N = 1,024 grid (at most 5 nonzeros a row) and a
+    complete W at N = 64, on the generic path: against the plain version at
+    the file's tolerances; masked, the active rows bitwise the unmasked
+    call's and the idle rows untouched; the card's walk counter reads each
+    merging row's nonzeros (4,992 of the grid's 1,048,576 entries, all of a
+    complete W's); and a poisoned lane's NaN where the plain W @ prec has
+    it."""
+    W = torch.from_numpy(graphs.grid_w(32, 32) if pattern == "grid32x32"
+                         else graphs.complete_w(64)).to(dev, torch.float32)
+    n, p = W.shape[0], 4099
+    _, mean, rho = _inputs(n, p, n + 11, dev)
+    nonzeros = int((W != 0).sum())
+    assert nonzeros == (4_992 if pattern == "grid32x32" else n * n)
+    dispatch.reset_launch_counts()
+    got = k.consensus_fused_network(W, mean, rho, wire_dtype=wire)
+    assert dispatch.walk_counts() == {"walked": nonzeros, "dense": n * n}
+    assert dispatch.launch_counts()["consensus_fused_network"] == 1
+    _assert_close(got, k.consensus_network_plain(W, mean, rho, wire), wire)
+    active = torch.arange(n, device=dev) % 2 == 0
+    masked = k.consensus_fused_masked(W, active, mean, rho, wire_dtype=wire)
+    walked = nonzeros + int((W[active] != 0).sum())
+    assert dispatch.walk_counts() == {"walked": walked, "dense": 2 * n * n}
+    for g_, x, nt in zip(masked, (mean, rho), got):
+        assert torch.equal(g_[active], nt[active]) and torch.equal(g_[~active], x[~active])
+    _poison_sources(mean, rho, W)
+    got = k.consensus_fused_network(W, mean, rho, wire_dtype=wire)
+    want = k.consensus_network_plain(W, mean, rho, wire)
+    torch.cuda.synchronize()
+    for g_, w_ in zip(got, want):
+        assert torch.equal(g_.isnan(), w_.isnan())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("past", [0, 1])
+def test_generic_dense_path_runs_up_to_its_largest_n(dev, past):
+    """At GENERIC_N_MAX rows the 4-lane tile's terms fill a block's shared
+    memory, and the path matches the plain version; one row more is refused
+    before anything is launched."""
+    n, p = launch_plan.GENERIC_N_MAX + past, 37
+    W = torch.from_numpy(graphs.bidirectional_ring_w(n)).to(dev, torch.float32)
+    g = torch.Generator(device=dev).manual_seed(n)
+    mean = torch.randn((n, p), generator=g, device=dev)
+    rho = torch.rand((n, p), generator=g, device=dev) * 5.0 - 4.5
+    dispatch.reset_launch_counts()
+    if past:
+        with pytest.raises(ValueError, match="consensus_fused_sparse"):
+            k.consensus_fused_network(W, mean, rho)
+        assert dispatch.launch_counts()["consensus_fused_network"] == 0
+        return
+    assert launch_plan.generic_smem(n) == launch_plan.SMEM_MAX
+    got = k.consensus_fused_network(W, mean, rho)
+    _assert_close(got, k.consensus_network_plain(W, mean, rho), "f32")
+    assert dispatch.walk_counts() == {"walked": 3 * n, "dense": n * n}
 
 
 @pytest.mark.cuda
